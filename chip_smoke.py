@@ -13,29 +13,42 @@ Phases (one line each; any mismatch or exception exits non-zero):
     bit-exact in direction bytes, last, path and total: 8 mixed merges
     <= 512^2 (one seq-prof), one 2048x2048 prof-prof, one banded merge,
     one merge with cardinality > 2^16;
+ 3b. K3 (csrc/dp_wide.cu) against its plain PyTorch version (the fold
+    wavefront) and K2's, bit-exact in direction bytes, finals, last, path
+    and total, and path/total against the native host DP: 1, 2 and 8
+    folds, w2 on a fold edge and one column past it, seq-prof, a
+    400x4000 prof-prof, a banded merge, cardinality > 2^16, 2^22-scaled
+    scores; at the JAX kernel's limit (w1 16384, w2 16256) and at K3's
+    widest w2, against K2 and the native host DP;
  4. the main path: a seeded 1000-sequence family of mean length 300
     through the CLI entry point (refinement AUTO = on) with -backend torch
-    at the default FAMSA_TORCH_DP_MIN_CELLS, with FAMSA_TORCH_DP_MIN_CELLS=0
-    (every profile merge and guided re-alignment on K2) and with -backend
-    numpy; both torch outputs must equal the numpy one byte for byte, and
-    both torch runs must launch K1 and K2;
+    at the default knobs, with every profile merge and guided
+    re-alignment forced on K2, then on K3, and with -backend numpy; every
+    torch output must equal the numpy one byte for byte, and each run
+    must launch the kernels it is meant to exercise;
  5. the guide tree: -gt_export on a seeded 2000-sequence family, torch
     against numpy, with a Prim chunk small enough to cross chunk
-    boundaries.
+    boundaries;
+ 6. the wide path: a seeded 10,000-sequence family of mean length 300
+    (refinement AUTO = off) with -backend torch at the default knobs,
+    against -backend numpy on the guide tree the torch -gt_export wrote;
+    byte-identical, and K1, K2 and K3 launched.  Prints the stage seconds
+    and the profile merges per route (host / K2 / K3).
 Then a JSON line with every kernel's numbers, the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event means over repeated launches on inputs the
-main path gave the kernel (the default run's largest K2 batch, its first
-Prim round for K1), after both kernels are held bit-exact against their
-plain versions on those inputs; "launches" counts the default run's
-launches.  bound_ms is the larger of the bytes the call must move over
+main path gave the kernel (the 1000-sequence default run's largest K2
+batch and first Prim round for K2 and K1, the wide path's largest K3
+call for K3), after each kernel is held bit-exact against its plain
+version on those inputs; "launches" counts the launches of the run that
+gave those inputs.  bound_ms is the larger of the bytes the call must move over
 3.35 TB/s and the int32 instructions its arithmetic needs over the SM's
 issue rate of 128 lanes a clock (33.5e12/s: the data sheet's 67 TFLOP/s
 float32 rate counts an FMA as two operations on 128 lanes per SM).  That
 rate is reached only with both integer pipes busy, the ALU pipe (adds,
 compares, selects, logic) and the FMA pipe (integer multiply-adds), 64
-lanes each, so the bound is a floor.  Neither kernel has a single PyTorch
+lanes each, so the bound is a floor.  No kernel has a single PyTorch
 call computing the same function, so library_ms is null.
 """
 
@@ -333,6 +346,125 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
 
 
 # ----------------------------------------------------------------------
+# K3
+def wide_check(params, p1, p2, band, device, what, mapping=None,
+               refs=("plain", "dp_plain")):
+    """K3 on one merge against each of refs on the same inputs ("plain":
+    its plain version, the fold wavefront; "dp_plain": K2's plain
+    version; "K2": kernel K2, held against its plain version in phase 3):
+    every direction byte, the per-row finals, last, path and total; and
+    path/total against the native host DP (guided by `mapping`).  Returns
+    the packed inputs on the device and K3's and each ref's wall ms."""
+    import torch
+    from famsa_tpu_torch.core.dp_native import dp_profile, finish_path
+    from famsa_tpu_torch.ops.dp_torch import (dp_dirs, dp_plain, pack_batch,
+                                              prepare_merge)
+    from famsa_tpu_torch.ops.dp_wide import dp_dirs_wide, dp_wide_plain
+    fns = {"plain": dp_wide_plain, "dp_plain": dp_plain, "K2": dp_dirs}
+    colf, rowf, meta, total = pack_batch([prepare_merge(params, p1, p2, band)])
+    args = [torch.from_numpy(x).to(device) for x in (colf, rowf, meta)]
+    w1, w2 = p1.width, p2.width
+    times = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        d, f = fn(*args, total)
+        d, f = d.cpu().numpy(), f.cpu().numpy()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        d = d.reshape(w1 + 1, w2 + 1)
+        return d, f[0, :w1], finish_path(d, w1, w2, f[0, w1 - 1])
+
+    dk, fk, rk = run("K3", dp_dirs_wide)
+    for name in refs:
+        d, f, r = run(name, fns[name])
+        if not np.array_equal(dk, d):
+            i, j = np.argwhere(dk != d)[0]
+            raise AssertionError(f"K3 {what}: dirs differ from {name} at "
+                                 f"({i}, {j}): {dk[i, j]} vs {d[i, j]}")
+        if not np.array_equal(fk, f):
+            raise AssertionError(f"K3 {what}: finals differ from {name}")
+        if rk.last != r.last or rk.total != r.total or \
+                not np.array_equal(rk.path, r.path):
+            raise AssertionError(f"K3 {what}: path/total differ from {name}")
+    rh = dp_profile(params, p1, p2, *(mapping or ()))
+    if rh.total != rk.total or not np.array_equal(rh.path, rk.path):
+        raise AssertionError(f"K3 {what}: differs from the native host DP")
+    return args, total, times
+
+
+def fold_edge_widths():
+    """(w2 ending on the last column of a fold, w2 one column past it,
+    where fold_geometry starts a fold of one column)."""
+    from famsa_tpu_torch.ops.dp_wide import fold_geometry
+    for w2 in range(256, 4096):
+        folds, threads, stripe = fold_geometry(w2)
+        if w2 == (folds - 1) * threads * stripe and \
+                fold_geometry(w2 - 1)[0] == folds - 1:
+            return w2 - 1, w2
+    raise AssertionError("no fold-edge width below 4096")
+
+
+def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
+             card_big=70000):
+    import torch
+    from famsa_tpu_torch.core.params import Params
+    from famsa_tpu_torch.ops.dp_torch import dp_dirs
+    from famsa_tpu_torch.ops.dp_wide import MAX_W2, dp_dirs_wide, fold_geometry
+    rng = np.random.default_rng(29)
+    params = Params(device=device)
+    params.adjust(1000)
+    on_edge, past_edge = fold_edge_widths()
+    cases = [("seq-prof 1 fold", (1, 150, 6, 200)),
+             ("2 folds", (5, 180, 4, 400)),
+             (f"w2={on_edge} on a fold edge", (4, 90, 3, on_edge)),
+             (f"w2={past_edge} one past it", (4, 90, 3, past_edge)),
+             (f"{chain[0]}x{chain[1]} prof-prof", (40, chain[0], 300,
+                                                   chain[1]))]
+    folds = []
+    for what, (n1, w1, n2, w2) in cases:
+        p1 = random_profile(rng, params, n1, w1, 0.0 if n1 == 1 else 0.2)
+        p2 = random_profile(rng, params, n2, w2)
+        folds.append(fold_geometry(w2)[0])
+        args, total, _ = wide_check(params, p1, p2, None, device, what)
+        if what.endswith("prof-prof"):
+            chain_args = (args, total)
+    a, b, cms, band = banded_case(rng, params)
+    wide_check(params, a, b, band, device, "banded", cms)
+    wide_check(params, random_profile(rng, params, card_big, 24, 0.1),
+               random_profile(rng, params, 4, 700), None, device,
+               f"card {card_big}")
+    big = Params(device=device)
+    big.adjust(1000)
+    big.score_matrix = big.score_matrix.astype(np.int64) << 22
+    for k in ("gap_open", "gap_ext", "gap_term_open", "gap_term_ext"):
+        setattr(big, k, getattr(big, k) << 22)
+    wide_check(big, random_profile(rng, big, 3, 100),
+               random_profile(rng, big, 2, 6000), None, device,
+               "2^22-scaled 100x6000")
+    if folds[0] != 1 or folds[1] != 2 or max(folds) != 8:
+        raise AssertionError(f"K3 cases cover folds {folds}, not 1, 2, 8")
+    msg = (f"phase 3b K3: bit-exact vs its plain version and K2's (dirs, "
+           f"finals, last, path, total) and path/total = native host DP on "
+           f"{', '.join(w for w, _ in cases)} (folds {folds}), banded, card "
+           f"{card_big}, 2^22-scaled 100x6000")
+    lims = [limit, (64, MAX_W2)]
+    for w1, w2 in lims:
+        _, _, t = wide_check(params, random_profile(rng, params, 4, w1),
+                             random_profile(rng, params, 3, w2), None, device,
+                             f"{w1}x{w2}", refs=("K2",))
+        msg += (f"; {w1}x{w2} (geometry {fold_geometry(w2)}) = K2 and host "
+                f"DP, call ms K3 {t['K3']:.1f} K2 {t['K2']:.1f}")
+    if device == "cuda":
+        args, total = chain_args
+        k3 = cuda_ms(lambda: dp_dirs_wide(*args, total), 5)
+        k2 = cuda_ms(lambda: dp_dirs(*args, total), 5)
+        cells = chain[0] * chain[1]
+        msg += (f"; lone {chain[0]}x{chain[1]}: K3 {k3:.3f} ms "
+                f"({cells / k3 * 1e3:.4g} cells/s), K2 {k2:.3f} ms")
+    log(msg)
+
+
+# ----------------------------------------------------------------------
 # main path
 def read_stats(path):
     st = {}
@@ -362,48 +494,71 @@ def run_cli(args, env):
                 os.environ[k] = v
 
 
+def stage_report(name, secs, stats, counts):
+    st = read_stats(stats)
+    return (f"{name}: {secs:.2f} s (tree {float(st['time.tree_build']):.2f}, "
+            f"alignment {float(st['time.alignment']):.2f}, refinement "
+            f"{float(st['time.refinement']):.2f}), launches K1 "
+            f"{counts['lcs']} K2 {counts['dp']} K3 {counts['dp_wide']}")
+
+
+def check_launches(what, counts, needed):
+    """Each run must launch the kernels it is meant to exercise."""
+    missing = [k for k in needed if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels {missing} were never "
+                             f"launched: {counts}")
+
+
+# the kernels the default 1000-sequence run must launch: K1 (the guide
+# tree), K2 (merges ready together) and K3 (lone merges and refinement's
+# guided re-alignments, at the default FAMSA_TORCH_WIDE_MIN_CELLS)
+DEFAULT_KERNELS = ("lcs", "dp", "dp_wide")
+
+
 def phase_main(work, device="cuda", n=1000, mean_len=300, recorder=None):
     """Returns the launch counts of the default torch run (the main
-    path as a user runs it); the recorder sees that run's calls."""
+    path as a user runs it); the recorder sees that run's K1 and K2
+    calls."""
     from famsa_tpu_torch import kernels
     fa = os.path.join(work, "fam.fa")
     with open(fa, "w") as f:
         f.write(make_family(n, mean_len, 7))
-    runs = [("torch", ["-backend", "torch", "-device", device], {}),
-            ("torch_forced", ["-backend", "torch", "-device", device],
-             {"FAMSA_TORCH_DP_MIN_CELLS": "0"}),
-            ("numpy", ["-backend", "numpy"], {})]
+    torch_flags = ["-backend", "torch", "-device", device]
+    runs = [("torch", torch_flags, {}, DEFAULT_KERNELS),
+            ("torch_k2", torch_flags, {"FAMSA_TORCH_DP_MIN_CELLS": "0",
+                                       "FAMSA_TORCH_WIDE_MIN_CELLS": "1e30"},
+             ("lcs", "dp")),
+            ("torch_k3", torch_flags, {"FAMSA_TORCH_DP_MIN_CELLS": "0",
+                                       "FAMSA_TORCH_WIDE_MIN_CELLS": "0",
+                                       "FAMSA_TORCH_MAX_BATCH": "1"},
+             ("lcs", "dp_wide")),
+            ("numpy", ["-backend", "numpy"], {}, ())]
     outs, report, launches = {}, [], {}
-    for name, flags, env in runs:
+    for name, flags, env, needed in runs:
         out = os.path.join(work, f"out_{name}.fa")
         stats = os.path.join(work, f"stats_{name}.txt")
         kernels.reset_launches()
-        if recorder is not None:
-            recorder.active = name == "torch"
+        if recorder is not None and name == "torch":
+            recorder.active = {"lcs", "dp"}
         rc, secs = run_cli(flags + ["-stats", stats, fa, out], env)
         if recorder is not None:
-            recorder.active = False
+            recorder.active = set()
         counts = dict(kernels.LAUNCHES)
         launches[name] = counts
         if rc != 0:
             raise AssertionError(f"main path {name}: rc={rc}")
         with open(out, "rb") as f:
             outs[name] = f.read()
-        st = read_stats(stats)
-        report.append(
-            f"{name}: {secs:.2f} s (tree {float(st['time.tree_build']):.2f}, "
-            f"alignment {float(st['time.alignment']):.2f}, refinement "
-            f"{float(st['time.refinement']):.2f}), launches K1 "
-            f"{counts['lcs']} K2 {counts['dp']}")
-    for name in ("torch", "torch_forced"):
+        report.append(stage_report(name, secs, stats, counts))
+        if device == "cuda":
+            check_launches(f"main path {name}", counts, needed)
+    for name in ("torch", "torch_k2", "torch_k3"):
         if outs[name] != outs["numpy"]:
             raise AssertionError(f"main path: {name} output differs from "
                                  "numpy")
-        if device == "cuda" and 0 in launches[name].values():
-            raise AssertionError(f"main path {name}: a kernel was never "
-                                 f"launched: {launches[name]}")
     log(f"phase 4 main path ({n} seqs, mean len {mean_len}, refinement "
-        f"on): torch and torch_forced byte-identical to numpy; "
+        f"on): torch, torch_k2 and torch_k3 byte-identical to numpy; "
         + "; ".join(report))
     return launches["torch"]
 
@@ -429,41 +584,130 @@ def phase_tree(work, device="cuda", n=2000, mean_len=300, chunk=300):
         f"{secs['numpy']:.2f} s")
 
 
+class RouteCounter:
+    """Counts the alignment stage's profile merges per route while
+    active: host (the native DP), K2 (batched) and K3 (wide)."""
+
+    def __init__(self):
+        import famsa_tpu_torch.pipeline as pipeline
+        self.active = False
+        self.counts = {"host": 0, "K2": 0, "K3": 0}
+        orig_split, orig_align = pipeline.split_wide, pipeline.align_into
+
+        def split_wide(device, max_batch):
+            wide, batched = orig_split(device, max_batch)
+            if self.active:
+                self.counts["K3"] += len(wide)
+                self.counts["K2"] += len(batched)
+            return wide, batched
+
+        def align_into(*args, **kw):
+            if self.active:
+                self.counts["host"] += 1
+            return orig_align(*args, **kw)
+
+        pipeline.split_wide, pipeline.align_into = split_wide, align_into
+
+
+def phase_wide(work, device="cuda", n=10000, mean_len=300, recorder=None):
+    """Returns the launch counts of the default torch run; the recorder
+    sees that run's K3 calls."""
+    from famsa_tpu_torch import kernels
+    fa = os.path.join(work, "fam_wide.fa")
+    with open(fa, "w") as f:
+        f.write(make_family(n, mean_len, 7))
+    tree = os.path.join(work, "wide.dnd")
+    torch_flags = ["-backend", "torch", "-device", device]
+    rc, t_tree = run_cli(torch_flags + ["-gt_export", fa, tree], {})
+    if rc != 0:
+        raise AssertionError(f"wide path gt_export: rc={rc}")
+    routes = RouteCounter()
+    outs, report = {}, []
+    for name, flags in (("torch", torch_flags),
+                        ("numpy", ["-backend", "numpy", "-gt", "import",
+                                   tree])):
+        out = os.path.join(work, f"wide_{name}.fa")
+        stats = os.path.join(work, f"wide_stats_{name}.txt")
+        kernels.reset_launches()
+        routes.active = name == "torch"
+        if recorder is not None and name == "torch":
+            recorder.active = {"dp_wide"}
+        rc, secs = run_cli(flags + ["-stats", stats, fa, out], {})
+        routes.active = False
+        if recorder is not None:
+            recorder.active = set()
+        if rc != 0:
+            raise AssertionError(f"wide path {name}: rc={rc}")
+        counts = dict(kernels.LAUNCHES)
+        if name == "torch":
+            launches = counts
+        with open(out, "rb") as f:
+            outs[name] = f.read()
+        report.append(stage_report(name, secs, stats, counts))
+    if outs["torch"] != outs["numpy"]:
+        raise AssertionError("wide path: torch output differs from numpy")
+    if device == "cuda":
+        check_launches("wide path torch", launches, ("lcs", "dp", "dp_wide"))
+    c = routes.counts
+    log(f"phase 6 wide path ({n} seqs, mean len {mean_len}, refinement "
+        f"off): torch byte-identical to numpy on the torch tree "
+        f"(-gt_export {t_tree:.2f} s); profile merges per route: host "
+        f"{c['host']}, K2 {c['K2']}, K3 {c['K3']}; " + "; ".join(report))
+    return launches
+
+
 class LaunchRecorder:
-    """Keeps the inputs of the largest K1 and K2 calls made while active
-    (the main path's shapes, for timing after the run)."""
+    """Keeps the inputs of the largest K1, K2 and K3 calls made while
+    their kernel is in `active` (the main path's shapes, for timing after
+    the run)."""
 
     def __init__(self):
         import famsa_tpu_torch.ops.dp_torch as dpt
+        import famsa_tpu_torch.ops.dp_wide as dpw
         import famsa_tpu_torch.ops.lcs_torch as lct
-        self.active = False
-        self.dp = None
-        self.lcs = None
+        import famsa_tpu_torch.ops.prim_torch as pt
+        self.active = set()
+        self.dp = self.dp_wide = self.lcs = None
         self.batch_sizes = []
-        orig_dp, orig_lcs = dpt.dp_dirs, lct.lcs_rows
+        self.launches = {}
+        orig_dp, orig_wide = dpt.dp_dirs, dpw.dp_dirs_wide
+        orig_lcs = lct.lcs_rows
 
         def dp_dirs(colf, rowf, meta, total):
-            if self.active:
+            if "dp" in self.active:
                 self.batch_sizes.append(int(meta.shape[0]))
                 if self.dp is None or total > self.dp[3]:
                     self.dp = (colf, rowf, meta, total)
             return orig_dp(colf, rowf, meta, total)
 
+        def dp_dirs_wide(colf, rowf, meta, total):
+            if "dp_wide" in self.active and (self.dp_wide is None
+                                             or total > self.dp_wide[3]):
+                self.dp_wide = (colf, rowf, meta, total)
+            return orig_wide(colf, rowf, meta, total)
+
         def lcs_rows(table, syms, n_queries=None, out_dtype=None):
-            if self.active and self.lcs is None:
+            if "lcs" in self.active and self.lcs is None:
                 self.lcs = (table, syms.clone(), n_queries)
             kw = {} if out_dtype is None else {"out_dtype": out_dtype}
             return orig_lcs(table, syms, n_queries=n_queries, **kw)
 
-        dpt.dp_dirs = dp_dirs
-        lct.lcs_rows = lcs_rows
-        import famsa_tpu_torch.ops.prim_torch as pt
-        pt.lcs_rows = lcs_rows
+        dpt.dp_dirs, dpw.dp_dirs_wide = dp_dirs, dp_dirs_wide
+        lct.lcs_rows = pt.lcs_rows = lcs_rows
+
+
+def dp_max_err(got, want, meta):
+    """Max abs difference of two (dirs, fin) results over the direction
+    bytes and each merge's per-row finals (rows past w1 are unused)."""
+    err = int((got[0].long() - want[0].long()).abs().max())
+    for k, w1 in enumerate(meta[:, 0].tolist()):
+        err = max(err, int((got[1][k, :w1] - want[1][k, :w1]).abs().max()))
+    return err
 
 
 def kernel_report(rec):
-    import torch
     from famsa_tpu_torch.ops.dp_torch import dp_dirs, dp_plain
+    from famsa_tpu_torch.ops.dp_wide import dp_dirs_wide, dp_wide_plain
     from famsa_tpu_torch.ops.lcs_torch import lcs_plain, lcs_rows
     table, syms, nq = rec.lcs
     q = table.shape[2] if nq is None else nq
@@ -478,38 +722,45 @@ def kernel_report(rec):
     k1_plain = wall_ms(lambda: lcs_plain(table, syms, q))
     k1_bound, k1_by = lcs_bound_ms(table, syms, q)
 
-    colf, rowf, meta, total = rec.dp
-    dk, fk = dp_dirs(colf, rowf, meta, total)
-    dpl, fpl = dp_plain(colf, rowf, meta, total)
-    err_k2 = int((dk.long() - dpl.long()).abs().max())
-    for k, w1 in enumerate(meta[:, 0].tolist()):   # rows past w1: unused
-        err_k2 = max(err_k2, int((fk[k, :w1] - fpl[k, :w1]).abs().max()))
-    if err_k2:
-        raise AssertionError(f"K2 at the main path's shape ({meta.shape[0]} "
-                             f"merges, {total} cells): max abs error "
-                             f"{err_k2} against the plain version")
-    k2_ms = cuda_ms(lambda: dp_dirs(colf, rowf, meta, total), 5)
-    k2_plain = wall_ms(lambda: dp_plain(colf, rowf, meta, total))
-    k2_bound, k2_by = dp_bound_ms(colf, rowf, meta, total)
+    entries = []
+    for name, fn, plain, args in (("K2", dp_dirs, dp_plain, rec.dp),
+                                  ("K3", dp_dirs_wide, dp_wide_plain,
+                                   rec.dp_wide)):
+        colf, rowf, meta, total = args
+        res = {}
+        plain_ms = wall_ms(lambda: res.setdefault(
+            "plain", plain(colf, rowf, meta, total)))
+        err = dp_max_err(fn(colf, rowf, meta, total), res["plain"], meta)
+        if err:
+            raise AssertionError(f"{name} at the main path's shape "
+                                 f"({meta.shape[0]} merges, {total} cells): "
+                                 f"max abs error {err} against the plain "
+                                 "version")
+        ms = cuda_ms(lambda: fn(colf, rowf, meta, total), 5)
+        entries.append((err, ms, plain_ms) + dp_bound_ms(*args))
     hist = np.bincount(rec.batch_sizes) if rec.batch_sizes else []
+    w1, w2 = rec.dp_wide[2][0, :2].tolist()
     log(f"kernels at main-path shapes: K1 one Prim round ({syms.shape[0]} "
         f"ref x {q} queries, L={syms.shape[1]}); K2 largest batch of the "
-        f"default run ({meta.shape[0]} merges, {total} cells); its K2 "
-        f"batch sizes (count by size 0..): {list(map(int, hist))}")
-    return [
-        {"name": "lcs_bitpar", "route": "cuda",
-         "source": "famsa_tpu_torch/csrc/lcs.cu",
-         "replaces": "famsa_tpu/ops/lcs_pallas.py:102",
-         "launches": rec.launches["lcs"], "max_abs_err": err_k1,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
-        {"name": "dp_profile_batched", "route": "cuda",
-         "source": "famsa_tpu_torch/csrc/dp.cu",
-         "replaces": "famsa_tpu/ops/dp_pallas.py:186",
-         "launches": rec.launches["dp"], "max_abs_err": err_k2,
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
-    ]
+        f"default run ({rec.dp[2].shape[0]} merges, {rec.dp[3]} cells); its "
+        f"K2 batch sizes (count by size 0..): {list(map(int, hist))}; K3 "
+        f"largest call of the wide path ({w1}x{w2})")
+    out = [{"name": "lcs_bitpar", "route": "cuda",
+            "source": "famsa_tpu_torch/csrc/lcs.cu",
+            "replaces": "famsa_tpu/ops/lcs_pallas.py:102",
+            "launches": rec.launches["lcs"], "max_abs_err": err_k1,
+            "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
+            "bound_by": k1_by, "library_ms": None}]
+    for (name, source, replaces, key), (err, ms, pms, bms, by) in zip(
+            (("dp_profile_batched", "famsa_tpu_torch/csrc/dp.cu",
+              "famsa_tpu/ops/dp_pallas.py:186", "dp"),
+             ("dp_profile_wide", "famsa_tpu_torch/csrc/dp_wide.cu",
+              "famsa_tpu/ops/dp_giant.py:90", "dp_wide")), entries):
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": rec.launches[key],
+                    "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None})
+    return out
 
 
 def main():
@@ -519,18 +770,22 @@ def main():
         return 1
     from famsa_tpu_torch import kernels
 
+    t0 = time.perf_counter()
     smi = nvidia_smi()
     secs = kernels.build_all()
     log(f"phase 1 build: {secs:.1f} s for {len(kernels.KERNELS)} kernels; "
         f"{smi}")
     phase_k1()
     phase_k2()
+    phase_k3()
     rec = LaunchRecorder()
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=os.path.dirname(
             os.path.abspath(__file__))) as work:
         rec.launches = phase_main(work, recorder=rec)
         phase_tree(work)
+        rec.launches["dp_wide"] = phase_wide(work, recorder=rec)["dp_wide"]
     kern = kernel_report(rec)
+    log(f"smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kern}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

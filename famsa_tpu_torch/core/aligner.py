@@ -21,6 +21,16 @@ from .profile import Profile
 # batched merges to the host thread pool saved DP time but made the
 # alignment stage slower end to end (PERF.md).
 DP_MIN_CELLS_DEFAULT = "65536"
+# A device merge of at least FAMSA_TORCH_WIDE_MIN_CELLS cells that is
+# ready in a group of fewer than WIDE_MAX_READY device merges, and every
+# guided re-alignment of that size, runs alone on the wide-merge DP
+# instead (ops/dp_wide.py, kernel K3: one merge over up to 8 SMs), when
+# its profile2 fits K3.  Both set by measurement on an H100 (PERF.md):
+# replayed one at a time, K3 beat K2 on every lone merge and guided
+# re-alignment from 2^16 cells up, and K2 (one launch) beat K3 (one launch
+# per merge) once two or more device merges were ready together.
+WIDE_MIN_CELLS_DEFAULT = "65536"
+WIDE_MAX_READY = 2
 
 
 def device_dp_ok(profile1, profile2):
@@ -31,6 +41,16 @@ def device_dp_ok(profile1, profile2):
                                          DP_MIN_CELLS_DEFAULT)))
     return (profile1.width * profile2.width >= min_cells
             and max(profile1.width, profile2.width) <= MAX_W2)
+
+
+def wide_dp_ok(profile1, profile2):
+    """True when a device merge of these operands, in align_into's order,
+    may take the wide-merge DP (the knob is read per call)."""
+    from ..ops.dp_wide import MAX_W2
+    min_cells = int(float(os.environ.get("FAMSA_TORCH_WIDE_MIN_CELLS",
+                                         WIDE_MIN_CELLS_DEFAULT)))
+    return (profile1.width * profile2.width >= min_cells
+            and profile2.width <= MAX_W2)
 
 
 def order_operands(profile1, profile2):
@@ -64,11 +84,31 @@ def split_ready(ready):
     return device, host
 
 
+def split_wide(device, max_batch):
+    """Routes the device merges [(key, p1, p2)] (split_ready's) of one
+    ready group: returns (wide, batched), the merges that run alone on
+    the wide-merge DP (K3) and those left for K2 launches of up to
+    max_batch merges.  When fewer than WIDE_MAX_READY merges would share
+    a K2 launch (min(len(device), max_batch) < WIDE_MAX_READY), each merge
+    that wide_dp_ok accepts goes wide."""
+    if min(len(device), max_batch) >= WIDE_MAX_READY:
+        return [], device
+    wide, batched = [], []
+    for m in device:
+        (wide if wide_dp_ok(m[1], m[2]) else batched).append(m)
+    return wide, batched
+
+
 def _dp_torch(params, p1, p2, cm1=None, cm2=None):
-    """One merge on the device DP; guided when column mappings are given."""
+    """One merge on the device DP (K3 when wide_dp_ok accepts it, else
+    K2); guided when column mappings are given."""
     from ..ops.dp_torch import dp_profile_torch_batched
+    from ..ops.dp_wide import dp_profile_torch_wide
     band = None if cm1 is None else row_ranges(params, cm1, cm2)
-    (dirs, last), = dp_profile_torch_batched(params, [(p1, p2)], [band])
+    if wide_dp_ok(p1, p2):
+        dirs, last = dp_profile_torch_wide(params, p1, p2, band)
+    else:
+        (dirs, last), = dp_profile_torch_batched(params, [(p1, p2)], [band])
     return finish_path(dirs, p1.width, p2.width, last)
 
 

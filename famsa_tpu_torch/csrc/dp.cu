@@ -3,23 +3,13 @@
 //
 // Replaces the Pallas kernel famsa_tpu/ops/dp_pallas.py:_make_kernel
 // (launched by _run_kernel; the B2 kernel).  Semantics are those of
-// famsa_tpu/ops/dp_jax.py:_dp_kernel extended with the band of
-// dp_pallas.py (cells outside [lo, hi] read -inf, column 0 keeps its
-// boundary V), and the plain PyTorch twin in ops/dp_torch.py:dp_plain:
-//  - match term t[i,j] = sum_s c1[i,s] * s2[j,s] over the nonzero counts of
-//    row i (compacted on the host);
-//  - D from the previous row at j-1, V from the previous row at j, with the
-//    rank<=4 row x column gap factors and the tmH / tmV corrections;
-//  - H by the max-plus prefix scan H = bc + max(cummax(m - bc), -inf), where
-//    bc[j] = g1ce[i]*cumE[j] + g1cte[i]*cumT[j] is the prefix sum of the
-//    H-continuation costs (exact mod 2^64, so no scan is needed for it);
-//  - strict '>' direction picks in the order of core/dp.py
-//    _choose_D / _choose_H3 / _choose_V3.
+// famsa_tpu/ops/dp_pallas.py (cells outside [lo, hi] read -inf, column 0
+// keeps its boundary V) and of the plain PyTorch twin in
+// ops/dp_torch.py:dp_plain; the row recurrence itself is the one in
+// dp_common.cuh, shared with K3 (csrc/dp_wide.cu).
 // Output: one packed byte per cell, D | H << 2 | V << 4, in the native
 // (w1+1) x (w2+1) layout of each merge (row 0 and column 0 included), and
-// the last-column (D, H, V) of every row.  All additions, subtractions and
-// products run on unsigned 64-bit values and are cast back, so overflow
-// wraps in two's complement exactly like the NumPy, native and XLA paths.
+// the last-column (D, H, V) of every row.
 //
 // What bounds it on the H100: the integer-op issue rate.  A cell needs
 // 17 64-bit multiplies (this kernel does 19: bc is formed in pass B and
@@ -38,57 +28,22 @@
 // broadcast reads.  Widths are bounded by device memory (the direction
 // bytes), not by shared memory.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "dp_common.cuh"
 
 namespace {
 
-typedef long long i64;
-typedef unsigned long long u64;
-
-constexpr i64 NEG = -(1LL << 62);
-constexpr i64 IMIN = (i64)0x8000000000000000ULL;
-constexpr int MAX_THREADS = 512;
-constexpr int S_LOCAL_MAX = 256;
-
-// column-factor planes: colf [B][NCOLF][ldc]; must match ops/dp_torch.py
-enum {
-    C_S2 = 0,                 // 30 planes: scores2[j, s], s < 30
-    C_P2O = 30, C_P2E, C_P2TO, C_P2TE, C_G2CHG,
-    C_G2SO, C_G2SE, C_G2STO, C_G2STE, C_G2CE, C_G2CTE,
-    C_CUME, C_CUMT, C_H0,
-    NCOLF
-};
-// row-factor planes: rowf [B][ldr][NROWF]; must match ops/dp_torch.py
-enum {
-    R_NNZ = 0, R_CNT = 1, R_SYM = 31,   // compacted nonzero counts of row i
-    R_NNG = 61, R_N1C, R_N1TC,
-    R_S1GO, R_S1GE, R_S1GTO, R_S1GTE,
-    R_G1SO, R_G1SE, R_G1STO, R_G1STE, R_G1CE, R_G1CTE,
-    R_V0COST, R_LO, R_HI,
-    NROWF
-};
-
-__device__ __forceinline__ i64 add(i64 a, i64 b) { return (i64)((u64)a + (u64)b); }
-__device__ __forceinline__ i64 sub(i64 a, i64 b) { return (i64)((u64)a - (u64)b); }
-__device__ __forceinline__ i64 mul(i64 a, i64 b) { return (i64)((u64)a * (u64)b); }
-__device__ __forceinline__ i64 imax(i64 a, i64 b) { return a > b ? a : b; }
+using namespace famsa_dp;
 
 template <int S>
 __global__ void __launch_bounds__(MAX_THREADS)
 dp_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
           const i64* __restrict__ meta, int ldc, int ldr, int ldf,
           int s_dyn, uint8_t* __restrict__ dirs, i64* __restrict__ fin) {
-    constexpr int SA = S > 0 ? S : S_LOCAL_MAX;   // stripe array size
-    constexpr int SU = S > 0 ? S : 1;             // unroll factor
-    const int SS = S > 0 ? S : s_dyn;             // stripe width
-
-    __shared__ i64 xD[2][MAX_THREADS], xV[2][MAX_THREADS];
-    __shared__ i64 wmax[MAX_THREADS / 32];
+    __shared__ RowShared sh;
 
     const int b = blockIdx.x;
     const int t = threadIdx.x;
-    const int lane = t & 31, warp = t >> 5;
+    const int SS = S > 0 ? S : s_dyn;             // stripe width
     const i64 w1 = meta[4 * b], w2 = meta[4 * b + 1];
     const i64 stride = w2 + 1;
     uint8_t* dr = dirs + meta[4 * b + 2];
@@ -97,190 +52,11 @@ dp_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
     const i64* rf = rowf + (size_t)b * ldr * NROWF;
     const i64 j0 = (i64)t * SS;
 
-#define CF(p, j) __ldg(cf + (size_t)(p) * ldc + (j))
-
-    i64 pD[SA], pH[SA], pV[SA], mDa[SA], mVa[SA], loc[SA];
-    uint8_t pk[SA];
-
-    // ---- row 0 (profile_seq.cpp:555-579 boundary; h0 carries -inf at
-    // columns 0 and w2)
-#pragma unroll SU
-    for (int k = 0; k < SA; ++k) {
-        if (k >= SS) break;
-        const i64 j = j0 + k;
-        pD[k] = (j == 0) ? 0 : NEG;
-        pH[k] = (j <= w2) ? CF(C_H0, j) : NEG;
-        pV[k] = NEG;
-        if (j <= w2) dr[j] = (j == 0) ? 0 : (1 | (1 << 2) | (1 << 4));
-    }
-    // previous-row values at column j0-1 (the left halo)
-    i64 hD = NEG, hH = NEG, hV = NEG;
-    if (t > 0 && j0 - 1 <= w2) {
-        hD = (j0 - 1 == 0) ? 0 : NEG;
-        hH = CF(C_H0, j0 - 1);
-    }
-
-    for (i64 i = 1; i <= w1; ++i) {
-        const i64* rr = rf + (size_t)i * NROWF;
-        const int nnz = (int)rr[R_NNZ];
-        const i64 nng = rr[R_NNG], n1c = rr[R_N1C], n1tc = rr[R_N1TC];
-        const i64 s1go = rr[R_S1GO], s1ge = rr[R_S1GE];
-        const i64 s1gto = rr[R_S1GTO], s1gte = rr[R_S1GTE];
-        const i64 g1so = rr[R_G1SO], g1se = rr[R_G1SE];
-        const i64 g1sto = rr[R_G1STO], g1ste = rr[R_G1STE];
-        const i64 g1ce = rr[R_G1CE], g1cte = rr[R_G1CTE];
-        const i64 v0cost = rr[R_V0COST], lo = rr[R_LO], hi = rr[R_HI];
-        const bool i_gt1 = i > 1;
-        uint8_t* drow = dr + i * stride;
-
-        // ---- pass A: D and V, right to left so that pD/pV[k-1] still
-        // hold the previous row when column k reads them
-#pragma unroll SU
-        for (int k = (S > 0 ? SA : SS) - 1; k >= 0; --k) {
-            const i64 j = j0 + k;
-            if (j > w2) { pD[k] = NEG; pV[k] = NEG; pk[k] = 0; continue; }
-            if (j == 0) {
-                const i64 v0 = (i < w1) ? add(imax(pD[0], pV[0]), v0cost) : NEG;
-                pD[0] = NEG;
-                pV[0] = v0;
-                pk[0] = 0;
-                continue;
-            }
-            const i64 lpD = k == 0 ? hD : pD[k - 1];
-            const i64 lpH = k == 0 ? hH : pH[k - 1];
-            const i64 lpV = k == 0 ? hV : pV[k - 1];
-            i64 tt = 0;
-            for (int q = 0; q < nnz; ++q)
-                tt = add(tt, mul(rr[R_CNT + q], CF(rr[R_SYM + q], j)));
-            const i64 p2o = CF(C_P2O, j), p2e = CF(C_P2E, j);
-            const i64 p2to = CF(C_P2TO, j), p2te = CF(C_P2TE, j);
-            const i64 delta = add(mul(n1c, sub(p2e, p2o)),
-                                  mul(n1tc, sub(p2te, p2to)));
-            // D channel (_choose_D: strict D, then tH > tV -> H else V)
-            i64 tD = add(lpD, tt);
-            i64 tH = add(add(lpH, tt), delta);
-            i64 tV = add(add(lpV, tt), mul(CF(C_G2CHG, j), nng));
-            const bool pickD = tD > tH && tD > tV;
-            const bool pickH = !pickD && tH > tV;
-            i64 D = pickD ? tD : (pickH ? tH : tV);
-            const int dD = pickD ? 0 : (pickH ? 1 : 2);
-            // V channel (_choose_V3)
-            const bool three = i_gt1 && j > 1;
-            const i64 gvs = add(add(mul(s1go, CF(C_G2SO, j)), mul(s1ge, CF(C_G2SE, j))),
-                                add(mul(s1gto, CF(C_G2STO, j)), mul(s1gte, CF(C_G2STE, j))));
-            const i64 gvc = add(mul(s1ge, CF(C_G2CE, j)), mul(s1gte, CF(C_G2CTE, j)));
-            tD = add(pD[k], gvs);
-            tH = add(pH[k], gvs);
-            tV = add(pV[k], gvc);
-            i64 V;
-            int dV;
-            if (three) {
-                const bool pD3 = tD > tH && tD > tV;
-                const bool pH3 = !pD3 && tH > tV;
-                V = pD3 ? tD : (pH3 ? tH : tV);
-                dV = pD3 ? 0 : (pH3 ? 1 : 2);
-            } else {
-                const bool pD2 = tD > tV;
-                V = pD2 ? tD : tV;
-                dV = pD2 ? 0 : 2;
-            }
-            if (j < lo || j > hi) { D = NEG; V = NEG; }
-            pD[k] = D;
-            pV[k] = V;
-            pk[k] = (uint8_t)(dD | (dV << 4));
-        }
-
-        // ---- pass the stripe's last D/V to the right neighbour
-        const int buf = (int)(i & 1);
-        xD[buf][t] = pD[SS - 1];
-        xV[buf][t] = pV[SS - 1];
-        __syncthreads();
-        const i64 lD = t > 0 ? xD[buf][t - 1] : NEG;
-        const i64 lV = t > 0 ? xV[buf][t - 1] : NEG;
-
-        // ---- pass B: m, x = m - bc and the stripe's running max of x
-        i64 run = IMIN;
-#pragma unroll SU
-        for (int k = 0; k < SA; ++k) {
-            if (k >= SS) break;
-            const i64 j = j0 + k;
-            if (j == 0 || j > w2) { loc[k] = run; continue; }
-            const i64 Dl = k == 0 ? lD : pD[k - 1];
-            const i64 Vl = k == 0 ? lV : pV[k - 1];
-            const i64 ghs = add(add(mul(CF(C_P2O, j), g1so), mul(CF(C_P2E, j), g1se)),
-                                add(mul(CF(C_P2TO, j), g1sto), mul(CF(C_P2TE, j), g1ste)));
-            const i64 mD = add(Dl, ghs), mV = add(Vl, ghs);
-            const i64 m = (i_gt1 && j > 1) ? imax(mD, mV) : mD;
-            const i64 bc = add(mul(g1ce, CF(C_CUME, j)), mul(g1cte, CF(C_CUMT, j)));
-            run = imax(run, sub(m, bc));
-            loc[k] = run;
-            mDa[k] = mD;
-            mVa[k] = mV;
-        }
-
-        // ---- block-wide exclusive max-scan of the stripe maxima
-        i64 inc = run;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const i64 o = __shfl_up_sync(0xffffffffu, inc, d);
-            if (lane >= d) inc = imax(inc, o);
-        }
-        i64 P = __shfl_up_sync(0xffffffffu, inc, 1);
-        if (lane == 0) P = IMIN;
-        if (lane == 31) wmax[warp] = inc;
-        __syncthreads();
-        for (int w = 0; w < warp; ++w) P = imax(P, wmax[w]);
-
-        // ---- pass C: H, its direction, the packed bytes and the finals.
-        // H at j0-1 (the left halo) from the prefix: cummax there is P.
-        i64 Hl = NEG;
-        if (t > 0) {
-            const i64 jl = j0 - 1;
-            if (jl >= 1 && jl <= w2 && jl >= lo && jl <= hi)
-                Hl = add(add(mul(g1ce, CF(C_CUME, jl)), mul(g1cte, CF(C_CUMT, jl))),
-                         imax(P, NEG));
-        }
-        const i64 hHn = Hl;
-#pragma unroll SU
-        for (int k = 0; k < SA; ++k) {
-            if (k >= SS) break;
-            const i64 j = j0 + k;
-            if (j > w2) { pH[k] = NEG; continue; }
-            if (j == 0) {
-                pH[0] = NEG;
-                Hl = NEG;
-                drow[0] = 2 | (2 << 2) | (2 << 4);
-                continue;
-            }
-            const i64 bc = add(mul(g1ce, CF(C_CUME, j)), mul(g1cte, CF(C_CUMT, j)));
-            i64 H = add(bc, imax(imax(P, loc[k]), NEG));
-            if (j < lo || j > hi) H = NEG;
-            const i64 ghc = add(mul(CF(C_P2E, j), g1ce), mul(CF(C_P2TE, j), g1cte));
-            const i64 tHh = add(Hl, ghc);
-            const i64 mD = mDa[k], mV = mVa[k];
-            int dH;
-            if (i_gt1 && j > 1) {   // _choose_H3: strict D, then tV > tH -> V
-                const bool pD3 = mD > tHh && mD > mV;
-                const bool pV3 = !pD3 && mV > tHh;
-                dH = pD3 ? 0 : (pV3 ? 2 : 1);
-            } else {
-                dH = mD > tHh ? 0 : 1;
-            }
-            drow[j] = (uint8_t)(pk[k] | (dH << 2));
-            if (j == w2) {
-                i64* f = fb + (size_t)(i - 1) * 3;
-                f[0] = pD[k];
-                f[1] = H;
-                f[2] = pV[k];
-            }
-            pH[k] = H;
-            Hl = H;
-        }
-        hD = lD;
-        hV = lV;
-        hH = hHn;
-    }
-#undef CF
+    Stripe<S> st;
+    row0<S>(st, cf, ldc, w2, j0, SS, dr);
+    for (i64 i = 1; i <= w1; ++i)
+        dp_row<S>(st, sh, cf, ldc, rf + (size_t)i * NROWF, i, w1, w2, j0, SS,
+                  t, NEG, NEG, IMIN, dr + i * stride, fb + (size_t)(i - 1) * 3);
 }
 
 template <int S>
@@ -296,7 +72,7 @@ cudaError_t launch(const i64* colf, const i64* rowf, const i64* meta, int B,
 
 extern "C" {
 
-// colf [B][44][ldc] i64, rowf [B][ldr][78] i64, meta [B][4] i64
+// colf [B][44][ldc] i64, rowf [B][ldr][77] i64, meta [B][4] i64
 // (w1, w2, byte offset of the merge's dirs, unused); dirs: flat u8;
 // fin [B][ldf][3] i64.  stripe in {1, 2, 4, 8} uses the register kernel,
 // otherwise the local-memory one (stripe <= 256).  threads * stripe must

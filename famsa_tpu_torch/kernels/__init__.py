@@ -3,7 +3,8 @@
 Each source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface, at first use, into the package's git-ignored build
 directory (famsa_tpu_torch/_build/), and loaded with ctypes.  The library
-name carries a hash of the source, so an edited source is rebuilt.
+name carries a hash of the source and of every csrc header it includes,
+so an edited source or header is rebuilt.
 Nothing here runs at import time: this module imports on machines with
 no CUDA toolkit, where only the kernels' plain PyTorch versions run.
 
@@ -15,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -22,9 +24,10 @@ import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("lcs", "dp")
+KERNELS = ("lcs", "dp", "dp_wide")
 
-LAUNCHES = {"lcs": 0, "dp": 0}
+LAUNCHES = {"lcs": 0, "dp": 0, "dp_wide": 0}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _libs = {}
 _lock = threading.Lock()
@@ -47,10 +50,24 @@ def _nvcc():
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _sources(path, seen=None):
+    """path and every csrc file it includes with #include "...",
+    transitively, in include order."""
+    seen = [] if seen is None else seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        dep = path.parent / inc.decode()
+        if dep not in seen:
+            _sources(dep, seen)
+    return seen
+
+
 def _so_path(name):
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return src, BUILD_DIR / f"libfamsa_{name}_{digest}.so"
+    digest = hashlib.sha1()
+    for path in _sources(src):
+        digest.update(path.read_bytes())
+    return src, BUILD_DIR / f"libfamsa_{name}_{digest.hexdigest()[:12]}.so"
 
 
 def _start_build(name):
@@ -106,10 +123,15 @@ def _configure(name, lib):
     if name == "lcs":
         lib.lcs_bitpar.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, ci, vp]
         lib.lcs_bitpar.restype = ci
-    else:
+    elif name == "dp":
         lib.dp_profile_batched.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                            vp, vp, vp]
         lib.dp_profile_batched.restype = ci
+    else:
+        lib.dp_profile_wide.argtypes = [vp, vp, ctypes.c_longlong,
+                                        ctypes.c_longlong, ci, ci, ci, ci, ci,
+                                        vp, vp, vp]
+        lib.dp_profile_wide.restype = ci
 
 
 def get(name):

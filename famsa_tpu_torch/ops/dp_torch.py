@@ -31,13 +31,13 @@ IMIN = -(1 << 63)
 ROW0_PACK = 1 | (1 << 2) | (1 << 4)       # H, H, H
 COL0_PACK = 2 | (2 << 2) | (2 << 4)       # V, V, V
 
-# column-factor planes, colf [B, NCOLF, ldc]; must match csrc/dp.cu
+# column-factor planes, colf [B, NCOLF, ldc]; must match csrc/dp_common.cuh
 C_S2 = 0                                   # 30 planes: scores2[j, s]
 (C_P2O, C_P2E, C_P2TO, C_P2TE, C_G2CHG,
  C_G2SO, C_G2SE, C_G2STO, C_G2STE, C_G2CE, C_G2CTE,
  C_CUME, C_CUMT, C_H0) = range(30, 44)
 NCOLF = 44
-# row-factor planes, rowf [B, ldr, NROWF]; must match csrc/dp.cu
+# row-factor planes, rowf [B, ldr, NROWF]; must match csrc/dp_common.cuh
 R_NNZ, R_CNT, R_SYM = 0, 1, 31             # compacted nonzero counts
 (R_NNG, R_N1C, R_N1TC, R_S1GO, R_S1GE, R_S1GTO, R_S1GTE,
  R_G1SO, R_G1SE, R_G1STO, R_G1STE, R_G1CE, R_G1CTE,
@@ -313,12 +313,13 @@ def dp_dirs(colf, rowf, meta, total):
     return dirs, fin
 
 
-def dp_profile_torch_batched(params, pairs, bands=None):
+def dp_profile_torch_batched(params, pairs, bands=None, dirs_fn=None):
     """DP of a batch of merges on params.device (one K2 launch on CUDA).
 
     pairs: list of (profile1, profile2) with counters/scores computed;
     bands: optional list aligned with pairs of band rows
-    (core/dp_native.row_ranges) or None.
+    (core/dp_native.row_ranges) or None; dirs_fn: the DP on the packed
+    batch (default dp_dirs; ops/dp_wide.py passes K3's wrapper).
     Returns a list of (dirs [w1+1, w2+1] uint8 numpy, last (D, H, V))."""
     if bands is None:
         bands = [None] * len(pairs)
@@ -326,9 +327,9 @@ def dp_profile_torch_batched(params, pairs, bands=None):
               for (p1, p2), bd in zip(pairs, bands)]
     colf, rowf, meta, total = pack_batch(merges)
     dev = torch.device(params.device)
-    dirs, fin = dp_dirs(torch.from_numpy(colf).to(dev),
-                        torch.from_numpy(rowf).to(dev),
-                        torch.from_numpy(meta).to(dev), total)
+    dirs, fin = (dirs_fn or dp_dirs)(torch.from_numpy(colf).to(dev),
+                                     torch.from_numpy(rowf).to(dev),
+                                     torch.from_numpy(meta).to(dev), total)
     dirs = dirs.cpu().numpy()
     fin = fin.cpu().numpy()
     out = []

@@ -1,0 +1,254 @@
+"""Profile DP of one wide merge over column folds: the fold geometry, the
+wrapper of the CUDA kernel K3 (csrc/dp_wide.cu), its plain PyTorch
+version and the single-merge entry point used by the scheduler and the
+aligner.
+
+K3 computes what K2 (ops/dp_torch.py) computes for one merge, on the
+same packed inputs (prepare_merge / pack_batch with B = 1) and with the
+same output (native (w1+1) x (w2+1) direction bytes and the per-row
+last-column finals), so core/dp_native.finish_path serves both.  It
+splits columns 0..w2 into F folds of `threads * stripe` columns, one CTA
+each, run as a staggered wavefront: at step s fold f computes row block
+s - f.  Per row, fold f takes from fold f-1 its last-column D and V and
+the running max of m - bc through that column (the seed of its H scan).
+dp_wide_plain walks the same folds, steps and edges, so the
+decomposition itself is tested on the CPU against dp_plain.
+"""
+
+import torch
+
+from .. import kernels
+from .dp_torch import (C_CUME, C_CUMT, C_G2CE, C_G2CHG, C_G2CTE, C_G2SE,
+                       C_G2SO, C_G2STE, C_G2STO, C_H0, C_P2E, C_P2O, C_P2TE,
+                       C_P2TO, C_S2, COL0_PACK, IMIN, MAX_THREADS, NCOLF, NEG,
+                       NROWF, R_CNT, R_G1CE, R_G1CTE, R_G1SE, R_G1SO, R_G1STE,
+                       R_G1STO, R_HI, R_LO, R_N1C, R_N1TC, R_NNG, R_S1GE,
+                       R_S1GO, R_S1GTE, R_S1GTO, R_SYM, R_V0COST, ROW0_PACK,
+                       dp_profile_torch_batched)
+
+MAX_FOLDS = 8                      # the portable thread-block cluster size
+STRIPES = (1, 2, 4, 8)
+MAX_W2 = MAX_FOLDS * MAX_THREADS * STRIPES[-1] - 1   # widest profile2 K3 takes
+MIN_FOLD_COLS = 256                # narrower folds add wavefront steps, not speed
+BLK = 8                            # rows per wavefront step
+
+
+def fold_geometry(w2):
+    """(folds, threads, stripe) of K3 for a merge of w2 + 1 DP columns:
+    up to MAX_FOLDS folds of at least MIN_FOLD_COLS columns, each one CTA
+    of `threads` threads (whole warps) owning `stripe` columns apiece.
+    Every fold but the last is full.  Raises past MAX_W2."""
+    if w2 > MAX_W2:
+        raise ValueError(f"profile width {w2} exceeds the K3 limit {MAX_W2}")
+    cols = w2 + 1
+    folds = min(MAX_FOLDS, -(-cols // MIN_FOLD_COLS))
+    per = -(-cols // folds)
+    stripe = next(s for s in STRIPES if s * MAX_THREADS >= per)
+    threads = -(-per // stripe)
+    threads = -(-threads // 32) * 32
+    return -(-cols // (threads * stripe)), threads, stripe
+
+
+def _check_inputs(colf, rowf, meta):
+    if colf.dim() != 3 or colf.shape[:2] != (1, NCOLF):
+        raise ValueError("colf must be [1, NCOLF, ldc]")
+    if rowf.dim() != 3 or rowf.shape[0] != 1 or rowf.shape[2] != NROWF:
+        raise ValueError("rowf must be [1, ldr, NROWF]")
+    if meta.shape != (1, 4):
+        raise ValueError("meta must be [1, 4]")
+    if any(x.dtype != torch.int64 for x in (colf, rowf, meta)):
+        raise TypeError("colf, rowf and meta must be int64")
+    if not (colf.device == rowf.device == meta.device):
+        raise ValueError("inputs must be on one device")
+
+
+def _cat1(head, x):
+    """[head, x[0], ..., x[-2]]: column j <- column j-1 within a fold."""
+    return torch.cat([head.reshape(1), x[:-1]])
+
+
+def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK):
+    """Plain PyTorch version of K3 on the same inputs (B = 1): the
+    recurrence of dp_plain walked fold by fold in K3's wavefront order,
+    fold_cols columns a fold (default: fold_geometry's), blk rows a
+    step, with the fold edges passed through a buffer double-buffered by
+    step parity as K3 does.  Returns (dirs [total] uint8, fin [1, ldr-1,
+    3] int64: the last-column D, H, V of every row)."""
+    dev = colf.device
+    w1, w2, off = (int(v) for v in meta[0, :3].tolist())
+    cols = w2 + 1
+    if fold_cols is None:
+        _, threads, stripe = fold_geometry(w2)
+        fold_cols = threads * stripe
+    folds = -(-cols // fold_cols)
+    nrb = -(-w1 // blk)
+    cf = colf[0, :, :cols]
+    rf = rowf[0]
+    neg = torch.tensor(NEG, dtype=torch.int64, device=dev)
+    imin = torch.tensor(IMIN, dtype=torch.int64, device=dev)
+    rows = torch.empty((w1 + 1, cols), dtype=torch.uint8, device=dev)
+    rows[0] = ROW0_PACK
+    rows[0, 0] = 0
+    fin = torch.zeros((1, rf.shape[0] - 1, 3), dtype=torch.int64, device=dev)
+
+    def bc_at(r, j):
+        return r[R_G1CE] * cf[C_CUME, j] + r[R_G1CTE] * cf[C_CUMT, j]
+
+    # per fold: its columns and its row state (previous row, and the
+    # previous row at the column left of the fold), from DP row 0
+    state = []
+    for f in range(folds):
+        c0, c1 = f * fold_cols, min((f + 1) * fold_cols, cols)
+        jj = torch.arange(c0, c1, device=dev)
+        pD = torch.where(jj == 0, 0, neg)
+        pH = cf[C_H0, c0:c1].clone()
+        pV = neg.expand(c1 - c0).clone()
+        halo = (neg, neg, neg)
+        if c0 > 0:
+            halo = (torch.zeros_like(neg) if c0 == 1 else neg,
+                    cf[C_H0, c0 - 1], neg)
+        state.append([c0, c1, jj, pD, pH, pV, halo])
+    # edge[f][parity, r] = (D, V, run) of fold f-1's last column, row r
+    # of the block fold f-1 computed at a step of that parity
+    edge = [torch.empty((2, blk, 3), dtype=torch.int64, device=dev)
+            for _ in range(folds)]
+
+    for s in range(nrb + folds - 1):
+        for f in range(folds):
+            b = s - f
+            if not 0 <= b < nrb:
+                continue
+            st = state[f]
+            c0, c1, jj = st[:3]
+            cfs = cf[:, c0:c1]
+            s2 = cfs[C_S2:C_S2 + 30]
+            p2o, p2e, p2to, p2te = (cfs[C_P2O], cfs[C_P2E], cfs[C_P2TO],
+                                    cfs[C_P2TE])
+            dE, dT = p2e - p2o, p2te - p2to
+            for r in range(blk):
+                i = b * blk + r + 1
+                if i > w1:
+                    break
+                pD, pH, pV, (hD, hH, hV) = st[3], st[4], st[5], st[6]
+                if f > 0:
+                    eD, eV, seed = edge[f][(s + 1) % 2, r].clone()
+                else:
+                    eD, eV, seed = neg, neg, imin
+                row = rf[i]
+                t = (s2[row[R_SYM:R_SYM + 30]]
+                     * row[R_CNT:R_CNT + 30, None]).sum(dim=0)
+                three = (i > 1) & (jj > 1)
+                lo, hi = row[R_LO], row[R_HI]
+                inb = (jj >= lo) & (jj <= hi)
+
+                # D channel (_choose_D)
+                tD = _cat1(hD, pD) + t
+                tH = _cat1(hH, pH) + t + (row[R_N1C] * dE + row[R_N1TC] * dT)
+                tV = _cat1(hV, pV) + t + cfs[C_G2CHG] * row[R_NNG]
+                pickD = (tD > tH) & (tD > tV)
+                pickH = ~pickD & (tH > tV)
+                D = torch.where(pickD, tD, torch.where(pickH, tH, tV))
+                dD = torch.where(pickD, 0, torch.where(pickH, 1, 2))
+
+                # V channel (_choose_V3)
+                gvs = (row[R_S1GO] * cfs[C_G2SO] + row[R_S1GE] * cfs[C_G2SE]
+                       + row[R_S1GTO] * cfs[C_G2STO]
+                       + row[R_S1GTE] * cfs[C_G2STE])
+                gvc = row[R_S1GE] * cfs[C_G2CE] + row[R_S1GTE] * cfs[C_G2CTE]
+                tD, tH, tV = pD + gvs, pH + gvs, pV + gvc
+                pD3 = (tD > tH) & (tD > tV)
+                pH3 = ~pD3 & (tH > tV)
+                pD2 = tD > tV
+                V = torch.where(three, torch.where(pD3, tD,
+                                                   torch.where(pH3, tH, tV)),
+                                torch.where(pD2, tD, tV))
+                dV = torch.where(three, torch.where(pD3, 0,
+                                                    torch.where(pH3, 1, 2)),
+                                 torch.where(pD2, 0, 2))
+
+                # column 0 and the band
+                v0 = (torch.maximum(pD[0], pV[0]) + row[R_V0COST]
+                      if i < w1 else neg)
+                D = torch.where(inb & (jj > 0), D, neg)
+                V = torch.where(jj == 0, v0, torch.where(inb, V, neg))
+
+                # H channel: max-plus prefix scan seeded from the left
+                ghs = (p2o * row[R_G1SO] + p2e * row[R_G1SE]
+                       + p2to * row[R_G1STO] + p2te * row[R_G1STE])
+                ghc = p2e * row[R_G1CE] + p2te * row[R_G1CTE]
+                mD = _cat1(eD, D) + ghs
+                mV = _cat1(eV, V) + ghs
+                m = torch.where(three, torch.maximum(mD, mV), mD)
+                bc = row[R_G1CE] * cfs[C_CUME] + row[R_G1CTE] * cfs[C_CUMT]
+                x = torch.where(jj > 0, m - bc, imin)
+                run = torch.maximum(torch.cummax(x, dim=0).values, seed)
+                H = bc + torch.maximum(run, neg)
+                H = torch.where(inb & (jj > 0), H, neg)
+                # H left of the fold, from the seed (as K3's thread 0)
+                jl = c0 - 1
+                Hl = neg
+                if jl >= 1:
+                    Hl = torch.where((jl >= lo) & (jl <= hi),
+                                     bc_at(row, jl) + torch.maximum(seed, neg),
+                                     neg)
+                tHh = _cat1(Hl, H) + ghc
+                pD3 = (mD > tHh) & (mD > mV)
+                pV3 = ~pD3 & (mV > tHh)
+                dH = torch.where(three, torch.where(pD3, 0,
+                                                    torch.where(pV3, 2, 1)),
+                                 torch.where(mD > tHh, 0, 1))
+
+                packed = (dD | (dH << 2) | (dV << 4)).to(torch.uint8)
+                if c0 == 0:
+                    packed[0] = COL0_PACK
+                rows[i, c0:c1] = packed
+                if c1 == cols:
+                    fin[0, i - 1] = torch.stack([D[-1], H[-1], V[-1]])
+                if f + 1 < folds:
+                    edge[f + 1][s % 2, r] = torch.stack([D[-1], V[-1],
+                                                         run[-1]])
+                st[3:7] = [D, H, V, (eD, Hl, eV)]
+
+    dirs = torch.zeros(total, dtype=torch.uint8, device=dev)
+    dirs[off:off + (w1 + 1) * cols] = rows.reshape(-1)
+    return dirs, fin
+
+
+def dp_dirs_wide(colf, rowf, meta, total):
+    """Packed direction bytes and per-row last-column finals of ONE merge
+    (pack_batch of one prepared merge).  Returns (dirs [total] uint8,
+    fin [1, ldr-1, 3] int64).
+
+    CUDA tensors launch kernel K3; CPU tensors run dp_wide_plain."""
+    _check_inputs(colf, rowf, meta)
+    dev = colf.device
+    if dev.type == "cpu":
+        return dp_wide_plain(colf, rowf, meta, total)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not (colf.is_contiguous() and rowf.is_contiguous()):
+        raise ValueError("inputs must be contiguous")
+    w1, w2, off = (int(v) for v in meta[0, :3].tolist())
+    ldc, ldr = colf.shape[2], rowf.shape[1]
+    if off != 0 or total != (w1 + 1) * (w2 + 1) or ldc < w2 + 1 \
+            or ldr < w1 + 1:
+        raise ValueError("meta does not match the packed merge")
+    folds, threads, stripe = fold_geometry(w2)
+    dirs = torch.empty(total, dtype=torch.uint8, device=dev)
+    fin = torch.empty((1, ldr - 1, 3), dtype=torch.int64, device=dev)
+    lib = kernels.get("dp_wide")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernels.LAUNCHES["dp_wide"] += 1
+    err = lib.dp_profile_wide(colf.data_ptr(), rowf.data_ptr(), w1, w2, folds,
+                              threads, stripe, ldc, BLK, dirs.data_ptr(),
+                              fin.data_ptr(), stream)
+    kernels.check(err, "dp_profile_wide")
+    return dirs, fin
+
+
+def dp_profile_torch_wide(params, p1, p2, band=None):
+    """DP of one merge on params.device (one K3 launch on CUDA); band:
+    optional band rows (core/dp_native.row_ranges).  Returns (dirs
+    [w1+1, w2+1] uint8 numpy, last (D, H, V))."""
+    return dp_profile_torch_batched(params, [(p1, p2)], [band],
+                                    dirs_fn=dp_dirs_wide)[0]

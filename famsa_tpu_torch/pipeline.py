@@ -12,7 +12,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from .core import params as P
-from .core.aligner import align_into, construct_profile, split_ready
+from .core.aligner import (align_into, construct_profile, split_ready,
+                           split_wide)
 from .core.construct_fast import drain_gap_queue, reset_gap_queue
 from .core.defs import UNKNOWN_SYMBOL
 from .core.dp_native import finish_path
@@ -147,9 +148,11 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
     a merge becomes ready the moment both children resolve; ready merges
     are taken deepest first, the device-worthy ones (split_ready) run as
     batches of up to FAMSA_TORCH_MAX_BATCH merges per device DP launch,
-    and the rest run on the native host DP (a small thread pool: the
-    native DP releases the GIL).  Dispatch is synchronous."""
-    from .ops.dp_torch import dp_profile_torch_batched
+    or alone on the wide-merge DP when few are ready (split_wide), and
+    the rest run on the native host DP (a small thread pool: the native
+    DP releases the GIL).  Dispatch is synchronous."""
+    from .ops.dp_torch import dp_dirs, dp_profile_torch_batched
+    from .ops.dp_wide import dp_dirs_wide
 
     max_batch = int(os.environ.get("FAMSA_TORCH_MAX_BATCH", "16"))
     n = len(gapped_sequences)
@@ -236,6 +239,7 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
                  else host).append((node_id, prof1, prof2))
             device, host_prof = split_ready(ready)
             host += host_prof
+            wide, device = split_wide(device, max_batch)
 
             if len(host) > 1 and host_pool is not None:
                 futs = [(node_id, host_pool.submit(
@@ -248,10 +252,14 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
                     finish(node_id, align_into(Profile(params), p1, p2,
                                                backend="numpy"))
 
-            for k0 in range(0, len(device), max_batch):
-                chunk = device[k0:k0 + max_batch]
+            # one K3 launch per wide merge, one K2 launch per chunk
+            chunks = [([m], dp_dirs_wide) for m in wide]
+            chunks += [(device[k0:k0 + max_batch], dp_dirs)
+                       for k0 in range(0, len(device), max_batch)]
+            for chunk, dirs_fn in chunks:
                 results = dp_profile_torch_batched(
-                    params, [(p1, p2) for _, p1, p2 in chunk])
+                    params, [(p1, p2) for _, p1, p2 in chunk],
+                    dirs_fn=dirs_fn)
                 for (node_id, p1, p2), (dirs, last) in zip(chunk, results):
                     dest = Profile(params)
                     construct_profile(dest, p1, p2,

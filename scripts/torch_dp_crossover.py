@@ -1,35 +1,49 @@
 #!/usr/bin/env python3
-"""Where the device profile DP (kernel K2) beats the native host DP, on
-the merges of the main path.
+"""Where each profile-DP route wins on the merges of the main path: the
+native host DP, kernel K2 (batched merges, one merge per SM) and kernel
+K3 (one wide merge over up to 8 SMs).
 
-    python3 scripts/torch_dp_crossover.py [--n 1000] [--reps 3] [--rounds 8]
+    python3 scripts/torch_dp_crossover.py [--n 1000] [--wide-n 10000]
+        [--reps 3] [--rounds 4] [--wide-rounds 2] [--e2e auto]
 
-1. Records the main path's DP work: chip_smoke.py's family (--n
-   sequences of mean length 300, seed 7) through compute_msa (torch
-   backend, refinement AUTO = on).  For every chunk of merges that the
-   scheduler takes from its ready heap it keeps the operands of the
-   chunk's profile merges; for refinement, the operands and column
-   mappings of every guided re-alignment.
-2. Re-times those merges on both routes, DP and traceback only (not
-   the construct that follows, which the host route runs in its thread
-   pool and the device route in the calling thread): host = the native
-   DP + traceback of each merge on a pool of min(cpus, 8) threads (the
-   scheduler's host route); device = dp_profile_torch_batched in launches
-   of up to 16 merges + the native traceback of each.  Prints, per class
-   of chunk size and band of cells per merge, both routes' summed ms
-   (the crossover), then each routing rule's summed ms over all recorded
-   chunks and re-alignments, median of --reps.  A rule routes a merge
-   by its cells and its share (the profile merges ready with it, at
-   most 16; 1 for a guided re-alignment).
-3. Runs the alignment stage end to end (refinement off) under four of
-   those rules, in --rounds rounds that rotate their order, printing
-   each run's time.alignment, the medians and quartiles, and how often
-   each rule beat "per merge 2^16" in the same round.
+1. Records the main path's DP work through compute_msa (torch backend,
+   the default knobs): chip_smoke.py's family (--n sequences of mean
+   length 300, seed 7, refinement AUTO = on) and the wide family (--wide-n
+   sequences, refinement AUTO = off).  Of the first it keeps the operands
+   of every chunk of profile merges the scheduler took from its ready
+   heap, and the operands and column mappings of every guided
+   re-alignment; of the second its lone merges (ready alone) of at least
+   2^20 cells, at most --max-wide of them.
+2. Re-times those merges on the three routes, DP and traceback only (not
+   the construct that follows): host = the native DP + traceback of each
+   merge on a pool of min(cpus, 8) threads (the scheduler's host route);
+   K2 = dp_profile_torch_batched in launches of up to 16 merges; K3 =
+   dp_profile_torch_wide, one launch per merge, one after another; each
+   device route + the native traceback.  Prints the three routes' summed
+   ms per class of chunk size and band of cells per merge (the
+   crossover), for the guided re-alignments and for the wide family's
+   lone merges (these two timed one merge at a time, as they run); then
+   each routing rule's summed ms over every recorded
+   chunk and re-alignment, median of --reps.  A rule is the scheduler's
+   and the aligner's own routing (core/aligner.py device_dp_ok,
+   split_wide, wide_dp_ok) under one setting of FAMSA_TORCH_DP_MIN_CELLS,
+   FAMSA_TORCH_WIDE_MIN_CELLS and WIDE_MAX_READY.
+   On a CUDA device it first prints kernel-only times of K2 and K3 on a
+   few of those merges, K3 at several minimum fold widths.
+3. End to end under the rules of --e2e ("auto": PR 1's routing, K2 only,
+   and the two fastest rules of step 2 that use the device; "none"
+   skips this step), in rounds
+   that rotate their order: the --n family with refinement on (--rounds,
+   alignment and refinement stage seconds) and the wide family's
+   alignment stage (--wide-rounds).  Prints every run, the medians and
+   how often each rule beat "K2 only" in the same round.
 
 Needs a CUDA device; --device cpu rehearses it (plain PyTorch DP) at a
-small --n.  Every line carries the card's name and power limit."""
+small --n and --wide-n.  Every line carries the card's name and power
+limit."""
 
 import argparse
+import contextlib
 import json
 import os
 import pathlib
@@ -44,13 +58,27 @@ import numpy as np
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 MAX_BATCH = 16
-BANDS = [0, 1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20,
-         1 << 62]
+NEVER = 1e30
+BANDS = [0, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20, 1 << 21, 1 << 22,
+         1 << 23, 1 << 62]
 CLASSES = [(1, 1), (2, 3), (4, 7), (8, 15), (16, 1 << 30)]
+# name: (FAMSA_TORCH_DP_MIN_CELLS, FAMSA_TORCH_WIDE_MIN_CELLS, WIDE_MAX_READY)
+RULES = {
+    "host only": (NEVER, NEVER, 4),
+    "K2 only": (1 << 16, NEVER, 4),
+    "K3 lone from 2^16": (1 << 16, 1 << 16, 2),
+    "K3 lone from 2^20": (1 << 16, 1 << 20, 2),
+    "K3 below 4 from 2^16": (1 << 16, 1 << 16, 4),
+    "K3 below 4 from 2^18": (1 << 16, 1 << 18, 4),
+    "K3 below 4 from 2^20": (1 << 16, 1 << 20, 4),
+    "K3 below 8 from 2^16": (1 << 16, 1 << 16, 8),
+    "K3 every device merge": (1 << 16, 1 << 16, MAX_BATCH + 1),
+}
+BASE = "K2 only"
 
 
 class Operand:
-    """What either DP route reads of a Profile."""
+    """What the DP routes read of a Profile."""
 
     def __init__(self, prof):
         if prof.counters is None:
@@ -90,11 +118,92 @@ def record(params, seqs):
     return [c for c in chunks if c], guided
 
 
+@contextlib.contextmanager
+def knobs(rule):
+    """The routing knobs of one rule, for the duration of the block."""
+    from famsa_tpu_torch.core import aligner
+    dp_min, wide_min, max_ready = rule
+    env = {"FAMSA_TORCH_DP_MIN_CELLS": repr(float(dp_min)),
+           "FAMSA_TORCH_WIDE_MIN_CELLS": repr(float(wide_min))}
+    old = {k: os.environ.get(k) for k in env}
+    old_ready = aligner.WIDE_MAX_READY
+    os.environ.update(env)
+    aligner.WIDE_MAX_READY = max_ready
+    try:
+        yield
+    finally:
+        aligner.WIDE_MAX_READY = old_ready
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def route_chunk(merges):
+    """(host, K2, K3) lists of one chunk under the knobs in force: the
+    scheduler's split_ready (by cells) and split_wide."""
+    from famsa_tpu_torch.core.aligner import device_dp_ok, split_wide
+    device = [(k, *m) for k, m in enumerate(merges) if device_dp_ok(*m[:2])]
+    host = [m for m in merges if not device_dp_ok(*m[:2])]
+    wide, batched = split_wide(device, MAX_BATCH)
+    return host, [m[1:] for m in batched], [m[1:] for m in wide]
+
+
+def route_guided(m):
+    """The route (0 host, 1 K2, 2 K3) of one guided re-alignment under the
+    knobs in force: align_into's device_dp_ok, then _dp_torch's
+    wide_dp_ok."""
+    from famsa_tpu_torch.core.aligner import device_dp_ok, wide_dp_ok
+    if not device_dp_ok(*m[:2]):
+        return 0
+    return 2 if wide_dp_ok(*m[:2]) else 1
+
+
+def median_by_cells(merges):
+    return sorted(merges, key=lambda m: m[0].width * m[1].width)[
+        len(merges) // 2]
+
+
+def kernel_times(params, smi, cases, fold_cols=(128, 256, 512, 1024)):
+    """Kernel-only CUDA-event ms of K2 and K3 on single recorded merges
+    (guided ones with their band), K3 at several minimum fold widths."""
+    import torch
+    from chip_smoke import cuda_ms
+    from famsa_tpu_torch.core.dp_native import row_ranges
+    from famsa_tpu_torch.ops import dp_wide
+    from famsa_tpu_torch.ops.dp_torch import (dp_dirs, launch_geometry,
+                                              pack_batch, prepare_merge)
+    for what, m in cases:
+        band = row_ranges(params, m[2], m[3]) if len(m) > 2 else None
+        colf, rowf, meta, total = pack_batch([prepare_merge(params, m[0],
+                                                            m[1], band)])
+        args = [torch.from_numpy(x).cuda() for x in (colf, rowf, meta)]
+        msg = (f"kernel only, {what} ({m[0].width}x{m[1].width}): K2 "
+               f"{launch_geometry(colf.shape[2] - 1)} "
+               f"{cuda_ms(lambda: dp_dirs(*args, total), 5):.3f} ms")
+        orig = dp_wide.MIN_FOLD_COLS
+        try:
+            for fc in fold_cols:
+                dp_wide.MIN_FOLD_COLS = fc
+                ms = cuda_ms(lambda: dp_wide.dp_dirs_wide(*args, total), 5)
+                msg += (f"; K3 folds >= {fc} cols "
+                        f"{dp_wide.fold_geometry(m[1].width)} {ms:.3f} ms")
+        finally:
+            dp_wide.MIN_FOLD_COLS = orig
+        print(f"{msg} ({smi})", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1000)
+    ap.add_argument("--wide-n", type=int, default=10000)
+    ap.add_argument("--max-wide", type=int, default=200)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--rounds", type=int, default=8)
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--wide-rounds", type=int, default=2)
+    ap.add_argument("--e2e", default="auto",
+                    help='"auto", "none" or rule names joined by ","')
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
@@ -105,12 +214,12 @@ def main():
     import famsa_tpu_torch.pipeline as pipeline
     from chip_smoke import make_family
     from famsa_tpu_torch import kernels
-    from famsa_tpu_torch.core.aligner import order_operands
     from famsa_tpu_torch.core.dp_native import (dp_profile, finish_path,
                                                 row_ranges)
     from famsa_tpu_torch.core.params import Params
     from famsa_tpu_torch.core.sequence import Sequence
     from famsa_tpu_torch.ops.dp_torch import dp_profile_torch_batched
+    from famsa_tpu_torch.ops.dp_wide import dp_profile_torch_wide
 
     if args.device == "cuda":
         kernels.build_all()
@@ -120,36 +229,59 @@ def main():
     else:
         smi = "cpu rehearsal"
 
-    def family():
-        text = make_family(args.n, 300, 7)
+    def family(n):
+        text = make_family(n, 300, 7)
         recs = [r.split("\n", 1) for r in text.split(">")[1:]]
         return [Sequence(">" + h, b.replace("\n", ""), k)
                 for k, (h, b) in enumerate(recs)]
 
+    def cells(m):
+        return m[0].width * m[1].width
+
     params = Params(backend="torch", device=args.device)
     t0 = time.perf_counter()
-    chunks, guided = record(params, family())
+    chunks, guided = record(params, family(args.n))
     print(f"recorded {sum(map(len, chunks))} profile merges in "
-          f"{len(chunks)} chunks and {len(guided)} guided re-alignments "
-          f"({time.perf_counter() - t0:.2f} s; {smi})", flush=True)
+          f"{len(chunks)} chunks and {len(guided)} guided re-alignments of "
+          f"the {args.n}-sequence family ({time.perf_counter() - t0:.2f} s; "
+          f"{smi})", flush=True)
+    t0 = time.perf_counter()
+    wide_chunks, _ = record(Params(backend="torch", device=args.device),
+                            family(args.wide_n))
+    lone = [c[0] for c in wide_chunks if len(c) == 1 and cells(c[0]) >= 1 << 20]
+    lone = lone[::max(1, -(-len(lone) // args.max_wide))]
+    print(f"recorded {sum(map(len, wide_chunks))} profile merges of the "
+          f"{args.wide_n}-sequence family; kept {len(lone)} lone merges of "
+          f">= 2^20 cells ({time.perf_counter() - t0:.2f} s; {smi})",
+          flush=True)
 
     pool = ThreadPoolExecutor(max_workers=min(os.cpu_count() or 1, 8))
+
+    def band(m):
+        return row_ranges(params, m[2], m[3]) if len(m) > 2 else None
 
     def host(merges):
         futs = [pool.submit(dp_profile, params, *m) for m in merges]
         return [f.result() for f in futs]
 
-    def device(merges):
+    def k2(merges):
         out = []
         for k in range(0, len(merges), MAX_BATCH):
             part = merges[k:k + MAX_BATCH]
-            bands = [row_ranges(params, m[2], m[3]) if len(m) > 2 else None
-                     for m in part]
             res = dp_profile_torch_batched(params, [m[:2] for m in part],
-                                           bands)
+                                           [band(m) for m in part])
             out += [finish_path(d, m[0].width, m[1].width, last)
                     for m, (d, last) in zip(part, res)]
         return out
+
+    def k3(merges):
+        out = []
+        for m in merges:
+            d, last = dp_profile_torch_wide(params, m[0], m[1], band(m))
+            out.append(finish_path(d, m[0].width, m[1].width, last))
+        return out
+
+    routes = {"host": host, "K2": k2, "K3": k3}
 
     def ms(fn, merges):
         if not merges:
@@ -160,113 +292,125 @@ def main():
         fn(merges)
         return (time.perf_counter() - t) * 1e3
 
-    # both routes give the same paths and totals on every recorded merge
-    for merges in chunks + [guided]:
-        for rh, rd in zip(host(merges), device(merges)):
-            if rh.total != rd.total or not np.array_equal(rh.path, rd.path):
-                raise AssertionError("host and device routes differ")
+    def best_ms(fn, merges):
+        return min(ms(fn, merges) for _ in range(args.reps))
 
-    def cells(m):
-        return m[0].width * m[1].width
+    if args.device == "cuda":
+        kernel_times(params, smi, [
+            ("guided, median cells", median_by_cells(guided)),
+            ("share 1, largest", max((c[0] for c in chunks if len(c) == 1),
+                                     key=cells)),
+            (f"{args.wide_n}-family lone, median cells",
+             median_by_cells(lone)),
+            (f"{args.wide_n}-family lone, largest", max(lone, key=cells))])
 
-    # crossover by chunk-size class and band of cells per merge
-    table = {}
+    # the three routes give the same paths and totals on every merge
+    for merges in chunks + [guided, lone]:
+        res = [fn(merges) for fn in routes.values()]
+        for rh, r2, r3 in zip(*res):
+            for r in (r2, r3):
+                if rh.total != r.total or not np.array_equal(rh.path, r.path):
+                    raise AssertionError("DP routes differ")
+
+    def report(what, groups):
+        table = {}
+        for key, merges in groups:
+            for lo, hi in zip(BANDS, BANDS[1:]):
+                part = [m for m in merges if lo <= cells(m) < hi]
+                if part:
+                    row = table.setdefault((key, lo), [[], 0.0, 0.0, 0.0])
+                    row[0] += part
+                    for k, fn in enumerate(routes.values()):
+                        row[1 + k] += best_ms(fn, part)
+        for (key, lo), (part, h, d2, d3) in sorted(table.items()):
+            win = min(zip((h, d2, d3), routes))[1]
+            w1 = statistics.median(m[0].width for m in part)
+            w2 = statistics.median(m[1].width for m in part)
+            print(f"{what} {key} cells/merge >= {lo}: {len(part)} merges "
+                  f"(median w1 {w1}, w2 {w2}), host {h:.3f} ms, K2 "
+                  f"{d2:.3f} ms, K3 {d3:.3f} ms ({win} wins; {smi})",
+                  flush=True)
+
+    # crossover by chunk-size class and band of cells per merge; K3 runs a
+    # chunk's merges one after another, K2 in one launch
+    groups = []
     for merges in chunks:
         share = min(len(merges), MAX_BATCH)
         cls = next(c for c in CLASSES if c[0] <= share <= c[1])
-        for lo, hi in zip(BANDS, BANDS[1:]):
-            part = [m for m in merges if lo <= cells(m) < hi]
-            if part:
-                h = min(ms(host, part) for _ in range(args.reps))
-                d = min(ms(device, part) for _ in range(args.reps))
-                row = table.setdefault((cls, lo), [0, 0.0, 0.0])
-                row[0] += len(part)
-                row[1] += h
-                row[2] += d
-    for (cls, lo), (n, h, d) in sorted(table.items()):
-        print(f"share {cls[0]}-{min(cls[1], MAX_BATCH)} cells/merge >= {lo}: "
-              f"{n} merges, host {h:.3f} ms, device {d:.3f} ms "
-              f"({'device' if d < h else 'host'} wins; {smi})", flush=True)
+        groups.append((f"{cls[0]}-{min(cls[1], MAX_BATCH)}", merges))
+    report("share", groups)
+    # guided re-alignments and lone merges run one at a time
+    report("guided", [("", [m]) for m in guided])
+    report(f"{args.wide_n}-family lone", [("", [m]) for m in lone])
 
     # routing rules over the whole recorded run
-    rules = {
-        "host only": lambda c, s: False,
-        "device only": lambda c, s: True,
-        "per merge 2^16": lambda c, s: c >= 1 << 16,
-        "per merge 2^20": lambda c, s: c >= 1 << 20,
-        "2^15 x share": lambda c, s: c >= (1 << 15) * s,
-        "2^16 x share": lambda c, s: c >= (1 << 16) * s,
-        "2^17 x share": lambda c, s: c >= (1 << 17) * s,
-    }
-    totals = {name: [] for name in rules}
+    totals = {name: [] for name in RULES}
     for rep in range(args.reps):
-        for name in rotated(list(rules), rep):
-            rule = rules[name]
-            t_align = 0.0
-            for merges in chunks:
-                share = min(len(merges), MAX_BATCH)
-                dev = [m for m in merges if rule(cells(m), share)]
-                hst = [m for m in merges if not rule(cells(m), share)]
-                t_align += ms(host, hst) + ms(device, dev)
-            dev = [m for m in guided if rule(cells(m), 1)]
-            hst = [m for m in guided if not rule(cells(m), 1)]
-            totals[name].append((t_align, ms(host, hst) + ms(device, dev)))
+        for name in rotated(list(RULES), rep):
+            with knobs(RULES[name]):
+                t_align = 0.0
+                for merges in chunks:
+                    for fn, part in zip(routes.values(), route_chunk(merges)):
+                        t_align += ms(fn, part)
+                t_guided = sum(ms(list(routes.values())[route_guided(m)],
+                                  [m]) for m in guided)
+            totals[name].append((t_align, t_guided))
     summary = {}
     for name, runs in totals.items():
         a = statistics.median(r[0] for r in runs)
         g = statistics.median(r[1] for r in runs)
         summary[name] = [round(a, 3), round(g, 3)]
-        print(f"rule {name}: alignment merges {a:.3f} ms, guided "
-              f"re-alignments {g:.3f} ms (median of {args.reps}; {smi})",
-              flush=True)
+        print(f"rule {name} {RULES[name]}: alignment merges {a:.3f} ms, "
+              f"guided re-alignments {g:.3f} ms (median of {args.reps}; "
+              f"{smi})", flush=True)
     pool.shutdown()
 
-    # the alignment stage end to end (construct and scheduling included)
-    # under each rule, in --rounds rounds that rotate the order, after one
-    # warm-up run
-    def split_by(rule):
-        def split(ready):
-            share = min(len(ready), MAX_BATCH)
-            device, host_ = [], []
-            for key, a, b in ready:
-                p1, p2 = order_operands(a, b)
-                if rule(p1.width * p2.width, share):
-                    device.append((key, p1, p2))
-                else:
-                    host_.append((key, a, b))
-            return device, host_
-        return split
+    # end to end, after one warm-up run
+    if args.e2e == "none":
+        print(json.dumps({"device": smi, "rules_ms": summary}))
+        return 0
+    if args.e2e == "auto":
+        ranked = sorted((sum(v), k) for k, v in summary.items()
+                        if k not in ("host only", BASE))
+        e2e = [BASE] + [k for _, k in ranked[:2]]
+    else:
+        e2e = args.e2e.split(",")
+    print(f"end-to-end rules: {e2e}", flush=True)
 
-    e2e = ["device only", "per merge 2^16", "per merge 2^20", "2^16 x share"]
-    secs = {name: [] for name in e2e}
-    want = None
-    orig_split = pipeline.split_ready
-    for r in range(-1, args.rounds):
-        for name in (rotated(e2e, r) if r >= 0 else e2e[:1]):
-            pipeline.split_ready = split_by(rules[name])
-            try:
-                p = Params(backend="torch", device=args.device)
-                p.refinement_mode = "off"
-                res = pipeline.compute_msa(p, family())
-            finally:
-                pipeline.split_ready = orig_split
-            got = [gs.decode() for gs in res.alignment]
-            if want is None:
-                want = got
-            if got != want:
-                raise AssertionError("alignments differ between rules")
-            if r >= 0:
-                secs[name].append(res.statistics._stats["time.alignment"])
-    ref = secs["per merge 2^16"]
-    for name, v in secs.items():
-        q = statistics.quantiles(v, n=4)
-        wins = sum(a < b for a, b in zip(v, ref))
-        print(f"alignment stage, rule {name}: median "
-              f"{statistics.median(v):.3f} s, quartiles {q[0]:.3f}-{q[2]:.3f}"
-              f" s, faster than per merge 2^16 in {wins} of {len(v)} rounds; "
-              f"runs {' '.join(f'{x:.3f}' for x in v)} ({smi})", flush=True)
+    def rounds(n, n_rounds, stages):
+        secs = {name: [] for name in e2e}
+        want = None
+        for r in range(-1, n_rounds):
+            for name in (rotated(e2e, r) if r >= 0 else e2e[:1]):
+                with knobs(RULES[name]):
+                    res = pipeline.compute_msa(
+                        Params(backend="torch", device=args.device),
+                        family(n))
+                got = [gs.decode() for gs in res.alignment]
+                if want is None:
+                    want = got
+                if got != want:
+                    raise AssertionError("alignments differ between rules")
+                if r >= 0:
+                    st = res.statistics._stats
+                    secs[name].append(tuple(st[s] for s in stages))
+        ref = [sum(v) for v in secs[BASE]]
+        for name, v in secs.items():
+            tot = [sum(x) for x in v]
+            wins = sum(a < b for a, b in zip(tot, ref))
+            meds = ", ".join(f"{s} {statistics.median(x[k] for x in v):.3f}"
+                             for k, s in enumerate(stages))
+            print(f"{n} seqs, rule {name}: median {meds} s; sum faster than "
+                  f"{BASE} in {wins} of {len(v)} rounds; runs "
+                  f"{' '.join('+'.join(f'{y:.3f}' for y in x) for x in v)} "
+                  f"({smi})", flush=True)
+        return secs
+
+    main_secs = rounds(args.n, args.rounds,
+                       ("time.alignment", "time.refinement"))
+    wide_secs = rounds(args.wide_n, args.wide_rounds, ("time.alignment",))
     print(json.dumps({"device": smi, "rules_ms": summary,
-                      "alignment_s": secs}))
+                      "main_s": main_secs, "wide_s": wide_secs}))
     return 0
 
 
