@@ -7,44 +7,53 @@ Phases (one line each; any mismatch or exception exits non-zero):
  1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
     print the build seconds and the card's name and power limit;
  2. K1 (csrc/lcs.cu) against its plain PyTorch version on the card,
-    bit-exact: 256 refs x 4096 queries of mean length 300 (W=10), a case
-    with W >= 40 and a triangular n_queries case;
+    bit-exact, each variant: rows on 256 refs x 4096 queries of mean
+    length 300 (W=10), a case with W >= 40, a triangular n_queries case
+    and W > 64; wave on 1 ref x 1000 and x 10,000 queries, W = 1, 11,
+    16, 17, 32, 33, 64 and 70 (2 refs x 257 queries: a partial last
+    segment; no-op symbols throughout) and a triangular n_queries of 333
+    that ends inside a warp;
  3. K2 (csrc/dp.cu) against its plain PyTorch version on the card,
     bit-exact in direction bytes, last, path and total: 8 mixed merges
     <= 512^2 (one seq-prof), one 2048x2048 prof-prof, one banded merge,
     one merge with cardinality > 2^16;
  3b. K3 (csrc/dp_wide.cu) against its plain PyTorch version (the fold
     wavefront) and K2's, bit-exact in direction bytes, finals, last, path
-    and total, and path/total against the native host DP: 1, 2 and 8
-    folds, w2 on a fold edge and one column past it, seq-prof, a
-    400x4000 prof-prof, a banded merge, cardinality > 2^16, 2^22-scaled
-    scores; at the JAX kernel's limit (w1 16384, w2 16256) and at K3's
-    widest w2, against K2 and the native host DP;
+    and total, and path/total against the native host DP.  Staged
+    variant: 1, 2 and 8 folds, w2 on a fold edge and one column past it,
+    seq-prof, a 400x4000 prof-prof, the widest staged fold (w2 4095), a
+    banded merge, cardinality > 2^16, 2^22-scaled scores; L2 variant:
+    the 400x4000 and banded merges, 2^22-scaled scores at w2 6000, and
+    the limits (w1 16384 x w2 16256, w2 32767) against K2 and the host DP;
  4. the main path: a seeded 1000-sequence family of mean length 300
     through the CLI entry point (refinement AUTO = on) with -backend torch
     at the default knobs, with every profile merge and guided
     re-alignment forced on K2, then on K3, and with -backend numpy; every
     torch output must equal the numpy one byte for byte, and each run
-    must launch the kernels it is meant to exercise;
+    must launch the kernel variants it is meant to exercise (every Prim
+    round on K1 wave, every K3 call at w2 <= 4095 on K3 staged);
  5. the guide tree: -gt_export on a seeded 2000-sequence family, torch
     against numpy, with a Prim chunk small enough to cross chunk
-    boundaries;
+    boundaries, and under -dist indel_div_lcs (K1's rows variant);
  6. the wide path: a seeded 10,000-sequence family of mean length 300
     (refinement AUTO = off) with -backend torch at the default knobs,
     against -backend numpy on the guide tree the torch -gt_export wrote;
-    byte-identical, and K1, K2 and K3 launched.  Prints the stage seconds
-    and the profile merges per route (host / K2 / K3).
-Then a JSON line with every kernel's numbers, the nvidia-smi line, and as
-the last line {"ok": true, "device": {...}}.
+    byte-identical, and K1 wave, K2 and K3 launched.  Prints the stage
+    seconds and the profile merges per route (host / K2 / K3).
+Then a JSON line with every kernel variant's numbers, the nvidia-smi
+line, and as the last line {"ok": true, "device": {...}}.
 
-Kernel times are CUDA-event means over repeated launches on inputs the
-main path gave the kernel (the 1000-sequence default run's largest K2
-batch and first Prim round for K2 and K1, the wide path's largest K3
-call for K3), after each kernel is held bit-exact against its plain
-version on those inputs; "launches" counts the launches of the run that
-gave those inputs.  bound_ms is the larger of the bytes the call must move over
-3.35 TB/s and the int32 instructions its arithmetic needs over the SM's
-issue rate of 128 lanes a clock (33.5e12/s: the data sheet's 67 TFLOP/s
+Every kernel launch of the 1000-sequence default run, the -dist tree
+run and the 10,000-sequence run is timed with CUDA events recorded
+around its C entry point on the launch stream; the JSON line gives each
+variant's launches, total ms and mean ms per run ("runs").  "ms" is a
+CUDA-event mean over repeated launches on the largest input the runs
+gave the variant, after it is held bit-exact against its plain version
+there; "launches" counts its launches in the run named by
+"launches_run" (the 1000-sequence default run; K1 rows: the -dist run).
+bound_ms is the larger of the bytes the call must move over 3.35 TB/s
+and the int32 instructions its arithmetic needs over the SM's issue
+rate of 128 lanes a clock (33.5e12/s: the data sheet's 67 TFLOP/s
 float32 rate counts an FMA as two operations on 128 lanes per SM).  That
 rate is reached only with both integer pipes busy, the ALU pipe (adds,
 compares, selects, logic) and the FMA pipe (integer multiply-adds), 64
@@ -146,6 +155,23 @@ def lcs_case(n_refs, n_queries, mean_len, seed, device):
     return table.to(device), syms.to(device)
 
 
+def lcs_case_w(n_refs, n_queries, w, seed, device, ref_len=None):
+    """(table, syms) with exactly w mask words: query lengths in
+    (32 (w - 1), 32 w], the first one 32 w long, some codes >= 20; the
+    references are the first n_refs queries, cut to ref_len positions."""
+    import torch
+    from famsa_tpu_torch.ops.lcs_torch import PAD_SYMBOL, build_query_mask_table
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(32 * (w - 1) + 1, 32 * w + 1, size=n_queries)
+    lens[0] = 32 * w
+    padded = np.full((n_queries, 32 * w), PAD_SYMBOL, dtype=np.int8)
+    for k, ln in enumerate(lens):
+        padded[k, :ln] = rng.choice(24, size=ln, p=[0.049] * 20 + [0.005] * 4)
+    table = torch.from_numpy(build_query_mask_table(padded).view(np.int32))
+    syms = torch.from_numpy(padded[:n_refs, :ref_len].astype(np.int32))
+    return table.to(device), syms.contiguous().to(device)
+
+
 def lcs_bound_ms(table, syms, n_queries):
     _, w, n = table.shape
     r, length = syms.shape
@@ -157,11 +183,33 @@ def lcs_bound_ms(table, syms, n_queries):
          else "operations")
 
 
+def lcs_check(table, syms, q, variant, what):
+    """K1's `variant` against lcs_plain, bit for bit, on the first q
+    queries; the launch must have gone to that variant."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.lcs_torch import lcs_plain, lcs_rows
+    key = "lcs_wave" if variant == "wave" else "lcs"
+    before = kernels.LAUNCHES[key]
+    got = lcs_rows(table, syms, n_queries=q, variant=variant)
+    want = lcs_plain(table, syms, q)
+    if table.is_cuda:
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES[key] != before + 1:
+            raise AssertionError(f"K1 {what}: {variant} variant not "
+                                 "launched")
+    if not torch.equal(got[:, :q], want[:, :q]):
+        bad = (got[:, :q] != want[:, :q]).nonzero()[:5].tolist()
+        raise AssertionError(f"K1 {variant} {what}: mismatch at {bad}")
+
+
 def phase_k1(device="cuda", big=(256, 4096, 300), wide=(16, 512, 1300),
              tri=(64, 1000, 120), local=(4, 256, 2600)):
     import torch
-    from famsa_tpu_torch.ops.lcs_torch import lcs_plain, lcs_rows
+    from famsa_tpu_torch.ops.lcs_torch import (lcs_plain, lcs_rows,
+                                               wave_geometry)
     out = {}
+    # the rows variant (many references)
     for name, (r, n, ln), nq in (("main", big, None), ("wide", wide, None),
                                  ("tri", tri, tri[1] // 3),
                                  ("local", local, None)):
@@ -171,27 +219,40 @@ def phase_k1(device="cuda", big=(256, 4096, 300), wide=(16, 512, 1300),
             # version's position loop affordable
             syms = syms[:, :300].contiguous()
         q = n if nq is None else nq
-        got = lcs_rows(table, syms, n_queries=q)
-        want = lcs_plain(table, syms, q)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        if not torch.equal(got[:, :q], want[:, :q]):
-            bad = (got[:, :q] != want[:, :q]).nonzero()[:5].tolist()
-            raise AssertionError(f"K1 {name}: mismatch at {bad}")
+        lcs_check(table, syms, q, "rows", name)
         out[name] = (table, syms, q)
-    msg = (f"phase 2 K1: bit-exact vs plain on {big[0]}x{big[1]} "
+    msg = (f"phase 2 K1 rows: bit-exact vs plain on {big[0]}x{big[1]} "
            f"(W={out['main'][0].shape[1]}), {wide[0]}x{wide[1]} "
            f"(W={out['wide'][0].shape[1]}), triangular n_queries="
            f"{out['tri'][2]}, {local[0]}x{local[1]} "
            f"(W={out['local'][0].shape[1]})")
+    # the wave variant (few references): the Prim round's shapes, every
+    # lane layout, a partial last segment (257 queries), no-op symbols,
+    # and a triangular n_queries ending inside a warp
+    waves = []
+    for r, n, ln in ((1, 1000, 300), (1, 10000, 300)):
+        table, syms = lcs_case(r, n, ln, 7 + n, device)
+        lcs_check(table, syms, n, "wave", f"{r}x{n}")
+        waves.append(f"{r}x{n} (W={table.shape[1]})")
+    for w in (1, 11, 16, 17, 32, 33, 64, 70):
+        table, syms = lcs_case_w(2, 257, w, 40 + w, device,
+                                 ref_len=None if w <= 32 else 120)
+        lcs_check(table, syms, 257, "wave", f"W={w}")
+        waves.append(f"W={w} {wave_geometry(w)}")
+    table, syms = lcs_case_w(3, 1000, 11, 5, device)
+    lcs_check(table, syms, 333, "wave", "triangular")
+    msg += (f"; K1 wave: bit-exact vs plain on {', '.join(waves)} "
+            f"(wseg, wpl, lanes), 2 refs x 257 queries each, triangular "
+            f"n_queries=333 of 1000 at W=11")
     if device == "cuda":
         table, syms, q = out["main"]
         ms = cuda_ms(lambda: lcs_rows(table, syms, n_queries=q,
-                                      out_dtype=torch.uint16), 10)
+                                      out_dtype=torch.uint16,
+                                      variant="rows"), 10)
         pms = wall_ms(lambda: lcs_plain(table, syms, q))
         bms, _ = lcs_bound_ms(table, syms, q)
         pairs = syms.shape[0] * q
-        msg += (f"; {big[0]}x{big[1]}: kernel {ms:.3f} ms "
+        msg += (f"; rows {big[0]}x{big[1]}: kernel {ms:.3f} ms "
                 f"({pairs / ms * 1e3:.4g} pairs/s), plain {pms:.1f} ms, "
                 f"bound {bms:.4f} ms")
     log(msg)
@@ -348,47 +409,61 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
 # ----------------------------------------------------------------------
 # K3
 def wide_check(params, p1, p2, band, device, what, mapping=None,
-               refs=("plain", "dp_plain")):
-    """K3 on one merge against each of refs on the same inputs ("plain":
-    its plain version, the fold wavefront; "dp_plain": K2's plain
-    version; "K2": kernel K2, held against its plain version in phase 3):
-    every direction byte, the per-row finals, last, path and total; and
-    path/total against the native host DP (guided by `mapping`).  Returns
-    the packed inputs on the device and K3's and each ref's wall ms."""
+               refs=("plain", "dp_plain"), variant=None):
+    """K3 (its `variant`, default the one k3_variant picks) on one merge
+    against each of refs on the same inputs ("plain": its plain version,
+    the fold wavefront; "dp_plain": K2's plain version; "K2": kernel K2,
+    held against its plain version in phase 3): every direction byte, the
+    per-row finals, last, path and total; and path/total against the
+    native host DP (guided by `mapping`).  Returns the packed inputs on
+    the device and K3's and each ref's wall ms."""
     import torch
+    from famsa_tpu_torch import kernels
     from famsa_tpu_torch.core.dp_native import dp_profile, finish_path
     from famsa_tpu_torch.ops.dp_torch import (dp_dirs, dp_plain, pack_batch,
                                               prepare_merge)
-    from famsa_tpu_torch.ops.dp_wide import dp_dirs_wide, dp_wide_plain
-    fns = {"plain": dp_wide_plain, "dp_plain": dp_plain, "K2": dp_dirs}
+    from famsa_tpu_torch.ops.dp_wide import (dp_dirs_wide, dp_wide_plain,
+                                             k3_variant)
+    variant = variant or k3_variant(p2.width)
+    key = "dp_wide" if variant == "staged" else "dp_wide_l2"
+    fns = {"plain": dp_wide_plain, "dp_plain": dp_plain, "K2": dp_dirs,
+           "K3": lambda *a: dp_dirs_wide(*a, variant=variant)}
     colf, rowf, meta, total = pack_batch([prepare_merge(params, p1, p2, band)])
     args = [torch.from_numpy(x).to(device) for x in (colf, rowf, meta)]
     w1, w2 = p1.width, p2.width
     times = {}
 
-    def run(name, fn):
+    def run(name):
         t0 = time.perf_counter()
-        d, f = fn(*args, total)
+        d, f = fns[name](*args, total)
         d, f = d.cpu().numpy(), f.cpu().numpy()
         times[name] = (time.perf_counter() - t0) * 1e3
         d = d.reshape(w1 + 1, w2 + 1)
         return d, f[0, :w1], finish_path(d, w1, w2, f[0, w1 - 1])
 
-    dk, fk, rk = run("K3", dp_dirs_wide)
+    before = kernels.LAUNCHES[key]
+    dk, fk, rk = run("K3")
+    if device == "cuda" and kernels.LAUNCHES[key] != before + 1:
+        raise AssertionError(f"K3 {what}: the {variant} variant was not "
+                             "launched")
     for name in refs:
-        d, f, r = run(name, fns[name])
+        d, f, r = run(name)
         if not np.array_equal(dk, d):
             i, j = np.argwhere(dk != d)[0]
-            raise AssertionError(f"K3 {what}: dirs differ from {name} at "
-                                 f"({i}, {j}): {dk[i, j]} vs {d[i, j]}")
+            raise AssertionError(f"K3 {variant} {what}: dirs differ from "
+                                 f"{name} at ({i}, {j}): {dk[i, j]} vs "
+                                 f"{d[i, j]}")
         if not np.array_equal(fk, f):
-            raise AssertionError(f"K3 {what}: finals differ from {name}")
+            raise AssertionError(f"K3 {variant} {what}: finals differ from "
+                                 f"{name}")
         if rk.last != r.last or rk.total != r.total or \
                 not np.array_equal(rk.path, r.path):
-            raise AssertionError(f"K3 {what}: path/total differ from {name}")
+            raise AssertionError(f"K3 {variant} {what}: path/total differ "
+                                 f"from {name}")
     rh = dp_profile(params, p1, p2, *(mapping or ()))
     if rh.total != rk.total or not np.array_equal(rh.path, rk.path):
-        raise AssertionError(f"K3 {what}: differs from the native host DP")
+        raise AssertionError(f"K3 {variant} {what}: differs from the native "
+                             "host DP")
     return args, total, times
 
 
@@ -404,12 +479,24 @@ def fold_edge_widths():
     raise AssertionError("no fold-edge width below 4096")
 
 
+def scaled_params(device, shift=22):
+    """Params whose scores and gap costs are scaled by 2^shift: every
+    cost term and fold edge exceeds 32 bits."""
+    from famsa_tpu_torch.core.params import Params
+    big = Params(device=device)
+    big.adjust(1000)
+    big.score_matrix = big.score_matrix.astype(np.int64) << shift
+    for k in ("gap_open", "gap_ext", "gap_term_open", "gap_term_ext"):
+        setattr(big, k, getattr(big, k) << shift)
+    return big
+
+
 def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
              card_big=70000):
-    import torch
     from famsa_tpu_torch.core.params import Params
     from famsa_tpu_torch.ops.dp_torch import dp_dirs
-    from famsa_tpu_torch.ops.dp_wide import MAX_W2, dp_dirs_wide, fold_geometry
+    from famsa_tpu_torch.ops.dp_wide import (MAX_W2, STAGED_MAX_W2,
+                                             dp_dirs_wide, fold_geometry)
     rng = np.random.default_rng(29)
     params = Params(device=device)
     params.adjust(1000)
@@ -419,7 +506,9 @@ def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
              (f"w2={on_edge} on a fold edge", (4, 90, 3, on_edge)),
              (f"w2={past_edge} one past it", (4, 90, 3, past_edge)),
              (f"{chain[0]}x{chain[1]} prof-prof", (40, chain[0], 300,
-                                                   chain[1]))]
+                                                   chain[1])),
+             (f"widest staged fold 300x{STAGED_MAX_W2}",
+              (20, 300, 10, STAGED_MAX_W2))]
     folds = []
     for what, (n1, w1, n2, w2) in cases:
         p1 = random_profile(rng, params, n1, w1, 0.0 if n1 == 1 else 0.2)
@@ -428,39 +517,42 @@ def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
         args, total, _ = wide_check(params, p1, p2, None, device, what)
         if what.endswith("prof-prof"):
             chain_args = (args, total)
+            # the L2 variant on the same merge
+            wide_check(params, p1, p2, None, device, what, variant="l2")
     a, b, cms, band = banded_case(rng, params)
     wide_check(params, a, b, band, device, "banded", cms)
+    wide_check(params, a, b, band, device, "banded", cms, variant="l2")
     wide_check(params, random_profile(rng, params, card_big, 24, 0.1),
                random_profile(rng, params, 4, 700), None, device,
                f"card {card_big}")
-    big = Params(device=device)
-    big.adjust(1000)
-    big.score_matrix = big.score_matrix.astype(np.int64) << 22
-    for k in ("gap_open", "gap_ext", "gap_term_open", "gap_term_ext"):
-        setattr(big, k, getattr(big, k) << 22)
-    wide_check(big, random_profile(rng, big, 3, 100),
-               random_profile(rng, big, 2, 6000), None, device,
-               "2^22-scaled 100x6000")
+    big = scaled_params(device)
+    for w2 in (3000, 6000):          # staged, then the L2 variant
+        wide_check(big, random_profile(rng, big, 3, 100),
+                   random_profile(rng, big, 2, w2), None, device,
+                   f"2^22-scaled 100x{w2}")
     if folds[0] != 1 or folds[1] != 2 or max(folds) != 8:
         raise AssertionError(f"K3 cases cover folds {folds}, not 1, 2, 8")
-    msg = (f"phase 3b K3: bit-exact vs its plain version and K2's (dirs, "
-           f"finals, last, path, total) and path/total = native host DP on "
-           f"{', '.join(w for w, _ in cases)} (folds {folds}), banded, card "
-           f"{card_big}, 2^22-scaled 100x6000")
+    msg = (f"phase 3b K3: staged bit-exact vs its plain version and K2's "
+           f"(dirs, finals, last, path, total) and path/total = native host "
+           f"DP on {', '.join(w for w, _ in cases)} (folds {folds}), banded, "
+           f"card {card_big}, 2^22-scaled 100x3000; L2 variant on "
+           f"{chain[0]}x{chain[1]}, banded, 2^22-scaled 100x6000")
     lims = [limit, (64, MAX_W2)]
     for w1, w2 in lims:
         _, _, t = wide_check(params, random_profile(rng, params, 4, w1),
                              random_profile(rng, params, 3, w2), None, device,
                              f"{w1}x{w2}", refs=("K2",))
-        msg += (f"; {w1}x{w2} (geometry {fold_geometry(w2)}) = K2 and host "
+        msg += (f"; L2 {w1}x{w2} (geometry {fold_geometry(w2)}) = K2 and host "
                 f"DP, call ms K3 {t['K3']:.1f} K2 {t['K2']:.1f}")
     if device == "cuda":
         args, total = chain_args
         k3 = cuda_ms(lambda: dp_dirs_wide(*args, total), 5)
+        l2 = cuda_ms(lambda: dp_dirs_wide(*args, total, variant="l2"), 5)
         k2 = cuda_ms(lambda: dp_dirs(*args, total), 5)
         cells = chain[0] * chain[1]
-        msg += (f"; lone {chain[0]}x{chain[1]}: K3 {k3:.3f} ms "
-                f"({cells / k3 * 1e3:.4g} cells/s), K2 {k2:.3f} ms")
+        msg += (f"; lone {chain[0]}x{chain[1]}: K3 staged {k3:.3f} ms "
+                f"({cells / k3 * 1e3:.4g} cells/s), L2 {l2:.3f} ms, K2 "
+                f"{k2:.3f} ms")
     log(msg)
 
 
@@ -498,28 +590,44 @@ def stage_report(name, secs, stats, counts):
     st = read_stats(stats)
     return (f"{name}: {secs:.2f} s (tree {float(st['time.tree_build']):.2f}, "
             f"alignment {float(st['time.alignment']):.2f}, refinement "
-            f"{float(st['time.refinement']):.2f}), launches K1 "
-            f"{counts['lcs']} K2 {counts['dp']} K3 {counts['dp_wide']}")
+            f"{float(st['time.refinement']):.2f}), launches K1 rows "
+            f"{counts['lcs']} wave {counts['lcs_wave']} K2 {counts['dp']} "
+            f"K3 staged {counts['dp_wide']} L2 {counts['dp_wide_l2']}")
 
 
-def check_launches(what, counts, needed):
-    """Each run must launch the kernels it is meant to exercise."""
+def check_launches(what, counts, needed, wide_calls=None):
+    """Each run must launch the kernels it is meant to exercise.  Every
+    Prim round's LCS (a single reference) goes to K1's wave variant, so a
+    run that builds the default guide tree launches no rows variant; with
+    wide_calls (the w2 of every K3 call of the run), every K3 call at w2
+    <= STAGED_MAX_W2 must have gone to the staged variant."""
+    from famsa_tpu_torch.ops.dp_wide import STAGED_MAX_W2
     missing = [k for k in needed if counts[k] == 0]
     if missing:
         raise AssertionError(f"{what}: kernels {missing} were never "
                              f"launched: {counts}")
+    if "lcs_wave" in needed and counts["lcs"]:
+        raise AssertionError(f"{what}: Prim rounds launched K1's rows "
+                             f"variant: {counts}")
+    if wide_calls is not None:
+        staged = sum(w2 <= STAGED_MAX_W2 for w2 in wide_calls)
+        if (staged, len(wide_calls) - staged) != (counts["dp_wide"],
+                                                  counts["dp_wide_l2"]):
+            raise AssertionError(f"{what}: {staged} K3 calls at w2 <= "
+                                 f"{STAGED_MAX_W2} and {len(wide_calls) - staged}"
+                                 f" wider, launches {counts}")
 
 
-# the kernels the default 1000-sequence run must launch: K1 (the guide
-# tree), K2 (merges ready together) and K3 (lone merges and refinement's
-# guided re-alignments, at the default FAMSA_TORCH_WIDE_MIN_CELLS)
-DEFAULT_KERNELS = ("lcs", "dp", "dp_wide")
+# the kernels the default 1000-sequence run must launch: K1's wave variant
+# (the guide tree's Prim rounds), K2 (merges ready together) and K3's
+# staged variant (lone merges and refinement's guided re-alignments, at
+# the default FAMSA_TORCH_WIDE_MIN_CELLS)
+DEFAULT_KERNELS = ("lcs_wave", "dp", "dp_wide")
 
 
-def phase_main(work, device="cuda", n=1000, mean_len=300, recorder=None):
-    """Returns the launch counts of the default torch run (the main
-    path as a user runs it); the recorder sees that run's K1 and K2
-    calls."""
+def phase_main(work, recorder, device="cuda", n=1000, mean_len=300):
+    """The main path as a user runs it; the recorder times every kernel
+    launch of the default torch run ("1000")."""
     from famsa_tpu_torch import kernels
     fa = os.path.join(work, "fam.fa")
     with open(fa, "w") as f:
@@ -528,31 +636,28 @@ def phase_main(work, device="cuda", n=1000, mean_len=300, recorder=None):
     runs = [("torch", torch_flags, {}, DEFAULT_KERNELS),
             ("torch_k2", torch_flags, {"FAMSA_TORCH_DP_MIN_CELLS": "0",
                                        "FAMSA_TORCH_WIDE_MIN_CELLS": "1e30"},
-             ("lcs", "dp")),
+             ("lcs_wave", "dp")),
             ("torch_k3", torch_flags, {"FAMSA_TORCH_DP_MIN_CELLS": "0",
                                        "FAMSA_TORCH_WIDE_MIN_CELLS": "0",
                                        "FAMSA_TORCH_MAX_BATCH": "1"},
-             ("lcs", "dp_wide")),
+             ("lcs_wave", "dp_wide")),
             ("numpy", ["-backend", "numpy"], {}, ())]
-    outs, report, launches = {}, [], {}
+    outs, report = {}, []
     for name, flags, env, needed in runs:
         out = os.path.join(work, f"out_{name}.fa")
         stats = os.path.join(work, f"stats_{name}.txt")
+        recorder.start("1000" if name == "torch" else None)
         kernels.reset_launches()
-        if recorder is not None and name == "torch":
-            recorder.active = {"lcs", "dp"}
         rc, secs = run_cli(flags + ["-stats", stats, fa, out], env)
-        if recorder is not None:
-            recorder.active = set()
         counts = dict(kernels.LAUNCHES)
-        launches[name] = counts
+        wide_calls = recorder.stop(counts)
         if rc != 0:
             raise AssertionError(f"main path {name}: rc={rc}")
         with open(out, "rb") as f:
             outs[name] = f.read()
         report.append(stage_report(name, secs, stats, counts))
         if device == "cuda":
-            check_launches(f"main path {name}", counts, needed)
+            check_launches(f"main path {name}", counts, needed, wide_calls)
     for name in ("torch", "torch_k2", "torch_k3"):
         if outs[name] != outs["numpy"]:
             raise AssertionError(f"main path: {name} output differs from "
@@ -560,28 +665,52 @@ def phase_main(work, device="cuda", n=1000, mean_len=300, recorder=None):
     log(f"phase 4 main path ({n} seqs, mean len {mean_len}, refinement "
         f"on): torch, torch_k2 and torch_k3 byte-identical to numpy; "
         + "; ".join(report))
-    return launches["torch"]
 
 
-def phase_tree(work, device="cuda", n=2000, mean_len=300, chunk=300):
+def phase_tree(work, recorder, device="cuda", n=2000, mean_len=300,
+               chunk=300):
+    """-gt_export of an n-sequence family, torch against numpy: with a
+    Prim chunk small enough to cross chunk boundaries, and under -dist
+    indel_div_lcs, whose host Prim reads distance rows from
+    TorchDistanceBackend (at n >= 2000 a first block of 256 references
+    on K1's rows variant, then single rows on its wave variant); the
+    recorder times that run's launches ("dist")."""
+    from famsa_tpu_torch import kernels
     fa = os.path.join(work, "fam_tree.fa")
     with open(fa, "w") as f:
         f.write(make_family(n, mean_len, 11))
-    outs, secs = {}, {}
-    for name, flags in (("torch", ["-backend", "torch", "-device", device]),
-                        ("numpy", ["-backend", "numpy"])):
-        out = os.path.join(work, f"tree_{name}.dnd")
-        rc, secs[name] = run_cli(flags + ["-gt_export", fa, out],
-                                 {"FAMSA_TORCH_PRIM_CHUNK": str(chunk)})
-        if rc != 0:
-            raise AssertionError(f"gt_export {name}: rc={rc}")
-        with open(out, "rb") as f:
-            outs[name] = f.read()
-    if outs["torch"] != outs["numpy"]:
-        raise AssertionError("gt_export: torch tree differs from numpy")
-    log(f"phase 5 guide tree ({n} seqs, Prim chunk {chunk}): torch "
-        f"byte-identical to numpy; torch {secs['torch']:.2f} s, numpy "
-        f"{secs['numpy']:.2f} s")
+    cases = (("tree", [], {"FAMSA_TORCH_PRIM_CHUNK": str(chunk)}),
+             ("dist", ["-dist", "indel_div_lcs"], {}))
+    msg = []
+    for what, extra, env in cases:
+        outs, secs = {}, {}
+        for name, flags in (("torch", ["-backend", "torch", "-device",
+                                       device]),
+                            ("numpy", ["-backend", "numpy"])):
+            out = os.path.join(work, f"{what}_{name}.dnd")
+            active = what == "dist" and name == "torch"
+            recorder.start("dist" if active else None)
+            kernels.reset_launches()
+            rc, secs[name] = run_cli(flags + extra + ["-gt_export", fa, out],
+                                     env)
+            counts = dict(kernels.LAUNCHES)
+            recorder.stop(counts)
+            if rc != 0:
+                raise AssertionError(f"gt_export {what} {name}: rc={rc}")
+            if active and device == "cuda":
+                check_launches("gt_export -dist indel_div_lcs", counts,
+                               ("lcs",))
+            with open(out, "rb") as f:
+                outs[name] = f.read()
+        if outs["torch"] != outs["numpy"]:
+            raise AssertionError(f"gt_export {what}: torch tree differs "
+                                 "from numpy")
+        msg.append(f"{n} seqs {' '.join(extra) or f'Prim chunk {chunk}'}:"
+                   f" torch {secs['torch']:.2f} s, numpy {secs['numpy']:.2f} s")
+    log("phase 5 guide tree (-gt_export), torch byte-identical to numpy: "
+        + "; ".join(msg) + f"; K1 launches of the -dist run: rows "
+        f"{recorder.counts['dist']['lcs']} wave "
+        f"{recorder.counts['dist']['lcs_wave']}")
 
 
 class RouteCounter:
@@ -609,9 +738,9 @@ class RouteCounter:
         pipeline.split_wide, pipeline.align_into = split_wide, align_into
 
 
-def phase_wide(work, device="cuda", n=10000, mean_len=300, recorder=None):
-    """Returns the launch counts of the default torch run; the recorder
-    sees that run's K3 calls."""
+def phase_wide(work, recorder, device="cuda", n=10000, mean_len=300):
+    """The wide path; the recorder times every kernel launch of the
+    default torch run ("10000")."""
     from famsa_tpu_torch import kernels
     fa = os.path.join(work, "fam_wide.fa")
     with open(fa, "w") as f:
@@ -628,72 +757,147 @@ def phase_wide(work, device="cuda", n=10000, mean_len=300, recorder=None):
                                    tree])):
         out = os.path.join(work, f"wide_{name}.fa")
         stats = os.path.join(work, f"wide_stats_{name}.txt")
-        kernels.reset_launches()
         routes.active = name == "torch"
-        if recorder is not None and name == "torch":
-            recorder.active = {"dp_wide"}
+        recorder.start("10000" if name == "torch" else None)
+        kernels.reset_launches()
         rc, secs = run_cli(flags + ["-stats", stats, fa, out], {})
+        counts = dict(kernels.LAUNCHES)
+        wide_calls = recorder.stop(counts)
         routes.active = False
-        if recorder is not None:
-            recorder.active = set()
         if rc != 0:
             raise AssertionError(f"wide path {name}: rc={rc}")
-        counts = dict(kernels.LAUNCHES)
-        if name == "torch":
-            launches = counts
+        if name == "torch" and device == "cuda":
+            check_launches("wide path torch", counts, DEFAULT_KERNELS,
+                           wide_calls)
         with open(out, "rb") as f:
             outs[name] = f.read()
         report.append(stage_report(name, secs, stats, counts))
     if outs["torch"] != outs["numpy"]:
         raise AssertionError("wide path: torch output differs from numpy")
-    if device == "cuda":
-        check_launches("wide path torch", launches, ("lcs", "dp", "dp_wide"))
     c = routes.counts
     log(f"phase 6 wide path ({n} seqs, mean len {mean_len}, refinement "
         f"off): torch byte-identical to numpy on the torch tree "
         f"(-gt_export {t_tree:.2f} s); profile merges per route: host "
         f"{c['host']}, K2 {c['K2']}, K3 {c['K3']}; " + "; ".join(report))
-    return launches
+
+
+# kernel variant -> (library, C entry point, source, the TPU kernel it
+# replaces)
+VARIANTS = {
+    "lcs": ("lcs", "lcs_bitpar", "famsa_tpu_torch/csrc/lcs.cu",
+            "famsa_tpu/ops/lcs_pallas.py:102"),
+    "lcs_wave": ("lcs", "lcs_wave", "famsa_tpu_torch/csrc/lcs.cu",
+                 "famsa_tpu/ops/lcs_pallas.py:102"),
+    "dp": ("dp", "dp_profile_batched", "famsa_tpu_torch/csrc/dp.cu",
+           "famsa_tpu/ops/dp_pallas.py:186"),
+    "dp_wide": ("dp_wide", "dp_profile_wide", "famsa_tpu_torch/csrc/dp_wide.cu",
+                "famsa_tpu/ops/dp_giant.py:90"),
+    "dp_wide_l2": ("dp_wide", "dp_profile_wide_l2",
+                   "famsa_tpu_torch/csrc/dp_wide.cu",
+                   "famsa_tpu/ops/dp_giant.py:90"),
+}
+# the run whose launch count a variant's entry reports: the main path's
+# default run, and for K1's rows variant the -dist tree run
+LAUNCH_RUN = {"lcs": "dist", "lcs_wave": "1000", "dp": "1000",
+              "dp_wide": "1000", "dp_wide_l2": "10000"}
 
 
 class LaunchRecorder:
-    """Keeps the inputs of the largest K1, K2 and K3 calls made while
-    their kernel is in `active` (the main path's shapes, for timing after
-    the run)."""
+    """Times every kernel launch of the run it is started for with CUDA
+    events recorded on the launch stream right around the C entry point,
+    counts the launches per variant, and keeps the inputs of the largest
+    call of each variant (the main path's shapes, timed after the runs).
+    Launches outside a started run (the checks, the timing) are not
+    recorded."""
 
     def __init__(self):
+        import torch
+        from famsa_tpu_torch import kernels
         import famsa_tpu_torch.ops.dp_torch as dpt
         import famsa_tpu_torch.ops.dp_wide as dpw
         import famsa_tpu_torch.ops.lcs_torch as lct
         import famsa_tpu_torch.ops.prim_torch as pt
-        self.active = set()
-        self.dp = self.dp_wide = self.lcs = None
+        self.run = None
+        self.events = {}            # run -> variant -> [(start, end)]
+        self.counts = {}            # run -> LAUNCHES after the run
+        self.inputs = {}            # variant -> (size, args)
         self.batch_sizes = []
-        self.launches = {}
+        self.wide_calls = []
+
+        for key, (lib_name, entry, _, _) in VARIANTS.items():
+            lib = kernels.get(lib_name)
+            orig = getattr(lib, entry)
+
+            def timed(*a, _key=key, _orig=orig):
+                if self.run is None:
+                    return _orig(*a)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                err = _orig(*a)
+                end.record()
+                self.events[self.run].setdefault(_key, []).append((start,
+                                                                   end))
+                return err
+            setattr(lib, entry, timed)
+
+        def keep(key, size, args):
+            if self.run is not None and (key not in self.inputs
+                                         or size > self.inputs[key][0]):
+                self.inputs[key] = (size, args)
+
         orig_dp, orig_wide = dpt.dp_dirs, dpw.dp_dirs_wide
         orig_lcs = lct.lcs_rows
 
         def dp_dirs(colf, rowf, meta, total):
-            if "dp" in self.active:
+            if self.run is not None:
                 self.batch_sizes.append(int(meta.shape[0]))
-                if self.dp is None or total > self.dp[3]:
-                    self.dp = (colf, rowf, meta, total)
+            keep("dp", total, (colf, rowf, meta, total))
             return orig_dp(colf, rowf, meta, total)
 
-        def dp_dirs_wide(colf, rowf, meta, total):
-            if "dp_wide" in self.active and (self.dp_wide is None
-                                             or total > self.dp_wide[3]):
-                self.dp_wide = (colf, rowf, meta, total)
-            return orig_wide(colf, rowf, meta, total)
+        def dp_dirs_wide(colf, rowf, meta, total, variant=None):
+            w2 = int(meta[0, 1])
+            variant = variant or dpw.k3_variant(w2)
+            self.wide_calls.append(w2)
+            keep("dp_wide" if variant == "staged" else "dp_wide_l2", total,
+                 (colf, rowf, meta, total))
+            return orig_wide(colf, rowf, meta, total, variant=variant)
 
-        def lcs_rows(table, syms, n_queries=None, out_dtype=None):
-            if "lcs" in self.active and self.lcs is None:
-                self.lcs = (table, syms.clone(), n_queries)
-            kw = {} if out_dtype is None else {"out_dtype": out_dtype}
-            return orig_lcs(table, syms, n_queries=n_queries, **kw)
+        def lcs_rows(table, syms, n_queries=None, out_dtype=torch.int32,
+                     variant=None):
+            nq = table.shape[2] if n_queries is None else n_queries
+            variant = variant or lct.lcs_variant(syms.shape[0], nq)
+            key = "lcs_wave" if variant == "wave" else "lcs"
+            if self.run is not None and key not in self.inputs:
+                keep(key, 0, (table, syms.clone(), nq))
+            return orig_lcs(table, syms, n_queries=n_queries,
+                            out_dtype=out_dtype, variant=variant)
 
         dpt.dp_dirs, dpw.dp_dirs_wide = dp_dirs, dp_dirs_wide
         lct.lcs_rows = pt.lcs_rows = lcs_rows
+
+    def start(self, run):
+        """Record the launches of `run` (None: record nothing but the w2
+        of the K3 calls)."""
+        self.run = run
+        self.wide_calls = []
+        if run is not None:
+            self.events[run] = {}
+
+    def stop(self, counts):
+        """End the run; returns the w2 of its K3 calls."""
+        if self.run is not None:
+            self.counts[self.run] = counts
+        self.run = None
+        return self.wide_calls
+
+    def totals(self, run, key):
+        """(launches, total ms, mean ms) of one variant in one run."""
+        import torch
+        torch.cuda.synchronize()
+        ev = self.events.get(run, {}).get(key, [])
+        tot = sum(s.elapsed_time(e) for s, e in ev)
+        return len(ev), tot, tot / len(ev) if ev else None
 
 
 def dp_max_err(got, want, meta):
@@ -706,60 +910,72 @@ def dp_max_err(got, want, meta):
 
 
 def kernel_report(rec):
+    """One entry per kernel variant the main-path runs launched: held
+    against its plain version at the largest input the runs gave it
+    (bit-exact, or the smoke fails), its CUDA-event time there, the
+    bound, and the per-run totals of every launch the recorder timed."""
     from famsa_tpu_torch.ops.dp_torch import dp_dirs, dp_plain
     from famsa_tpu_torch.ops.dp_wide import dp_dirs_wide, dp_wide_plain
     from famsa_tpu_torch.ops.lcs_torch import lcs_plain, lcs_rows
-    table, syms, nq = rec.lcs
-    q = table.shape[2] if nq is None else nq
-    got = lcs_rows(table, syms, n_queries=q)
-    want = lcs_plain(table, syms, q)
-    err_k1 = int((got[:, :q].long() - want[:, :q].long()).abs().max())
-    if err_k1:
-        raise AssertionError(f"K1 at the main path's shape ({syms.shape[0]} "
-                             f"ref x {q} queries, L={syms.shape[1]}): max "
-                             f"abs error {err_k1} against the plain version")
-    k1_ms = cuda_ms(lambda: lcs_rows(table, syms, n_queries=q), 50)
-    k1_plain = wall_ms(lambda: lcs_plain(table, syms, q))
-    k1_bound, k1_by = lcs_bound_ms(table, syms, q)
-
-    entries = []
-    for name, fn, plain, args in (("K2", dp_dirs, dp_plain, rec.dp),
-                                  ("K3", dp_dirs_wide, dp_wide_plain,
-                                   rec.dp_wide)):
-        colf, rowf, meta, total = args
-        res = {}
-        plain_ms = wall_ms(lambda: res.setdefault(
-            "plain", plain(colf, rowf, meta, total)))
-        err = dp_max_err(fn(colf, rowf, meta, total), res["plain"], meta)
+    out, shapes = [], []
+    for key, (_, entry, source, replaces) in VARIANTS.items():
+        # its count in its own run, else in the first run that launched it
+        run = next((r for r in (LAUNCH_RUN[key], "1000", "10000", "dist")
+                    if rec.counts[r][key]), None)
+        if run is None:
+            shapes.append(f"{entry}: not launched by the main-path runs")
+            continue
+        launches = rec.counts[run][key]
+        args = rec.inputs[key][1]
+        if key in ("lcs", "lcs_wave"):
+            table, syms, q = args
+            variant = "wave" if key == "lcs_wave" else "rows"
+            got = lcs_rows(table, syms, n_queries=q, variant=variant)
+            want = lcs_plain(table, syms, q)
+            err = int((got[:, :q].long() - want[:, :q].long()).abs().max())
+            ms = cuda_ms(lambda: lcs_rows(table, syms, n_queries=q,
+                                          variant=variant), 50)
+            plain_ms = wall_ms(lambda: lcs_plain(table, syms, q))
+            bms, by = lcs_bound_ms(table, syms, q)
+            shapes.append(f"{entry} {syms.shape[0]} ref x {q} queries "
+                          f"(L={syms.shape[1]}, W={table.shape[1]})")
+        else:
+            colf, rowf, meta, total = args
+            if key == "dp":
+                fn, plain = dp_dirs, dp_plain
+            else:
+                variant = "staged" if key == "dp_wide" else "l2"
+                fn = lambda *a: dp_dirs_wide(*a, variant=variant)  # noqa: E731
+                plain = dp_wide_plain
+            res = {}
+            plain_ms = wall_ms(lambda: res.setdefault(
+                "plain", plain(colf, rowf, meta, total)))
+            err = dp_max_err(fn(colf, rowf, meta, total), res["plain"], meta)
+            ms = cuda_ms(lambda: fn(colf, rowf, meta, total), 5)
+            bms, by = dp_bound_ms(colf, rowf, meta, total)
+            shapes.append(f"{entry} {meta.shape[0]} merge(s), "
+                          f"{meta[:, :2].tolist()}")
         if err:
-            raise AssertionError(f"{name} at the main path's shape "
-                                 f"({meta.shape[0]} merges, {total} cells): "
-                                 f"max abs error {err} against the plain "
-                                 "version")
-        ms = cuda_ms(lambda: fn(colf, rowf, meta, total), 5)
-        entries.append((err, ms, plain_ms) + dp_bound_ms(*args))
+            raise AssertionError(f"{entry} at the main path's shape: max abs "
+                                 f"error {err} against the plain version")
+        runs = {}
+        for r in ("1000", "10000", "dist"):
+            n, tot, mean = rec.totals(r, key)
+            if n:
+                runs[r] = {"launches": n, "total_ms": tot, "mean_ms": mean}
+        out.append({"name": entry, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None,
+                    "launches_run": run, "runs": runs})
     hist = np.bincount(rec.batch_sizes) if rec.batch_sizes else []
-    w1, w2 = rec.dp_wide[2][0, :2].tolist()
-    log(f"kernels at main-path shapes: K1 one Prim round ({syms.shape[0]} "
-        f"ref x {q} queries, L={syms.shape[1]}); K2 largest batch of the "
-        f"default run ({rec.dp[2].shape[0]} merges, {rec.dp[3]} cells); its "
-        f"K2 batch sizes (count by size 0..): {list(map(int, hist))}; K3 "
-        f"largest call of the wide path ({w1}x{w2})")
-    out = [{"name": "lcs_bitpar", "route": "cuda",
-            "source": "famsa_tpu_torch/csrc/lcs.cu",
-            "replaces": "famsa_tpu/ops/lcs_pallas.py:102",
-            "launches": rec.launches["lcs"], "max_abs_err": err_k1,
-            "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-            "bound_by": k1_by, "library_ms": None}]
-    for (name, source, replaces, key), (err, ms, pms, bms, by) in zip(
-            (("dp_profile_batched", "famsa_tpu_torch/csrc/dp.cu",
-              "famsa_tpu/ops/dp_pallas.py:186", "dp"),
-             ("dp_profile_wide", "famsa_tpu_torch/csrc/dp_wide.cu",
-              "famsa_tpu/ops/dp_giant.py:90", "dp_wide")), entries):
-        out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": rec.launches[key],
-                    "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                    "bound_ms": bms, "bound_by": by, "library_ms": None})
+    log("kernels at main-path shapes (largest call of each variant): "
+        + "; ".join(shapes) + f"; K2 batch sizes (count by size 0..): "
+        f"{list(map(int, hist))}")
+    for e in out:
+        log(f"  {e['name']}: " + ", ".join(
+            f"run {r}: {v['launches']} launches, {v['total_ms']:.3f} ms in "
+            f"all, {v['mean_ms']:.5f} ms mean" for r, v in e["runs"].items()))
     return out
 
 
@@ -773,17 +989,17 @@ def main():
     t0 = time.perf_counter()
     smi = nvidia_smi()
     secs = kernels.build_all()
-    log(f"phase 1 build: {secs:.1f} s for {len(kernels.KERNELS)} kernels; "
-        f"{smi}")
+    log(f"phase 1 build: {secs:.1f} s for {len(kernels.KERNELS)} kernel "
+        f"sources; {smi}")
     phase_k1()
     phase_k2()
     phase_k3()
     rec = LaunchRecorder()
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=os.path.dirname(
             os.path.abspath(__file__))) as work:
-        rec.launches = phase_main(work, recorder=rec)
-        phase_tree(work)
-        rec.launches["dp_wide"] = phase_wide(work, recorder=rec)["dp_wide"]
+        phase_main(work, rec)
+        phase_tree(work, rec)
+        phase_wide(work, rec)
     kern = kernel_report(rec)
     log(f"smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kern}))

@@ -54,8 +54,10 @@ dp_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
 
     Stripe<S> st;
     row0<S>(st, cf, ldc, w2, j0, SS, dr);
+    BlockXch xch{sh};
+    const GlobalCols cols{cf, ldc, j0};
     for (i64 i = 1; i <= w1; ++i)
-        dp_row<S>(st, sh, cf, ldc, rf + (size_t)i * NROWF, i, w1, w2, j0, SS,
+        dp_row<S>(st, xch, cols, rf + (size_t)i * NROWF, i, w1, w2, j0, SS,
                   t, NEG, NEG, IMIN, dr + i * stride, fb + (size_t)(i - 1) * 3);
 }
 

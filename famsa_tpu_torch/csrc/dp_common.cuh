@@ -27,6 +27,15 @@
 // the running max of m - bc over every column left of the CTA (the seed
 // of the block max-scan), read by every thread.  H at a stripe's left
 // halo is rebuilt from the scan prefix, so it need not be exchanged.
+//
+// dp_row is one body for both kernels, templated on where its column
+// factors come from (Cols: GlobalCols reads the planes from global memory,
+// K2 and K3's L2 variant; K3's staged variant keeps its column's factors
+// in registers and the score planes in shared memory) and on how threads
+// exchange the stripe-end D/V and the warp maxima of the scan (Xch:
+// BlockXch, two CTA barriers a row; K3's staged variant passes them by
+// shuffles and one CTA barrier, csrc/dp_wide.cu).  The row factors are
+// read through a pointer, global (K2) or shared (K3 staged).
 
 #pragma once
 
@@ -85,6 +94,47 @@ struct RowShared {
 
 #define CF(p, j) __ldg(cf + (size_t)(p) * ldc + (j))
 
+// Column factors read from global memory: plane p at column j0 + k.
+struct GlobalCols {
+    const i64* __restrict__ cf;
+    int ldc;
+    i64 j0;
+    static constexpr bool SHARED_SCORES = false;
+    __device__ __forceinline__ i64 operator()(int p, int k) const {
+        return CF(p, j0 + k);
+    }
+    __device__ __forceinline__ i64 score(i64 s, int k) const {
+        return CF(s, j0 + k);
+    }
+    // plane p (C_CUME or C_CUMT) at column j0 - 1
+    __device__ __forceinline__ i64 left(int p) const { return CF(p, j0 - 1); }
+};
+
+// Two CTA barriers a row: every thread stores its stripe-end D/V, and
+// lane 31 of every warp its warp maximum, in shared memory.
+struct BlockXch {
+    RowShared& sh;
+    __device__ __forceinline__ void edge(i64 i, int t, i64 dl, i64 vl,
+                                         i64 eD, i64 eV, i64& lD, i64& lV) {
+        const int buf = (int)(i & 1);
+        sh.xD[buf][t] = dl;
+        sh.xV[buf][t] = vl;
+        __syncthreads();
+        lD = t > 0 ? sh.xD[buf][t - 1] : eD;
+        lV = t > 0 ? sh.xV[buf][t - 1] : eV;
+    }
+    // max of the warp maxima left of thread t's warp (IMIN if none);
+    // inc: the warp-inclusive scan (lane 31 holds the warp maximum)
+    __device__ __forceinline__ i64 warps_left(i64 i, int t, i64 inc) {
+        const int lane = t & 31, warp = t >> 5;
+        if (lane == 31) sh.wmax[warp] = inc;
+        __syncthreads();
+        i64 P = IMIN;
+        for (int w = 0; w < warp; ++w) P = imax(P, sh.wmax[w]);
+        return P;
+    }
+};
+
 // DP row 0 of the stripe starting at global column j0 (profile_seq.cpp:
 // 555-579 boundary; h0 carries -inf at columns 0 and w2).  dr: the
 // merge's direction bytes, row 0 first.
@@ -111,14 +161,14 @@ __device__ __forceinline__ void row0(Stripe<S>& st, const i64* __restrict__ cf,
 
 // DP row i (1 <= i <= w1) of the stripe starting at global column j0,
 // thread t of the CTA (all threads of the CTA call it together: it holds
-// two barriers).  eD, eV: the current row's D and V left of the CTA's
+// the exchange's barriers).  eD, eV: the current row's D and V left of the CTA's
 // first column (read by t == 0); seed: the running max of m - bc over the
 // columns left of the CTA.  Writes the row's direction bytes to drow and,
 // from the thread owning column w2, the last-column (D, H, V) to frow.
 // Returns the running max of m - bc through the stripe's last column.
-template <int S>
-__device__ __forceinline__ i64 dp_row(Stripe<S>& st, RowShared& sh,
-                                      const i64* __restrict__ cf, int ldc,
+template <int S, class Cols, class Xch>
+__device__ __forceinline__ i64 dp_row(Stripe<S>& st, Xch& xch,
+                                      const Cols& cols,
                                       const i64* __restrict__ rr, i64 i,
                                       i64 w1, i64 w2, i64 j0, int SS, int t,
                                       i64 eD, i64 eV, i64 seed,
@@ -126,7 +176,7 @@ __device__ __forceinline__ i64 dp_row(Stripe<S>& st, RowShared& sh,
                                       i64* __restrict__ frow) {
     constexpr int SA = Stripe<S>::SA;
     constexpr int SU = S > 0 ? S : 1;
-    const int lane = t & 31, warp = t >> 5;
+    const int lane = t & 31;
     const int nnz = (int)rr[R_NNZ];
     const i64 nng = rr[R_NNG], n1c = rr[R_N1C], n1tc = rr[R_N1TC];
     const i64 s1go = rr[R_S1GO], s1ge = rr[R_S1GE];
@@ -157,25 +207,31 @@ __device__ __forceinline__ i64 dp_row(Stripe<S>& st, RowShared& sh,
         const i64 lpH = k == 0 ? st.hH : pH[k - 1];
         const i64 lpV = k == 0 ? st.hV : pV[k - 1];
         i64 tt = 0;
-        for (int q = 0; q < nnz; ++q)
-            tt = add(tt, mul(rr[R_CNT + q], CF(rr[R_SYM + q], j)));
-        const i64 p2o = CF(C_P2O, j), p2e = CF(C_P2E, j);
-        const i64 p2to = CF(C_P2TO, j), p2te = CF(C_P2TE, j);
+        if constexpr (Cols::SHARED_SCORES) {
+#pragma unroll 4
+            for (int q = 0; q < nnz; ++q)
+                tt = add(tt, mul(rr[R_CNT + q], cols.score(rr[R_SYM + q], k)));
+        } else {
+            for (int q = 0; q < nnz; ++q)
+                tt = add(tt, mul(rr[R_CNT + q], cols.score(rr[R_SYM + q], k)));
+        }
+        const i64 p2o = cols(C_P2O, k), p2e = cols(C_P2E, k);
+        const i64 p2to = cols(C_P2TO, k), p2te = cols(C_P2TE, k);
         const i64 delta = add(mul(n1c, sub(p2e, p2o)),
                               mul(n1tc, sub(p2te, p2to)));
         // D channel (_choose_D: strict D, then tH > tV -> H else V)
         i64 tD = add(lpD, tt);
         i64 tH = add(add(lpH, tt), delta);
-        i64 tV = add(add(lpV, tt), mul(CF(C_G2CHG, j), nng));
+        i64 tV = add(add(lpV, tt), mul(cols(C_G2CHG, k), nng));
         const bool pickD = tD > tH && tD > tV;
         const bool pickH = !pickD && tH > tV;
         i64 D = pickD ? tD : (pickH ? tH : tV);
         const int dD = pickD ? 0 : (pickH ? 1 : 2);
         // V channel (_choose_V3)
         const bool three = i_gt1 && j > 1;
-        const i64 gvs = add(add(mul(s1go, CF(C_G2SO, j)), mul(s1ge, CF(C_G2SE, j))),
-                            add(mul(s1gto, CF(C_G2STO, j)), mul(s1gte, CF(C_G2STE, j))));
-        const i64 gvc = add(mul(s1ge, CF(C_G2CE, j)), mul(s1gte, CF(C_G2CTE, j)));
+        const i64 gvs = add(add(mul(s1go, cols(C_G2SO, k)), mul(s1ge, cols(C_G2SE, k))),
+                            add(mul(s1gto, cols(C_G2STO, k)), mul(s1gte, cols(C_G2STE, k))));
+        const i64 gvc = add(mul(s1ge, cols(C_G2CE, k)), mul(s1gte, cols(C_G2CTE, k)));
         tD = add(pD[k], gvs);
         tH = add(pH[k], gvs);
         tV = add(pV[k], gvc);
@@ -198,12 +254,8 @@ __device__ __forceinline__ i64 dp_row(Stripe<S>& st, RowShared& sh,
     }
 
     // ---- pass the stripe's last D/V to the right neighbour
-    const int buf = (int)(i & 1);
-    sh.xD[buf][t] = pD[SS - 1];
-    sh.xV[buf][t] = pV[SS - 1];
-    __syncthreads();
-    const i64 lD = t > 0 ? sh.xD[buf][t - 1] : eD;
-    const i64 lV = t > 0 ? sh.xV[buf][t - 1] : eV;
+    i64 lD, lV;
+    xch.edge(i, t, pD[SS - 1], pV[SS - 1], eD, eV, lD, lV);
 
     // ---- pass B: m, x = m - bc and the stripe's running max of x
     i64 run = IMIN;
@@ -214,11 +266,11 @@ __device__ __forceinline__ i64 dp_row(Stripe<S>& st, RowShared& sh,
         if (j == 0 || j > w2) { st.loc[k] = run; continue; }
         const i64 Dl = k == 0 ? lD : pD[k - 1];
         const i64 Vl = k == 0 ? lV : pV[k - 1];
-        const i64 ghs = add(add(mul(CF(C_P2O, j), g1so), mul(CF(C_P2E, j), g1se)),
-                            add(mul(CF(C_P2TO, j), g1sto), mul(CF(C_P2TE, j), g1ste)));
+        const i64 ghs = add(add(mul(cols(C_P2O, k), g1so), mul(cols(C_P2E, k), g1se)),
+                            add(mul(cols(C_P2TO, k), g1sto), mul(cols(C_P2TE, k), g1ste)));
         const i64 mD = add(Dl, ghs), mV = add(Vl, ghs);
         const i64 m = (i_gt1 && j > 1) ? imax(mD, mV) : mD;
-        const i64 bc = add(mul(g1ce, CF(C_CUME, j)), mul(g1cte, CF(C_CUMT, j)));
+        const i64 bc = add(mul(g1ce, cols(C_CUME, k)), mul(g1cte, cols(C_CUMT, k)));
         run = imax(run, sub(m, bc));
         st.loc[k] = run;
         st.mDa[k] = mD;
@@ -235,9 +287,7 @@ __device__ __forceinline__ i64 dp_row(Stripe<S>& st, RowShared& sh,
     }
     i64 P = __shfl_up_sync(0xffffffffu, inc, 1);
     if (lane == 0) P = IMIN;
-    if (lane == 31) sh.wmax[warp] = inc;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) P = imax(P, sh.wmax[w]);
+    P = imax(P, xch.warps_left(i, t, inc));
     P = imax(P, seed);
 
     // ---- pass C: H, its direction, the packed bytes and the finals.
@@ -246,7 +296,7 @@ __device__ __forceinline__ i64 dp_row(Stripe<S>& st, RowShared& sh,
     if (j0 > 0) {
         const i64 jl = j0 - 1;
         if (jl >= 1 && jl <= w2 && jl >= lo && jl <= hi)
-            Hl = add(add(mul(g1ce, CF(C_CUME, jl)), mul(g1cte, CF(C_CUMT, jl))),
+            Hl = add(add(mul(g1ce, cols.left(C_CUME)), mul(g1cte, cols.left(C_CUMT))),
                      imax(P, NEG));
     }
     const i64 hHn = Hl;
@@ -261,10 +311,10 @@ __device__ __forceinline__ i64 dp_row(Stripe<S>& st, RowShared& sh,
             drow[0] = 2 | (2 << 2) | (2 << 4);
             continue;
         }
-        const i64 bc = add(mul(g1ce, CF(C_CUME, j)), mul(g1cte, CF(C_CUMT, j)));
+        const i64 bc = add(mul(g1ce, cols(C_CUME, k)), mul(g1cte, cols(C_CUMT, k)));
         i64 H = add(bc, imax(imax(P, st.loc[k]), NEG));
         if (j < lo || j > hi) H = NEG;
-        const i64 ghc = add(mul(CF(C_P2E, j), g1ce), mul(CF(C_P2TE, j), g1cte));
+        const i64 ghc = add(mul(cols(C_P2E, k), g1ce), mul(cols(C_P2TE, k), g1cte));
         const i64 tHh = add(Hl, ghc);
         const i64 mD = st.mDa[k], mV = st.mVa[k];
         int dH;

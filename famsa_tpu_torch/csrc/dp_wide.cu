@@ -21,6 +21,27 @@
 // cluster barrier per step publishes them, and the edge buffer is
 // double-buffered by step parity, so no fold waits on a flag.  A banded
 // merge computes every row in full and masks it, as B3 does.
+//
+// Two variants, chosen by w2 (ops/dp_wide.py:k3_variant):
+//
+// dp_profile_wide, "staged" (w2 <= 4095: folds of <= 512 columns, one
+// column a thread).  A row is latency-bound, so it keeps every operand
+// on chip: at launch the fold's 30 score planes are copied once into
+// shared memory by TMA bulk copies (cp.async.bulk, completion on an
+// mbarrier; <= 120 KB of dynamic shared memory), and the 13 other column
+// factors of the thread's column stay in registers for the whole launch.
+// The next step's block of row factors (blk x 77 i64) is prefetched with
+// cp.async into a double-buffered shared tile while the current block
+// computes, so passes A-C read no global memory.  Exchange (WarpXch): the
+// left neighbour's D/V come by __shfl_up_sync within a warp; only lane
+// 31's values cross to the next warp, through shared memory and a named
+// barrier between the two warps (bar.arrive / bar.sync, ids 1..15); the
+// warp maxima of the scan take the row's one CTA barrier and are reduced
+// by a five-step shuffle.
+//
+// dp_profile_wide_l2 (the first design, every width up to 32767): stripes of
+// 1-8 columns a thread, column and row factors read from global memory
+// (L2-resident) and two CTA barriers a row (BlockXch).
 
 #include <cooperative_groups.h>
 
@@ -34,7 +55,13 @@ using namespace famsa_dp;
 
 constexpr int MAX_FOLDS = 8;
 constexpr int BLK_MAX = 32;
+constexpr int MAX_WARPS = MAX_THREADS / 32;
+constexpr int NSCORE = 30;                      // score planes C_S2..
+constexpr int NREG = C_CUMT - C_P2O + 1;        // column factors in registers
+constexpr size_t STAGED_SMEM_MAX =
+    (size_t)NSCORE * MAX_THREADS * 8 + 2 * (size_t)BLK_MAX * NROWF * 8;
 
+// ---------------------------------------------------------------- L2
 template <int S>
 __global__ void __launch_bounds__(MAX_THREADS)
 dp_wide_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
@@ -57,6 +84,8 @@ dp_wide_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
 
     Stripe<S> st;
     row0<S>(st, colf, ldc, w2, j0, S, dirs);
+    BlockXch xch{sh};
+    const GlobalCols cols{colf, ldc, j0};
     cluster.sync();     // every fold runs before the first remote store
     for (i64 s = 0; s < nrb + F - 1; ++s) {
         const i64 b = s - f;
@@ -71,7 +100,7 @@ dp_wide_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                     eV = edge[in][r][1];
                     seed = edge[in][r][2];
                 }
-                const i64 run = dp_row<S>(st, sh, colf, ldc,
+                const i64 run = dp_row<S>(st, xch, cols,
                                           rowf + (size_t)i * NROWF, i, w1, w2,
                                           j0, S, t, eD, eV, seed,
                                           dirs + i * stride,
@@ -88,26 +117,232 @@ dp_wide_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
     }
 }
 
-template <int S>
-cudaError_t launch(const i64* colf, const i64* rowf, i64 w1, i64 w2,
-                   int folds, int threads, int ldc, int blk, uint8_t* dirs,
-                   i64* fin, cudaStream_t stream) {
+// ------------------------------------------------------------ staged
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// One column a thread: planes P2O..CUMT in registers, CUME/CUMT of the
+// column to the left for H's halo, the score planes in shared memory.
+struct FoldCols {
+    i64 f[NREG];
+    i64 cumEl, cumTl;
+    const i64* s2;          // shared [30][lds], offset to the thread's column
+    int lds;
+    static constexpr bool SHARED_SCORES = true;
+    __device__ __forceinline__ i64 operator()(int p, int) const {
+        return f[p - C_P2O];
+    }
+    __device__ __forceinline__ i64 score(i64 s, int) const {
+        return s2[(int)s * lds];
+    }
+    __device__ __forceinline__ i64 left(int p) const {
+        return p == C_CUME ? cumEl : cumTl;
+    }
+};
+
+// Shuffles within a warp, lane 31 to the next warp through shared memory
+// and a named barrier of the two warps, the warp maxima through one CTA
+// barrier (double-buffered by row parity, so no second barrier is needed
+// before they are overwritten).
+struct WarpXch {
+    i64* xD;                // [MAX_WARPS]
+    i64* xV;
+    i64* wmax;              // [2][MAX_WARPS]
+    int nwarps;
+    __device__ __forceinline__ void edge(i64, int t, i64 dl, i64 vl, i64 eD,
+                                         i64 eV, i64& lD, i64& lV) {
+        const int lane = t & 31, warp = t >> 5;
+        lD = __shfl_up_sync(0xffffffffu, dl, 1);
+        lV = __shfl_up_sync(0xffffffffu, vl, 1);
+        if (warp + 1 < nwarps) {            // feed the next warp
+            if (lane == 31) {
+                xD[warp] = dl;
+                xV[warp] = vl;
+            }
+            __threadfence_block();
+            asm volatile("bar.arrive %0, 64;" :: "r"(warp + 1) : "memory");
+        }
+        if (warp > 0) {
+            asm volatile("bar.sync %0, 64;" :: "r"(warp) : "memory");
+            if (lane == 0) {
+                lD = xD[warp - 1];
+                lV = xV[warp - 1];
+            }
+        } else if (lane == 0) {
+            lD = eD;
+            lV = eV;
+        }
+    }
+    __device__ __forceinline__ i64 warps_left(i64 i, int t, i64 inc) {
+        const int lane = t & 31, warp = t >> 5;
+        i64* wm = wmax + (i & 1) * MAX_WARPS;
+        if (lane == 31) wm[warp] = inc;
+        __syncthreads();
+        i64 v = lane < warp ? wm[lane] : IMIN;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            v = imax(v, __shfl_xor_sync(0xffffffffu, v, o));
+        return v;
+    }
+};
+
+// cp.async (8 bytes a thread) of rows [i0, i0 + n) of rowf into tile.
+__device__ __forceinline__ void load_rows(i64* tile, const i64* rowf, i64 i0,
+                                          int n, int t, int nt) {
+    const i64* src = rowf + (size_t)i0 * NROWF;
+    for (int e = t; e < n * NROWF; e += nt)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
+                     :: "r"(smem_addr(tile + e)), "l"(src + e) : "memory");
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+dp_wide_staged_kernel(const i64* __restrict__ colf,
+                      const i64* __restrict__ rowf, i64 w1, i64 w2, int ldc,
+                      int blk, uint8_t* __restrict__ dirs,
+                      i64* __restrict__ fin) {
+    extern __shared__ __align__(16) i64 dsm[];
+    __shared__ i64 edge[2][BLK_MAX][3];
+    __shared__ i64 xD[MAX_WARPS], xV[MAX_WARPS], wmax[2][MAX_WARPS];
+    __shared__ __align__(8) uint64_t bar;
+
+    cg::cluster_group cluster = cg::this_cluster();
+    const int f = (int)cluster.block_rank();
+    const int F = (int)cluster.num_blocks();
+    const int t = threadIdx.x;
+    const int fw = blockDim.x;                   // columns of a fold
+    const i64 c0 = (i64)f * fw;
+    const i64 j = c0 + t;
+    const i64 stride = w2 + 1;
+    const i64 nrb = (w1 + blk - 1) / blk;
+    i64* s2 = dsm;                               // [30][fw]
+    i64* rtile = dsm + NSCORE * fw;              // [2][blk][NROWF]
+
+    // the fold's score planes: one bulk copy a plane (ldc even and colf
+    // 16-byte aligned, checked by the entry point; a fold's columns are
+    // rounded up to an even count, which stays inside the plane's row)
+    if (t == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                     :: "r"(smem_addr(&bar)) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (t == 0) {
+        const i64 ncol = min((i64)fw, w2 + 1 - c0);
+        const uint32_t bytes = (uint32_t)(((ncol + 1) & ~1LL) * 8);
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     :: "r"(smem_addr(&bar)), "r"(bytes * NSCORE) : "memory");
+        for (int p = 0; p < NSCORE; ++p)
+            asm volatile(
+                "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+                " [%0], [%1], %2, [%3];"
+                :: "r"(smem_addr(s2 + p * fw)),
+                   "l"(colf + (size_t)(C_S2 + p) * ldc + c0), "r"(bytes),
+                   "r"(smem_addr(&bar))
+                : "memory");
+    }
+    // the column's other factors, for the whole launch
+    FoldCols cols;
+#pragma unroll
+    for (int p = 0; p < NREG; ++p)
+        cols.f[p] = j <= w2 ? __ldg(colf + (size_t)(C_P2O + p) * ldc + j) : 0;
+    cols.cumEl = cols.cumTl = 0;
+    if (j >= 1 && j - 1 <= w2) {
+        cols.cumEl = __ldg(colf + (size_t)C_CUME * ldc + j - 1);
+        cols.cumTl = __ldg(colf + (size_t)C_CUMT * ldc + j - 1);
+    }
+    cols.s2 = s2 + t;
+    cols.lds = fw;
+    load_rows(rtile, rowf, 1, (int)min((i64)blk, w1), t, fw);
+
+    i64* next = (f + 1 < F && t == fw - 1)
+                    ? cluster.map_shared_rank(&edge[0][0][0], f + 1) : nullptr;
+    Stripe<1> st;
+    row0<1>(st, colf, ldc, w2, j, 1, dirs);
+    WarpXch xch{xD, xV, &wmax[0][0], fw / 32};
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    {
+        uint32_t done = 0;
+        while (!done)
+            asm volatile(
+                "{ .reg .pred p;\n"
+                "  mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                "  selp.u32 %0, 1, 0, p; }"
+                : "=r"(done) : "r"(smem_addr(&bar)) : "memory");
+    }
+    cluster.sync();     // tiles visible; every fold runs before remote stores
+    for (i64 s = 0; s < nrb + F - 1; ++s) {
+        const i64 b = s - f;
+        if (b >= 0 && b < nrb) {
+            const int in = (int)((s + 1) & 1), out = (int)(s & 1);
+            const i64* cur = rtile + (b & 1) * blk * NROWF;
+            if (b + 1 < nrb)
+                load_rows(rtile + ((b + 1) & 1) * blk * NROWF, rowf,
+                          (b + 1) * blk + 1,
+                          (int)min((i64)blk, w1 - (b + 1) * blk), t, fw);
+            for (int r = 0; r < blk; ++r) {
+                const i64 i = b * blk + r + 1;
+                if (i > w1) break;
+                i64 eD = NEG, eV = NEG, seed = IMIN;
+                if (f > 0) {
+                    eD = edge[in][r][0];
+                    eV = edge[in][r][1];
+                    seed = edge[in][r][2];
+                }
+                const i64 run = dp_row<1>(st, xch, cols, cur + r * NROWF, i,
+                                          w1, w2, j, 1, t, eD, eV, seed,
+                                          dirs + i * stride,
+                                          fin + (size_t)(i - 1) * 3);
+                if (next != nullptr) {
+                    i64* e = next + (out * BLK_MAX + r) * 3;
+                    e[0] = st.pD[0];
+                    e[1] = st.pV[0];
+                    e[2] = run;
+                }
+            }
+            asm volatile("cp.async.wait_all;" ::: "memory");
+        }
+        cluster.sync();
+    }
+}
+
+cudaLaunchConfig_t cluster_config(int folds, int threads, size_t smem,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(folds, 1, 1);
     cfg.blockDim = dim3(threads, 1, 1);
-    cfg.dynamicSmemBytes = 0;
+    cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = folds;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
+    return cfg;
+}
+
+template <int S>
+cudaError_t launch(const i64* colf, const i64* rowf, i64 w1, i64 w2,
+                   int folds, int threads, int ldc, int blk, uint8_t* dirs,
+                   i64* fin, cudaStream_t stream) {
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg = cluster_config(folds, threads, 0, stream, attr);
     cudaError_t err = cudaLaunchKernelEx(&cfg, dp_wide_kernel<S>, colf, rowf,
                                          w1, w2, ldc, blk, dirs, fin);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
+}
+
+bool bad_geometry(long long w1, long long w2, int folds, int threads,
+                  int stripe, int ldc, int blk) {
+    const long long fw = (long long)threads * stripe;
+    return folds < 1 || folds > MAX_FOLDS || threads < 32 ||
+           threads > MAX_THREADS || threads % 32 != 0 || blk < 1 ||
+           blk > BLK_MAX || folds * fw < w2 + 1 ||
+           (folds - 1) * fw >= w2 + 1 || ldc < w2 + 1;
 }
 
 }  // namespace
@@ -120,15 +355,11 @@ extern "C" {
 // folds * threads * stripe must cover w2 + 1 and (folds - 1) * threads *
 // stripe must not (every fold but the last is full).  blk (1..32): rows
 // per wavefront step.  Returns the launch's cudaError_t (0 on success).
-int dp_profile_wide(const void* colf, const void* rowf, long long w1,
-                    long long w2, int folds, int threads, int stripe, int ldc,
-                    int blk, void* dirs, void* fin, void* stream) {
+int dp_profile_wide_l2(const void* colf, const void* rowf, long long w1,
+                       long long w2, int folds, int threads, int stripe,
+                       int ldc, int blk, void* dirs, void* fin, void* stream) {
     if (w1 < 1 || w2 < 1) return 0;
-    const long long fw = (long long)threads * stripe;
-    if (folds < 1 || folds > MAX_FOLDS || threads < 32 ||
-        threads > MAX_THREADS || threads % 32 != 0 || blk < 1 ||
-        blk > BLK_MAX || folds * fw < w2 + 1 || (folds - 1) * fw >= w2 + 1 ||
-        ldc < w2 + 1)
+    if (bad_geometry(w1, w2, folds, threads, stripe, ldc, blk))
         return (int)cudaErrorInvalidValue;
     const i64* c = static_cast<const i64*>(colf);
     const i64* r = static_cast<const i64*>(rowf);
@@ -142,6 +373,37 @@ int dp_profile_wide(const void* colf, const void* rowf, long long w1,
         case 8: return (int)launch<8>(c, r, w1, w2, folds, threads, ldc, blk, d, f, st);
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+// The staged variant, on the same arguments: stripe must be 1 (w2 <=
+// 4095), ldc even and colf 16-byte aligned (the bulk copies).
+int dp_profile_wide(const void* colf, const void* rowf, long long w1,
+                    long long w2, int folds, int threads, int stripe, int ldc,
+                    int blk, void* dirs, void* fin, void* stream) {
+    if (w1 < 1 || w2 < 1) return 0;
+    if (bad_geometry(w1, w2, folds, threads, stripe, ldc, blk) ||
+        stripe != 1 || ldc % 2 != 0 ||
+        reinterpret_cast<uintptr_t>(colf) % 16 != 0)
+        return (int)cudaErrorInvalidValue;
+    static bool smem_set = false;
+    if (!smem_set) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            dp_wide_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)STAGED_SMEM_MAX);
+        if (e != cudaSuccess) return (int)e;
+        smem_set = true;
+    }
+    const size_t smem = (size_t)NSCORE * threads * 8 + 2 * (size_t)blk * NROWF * 8;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg = cluster_config(folds, threads, smem,
+                                            static_cast<cudaStream_t>(stream),
+                                            attr);
+    cudaError_t err = cudaLaunchKernelEx(
+        &cfg, dp_wide_staged_kernel, static_cast<const i64*>(colf),
+        static_cast<const i64*>(rowf), (i64)w1, (i64)w2, ldc, blk,
+        static_cast<uint8_t*>(dirs), static_cast<i64*>(fin));
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -26,7 +26,9 @@ _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 KERNELS = ("lcs", "dp", "dp_wide")
 
-LAUNCHES = {"lcs": 0, "dp": 0, "dp_wide": 0}
+# one count per hand-written kernel variant: K1 rows and wave, K2, K3
+# staged (w2 <= 4095) and K3 with its column factors in L2 (wider)
+LAUNCHES = {"lcs": 0, "lcs_wave": 0, "dp": 0, "dp_wide": 0, "dp_wide_l2": 0}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _libs = {}
@@ -121,17 +123,18 @@ def build_all():
 def _configure(name, lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "lcs":
-        lib.lcs_bitpar.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, ci, vp]
-        lib.lcs_bitpar.restype = ci
+        for fn in (lib.lcs_bitpar, lib.lcs_wave):
+            fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, ci, vp]
+            fn.restype = ci
     elif name == "dp":
         lib.dp_profile_batched.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                            vp, vp, vp]
         lib.dp_profile_batched.restype = ci
     else:
-        lib.dp_profile_wide.argtypes = [vp, vp, ctypes.c_longlong,
-                                        ctypes.c_longlong, ci, ci, ci, ci, ci,
-                                        vp, vp, vp]
-        lib.dp_profile_wide.restype = ci
+        for fn in (lib.dp_profile_wide, lib.dp_profile_wide_l2):
+            fn.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_longlong, ci,
+                           ci, ci, ci, ci, vp, vp, vp]
+            fn.restype = ci
 
 
 def get(name):

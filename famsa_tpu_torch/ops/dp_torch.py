@@ -117,11 +117,12 @@ def pack_batch(merges):
 
     merges: list of (colf, rowf).  Returns (colf [B, NCOLF, ldc],
     rowf [B, ldr, NROWF], meta [B, 4] (w1, w2, dirs byte offset, 0),
-    total dirs bytes)."""
+    total dirs bytes).  ldc is rounded up to even, so that every plane
+    starts 16-byte aligned (K3's bulk copies)."""
     b = len(merges)
     w2s = [c.shape[1] - 1 for c, _ in merges]
     w1s = [r.shape[0] - 1 for _, r in merges]
-    ldc = max(w2s) + 1
+    ldc = -(-(max(w2s) + 1) // 2) * 2
     ldr = max(w1s) + 1
     colf = np.zeros((b, NCOLF, ldc), dtype=np.int64)
     rowf = np.zeros((b, ldr, NROWF), dtype=np.int64)

@@ -1,7 +1,7 @@
 """Profile DP of one wide merge over column folds: the fold geometry, the
-wrapper of the CUDA kernel K3 (csrc/dp_wide.cu), its plain PyTorch
-version and the single-merge entry point used by the scheduler and the
-aligner.
+wrapper of the CUDA kernel K3 (csrc/dp_wide.cu: a staged variant up to
+w2 = 4095 and the L2 variant past it), its plain PyTorch version and the
+single-merge entry point used by the scheduler and the aligner.
 
 K3 computes what K2 (ops/dp_torch.py) computes for one merge, on the
 same packed inputs (prepare_merge / pack_batch with B = 1) and with the
@@ -29,6 +29,9 @@ from .dp_torch import (C_CUME, C_CUMT, C_G2CE, C_G2CHG, C_G2CTE, C_G2SE,
 MAX_FOLDS = 8                      # the portable thread-block cluster size
 STRIPES = (1, 2, 4, 8)
 MAX_W2 = MAX_FOLDS * MAX_THREADS * STRIPES[-1] - 1   # widest profile2 K3 takes
+# widest profile2 of K3's staged variant: stripe-1 folds, whose score
+# planes fit in shared memory; wider merges take the L2 variant
+STAGED_MAX_W2 = MAX_FOLDS * MAX_THREADS - 1
 MIN_FOLD_COLS = 256                # narrower folds add wavefront steps, not speed
 BLK = 8                            # rows per wavefront step
 
@@ -47,6 +50,13 @@ def fold_geometry(w2):
     threads = -(-per // stripe)
     threads = -(-threads // 32) * 32
     return -(-cols // (threads * stripe)), threads, stripe
+
+
+def k3_variant(w2):
+    """"staged" (w2 <= STAGED_MAX_W2: one column a thread, the fold's
+    column factors in shared memory and registers) or "l2" (the first
+    design: stripes of 2-8 columns, factors read from L2)."""
+    return "staged" if w2 <= STAGED_MAX_W2 else "l2"
 
 
 def _check_inputs(colf, rowf, meta):
@@ -214,12 +224,14 @@ def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK):
     return dirs, fin
 
 
-def dp_dirs_wide(colf, rowf, meta, total):
+def dp_dirs_wide(colf, rowf, meta, total, variant=None):
     """Packed direction bytes and per-row last-column finals of ONE merge
     (pack_batch of one prepared merge).  Returns (dirs [total] uint8,
-    fin [1, ldr-1, 3] int64).
+    fin [1, ldr-1, 3] int64).  variant: "staged" or "l2" (default:
+    k3_variant(w2)); both walk fold_geometry's folds.
 
-    CUDA tensors launch kernel K3; CPU tensors run dp_wide_plain."""
+    CUDA tensors launch that variant of kernel K3; CPU tensors run
+    dp_wide_plain."""
     _check_inputs(colf, rowf, meta)
     dev = colf.device
     if dev.type == "cpu":
@@ -234,15 +246,25 @@ def dp_dirs_wide(colf, rowf, meta, total):
             or ldr < w1 + 1:
         raise ValueError("meta does not match the packed merge")
     folds, threads, stripe = fold_geometry(w2)
+    variant = variant or k3_variant(w2)
+    if variant == "staged":
+        if stripe != 1 or ldc % 2 or colf.data_ptr() % 16:
+            raise ValueError("K3 staged takes w2 <= STAGED_MAX_W2, an even "
+                             "ldc and 16-byte aligned colf (pack_batch)")
+        key, name = "dp_wide", "dp_profile_wide"
+    elif variant == "l2":
+        key, name = "dp_wide_l2", "dp_profile_wide_l2"
+    else:
+        raise ValueError(f"unknown K3 variant {variant!r}")
     dirs = torch.empty(total, dtype=torch.uint8, device=dev)
     fin = torch.empty((1, ldr - 1, 3), dtype=torch.int64, device=dev)
     lib = kernels.get("dp_wide")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    kernels.LAUNCHES["dp_wide"] += 1
-    err = lib.dp_profile_wide(colf.data_ptr(), rowf.data_ptr(), w1, w2, folds,
-                              threads, stripe, ldc, BLK, dirs.data_ptr(),
-                              fin.data_ptr(), stream)
-    kernels.check(err, "dp_profile_wide")
+    kernels.LAUNCHES[key] += 1
+    err = getattr(lib, name)(colf.data_ptr(), rowf.data_ptr(), w1, w2, folds,
+                             threads, stripe, ldc, BLK, dirs.data_ptr(),
+                             fin.data_ptr(), stream)
+    kernels.check(err, name)
     return dirs, fin
 
 

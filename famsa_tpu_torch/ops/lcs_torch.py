@@ -1,6 +1,7 @@
 """Bit-parallel LCS on torch: the query mask table, the plain PyTorch
-version, the wrapper of the CUDA kernel K1 (csrc/lcs.cu) and the distance
-backend built on them.
+versions, the wrapper of the CUDA kernel K1 (csrc/lcs.cu, a rows variant
+for many references and a wave variant for few) and the distance backend
+built on them.
 
 Symmetric-LCS layout (as the JAX package's ops/lcs_jax.py): the
 per-symbol occupancy masks of ALL queries are built once, and each
@@ -37,11 +38,12 @@ def build_query_mask_table(padded: np.ndarray) -> np.ndarray:
 
 
 def lcs_plain(table, syms, n_queries):
-    """Plain PyTorch version of K1: LCS of each of the R symbol rows
-    `syms` ([R, L] int32) against the first n_queries queries of `table`
-    ([32, W, N] int32 holding the uint32 mask bits).  Returns [R, N] int32;
-    columns >= n_queries are 0.  Words are held in int64 so that the
-    unsigned 32-bit add and its carry are exact."""
+    """Plain PyTorch version of K1 (both variants compute it): LCS of each
+    of the R symbol rows `syms` ([R, L] int32) against the first
+    n_queries queries of `table` ([32, W, N] int32 holding the uint32 mask
+    bits).  Returns [R, N] int32; columns >= n_queries are 0.  Words are
+    held in int64 so that the unsigned 32-bit add and its carry are
+    exact."""
     r, length = syms.shape
     _, w, n = table.shape
     tab = table[:, :, :n_queries].to(torch.int64) & 0xFFFFFFFF
@@ -61,23 +63,100 @@ def lcs_plain(table, syms, n_queries):
             # tb is a subset of v's bits, so v - tb never borrows
             cols.append((s & 0xFFFFFFFF) | (v - tb))
         x = torch.stack(cols, dim=1)
-    ones = (~x & 0xFFFFFFFF)
-    cnt = torch.zeros((r, n_queries), dtype=torch.int64, device=table.device)
+    return _counts(x, n, n_queries)
+
+
+def _counts(x, n, n_queries):
+    """[R, N] int32 LCS from final words x [R, ..., nq] (popcount of ~x
+    over every axis but the first and the last); columns >= n_queries 0."""
+    ones = (~x & 0xFFFFFFFF).reshape(x.shape[0], -1, n_queries)
+    cnt = torch.zeros((x.shape[0], n_queries), dtype=torch.int64,
+                      device=x.device)
     for b in range(32):
         cnt += (ones >> b & 1).sum(dim=1)
-    out = torch.zeros((r, n), dtype=torch.int32, device=table.device)
+    out = torch.zeros((x.shape[0], n), dtype=torch.int32, device=x.device)
     out[:, :n_queries] = cnt.to(torch.int32)
     return out
 
 
-def lcs_rows(table, syms, n_queries=None, out_dtype=torch.int32):
+def wave_geometry(w):
+    """(wseg, wpl, nl) of K1's wave variant for W words a query: wseg
+    lanes a query (the power of two >= W, capped at 32), wpl consecutive
+    words a lane, nl lanes that hold words (csrc/lcs.cu:wave_geometry)."""
+    wseg = 1
+    while wseg < w and wseg < 32:
+        wseg <<= 1
+    wpl = -(-w // wseg)
+    return wseg, wpl, -(-w // wpl)
+
+
+def lcs_wave_plain(table, syms, n_queries):
+    """Plain PyTorch twin of K1's wave variant, on lcs_plain's arguments
+    and with its result: each query a segment of wseg lanes, lane k owning
+    words [k*wpl, (k+1)*wpl); at step s lane k processes reference
+    position s - k with the carry lane k-1 produced one step earlier.
+    Positions outside [0, L), no-op symbols (>= 20) and lanes without
+    words leave their words alone and pass a carry of 0."""
+    r, length = syms.shape
+    _, w, n = table.shape
+    dev = table.device
+    wseg, wpl, nl = wave_geometry(w)
+    tab = torch.zeros((NO_SYMBOLS, wseg * wpl, n_queries), dtype=torch.int64,
+                      device=dev)
+    tab[:, :w] = table[:, :, :n_queries].to(torch.int64) & 0xFFFFFFFF
+    tab = tab.view(NO_SYMBOLS, wseg, wpl, n_queries)
+    lanes = torch.arange(wseg, device=dev)
+    owned = (lanes[:, None] * wpl + torch.arange(wpl, device=dev)) < w
+    x = torch.full((r, wseg, wpl, n_queries), 0xFFFFFFFF, dtype=torch.int64,
+                   device=dev)
+    zero = torch.zeros((r, 1, n_queries), dtype=torch.int64, device=dev)
+    carry = torch.zeros((r, wseg, n_queries), dtype=torch.int64, device=dev)
+    syms64 = syms.to(torch.int64)
+    for s in range(length + nl - 1):
+        cy = torch.cat([zero, carry[:, :-1]], dim=1)     # one step late
+        pos = s - lanes
+        sym = syms64[:, pos.clamp(0, length - 1)]        # [R, wseg]
+        live = ((pos >= 0) & (pos < length) & (lanes < nl))[None] \
+            & (sym >= 0) & (sym < NO_VALID_AMINOACIDS)
+        m = tab[sym.clamp(0, NO_SYMBOLS - 1), lanes[None, :]]   # [R, wseg, wpl, nq]
+        for j in range(wpl):
+            v = x[:, :, j].clone()
+            tb = v & m[:, :, j]
+            v2 = (v + tb + cy) & 0xFFFFFFFF
+            upd = (live & owned[None, :, j])[..., None]
+            x[:, :, j] = torch.where(upd, v2 | (v - tb), v)
+            cy = torch.where(upd, (v2 < v).to(torch.int64), cy)
+        carry = torch.where(live[..., None], cy, 0)
+    x = torch.where(owned[None, :, :, None], x, 0xFFFFFFFF)
+    return _counts(x, n, n_queries)
+
+
+# K1's dispatch: the wave variant while R x ceil(n_queries / 128), the
+# rows variant's grid counted per reference, stays below this.  Measured
+# on an H100 by scripts/torch_kernel_redesign.py (PERF.md): the wave
+# variant won up to 2528 (32 references x 10,000 queries), the rows
+# variant from 5056 (64 x 10,000).
+WAVE_MAX_GRID = 4096
+PLAIN = {"rows": lcs_plain, "wave": lcs_wave_plain}
+
+
+def lcs_variant(r, n_queries):
+    """"wave" or "rows": the K1 variant lcs_rows launches for R references
+    against n_queries queries."""
+    return "wave" if r * -(-n_queries // 128) < WAVE_MAX_GRID else "rows"
+
+
+def lcs_rows(table, syms, n_queries=None, out_dtype=torch.int32,
+             variant=None):
     """LCS of each of the R symbol rows `syms` ([R, L] int32, pad symbols
     >= 20 are no-ops) against the queries of `table` ([32, W, N] int32,
     see build_query_mask_table).  Returns [R, N] of out_dtype (int32, or
     uint16 when L < 65536).  Only the first n_queries columns are computed
     (the triangular-sweep half-work saving); later columns are garbage.
+    variant: "rows" or "wave" (default: lcs_variant's choice).
 
-    CUDA tensors launch kernel K1; CPU tensors run lcs_plain."""
+    CUDA tensors launch that variant of kernel K1; CPU tensors run its
+    plain twin (lcs_plain or lcs_wave_plain)."""
     if table.dim() != 3 or table.shape[0] != NO_SYMBOLS:
         raise ValueError("table must be [32, W, N]")
     if syms.dim() != 2:
@@ -93,8 +172,11 @@ def lcs_rows(table, syms, n_queries=None, out_dtype=torch.int32):
         raise TypeError("out_dtype must be int32 or uint16")
     if out_dtype == torch.uint16 and length >= 65536:
         raise ValueError("uint16 LCS output needs L < 65536")
+    variant = variant or lcs_variant(r, nq)
+    if variant not in PLAIN:
+        raise ValueError(f"unknown K1 variant {variant!r}")
     if table.device.type == "cpu":
-        return lcs_plain(table, syms, nq).to(out_dtype)
+        return PLAIN[variant](table, syms, nq).to(out_dtype)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     if not (table.is_contiguous() and syms.is_contiguous()):
@@ -103,12 +185,13 @@ def lcs_rows(table, syms, n_queries=None, out_dtype=torch.int32):
     if r == 0 or nq == 0:
         return out
     lib = kernels.get("lcs")
+    fn, key = ((lib.lcs_wave, "lcs_wave") if variant == "wave"
+               else (lib.lcs_bitpar, "lcs"))
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    kernels.LAUNCHES["lcs"] += 1
-    err = lib.lcs_bitpar(table.data_ptr(), syms.data_ptr(), r, length, w, n,
-                         nq, out.data_ptr(), int(out_dtype == torch.uint16),
-                         stream)
-    kernels.check(err, "lcs_bitpar")
+    kernels.LAUNCHES[key] += 1
+    err = fn(table.data_ptr(), syms.data_ptr(), r, length, w, n, nq,
+             out.data_ptr(), int(out_dtype == torch.uint16), stream)
+    kernels.check(err, key)
     return out
 
 

@@ -1,0 +1,188 @@
+#!/usr/bin/env python3
+"""Old against new designs of K1 and K3 on one card, in alternating order.
+
+    python3 scripts/torch_kernel_redesign.py [--reps 200] [--rounds 2]
+        [--parts k1,k3,e2e]
+
+The old designs are still in the port: K1's rows variant (one thread a
+query, ops/lcs_torch.py variant="rows") and K3's L2 variant (its first
+design, ops/dp_wide.py variant="l2"); the new ones are K1's wave variant
+and K3's staged variant.
+
+k1   Kernel-only CUDA-event times of one MST-Prim round, the first
+     reference of chip_smoke.py's 1000- and 10,000-sequence families
+     (seed 7, mean length 300, padded to 32 as ops/prim_torch.py pads)
+     against all sequences, rows, wave, wave, rows; then the dispatch
+     crossover: both variants for R = 1..256 references against each
+     family, with the rows grid R x ceil(n / 128) beside them.
+k3   Kernel-only times of one merge at the main path's shapes (random
+     profiles of 50 sequences, 20 % gaps), l2, staged, staged, l2; then
+     the staged variant at rows-per-step BLK 8, 16 and 32 and minimum
+     fold widths of 128 and 256 columns.
+e2e  The 1000-sequence default run (refinement on) and the 10,000-
+     sequence run (the wide route) through the CLI entry point, old
+     designs forced (WAVE_MAX_GRID 0, STAGED_MAX_W2 -1) and new, in
+     --rounds rounds of old, new, new, old: stage seconds and launches
+     per kernel variant.
+
+Needs a CUDA device; every block of lines carries the card's name and
+power limit."""
+
+import argparse
+import os
+import pathlib
+import sys
+import tempfile
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (the smoke's families, timers and CLI)
+
+K3_SHAPES = ((328, 1227), (454, 1065), (307, 3844), (422, 4014), (3564, 1334))
+
+
+def prim_round_inputs(n):
+    """(table, syms) of the first Prim round of the n-sequence family."""
+    import torch
+    from famsa_tpu_torch.core.sequence import Sequence
+    from famsa_tpu_torch.ops.lcs_torch import (BV32, build_query_mask_table,
+                                               pad_sequences)
+    text = chip_smoke.make_family(n, 300, 7)
+    seqs, name, body = [], None, []
+    for line in text.splitlines() + [">"]:
+        if line.startswith(">"):
+            if name is not None:
+                seqs.append(Sequence(name, "".join(body), len(seqs)))
+            name, body = line, []
+        else:
+            body.append(line)
+    padded = pad_sequences(seqs, align=BV32)
+    table = torch.from_numpy(build_query_mask_table(padded).view(np.int32))
+    queries = torch.from_numpy(padded.astype(np.int32))
+    return table.cuda(), queries.cuda()
+
+
+def part_k1(reps, smi):
+    from famsa_tpu_torch.ops.lcs_torch import lcs_rows
+
+    def ms(table, syms, variant, r=reps):
+        return chip_smoke.cuda_ms(
+            lambda: lcs_rows(table, syms, variant=variant), r)
+
+    for n in (1000, 10000):
+        table, queries = prim_round_inputs(n)
+        syms = queries[:1].contiguous()
+        t = {v: [] for v in ("rows", "wave")}
+        for v in ("rows", "wave", "wave", "rows"):
+            t[v].append(ms(table, syms, v))
+        print(f"k1 prim round 1 ref x {n} queries, L={syms.shape[1]}, "
+              f"W={table.shape[1]}: rows {t['rows']} ms, wave {t['wave']} "
+              f"ms; {smi}", flush=True)
+        for r in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            syms = queries[:r].contiguous()
+            grid = r * -(-n // 128)
+            k = max(5, reps // r)
+            rows, wave = ms(table, syms, "rows", k), ms(table, syms, "wave", k)
+            print(f"k1 crossover n={n} R={r} grid={grid}: rows {rows:.5f} "
+                  f"wave {wave:.5f} ms ({'wave' if wave < rows else 'rows'} "
+                  "faster)", flush=True)
+
+
+def part_k3(reps, smi):
+    import torch
+    from famsa_tpu_torch.core.params import Params
+    from famsa_tpu_torch.ops import dp_wide
+    from famsa_tpu_torch.ops.dp_torch import pack_batch, prepare_merge
+    rng = np.random.default_rng(31)
+    params = Params(device="cuda")
+    params.adjust(1000)
+    reps = max(3, reps // 20)
+    for w1, w2 in K3_SHAPES:
+        p1 = chip_smoke.random_profile(rng, params, 50, w1)
+        p2 = chip_smoke.random_profile(rng, params, 50, w2)
+        colf, rowf, meta, total = pack_batch([prepare_merge(params, p1, p2)])
+        args = [torch.from_numpy(x).cuda() for x in (colf, rowf, meta)]
+        t = {v: [] for v in ("l2", "staged")}
+        for v in ("l2", "staged", "staged", "l2"):
+            t[v].append(chip_smoke.cuda_ms(
+                lambda: dp_wide.dp_dirs_wide(*args, total, variant=v), reps))
+        per_row = {v: [x / w1 * 1e3 for x in t[v]] for v in t}
+        print(f"k3 {w1}x{w2} {dp_wide.fold_geometry(w2)}: l2 {t['l2']} ms, "
+              f"staged {t['staged']} ms; us per row l2 {per_row['l2']} "
+              f"staged {per_row['staged']}; {smi}", flush=True)
+        if (w1, w2) in ((328, 1227), (454, 1065), (307, 3844)):
+            old = dp_wide.BLK, dp_wide.MIN_FOLD_COLS
+            try:
+                for blk in (8, 16, 32):
+                    for mfc in (128, 256):
+                        dp_wide.BLK, dp_wide.MIN_FOLD_COLS = blk, mfc
+                        k = chip_smoke.cuda_ms(
+                            lambda: dp_wide.dp_dirs_wide(*args, total), reps)
+                        print(f"k3 staged {w1}x{w2} BLK={blk} MIN_FOLD_COLS="
+                              f"{mfc} {dp_wide.fold_geometry(w2)}: {k:.4f} "
+                              "ms", flush=True)
+            finally:
+                dp_wide.BLK, dp_wide.MIN_FOLD_COLS = old
+
+
+def part_e2e(rounds, smi):
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops import dp_wide, lcs_torch
+    designs = {"old": (0, -1),
+               "new": (lcs_torch.WAVE_MAX_GRID, dp_wide.STAGED_MAX_W2)}
+    with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as work:
+        fams = {}
+        for n in (1000, 10000):
+            fams[n] = os.path.join(work, f"fam{n}.fa")
+            with open(fams[n], "w") as f:
+                f.write(chip_smoke.make_family(n, 300, 7))
+        for rnd in range(rounds):
+            for design in ("old", "new", "new", "old"):
+                for n in (1000, 10000):
+                    lcs_torch.WAVE_MAX_GRID, dp_wide.STAGED_MAX_W2 = \
+                        designs[design]
+                    stats = os.path.join(work, "stats.txt")
+                    kernels.reset_launches()
+                    rc, secs = chip_smoke.run_cli(
+                        ["-backend", "torch", "-device", "cuda", "-stats",
+                         stats, fams[n], os.path.join(work, "out.fa")], {})
+                    if rc != 0:
+                        raise AssertionError(f"e2e {design} n={n}: rc={rc}")
+                    st = chip_smoke.read_stats(stats)
+                    print(f"e2e round {rnd} {design} n={n}: {secs:.3f} s "
+                          f"(tree {float(st['time.tree_build']):.3f}, "
+                          f"alignment {float(st['time.alignment']):.3f}, "
+                          f"refinement {float(st['time.refinement']):.3f}); "
+                          f"launches {dict(kernels.LAUNCHES)}; {smi}",
+                          flush=True)
+        lcs_torch.WAVE_MAX_GRID, dp_wide.STAGED_MAX_W2 = designs["new"]
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--parts", default="k1,k3,e2e")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_redesign: no CUDA device", file=sys.stderr)
+        return 1
+    from famsa_tpu_torch import kernels
+    kernels.build_all()
+    smi = chip_smoke.nvidia_smi()
+    parts = args.parts.split(",")
+    if "k1" in parts:
+        part_k1(args.reps, smi)
+    if "k3" in parts:
+        part_k3(args.reps, smi)
+    if "e2e" in parts:
+        part_e2e(args.rounds, smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,9 +27,10 @@ from famsa_tpu_torch.core.params import Params as TParams
 from famsa_tpu_torch.core.sequence import Sequence as TSequence
 from famsa_tpu_torch.ops import dp_torch, dp_wide
 from famsa_tpu_torch.ops.dp_torch import dp_plain, pack_batch, prepare_merge
-from famsa_tpu_torch.ops.dp_wide import (MAX_W2, dp_dirs_wide,
-                                         dp_profile_torch_wide, dp_wide_plain,
-                                         fold_geometry)
+from famsa_tpu_torch.ops.dp_wide import (MAX_W2, STAGED_MAX_W2,
+                                         dp_dirs_wide, dp_profile_torch_wide,
+                                         dp_wide_plain, fold_geometry,
+                                         k3_variant)
 from famsa_tpu_torch.pipeline import compute_msa as t_compute_msa
 
 from test_dp_jax_parity import _make_profile
@@ -192,6 +193,38 @@ def test_fold_geometry_edges():
         fold_geometry(MAX_W2 + 1)
 
 
+@pytest.mark.parametrize("w2", [0, 255, 1227, 3844, 4014, STAGED_MAX_W2,
+                                STAGED_MAX_W2 + 1, 16256, MAX_W2])
+def test_k3_variant_by_width(w2):
+    """The staged variant takes exactly the widths whose folds are one
+    column a thread (at most 512 columns, the score planes' shared-memory
+    tile); the L2 variant the rest, up to MAX_W2."""
+    folds, threads, stripe = fold_geometry(w2)
+    assert k3_variant(w2) == ("staged" if stripe == 1 else "l2")
+    assert (k3_variant(w2) == "staged") == (w2 <= STAGED_MAX_W2)
+    if stripe == 1:
+        assert threads <= 512 and folds * threads >= w2 + 1
+
+
+@pytest.mark.parametrize("w2", [36, 37])
+def test_pack_batch_even_ldc(w2):
+    """pack_batch pads ldc to even (16-byte aligned planes for K3's bulk
+    copies); the extra column changes no direction byte or final of the
+    plain versions."""
+    rng = np.random.default_rng(w2)
+    jp, tp = _params()
+    a = _port(tp, _make_profile(rng, jp, 3, 20))
+    b = _port(tp, _make_profile(rng, jp, 2, w2))
+    (colf, rowf, meta), total = _packed(tp, a, b)
+    assert colf.shape[2] == w2 + 1 + (w2 + 1) % 2
+    tight = colf[:, :, :w2 + 1].contiguous()
+    want_d, want_f = dp_plain(tight, rowf, meta, total)
+    for fn in (dp_plain, dp_wide_plain):
+        got_d, got_f = fn(colf, rowf, meta, total)
+        assert torch.equal(got_d, want_d)
+        assert torch.equal(got_f[0, :a.width], want_f[0, :a.width])
+
+
 def _stub(width, n_seqs=2):
     from types import SimpleNamespace
     return SimpleNamespace(width=width, data=range(n_seqs))
@@ -328,3 +361,4 @@ def test_cpu_runs_plain_without_launch():
     b = _port(tp, _make_profile(rng, jp, 3, 40))
     dp_profile_torch_wide(tp, a, b)
     assert kernels.LAUNCHES["dp_wide"] == 0
+    assert kernels.LAUNCHES["dp_wide_l2"] == 0

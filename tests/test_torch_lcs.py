@@ -1,9 +1,12 @@
 """famsa_tpu_torch bit-parallel LCS against the famsa_tpu package.
 
-The port's plain PyTorch LCS (the CPU path of kernel K1) is held against
-the Pallas kernel in interpret mode (famsa_tpu.ops.lcs_pallas.lcs_rows)
-and the scalar host reference (famsa_tpu.ops.lcs.lcs_ref_vs_queries); the
-port's TorchDistanceBackend against famsa_tpu's DistanceBackend.
+The port's plain PyTorch LCS versions (the CPU paths of kernel K1's rows
+variant, lcs_plain, and of its wave variant, lcs_wave_plain, which walks
+the wave's segments, lanes and steps) are held against the Pallas kernel
+in interpret mode (famsa_tpu.ops.lcs_pallas.lcs_rows) and the scalar host
+reference (famsa_tpu.ops.lcs.lcs_ref_vs_queries); the port's
+TorchDistanceBackend against famsa_tpu's DistanceBackend; lcs_rows'
+choice of variant against its rule.
 Tolerance: exact (integer LCS, correctly-rounded host float transforms).
 """
 
@@ -14,8 +17,11 @@ import torch
 from famsa_tpu.core.params import DIST_INDEL075_DIV_LCS, DIST_INDEL_DIV_LCS
 from famsa_tpu.ops.distance import DistanceBackend
 from famsa_tpu.ops.lcs import build_bit_masks, lcs_ref_vs_queries
+from famsa_tpu_torch.ops import lcs_torch
 from famsa_tpu_torch.ops.lcs_torch import (TorchDistanceBackend,
-                                           build_query_mask_table, lcs_rows)
+                                           build_query_mask_table, lcs_plain,
+                                           lcs_rows, lcs_variant,
+                                           lcs_wave_plain, wave_geometry)
 
 
 def _random_padded(rng, n, lmin, lmax):
@@ -145,3 +151,100 @@ def test_distance_backend_row_nonprefix_query_ids():
     qids3 = np.array([2, 50])
     np.testing.assert_array_equal(dev2.row(3, qids3), ref.row(3, qids3))
 
+
+
+def _words_case(rng, n, w):
+    """Queries of exactly w mask words (lengths in (32 (w-1), 32 w], the
+    first one 32 w long, codes >= 20 included)."""
+    lens = rng.integers(32 * (w - 1) + 1, 32 * w + 1, size=n)
+    lens[0] = 32 * w
+    padded = np.full((n, 32 * w), 22, dtype=np.int8)
+    for i, ln in enumerate(lens):
+        padded[i, :ln] = rng.integers(0, 24, size=ln)
+    return padded, lens
+
+
+# W edges of the wave variant: one word; W not a power of two (a partial
+# segment of lanes); W = 16 and 32 (full segments of 2 and 1 a warp); 17
+# (one lane past 16); 33 and 64 (two words a lane); > 64 (the rows
+# variant's local-memory state; three words a lane, the last lane partial)
+WAVE_WS = [1, 3, 11, 16, 17, 32, 33, 64, 70]
+
+
+@pytest.mark.parametrize("w", WAVE_WS)
+def test_wave_plain_matches_plain_and_host(w):
+    """lcs_wave_plain = lcs_plain = the host LCS, with a triangular
+    n_queries that is not a multiple of any segment count."""
+    rng = np.random.default_rng(100 + w)
+    n = 9
+    padded, lens = _words_case(rng, n, w)
+    # long references only where W is small: the plain loops are L x W
+    cut = 32 * w if w <= 17 else 90
+    refs = padded[[0, 5], :cut]
+    table = torch.from_numpy(build_query_mask_table(padded).view(np.int32))
+    syms = torch.from_numpy(refs.astype(np.int32))
+    nq = 7
+    got = lcs_wave_plain(table, syms, nq)
+    np.testing.assert_array_equal(got.numpy(), lcs_plain(table, syms,
+                                                         nq).numpy())
+    assert not got[:, nq:].any()
+    for k in range(2):
+        ref = refs[k][refs[k] != 22]
+        masks = build_bit_masks(ref, len(ref))
+        np.testing.assert_array_equal(got[k, :nq].numpy(),
+                                      lcs_ref_vs_queries(masks, padded)[:nq])
+    wseg, wpl, nl = wave_geometry(w)
+    assert wseg * wpl >= w and (nl - 1) * wpl < w and wseg <= 32
+
+
+@pytest.mark.parametrize("w", [1, 3, 11])
+def test_wave_plain_matches_pallas_interpret(w):
+    """Against the Pallas kernel in interpret mode, full and triangular."""
+    import jax.numpy as jnp
+    from famsa_tpu.ops.lcs_pallas import lcs_rows as pallas_rows
+    from famsa_tpu.ops.lcs_pallas import pack_query_table
+    rng = np.random.default_rng(7 + w)
+    padded, _ = _words_case(rng, 20, w)
+    ql = 2
+    tab, _, _ = pack_query_table(padded, ql)
+    ref_ids = np.array([0, 13])
+    syms = padded[ref_ids].astype(np.int32)
+    table = torch.from_numpy(build_query_mask_table(padded).view(np.int32))
+    for nq in (20, 11):
+        want = pallas_rows(jnp.asarray(tab), syms, w, ql, len(padded),
+                           interpret=True, n_queries=nq)
+        got = lcs_wave_plain(table, torch.from_numpy(syms), nq)
+        np.testing.assert_array_equal(got[:, :nq].numpy(),
+                                      np.asarray(want)[:, :nq])
+
+
+def test_lcs_variant_rule(monkeypatch):
+    """The wave variant while R x ceil(n_queries / 128) < WAVE_MAX_GRID
+    (every Prim round: R = 1), the rows variant from there on; lcs_rows
+    runs the chosen variant's plain twin on CPU tensors."""
+    grid = lcs_torch.WAVE_MAX_GRID
+    assert lcs_variant(1, 1000) == "wave"
+    assert lcs_variant(1, 128 * (grid - 1)) == "wave"
+    assert lcs_variant(1, 128 * grid) == "rows"
+    assert lcs_variant(grid, 1) == "rows"
+    assert lcs_variant(grid - 1, 128) == "wave"
+    assert lcs_variant(256, 1000) == "wave"      # distance row blocks
+    assert lcs_variant(256, 2000) == "rows"
+    calls = []
+    for name in ("rows", "wave"):
+        orig = lcs_torch.PLAIN[name]
+        monkeypatch.setitem(lcs_torch.PLAIN, name,
+                            lambda *a, _n=name, _o=orig: (calls.append(_n),
+                                                          _o(*a))[1])
+    rng = np.random.default_rng(2)
+    padded, lens = _random_padded(rng, 12, 10, 40)
+    table = torch.from_numpy(build_query_mask_table(padded).view(np.int32))
+    one = torch.from_numpy(padded[:1].astype(np.int32))
+    many = torch.from_numpy(np.repeat(padded[:1], grid, 0).astype(np.int32))
+    lcs_rows(table, one)
+    out = lcs_rows(table, many)
+    lcs_rows(table, one, variant="rows")
+    assert calls == ["wave", "rows", "rows"]
+    np.testing.assert_array_equal(out[-1].numpy(), _host_lcs(padded, lens, 0))
+    with pytest.raises(ValueError, match="variant"):
+        lcs_rows(table, one, variant="diagonal")
