@@ -13,10 +13,20 @@ Phases (one line each; any mismatch or exception exits non-zero):
     16, 17, 32, 33, 64 and 70 (2 refs x 257 queries: a partial last
     segment; no-op symbols throughout) and a triangular n_queries of 333
     that ends inside a warp;
- 3. K2 (csrc/dp.cu) against its plain PyTorch version on the card,
-    bit-exact in direction bytes, last, path and total: 8 mixed merges
-    <= 512^2 (one seq-prof), one 2048x2048 prof-prof, one banded merge,
-    one merge with cardinality > 2^16;
+ 3. K2 against its plain PyTorch versions on the card, bit-exact in
+    direction bytes, finals, last, path and total, and path/total against
+    the native host DP.  Staged variant (csrc/dp_wide.cu:
+    dp_profile_batched_staged, one cluster of column folds a merge; held
+    against dp_plain and its fold walk dp_staged_plain): 8 mixed merges
+    <= 512^2 (one seq-prof), one banded merge, one merge with cardinality
+    > 2^16, 60x700, 60x1500, 16 merges of 1 to 8 folds (one at w2 4095),
+    w2 on a fold edge and one column past it, 2^22-scaled scores, one
+    2048x2048 prof-prof.  Global variant (csrc/dp.cu, one CTA a merge):
+    60x5000, and forced on the mixed batch, 60x700, 60x1500 and 2048^2
+    (every column stripe it has).  Prints both
+    variants' ms at 2048^2 and on the 16-merge batch, and how many
+    clusters of F = 1..8 staged folds fit on the card at once
+    (cudaOccupancyMaxActiveClusters);
  3b. K3 (csrc/dp_wide.cu) against its plain PyTorch version (the fold
     wavefront) and K2's, bit-exact in direction bytes, finals, last, path
     and total, and path/total against the native host DP.  Staged
@@ -31,15 +41,17 @@ Phases (one line each; any mismatch or exception exits non-zero):
     re-alignment forced on K2, then on K3, and with -backend numpy; every
     torch output must equal the numpy one byte for byte, and each run
     must launch the kernel variants it is meant to exercise (every Prim
-    round on K1 wave, every K3 call at w2 <= 4095 on K3 staged);
+    round on K1 wave, every K2 launch whose widest w2 is <= 4095 on K2
+    staged, every K3 call at w2 <= 4095 on K3 staged);
  5. the guide tree: -gt_export on a seeded 2000-sequence family, torch
     against numpy, with a Prim chunk small enough to cross chunk
     boundaries, and under -dist indel_div_lcs (K1's rows variant);
  6. the wide path: a seeded 10,000-sequence family of mean length 300
     (refinement AUTO = off) with -backend torch at the default knobs,
     against -backend numpy on the guide tree the torch -gt_export wrote;
-    byte-identical, and K1 wave, K2 and K3 launched.  Prints the stage
-    seconds and the profile merges per route (host / K2 / K3).
+    byte-identical, and K1 wave, K2 staged and K3 staged launched as in
+    phase 4.  Prints the stage seconds and the profile merges per route
+    (host / K2 / K3).
 Then a JSON line with every kernel variant's numbers, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -51,6 +63,10 @@ CUDA-event mean over repeated launches on the largest input the runs
 gave the variant, after it is held bit-exact against its plain version
 there; "launches" counts its launches in the run named by
 "launches_run" (the 1000-sequence default run; K1 rows: the -dist run).
+A variant that no main-path run launched (K2 global and K3 L2: every
+merge of these runs is at most 4095 columns wide) has launches 0 and is
+measured where "at" says: K2 global on the largest K2 batch of the runs,
+K3 L2 on phase 3b's lone 400x4000 merge.
 bound_ms is the larger of the bytes the call must move over 3.35 TB/s
 and the int32 instructions its arithmetic needs over the SM's issue
 rate of 128 lanes a clock (33.5e12/s: the data sheet's 67 TFLOP/s
@@ -73,10 +89,12 @@ import numpy as np
 MEM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 AA = "ARNDCQEGHILKMFPSTWYV"
+T0 = time.perf_counter()
 
 
 def log(msg):
-    print(msg, flush=True)
+    """One line of output, after the seconds since the smoke started."""
+    print(f"[{time.perf_counter() - T0:.0f} s] {msg}", flush=True)
 
 
 def nvidia_smi():
@@ -304,44 +322,72 @@ def banded_case(rng, params):
     return a, b, (cm1, cm2), row_ranges(params, cm1, cm2)
 
 
-def dp_check(params, pairs, bands, device, what, mappings=None):
-    """Kernel vs plain on one batch: full direction bytes (so D
-    everywhere and H/V on [1:, 1:]), per-row finals, last, path and
-    total; and path/total vs the native host DP (guided by `mappings`,
-    the column mappings the bands came from)."""
+def dp_check(params, pairs, bands, device, what, mappings=None,
+             variants=(None,)):
+    """K2 against its plain versions on one batch, once per variant in
+    `variants` (None: the one k2_variant picks): dp_plain, and for the
+    staged variant its fold walk dp_staged_plain too; full direction
+    bytes (so D everywhere and H/V on [1:, 1:]), per-row finals, last,
+    path and total; and path/total vs the native host DP (guided by
+    `mappings`, the column mappings the bands came from).  Each launch
+    must go to its variant.  Returns the packed inputs on the device and
+    dp_plain's wall ms."""
     import torch
+    from famsa_tpu_torch import kernels
     from famsa_tpu_torch.core.dp_native import dp_profile, finish_path
-    from famsa_tpu_torch.ops.dp_torch import (dp_dirs, dp_plain, pack_batch,
-                                              prepare_merge)
+    from famsa_tpu_torch.ops.dp_torch import (dp_dirs, dp_plain, k2_variant,
+                                              pack_batch, prepare_merge)
+    from famsa_tpu_torch.ops.dp_wide import dp_staged_plain
     merges = [prepare_merge(params, p1, p2, bd)
               for (p1, p2), bd in zip(pairs, bands)]
     colf, rowf, meta, total = pack_batch(merges)
     args = [torch.from_numpy(x).to(device) for x in (colf, rowf, meta)]
-    dirs_k, fin_k = dp_dirs(*args, total)
-    dirs_p, fin_p = dp_plain(*args, total)
-    dirs_k, fin_k = dirs_k.cpu().numpy(), fin_k.cpu().numpy()
-    dirs_p, fin_p = dirs_p.cpu().numpy(), fin_p.cpu().numpy()
-    for k, (w1, w2, off, _) in enumerate(meta):
-        n = (w1 + 1) * (w2 + 1)
-        dk = dirs_k[off:off + n].reshape(w1 + 1, w2 + 1)
-        dp_ = dirs_p[off:off + n].reshape(w1 + 1, w2 + 1)
-        if not np.array_equal(dk, dp_):
-            i, j = np.argwhere(dk != dp_)[0]
-            raise AssertionError(f"K2 {what} merge {k}: dirs differ at "
-                                 f"({i}, {j}): {dk[i, j]} vs {dp_[i, j]}")
-        if not np.array_equal(fin_k[k, :w1], fin_p[k, :w1]):
-            raise AssertionError(f"K2 {what} merge {k}: finals differ")
-        rk = finish_path(dk, w1, w2, fin_k[k, w1 - 1])
-        rp = finish_path(dp_, w1, w2, fin_p[k, w1 - 1])
-        if rk.last != rp.last or rk.total != rp.total or \
-                not np.array_equal(rk.path, rp.path):
-            raise AssertionError(f"K2 {what} merge {k}: path/total differ")
-        p1, p2 = pairs[k]
-        rh = dp_profile(params, p1, p2, *(mappings[k] if mappings else ()))
-        if rh.total != rk.total or not np.array_equal(rh.path, rk.path):
-            raise AssertionError(f"K2 {what} merge {k}: differs from the "
-                                 "native host DP")
-    return args, total
+    variants = list(dict.fromkeys(v or k2_variant(int(meta[:, 1].max()))
+                                  for v in variants))
+    t0 = time.perf_counter()
+    plains = {"dp_plain": [x.cpu().numpy() for x in dp_plain(*args, total)]}
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if "staged" in variants:
+        plains["dp_staged_plain"] = [x.cpu().numpy() for x in
+                                     dp_staged_plain(*args, total)]
+    hosts = [dp_profile(params, p1, p2, *(mappings[k] if mappings else ()))
+             for k, (p1, p2) in enumerate(pairs)]
+    for variant in variants:
+        key = "dp_staged" if variant == "staged" else "dp"
+        before = kernels.LAUNCHES[key]
+        dirs_k, fin_k = dp_dirs(*args, total, variant=variant)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES[key] != before + 1:
+                raise AssertionError(f"K2 {what}: the {variant} variant was "
+                                     "not launched")
+        dirs_k, fin_k = dirs_k.cpu().numpy(), fin_k.cpu().numpy()
+        for k, (w1, w2, off, _) in enumerate(meta):
+            n = (w1 + 1) * (w2 + 1)
+            dk = dirs_k[off:off + n].reshape(w1 + 1, w2 + 1)
+            rk = finish_path(dk, w1, w2, fin_k[k, w1 - 1])
+            for name, (dirs_p, fin_p) in plains.items():
+                if name == "dp_staged_plain" and variant != "staged":
+                    continue
+                dp_ = dirs_p[off:off + n].reshape(w1 + 1, w2 + 1)
+                if not np.array_equal(dk, dp_):
+                    i, j = np.argwhere(dk != dp_)[0]
+                    raise AssertionError(
+                        f"K2 {variant} {what} merge {k}: dirs differ from "
+                        f"{name} at ({i}, {j}): {dk[i, j]} vs {dp_[i, j]}")
+                if not np.array_equal(fin_k[k, :w1], fin_p[k, :w1]):
+                    raise AssertionError(f"K2 {variant} {what} merge {k}: "
+                                         f"finals differ from {name}")
+                rp = finish_path(dp_, w1, w2, fin_p[k, w1 - 1])
+                if rk.last != rp.last or rk.total != rp.total or \
+                        not np.array_equal(rk.path, rp.path):
+                    raise AssertionError(f"K2 {variant} {what} merge {k}: "
+                                         f"path/total differ from {name}")
+            rh = hosts[k]
+            if rh.total != rk.total or not np.array_equal(rh.path, rk.path):
+                raise AssertionError(f"K2 {variant} {what} merge {k}: "
+                                     "differs from the native host DP")
+    return args, total, plain_ms
 
 
 def dp_bound_ms(colf, rowf, meta, total):
@@ -363,10 +409,26 @@ def dp_bound_ms(colf, rowf, meta, total):
     return max(t_b, t_o) * 1e3, "bytes" if t_b > t_o else "operations"
 
 
+def staged_cluster_fit(shapes):
+    """{(folds, threads): clusters of the staged kernel that are resident
+    on the card at once} for each (folds, threads) of shapes, at the
+    launch's BLK (cudaOccupancyMaxActiveClusters)."""
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.dp_wide import BLK
+    lib = kernels.get("dp_wide")
+    fit = {}
+    for folds, threads in shapes:
+        n = lib.dp_staged_max_clusters(folds, threads, BLK)
+        if n < 0:
+            kernels.check(-n, "dp_staged_max_clusters")
+        fit[folds, threads] = n
+    return fit
+
+
 def phase_k2(device="cuda", big=2048, card_big=70000):
-    import torch
     from famsa_tpu_torch.core.params import Params
-    from famsa_tpu_torch.ops.dp_torch import dp_dirs, dp_plain
+    from famsa_tpu_torch.ops.dp_torch import dp_dirs
+    from famsa_tpu_torch.ops.dp_wide import STAGED_MAX_W2, staged_geometry
     rng = np.random.default_rng(17)
     params = Params(device=device)
     params.adjust(1000)
@@ -377,32 +439,70 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
         mixed.append((random_profile(rng, params, n1, w1,
                                      0.0 if n1 == 1 else 0.2),
                       random_profile(rng, params, 3 + k, 500 - 40 * k)))
-    dp_check(params, mixed, [None] * 8, device, "mixed")
+    dp_check(params, mixed, [None] * 8, device, "mixed",
+             variants=(None, "global"))
     a, b, cms, band = banded_case(rng, params)
     dp_check(params, [(a, b)], [band], device, "banded", [cms])
     card = [(random_profile(rng, params, card_big, 24, 0.1),
              random_profile(rng, params, 4, 30))]
     dp_check(params, card, [None], device, "card>2^16")
-    # one batch per column stripe of K2 (1 and 8 are covered above and
-    # below; 2, 4 and the local-memory stripe here)
+    # staged at 3 and 6 folds of 256 columns; the global variant at every
+    # column stripe: 2, 4 and the local-memory stripe here, 1 on the mixed
+    # batch and 8 at big^2
     for w2 in (700, 1500, 5000):
         dp_check(params, [(random_profile(rng, params, 5, 60),
-                           random_profile(rng, params, 4, w2))],
-                 [None], device, f"stripe w2={w2}")
+                           random_profile(rng, params, 4, w2))], [None],
+                 device, f"60x{w2}", variants=(None, "global"))
+    # 16 merges crossing 1 to 8 folds of 512 columns, two of each count
+    w2s = [200, 511, 600, 1023, 1100, 1535, 1600, 2047, 2100, 2559, 2600,
+           3071, 3100, 3583, 3700, STAGED_MAX_W2]
+    geo = staged_geometry(w2s)
+    if geo != (8, 512, [1 + k // 2 for k in range(16)]):
+        raise AssertionError(f"K2 staged 16-merge batch geometry {geo}")
+    sixteen = [(random_profile(rng, params, 2 + k % 4, 30 + 5 * k),
+                random_profile(rng, params, 4, w2)) for k, w2 in enumerate(w2s)]
+    args16, total16, _ = dp_check(params, sixteen, [None] * 16, device,
+                                  "16 merges of 1-8 folds")
+    on_edge, past_edge = fold_edge_widths()
+    dp_check(params, [(random_profile(rng, params, 4, 90),
+                       random_profile(rng, params, 3, w2))
+                      for w2 in (on_edge, past_edge)], [None] * 2, device,
+             f"w2={on_edge} on a fold edge and {past_edge} one past it")
+    big_params = scaled_params(device)
+    dp_check(big_params, [(random_profile(rng, big_params, 3, w1),
+                           random_profile(rng, big_params, 2, w2))
+                          for w1, w2 in ((100, 3000), (80, 700), (50, 1500))],
+             [None] * 3, device, "2^22-scaled")
     bigp = [(random_profile(rng, params, 12, big),
              random_profile(rng, params, 9, big))]
-    args, total = dp_check(params, bigp, [None], device, f"{big}^2")
-    msg = (f"phase 3 K2: bit-exact vs plain (dirs, finals, last, path, "
-           f"total) and path/total = native host DP on 8 mixed merges "
-           f"<= 512^2 (1 seq-prof), 1 banded, 1 of card {card_big}, "
-           f"60x700, 60x1500, 60x5000, 1 of {big}x{big}")
+    args, total, pms = dp_check(params, bigp, [None], device, f"{big}^2",
+                                variants=(None, "global"))
+    msg = (f"phase 3 K2: staged bit-exact vs dp_plain and dp_staged_plain "
+           f"(dirs, finals, last, path, total) and path/total = native host "
+           f"DP on 8 mixed merges <= 512^2 (1 seq-prof), 1 banded, 1 of card "
+           f"{card_big}, 60x700, 60x1500, 16 merges of folds 1-8 (w2 up to "
+           f"{STAGED_MAX_W2}), w2={on_edge}/{past_edge} (fold edge), "
+           f"2^22-scaled, 1 of {big}x{big}; global bit-exact vs dp_plain on "
+           f"60x700, 60x1500, 60x5000, the mixed batch and {big}x{big}")
     if device == "cuda":
-        ms = cuda_ms(lambda: dp_dirs(*args, total), 3)
-        pms = wall_ms(lambda: dp_plain(*args, total))
+        st = cuda_ms(lambda: dp_dirs(*args, total, variant="staged"), 5)
+        gl = cuda_ms(lambda: dp_dirs(*args, total, variant="global"), 3)
         bms, _ = dp_bound_ms(*args, total)
-        msg += (f"; {big}x{big}: kernel {ms:.3f} ms "
-                f"({big * big / ms * 1e3:.4g} cells/s), plain {pms:.1f} ms, "
-                f"bound {bms:.4f} ms")
+        st16 = cuda_ms(lambda: dp_dirs(*args16, total16, variant="staged"),
+                       5)
+        gl16 = cuda_ms(lambda: dp_dirs(*args16, total16, variant="global"),
+                       5)
+        bms16, _ = dp_bound_ms(*args16, total16)
+        fit = staged_cluster_fit([(f, t) for t in (512, 256)
+                                  for f in range(1, 9)])
+        msg += (f"; {big}x{big}: staged {st:.3f} ms "
+                f"({big * big / st * 1e3:.4g} cells/s), global {gl:.3f} ms, "
+                f"plain {pms:.1f} ms, bound {bms:.4f} ms; 16 merges of 1-8 "
+                f"folds: staged {st16:.3f} ms, global {gl16:.3f} ms, bound "
+                f"{bms16:.4f} ms; staged clusters resident at once by folds "
+                f"1..8: 512 threads "
+                f"{[fit[f, 512] for f in range(1, 9)]}, 256 threads "
+                f"{[fit[f, 256] for f in range(1, 9)]}")
     log(msg)
 
 
@@ -554,6 +654,8 @@ def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
                 f"({cells / k3 * 1e3:.4g} cells/s), L2 {l2:.3f} ms, K2 "
                 f"{k2:.3f} ms")
     log(msg)
+    args, total = chain_args
+    return (*args, total)
 
 
 # ----------------------------------------------------------------------
@@ -591,16 +693,18 @@ def stage_report(name, secs, stats, counts):
     return (f"{name}: {secs:.2f} s (tree {float(st['time.tree_build']):.2f}, "
             f"alignment {float(st['time.alignment']):.2f}, refinement "
             f"{float(st['time.refinement']):.2f}), launches K1 rows "
-            f"{counts['lcs']} wave {counts['lcs_wave']} K2 {counts['dp']} "
-            f"K3 staged {counts['dp_wide']} L2 {counts['dp_wide_l2']}")
+            f"{counts['lcs']} wave {counts['lcs_wave']} K2 staged "
+            f"{counts['dp_staged']} global {counts['dp']} K3 staged "
+            f"{counts['dp_wide']} L2 {counts['dp_wide_l2']}")
 
 
-def check_launches(what, counts, needed, wide_calls=None):
+def check_launches(what, counts, needed, rec):
     """Each run must launch the kernels it is meant to exercise.  Every
     Prim round's LCS (a single reference) goes to K1's wave variant, so a
-    run that builds the default guide tree launches no rows variant; with
-    wide_calls (the w2 of every K3 call of the run), every K3 call at w2
-    <= STAGED_MAX_W2 must have gone to the staged variant."""
+    run that builds the default guide tree launches no rows variant; every
+    K2 launch whose widest w2 is <= STAGED_MAX_W2 and every K3 call at w2
+    <= STAGED_MAX_W2 must have gone to the staged variant (rec holds the
+    widths of the run's K2 and K3 calls)."""
     from famsa_tpu_torch.ops.dp_wide import STAGED_MAX_W2
     missing = [k for k in needed if counts[k] == 0]
     if missing:
@@ -609,20 +713,22 @@ def check_launches(what, counts, needed, wide_calls=None):
     if "lcs_wave" in needed and counts["lcs"]:
         raise AssertionError(f"{what}: Prim rounds launched K1's rows "
                              f"variant: {counts}")
-    if wide_calls is not None:
-        staged = sum(w2 <= STAGED_MAX_W2 for w2 in wide_calls)
-        if (staged, len(wide_calls) - staged) != (counts["dp_wide"],
-                                                  counts["dp_wide_l2"]):
-            raise AssertionError(f"{what}: {staged} K3 calls at w2 <= "
-                                 f"{STAGED_MAX_W2} and {len(wide_calls) - staged}"
+    for name, calls, keys in (("K2", rec.k2_calls, ("dp_staged", "dp")),
+                              ("K3", rec.wide_calls,
+                               ("dp_wide", "dp_wide_l2"))):
+        staged = sum(w2 <= STAGED_MAX_W2 for w2 in calls)
+        if (staged, len(calls) - staged) != (counts[keys[0]],
+                                             counts[keys[1]]):
+            raise AssertionError(f"{what}: {staged} {name} calls at w2 <= "
+                                 f"{STAGED_MAX_W2} and {len(calls) - staged}"
                                  f" wider, launches {counts}")
 
 
 # the kernels the default 1000-sequence run must launch: K1's wave variant
-# (the guide tree's Prim rounds), K2 (merges ready together) and K3's
-# staged variant (lone merges and refinement's guided re-alignments, at
-# the default FAMSA_TORCH_WIDE_MIN_CELLS)
-DEFAULT_KERNELS = ("lcs_wave", "dp", "dp_wide")
+# (the guide tree's Prim rounds), K2's staged variant (merges ready
+# together) and K3's staged variant (lone merges and refinement's guided
+# re-alignments, at the default FAMSA_TORCH_WIDE_MIN_CELLS)
+DEFAULT_KERNELS = ("lcs_wave", "dp_staged", "dp_wide")
 
 
 def phase_main(work, recorder, device="cuda", n=1000, mean_len=300):
@@ -636,7 +742,7 @@ def phase_main(work, recorder, device="cuda", n=1000, mean_len=300):
     runs = [("torch", torch_flags, {}, DEFAULT_KERNELS),
             ("torch_k2", torch_flags, {"FAMSA_TORCH_DP_MIN_CELLS": "0",
                                        "FAMSA_TORCH_WIDE_MIN_CELLS": "1e30"},
-             ("lcs_wave", "dp")),
+             ("lcs_wave", "dp_staged")),
             ("torch_k3", torch_flags, {"FAMSA_TORCH_DP_MIN_CELLS": "0",
                                        "FAMSA_TORCH_WIDE_MIN_CELLS": "0",
                                        "FAMSA_TORCH_MAX_BATCH": "1"},
@@ -650,14 +756,14 @@ def phase_main(work, recorder, device="cuda", n=1000, mean_len=300):
         kernels.reset_launches()
         rc, secs = run_cli(flags + ["-stats", stats, fa, out], env)
         counts = dict(kernels.LAUNCHES)
-        wide_calls = recorder.stop(counts)
+        recorder.stop(counts)
         if rc != 0:
             raise AssertionError(f"main path {name}: rc={rc}")
         with open(out, "rb") as f:
             outs[name] = f.read()
         report.append(stage_report(name, secs, stats, counts))
         if device == "cuda":
-            check_launches(f"main path {name}", counts, needed, wide_calls)
+            check_launches(f"main path {name}", counts, needed, recorder)
     for name in ("torch", "torch_k2", "torch_k3"):
         if outs[name] != outs["numpy"]:
             raise AssertionError(f"main path: {name} output differs from "
@@ -699,7 +805,7 @@ def phase_tree(work, recorder, device="cuda", n=2000, mean_len=300,
                 raise AssertionError(f"gt_export {what} {name}: rc={rc}")
             if active and device == "cuda":
                 check_launches("gt_export -dist indel_div_lcs", counts,
-                               ("lcs",))
+                               ("lcs",), recorder)
             with open(out, "rb") as f:
                 outs[name] = f.read()
         if outs["torch"] != outs["numpy"]:
@@ -762,13 +868,13 @@ def phase_wide(work, recorder, device="cuda", n=10000, mean_len=300):
         kernels.reset_launches()
         rc, secs = run_cli(flags + ["-stats", stats, fa, out], {})
         counts = dict(kernels.LAUNCHES)
-        wide_calls = recorder.stop(counts)
+        recorder.stop(counts)
         routes.active = False
         if rc != 0:
             raise AssertionError(f"wide path {name}: rc={rc}")
         if name == "torch" and device == "cuda":
             check_launches("wide path torch", counts, DEFAULT_KERNELS,
-                           wide_calls)
+                           recorder)
         with open(out, "rb") as f:
             outs[name] = f.read()
         report.append(stage_report(name, secs, stats, counts))
@@ -790,6 +896,9 @@ VARIANTS = {
                  "famsa_tpu/ops/lcs_pallas.py:102"),
     "dp": ("dp", "dp_profile_batched", "famsa_tpu_torch/csrc/dp.cu",
            "famsa_tpu/ops/dp_pallas.py:186"),
+    "dp_staged": ("dp_wide", "dp_profile_batched_staged",
+                  "famsa_tpu_torch/csrc/dp_wide.cu",
+                  "famsa_tpu/ops/dp_pallas.py:186"),
     "dp_wide": ("dp_wide", "dp_profile_wide", "famsa_tpu_torch/csrc/dp_wide.cu",
                 "famsa_tpu/ops/dp_giant.py:90"),
     "dp_wide_l2": ("dp_wide", "dp_profile_wide_l2",
@@ -799,7 +908,7 @@ VARIANTS = {
 # the run whose launch count a variant's entry reports: the main path's
 # default run, and for K1's rows variant the -dist tree run
 LAUNCH_RUN = {"lcs": "dist", "lcs_wave": "1000", "dp": "1000",
-              "dp_wide": "1000", "dp_wide_l2": "10000"}
+              "dp_staged": "1000", "dp_wide": "1000", "dp_wide_l2": "10000"}
 
 
 class LaunchRecorder:
@@ -822,7 +931,9 @@ class LaunchRecorder:
         self.counts = {}            # run -> LAUNCHES after the run
         self.inputs = {}            # variant -> (size, args)
         self.batch_sizes = []
-        self.wide_calls = []
+        self.staged_shapes = {}     # run -> [staged_geometry of a launch]
+        self.k2_calls = []          # widest w2 of each K2 call of the run
+        self.wide_calls = []        # w2 of each K3 call of the run
 
         for key, (lib_name, entry, _, _) in VARIANTS.items():
             lib = kernels.get(lib_name)
@@ -849,11 +960,18 @@ class LaunchRecorder:
         orig_dp, orig_wide = dpt.dp_dirs, dpw.dp_dirs_wide
         orig_lcs = lct.lcs_rows
 
-        def dp_dirs(colf, rowf, meta, total):
+        def dp_dirs(colf, rowf, meta, total, variant=None):
+            w2s = meta[:, 1].tolist()
+            variant = variant or dpt.k2_variant(max(w2s))
+            self.k2_calls.append(max(w2s))
             if self.run is not None:
-                self.batch_sizes.append(int(meta.shape[0]))
-            keep("dp", total, (colf, rowf, meta, total))
-            return orig_dp(colf, rowf, meta, total)
+                self.batch_sizes.append(len(w2s))
+                if variant == "staged":
+                    self.staged_shapes[self.run].append(
+                        dpw.staged_geometry(w2s))
+            keep("dp_staged" if variant == "staged" else "dp", total,
+                 (colf, rowf, meta, total))
+            return orig_dp(colf, rowf, meta, total, variant=variant)
 
         def dp_dirs_wide(colf, rowf, meta, total, variant=None):
             w2 = int(meta[0, 1])
@@ -877,19 +995,19 @@ class LaunchRecorder:
         lct.lcs_rows = pt.lcs_rows = lcs_rows
 
     def start(self, run):
-        """Record the launches of `run` (None: record nothing but the w2
-        of the K3 calls)."""
+        """Record the launches of `run` (None: record nothing but the
+        widths of the K2 and K3 calls)."""
         self.run = run
-        self.wide_calls = []
+        self.k2_calls, self.wide_calls = [], []
         if run is not None:
             self.events[run] = {}
+            self.staged_shapes[run] = []
 
     def stop(self, counts):
-        """End the run; returns the w2 of its K3 calls."""
+        """End the run."""
         if self.run is not None:
             self.counts[self.run] = counts
         self.run = None
-        return self.wide_calls
 
     def totals(self, run, key):
         """(launches, total ms, mean ms) of one variant in one run."""
@@ -909,24 +1027,66 @@ def dp_max_err(got, want, meta):
     return err
 
 
-def kernel_report(rec):
-    """One entry per kernel variant the main-path runs launched: held
-    against its plain version at the largest input the runs gave it
-    (bit-exact, or the smoke fails), its CUDA-event time there, the
-    bound, and the per-run totals of every launch the recorder timed."""
+def staged_coresidency(rec):
+    """One line on K2 staged launches of the main-path runs: launches by
+    fold count, the share of their CTAs that hold no column of their
+    merge, and the launches that need more clusters than fit on the card
+    at once."""
+    parts = []
+    for run in ("1000", "10000"):
+        shapes = rec.staged_shapes.get(run, [])
+        if not shapes:
+            continue
+        fit = staged_cluster_fit({(f, t) for f, t, _ in shapes})
+        by_folds = {}
+        over, idle, ctas = 0, 0, 0
+        for folds, threads, merge_folds in shapes:
+            by_folds[folds] = by_folds.get(folds, 0) + 1
+            idle += sum(folds - f for f in merge_folds)
+            ctas += folds * len(merge_folds)
+            over += len(merge_folds) > fit[folds, threads]
+        parts.append(f"run {run}: {len(shapes)} launches, by folds "
+                     f"{dict(sorted(by_folds.items()))}, idle CTAs "
+                     f"{idle}/{ctas}, launches needing more clusters than "
+                     f"fit {over}")
+    return "K2 staged co-residency: " + "; ".join(parts)
+
+
+def kernel_report(rec, chain):
+    """One entry per kernel variant: held against its plain version at
+    the largest input the main-path runs gave it (bit-exact, or the smoke
+    fails), its CUDA-event time there, the bound, and the per-run totals
+    of every launch the recorder timed.  A variant those runs never
+    launched is measured on other inputs (its entry's "at"): K2 global on
+    the runs' largest K2 batch, K3 L2 on `chain` (phase 3b's lone merge)."""
     from famsa_tpu_torch.ops.dp_torch import dp_dirs, dp_plain
-    from famsa_tpu_torch.ops.dp_wide import dp_dirs_wide, dp_wide_plain
+    from famsa_tpu_torch.ops.dp_wide import (dp_dirs_wide, dp_staged_plain,
+                                             dp_wide_plain)
     from famsa_tpu_torch.ops.lcs_torch import lcs_plain, lcs_rows
+    dp_fns = {"dp": (lambda *a: dp_dirs(*a, variant="global"), dp_plain),
+              "dp_staged": (lambda *a: dp_dirs(*a, variant="staged"),
+                            dp_staged_plain),
+              "dp_wide": (lambda *a: dp_dirs_wide(*a, variant="staged"),
+                          dp_wide_plain),
+              "dp_wide_l2": (lambda *a: dp_dirs_wide(*a, variant="l2"),
+                             dp_wide_plain)}
+    stand_in = {"dp": ("the main-path runs' largest K2 batch",
+                       lambda: rec.inputs["dp_staged"][1]),
+                "dp_wide_l2": ("phase 3b's lone merge", lambda: chain)}
     out, shapes = [], []
     for key, (_, entry, source, replaces) in VARIANTS.items():
         # its count in its own run, else in the first run that launched it
         run = next((r for r in (LAUNCH_RUN[key], "1000", "10000", "dist")
                     if rec.counts[r][key]), None)
-        if run is None:
-            shapes.append(f"{entry}: not launched by the main-path runs")
-            continue
-        launches = rec.counts[run][key]
-        args = rec.inputs[key][1]
+        if run is not None:
+            launches, at = rec.counts[run][key], "largest main-path call"
+            args = rec.inputs[key][1]
+        elif key in stand_in:
+            launches, (at, get) = 0, stand_in[key]
+            args = get()
+        else:
+            raise AssertionError(f"{entry}: not launched by the main-path "
+                                 "runs")
         if key in ("lcs", "lcs_wave"):
             table, syms, q = args
             variant = "wave" if key == "lcs_wave" else "rows"
@@ -941,19 +1101,14 @@ def kernel_report(rec):
                           f"(L={syms.shape[1]}, W={table.shape[1]})")
         else:
             colf, rowf, meta, total = args
-            if key == "dp":
-                fn, plain = dp_dirs, dp_plain
-            else:
-                variant = "staged" if key == "dp_wide" else "l2"
-                fn = lambda *a: dp_dirs_wide(*a, variant=variant)  # noqa: E731
-                plain = dp_wide_plain
+            fn, plain = dp_fns[key]
             res = {}
             plain_ms = wall_ms(lambda: res.setdefault(
                 "plain", plain(colf, rowf, meta, total)))
             err = dp_max_err(fn(colf, rowf, meta, total), res["plain"], meta)
             ms = cuda_ms(lambda: fn(colf, rowf, meta, total), 5)
             bms, by = dp_bound_ms(colf, rowf, meta, total)
-            shapes.append(f"{entry} {meta.shape[0]} merge(s), "
+            shapes.append(f"{entry} ({at}) {meta.shape[0]} merge(s), "
                           f"{meta[:, :2].tolist()}")
         if err:
             raise AssertionError(f"{entry} at the main path's shape: max abs "
@@ -967,11 +1122,12 @@ def kernel_report(rec):
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bms, "bound_by": by, "library_ms": None,
-                    "launches_run": run, "runs": runs})
+                    "launches_run": run, "at": at, "runs": runs})
     hist = np.bincount(rec.batch_sizes) if rec.batch_sizes else []
     log("kernels at main-path shapes (largest call of each variant): "
         + "; ".join(shapes) + f"; K2 batch sizes (count by size 0..): "
         f"{list(map(int, hist))}")
+    log(staged_coresidency(rec))
     for e in out:
         log(f"  {e['name']}: " + ", ".join(
             f"run {r}: {v['launches']} launches, {v['total_ms']:.3f} ms in "
@@ -993,14 +1149,14 @@ def main():
         f"sources; {smi}")
     phase_k1()
     phase_k2()
-    phase_k3()
+    chain = phase_k3()
     rec = LaunchRecorder()
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=os.path.dirname(
             os.path.abspath(__file__))) as work:
         phase_main(work, rec)
         phase_tree(work, rec)
         phase_wide(work, rec)
-    kern = kernel_report(rec)
+    kern = kernel_report(rec, chain)
     log(f"smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kern}))
     print(smi)

@@ -1,5 +1,8 @@
 // K2: batched FAMSA profile-profile DP (affine gaps, exact int64), with
-// the optional guided band.
+// the optional guided band.  This is K2's "global" variant, which takes
+// any batch up to w2 = 131071; batches whose widest w2 is <= 4095 take the
+// staged variant, dp_profile_batched_staged in csrc/dp_wide.cu (one
+// cluster of column folds a merge; ops/dp_torch.py:k2_variant).
 //
 // Replaces the Pallas kernel famsa_tpu/ops/dp_pallas.py:_make_kernel
 // (launched by _run_kernel; the B2 kernel).  Semantics are those of

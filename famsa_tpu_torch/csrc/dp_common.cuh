@@ -1,7 +1,8 @@
-// The profile DP row shared by K2 (csrc/dp.cu, batched merges, one CTA
-// per merge) and K3 (csrc/dp_wide.cu, one merge over a cluster of column
-// folds): plane layouts, wrapped int64 arithmetic and the per-thread body
-// of one DP row.
+// The profile DP row shared by K2 (batched merges: csrc/dp.cu, one CTA
+// per merge, and the staged variant in csrc/dp_wide.cu, one cluster of
+// column folds per merge) and K3 (csrc/dp_wide.cu, one merge over a
+// cluster of column folds): plane layouts, wrapped int64 arithmetic and
+// the per-thread body of one DP row.
 //
 // A CTA walks the columns [c0, c0 + threads * S) of a merge, each thread a
 // contiguous stripe of S columns whose previous-row D/H/V stay in

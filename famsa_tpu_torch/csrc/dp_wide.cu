@@ -42,6 +42,10 @@
 // dp_profile_wide_l2 (the first design, every width up to 32767): stripes of
 // 1-8 columns a thread, column and row factors read from global memory
 // (L2-resident) and two CTA barriers a row (BlockXch).
+//
+// The staged kernel also serves K2: dp_profile_batched_staged launches it
+// on a batch of merges whose widest w2 is <= 4095, one cluster per merge
+// (ops/dp_torch.py:k2_variant; the note above dp_staged_kernel).
 
 #include <cooperative_groups.h>
 
@@ -197,11 +201,40 @@ __device__ __forceinline__ void load_rows(i64* tile, const i64* rowf, i64 i0,
     asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
+// The staged kernel: K3's staged variant (one merge) and K2's staged
+// variant (a batch of merges), one body.
+//
+// As K2's variant it replaces, for batches whose widest w2 is <= 4095,
+// the Pallas kernel famsa_tpu/ops/dp_pallas.py:_make_kernel (launched by
+// _run_kernel; the B2 kernel).  What bounds it on the H100: the integer
+// issue rate, and rows are serial, so K2's global variant (csrc/dp.cu,
+// one CTA a merge) keeps at most one SM a merge busy and walks 2-8
+// columns a thread one after another, re-reading every column factor
+// from L2 each row.
+// Design: the grid is (F, B) with cluster dimension (F, 1, 1), one
+// cluster per merge b = blockIdx.y and one CTA per fold, so one launch
+// spreads a batch of B merges over up to 8 B SMs; each fold runs K3's
+// staged row (one column a thread, factors on chip, one CTA barrier a
+// row).  F and the fold width fw come from the batch's widest w2
+// (ops/dp_wide.py:fold_geometry); merge b uses its first
+// ceil((w2_b + 1) / fw) folds.  A fold of the cluster holding no column of
+// its merge does no row work, but it still runs the step loop and takes
+// every cluster barrier: the number of barriers is a function of the
+// merge alone, so all CTAs of a cluster take the same number.  Merges of
+// one launch never interact.  BATCH false: one merge of w1 x w2 (K3's
+// entry, B = 1; meta unused).  BATCH true: meta[b] = (w1, w2, dirs
+// offset), and merge b's factors, rows and finals lie at b * NCOLF * ldc,
+// b * ldr * NROWF and b * ldf * 3.  Two instantiations of the one body:
+// the batched one reassigns the pointers and widths per merge, and a
+// body that did so for K3's lone merges too measured 3-10 % slower a row
+// there (the kernel sits at the 128-register cap of 512 threads); K3's
+// instantiation leaves them kernel parameters.
+template <bool BATCH>
 __global__ void __launch_bounds__(MAX_THREADS)
-dp_wide_staged_kernel(const i64* __restrict__ colf,
-                      const i64* __restrict__ rowf, i64 w1, i64 w2, int ldc,
-                      int blk, uint8_t* __restrict__ dirs,
-                      i64* __restrict__ fin) {
+dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
+                 const i64* __restrict__ meta, i64 w1, i64 w2, int ldc,
+                 int ldr, int ldf, int blk, uint8_t* __restrict__ dirs,
+                 i64* __restrict__ fin) {
     extern __shared__ __align__(16) i64 dsm[];
     __shared__ i64 edge[2][BLK_MAX][3];
     __shared__ i64 xD[MAX_WARPS], xV[MAX_WARPS], wmax[2][MAX_WARPS];
@@ -209,9 +242,20 @@ dp_wide_staged_kernel(const i64* __restrict__ colf,
 
     cg::cluster_group cluster = cg::this_cluster();
     const int f = (int)cluster.block_rank();
-    const int F = (int)cluster.num_blocks();
     const int t = threadIdx.x;
     const int fw = blockDim.x;                   // columns of a fold
+    if constexpr (BATCH) {
+        const int b = blockIdx.y;
+        w1 = meta[4 * b];
+        w2 = meta[4 * b + 1];
+        dirs += meta[4 * b + 2];
+        colf += (size_t)b * NCOLF * ldc;
+        rowf += (size_t)b * ldr * NROWF;
+        fin += (size_t)b * ldf * 3;
+    }
+    // folds holding a column of the merge: all of the cluster's for K3
+    const int F = BATCH ? (int)((w2 + fw) / fw) : (int)cluster.num_blocks();
+    const bool live = !BATCH || f < F;
     const i64 c0 = (i64)f * fw;
     const i64 j = c0 + t;
     const i64 stride = w2 + 1;
@@ -220,7 +264,7 @@ dp_wide_staged_kernel(const i64* __restrict__ colf,
     i64* rtile = dsm + NSCORE * fw;              // [2][blk][NROWF]
 
     // the fold's score planes: one bulk copy a plane (ldc even and colf
-    // 16-byte aligned, checked by the entry point; a fold's columns are
+    // 16-byte aligned, checked by the entry points; a fold's columns are
     // rounded up to an even count, which stays inside the plane's row)
     if (t == 0) {
         asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
@@ -228,7 +272,7 @@ dp_wide_staged_kernel(const i64* __restrict__ colf,
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
     __syncthreads();
-    if (t == 0) {
+    if (live && t == 0) {
         const i64 ncol = min((i64)fw, w2 + 1 - c0);
         const uint32_t bytes = (uint32_t)(((ncol + 1) & ~1LL) * 8);
         asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
@@ -254,7 +298,7 @@ dp_wide_staged_kernel(const i64* __restrict__ colf,
     }
     cols.s2 = s2 + t;
     cols.lds = fw;
-    load_rows(rtile, rowf, 1, (int)min((i64)blk, w1), t, fw);
+    if (live) load_rows(rtile, rowf, 1, (int)min((i64)blk, w1), t, fw);
 
     i64* next = (f + 1 < F && t == fw - 1)
                     ? cluster.map_shared_rank(&edge[0][0][0], f + 1) : nullptr;
@@ -262,7 +306,7 @@ dp_wide_staged_kernel(const i64* __restrict__ colf,
     row0<1>(st, colf, ldc, w2, j, 1, dirs);
     WarpXch xch{xD, xV, &wmax[0][0], fw / 32};
     asm volatile("cp.async.wait_all;" ::: "memory");
-    {
+    if (live) {
         uint32_t done = 0;
         while (!done)
             asm volatile(
@@ -273,16 +317,16 @@ dp_wide_staged_kernel(const i64* __restrict__ colf,
     }
     cluster.sync();     // tiles visible; every fold runs before remote stores
     for (i64 s = 0; s < nrb + F - 1; ++s) {
-        const i64 b = s - f;
-        if (b >= 0 && b < nrb) {
+        const i64 rb = s - f;
+        if (live && rb >= 0 && rb < nrb) {
             const int in = (int)((s + 1) & 1), out = (int)(s & 1);
-            const i64* cur = rtile + (b & 1) * blk * NROWF;
-            if (b + 1 < nrb)
-                load_rows(rtile + ((b + 1) & 1) * blk * NROWF, rowf,
-                          (b + 1) * blk + 1,
-                          (int)min((i64)blk, w1 - (b + 1) * blk), t, fw);
+            const i64* cur = rtile + (rb & 1) * blk * NROWF;
+            if (rb + 1 < nrb)
+                load_rows(rtile + ((rb + 1) & 1) * blk * NROWF, rowf,
+                          (rb + 1) * blk + 1,
+                          (int)min((i64)blk, w1 - (rb + 1) * blk), t, fw);
             for (int r = 0; r < blk; ++r) {
-                const i64 i = b * blk + r + 1;
+                const i64 i = rb * blk + r + 1;
                 if (i > w1) break;
                 i64 eD = NEG, eV = NEG, seed = IMIN;
                 if (f > 0) {
@@ -307,11 +351,12 @@ dp_wide_staged_kernel(const i64* __restrict__ colf,
     }
 }
 
-cudaLaunchConfig_t cluster_config(int folds, int threads, size_t smem,
-                                  cudaStream_t stream,
+// grid (folds, batch), one cluster of the folds per batch index
+cudaLaunchConfig_t cluster_config(int folds, int batch, int threads,
+                                  size_t smem, cudaStream_t stream,
                                   cudaLaunchAttribute* attr) {
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(folds, 1, 1);
+    cfg.gridDim = dim3(folds, batch, 1);
     cfg.blockDim = dim3(threads, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
@@ -329,7 +374,7 @@ cudaError_t launch(const i64* colf, const i64* rowf, i64 w1, i64 w2,
                    int folds, int threads, int ldc, int blk, uint8_t* dirs,
                    i64* fin, cudaStream_t stream) {
     cudaLaunchAttribute attr[1];
-    cudaLaunchConfig_t cfg = cluster_config(folds, threads, 0, stream, attr);
+    cudaLaunchConfig_t cfg = cluster_config(folds, 1, threads, 0, stream, attr);
     cudaError_t err = cudaLaunchKernelEx(&cfg, dp_wide_kernel<S>, colf, rowf,
                                          w1, w2, ldc, blk, dirs, fin);
     if (err != cudaSuccess) return err;
@@ -343,6 +388,40 @@ bool bad_geometry(long long w1, long long w2, int folds, int threads,
            threads > MAX_THREADS || threads % 32 != 0 || blk < 1 ||
            blk > BLK_MAX || folds * fw < w2 + 1 ||
            (folds - 1) * fw >= w2 + 1 || ldc < w2 + 1;
+}
+
+size_t staged_smem(int threads, int blk) {
+    return (size_t)NSCORE * threads * 8 + 2 * (size_t)blk * NROWF * 8;
+}
+
+template <bool BATCH>
+cudaError_t staged_smem_ready() {
+    static bool done = false;
+    if (!done) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            dp_staged_kernel<BATCH>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)STAGED_SMEM_MAX);
+        if (e != cudaSuccess) return e;
+        done = true;
+    }
+    return cudaSuccess;
+}
+
+template <bool BATCH>
+cudaError_t launch_staged(const i64* colf, const i64* rowf, const i64* meta,
+                          i64 w1, i64 w2, int batch, int folds, int threads,
+                          int ldc, int ldr, int ldf, int blk, uint8_t* dirs,
+                          i64* fin, cudaStream_t stream) {
+    cudaError_t err = staged_smem_ready<BATCH>();
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg = cluster_config(folds, batch, threads,
+                                            staged_smem(threads, blk), stream,
+                                            attr);
+    err = cudaLaunchKernelEx(&cfg, dp_staged_kernel<BATCH>, colf, rowf, meta,
+                             w1, w2, ldc, ldr, ldf, blk, dirs, fin);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -385,25 +464,51 @@ int dp_profile_wide(const void* colf, const void* rowf, long long w1,
         stripe != 1 || ldc % 2 != 0 ||
         reinterpret_cast<uintptr_t>(colf) % 16 != 0)
         return (int)cudaErrorInvalidValue;
-    static bool smem_set = false;
-    if (!smem_set) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            dp_wide_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)STAGED_SMEM_MAX);
-        if (e != cudaSuccess) return (int)e;
-        smem_set = true;
-    }
-    const size_t smem = (size_t)NSCORE * threads * 8 + 2 * (size_t)blk * NROWF * 8;
+    return (int)launch_staged<false>(
+        static_cast<const i64*>(colf), static_cast<const i64*>(rowf), nullptr,
+        (i64)w1, (i64)w2, 1, folds, threads, ldc, 0, 0, blk,
+        static_cast<uint8_t*>(dirs), static_cast<i64*>(fin),
+        static_cast<cudaStream_t>(stream));
+}
+
+// K2's staged variant: a batch of B merges packed as csrc/dp.cu's
+// dp_profile_batched takes them (colf [B][44][ldc], rowf [B][ldr][77],
+// meta [B][4] = (w1, w2, dirs byte offset, unused), fin [B][ldf][3]),
+// max_w2 the widest w2 of the batch.  folds (1..8) CTAs of threads
+// (32..512, whole warps) columns each, one column a thread, must cover
+// max_w2 + 1; ldc even and colf 16-byte aligned.  blk (1..32): rows per
+// wavefront step.  Returns the launch's cudaError_t (0 on success).
+int dp_profile_batched_staged(const void* colf, const void* rowf,
+                              const void* meta, int B, long long max_w2,
+                              int folds, int threads, int ldc, int ldr,
+                              int ldf, int blk, void* dirs, void* fin,
+                              void* stream) {
+    if (B <= 0) return 0;
+    if (B > 65535 || folds < 1 || folds > MAX_FOLDS || threads < 32 ||
+        threads > MAX_THREADS || threads % 32 != 0 || blk < 1 ||
+        blk > BLK_MAX || max_w2 < 0 || (long long)folds * threads < max_w2 + 1 ||
+        ldc < max_w2 + 1 || ldc % 2 != 0 || ldr < 1 || ldf < ldr - 1 ||
+        reinterpret_cast<uintptr_t>(colf) % 16 != 0)
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_staged<true>(
+        static_cast<const i64*>(colf), static_cast<const i64*>(rowf),
+        static_cast<const i64*>(meta), 0, 0, B, folds, threads, ldc, ldr, ldf,
+        blk, static_cast<uint8_t*>(dirs), static_cast<i64*>(fin),
+        static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of `folds` staged CTAs of `threads` threads (blk rows
+// a step) can be resident on the device at once
+// (cudaOccupancyMaxActiveClusters); a negative cudaError_t on failure.
+int dp_staged_max_clusters(int folds, int threads, int blk) {
+    cudaError_t err = staged_smem_ready<true>();
+    if (err != cudaSuccess) return -(int)err;
     cudaLaunchAttribute attr[1];
-    cudaLaunchConfig_t cfg = cluster_config(folds, threads, smem,
-                                            static_cast<cudaStream_t>(stream),
-                                            attr);
-    cudaError_t err = cudaLaunchKernelEx(
-        &cfg, dp_wide_staged_kernel, static_cast<const i64*>(colf),
-        static_cast<const i64*>(rowf), (i64)w1, (i64)w2, ldc, blk,
-        static_cast<uint8_t*>(dirs), static_cast<i64*>(fin));
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    cudaLaunchConfig_t cfg = cluster_config(folds, 1, threads,
+                                            staged_smem(threads, blk), 0, attr);
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, dp_staged_kernel<true>, &cfg);
+    return err != cudaSuccess ? -(int)err : n;
 }
 
 }  // extern "C"

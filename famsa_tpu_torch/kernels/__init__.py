@@ -26,9 +26,11 @@ _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 KERNELS = ("lcs", "dp", "dp_wide")
 
-# one count per hand-written kernel variant: K1 rows and wave, K2, K3
-# staged (w2 <= 4095) and K3 with its column factors in L2 (wider)
-LAUNCHES = {"lcs": 0, "lcs_wave": 0, "dp": 0, "dp_wide": 0, "dp_wide_l2": 0}
+# one count per hand-written kernel variant: K1 rows and wave, K2 global
+# (one CTA a merge) and staged (a cluster of folds a merge, w2 <= 4095),
+# K3 staged (w2 <= 4095) and K3 with its column factors in L2 (wider)
+LAUNCHES = {"lcs": 0, "lcs_wave": 0, "dp": 0, "dp_staged": 0, "dp_wide": 0,
+            "dp_wide_l2": 0}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _libs = {}
@@ -135,6 +137,12 @@ def _configure(name, lib):
             fn.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_longlong, ci,
                            ci, ci, ci, ci, vp, vp, vp]
             fn.restype = ci
+        lib.dp_profile_batched_staged.argtypes = [
+            vp, vp, vp, ci, ctypes.c_longlong, ci, ci, ci, ci, ci, ci, vp,
+            vp, vp]
+        lib.dp_profile_batched_staged.restype = ci
+        lib.dp_staged_max_clusters.argtypes = [ci, ci, ci]
+        lib.dp_staged_max_clusters.restype = ci
 
 
 def get(name):

@@ -1,6 +1,13 @@
-"""Batched profile-profile DP on torch: host prep, the plain PyTorch
-version, the wrapper of the CUDA kernel K2 (csrc/dp.cu) and the batched
-entry point used by the pipeline and the aligner.
+"""Batched profile-profile DP on torch: the plain PyTorch version, the
+wrapper of the CUDA kernel K2 and the batched entry point used by the
+pipeline and the aligner (host prep and packing: ops/dp_pack.py).
+
+K2 has two variants, chosen by the batch's widest w2 (k2_variant):
+"staged" (csrc/dp_wide.cu:dp_profile_batched_staged, w2 <= 4095) runs
+every merge of the batch as one thread-block cluster of K3's staged
+column folds (ops/dp_wide.py), all merges in one launch; "global" (the
+first design, csrc/dp.cu:dp_profile_batched, w2 up to MAX_W2) runs one merge a
+CTA with its column factors read from L2.
 
 One recurrence covers the profile-profile and sequence-profile DP of the
 reference (FAMSA src/core/profile_seq.cpp:165-892): for a
@@ -18,122 +25,20 @@ Output: the packed direction bytes D | H << 2 | V << 4 in the native
 path and total that construct_profile_fast consumes.
 """
 
-import numpy as np
 import torch
 
 from .. import kernels
-from ..core.defs import (GAP_EXT, GAP_OPEN, GAP_TERM_EXT, GAP_TERM_OPEN,
-                         INFTY, NO_AMINOACIDS, NO_AMINOACIDS_AND_GAPS)
-from ..core.dp import _gap_corrections, _gaps_change
+from . import dp_wide
+from .dp_pack import (  # noqa: F401  (prepare_merge, pack_batch: public here)
+    C_CUME, C_CUMT, C_G2CE, C_G2CHG, C_G2CTE, C_G2SE, C_G2SO, C_G2STE,
+    C_G2STO, C_H0, C_P2E, C_P2O, C_P2TE, C_P2TO, C_S2, COL0_PACK, IMIN,
+    MAX_THREADS, NCOLF, NEG, NROWF, R_CNT, R_G1CE, R_G1CTE, R_G1SE, R_G1SO,
+    R_G1STE, R_G1STO, R_HI, R_LO, R_N1C, R_N1TC, R_NNG, R_S1GE, R_S1GO,
+    R_S1GTE, R_S1GTO, R_SYM, R_V0COST, ROW0_PACK, pack_batch, prepare_merge,
+    run_batch)
 
-NEG = -int(INFTY)
-IMIN = -(1 << 63)
-ROW0_PACK = 1 | (1 << 2) | (1 << 4)       # H, H, H
-COL0_PACK = 2 | (2 << 2) | (2 << 4)       # V, V, V
-
-# column-factor planes, colf [B, NCOLF, ldc]; must match csrc/dp_common.cuh
-C_S2 = 0                                   # 30 planes: scores2[j, s]
-(C_P2O, C_P2E, C_P2TO, C_P2TE, C_G2CHG,
- C_G2SO, C_G2SE, C_G2STO, C_G2STE, C_G2CE, C_G2CTE,
- C_CUME, C_CUMT, C_H0) = range(30, 44)
-NCOLF = 44
-# row-factor planes, rowf [B, ldr, NROWF]; must match csrc/dp_common.cuh
-R_NNZ, R_CNT, R_SYM = 0, 1, 31             # compacted nonzero counts
-(R_NNG, R_N1C, R_N1TC, R_S1GO, R_S1GE, R_S1GTO, R_S1GTE,
- R_G1SO, R_G1SE, R_G1STO, R_G1STE, R_G1CE, R_G1CTE,
- R_V0COST, R_LO, R_HI) = range(61, 77)
-NROWF = 77
-
-MAX_THREADS = 512
 MAX_STRIPE = 256
 MAX_W2 = MAX_THREADS * MAX_STRIPE - 1      # widest profile2 K2 takes
-
-
-def _corrections(profile):
-    """The six gap-correction count arrays [6, w+1] of a profile
-    (DP_SolveGapsProblemWhenStarting/Continuing, profile.cpp:1223-1315)."""
-    gc = _gap_corrections(profile)
-    return np.stack([gc[k] for k in ("st_open", "st_ext", "st_to", "st_te",
-                                     "ct_ext", "ct_te")])
-
-
-def prepare_merge(params, profile1, profile2, band=None):
-    """Host prep of one merge (the numpy counterpart of dp_jax.py
-    _prepare_inputs): (colf [NCOLF, w2+1], rowf [w1+1, NROWF]) int64.
-    band: optional [>= w1+1, 2] (lo, hi) rows indexed by DP row
-    (core/dp_native.row_ranges)."""
-    w1, w2 = profile1.width, profile2.width
-    card1, card2 = len(profile1.data), len(profile2.data)
-    c1 = np.asarray(profile1.counters, dtype=np.int64)
-    s1 = np.asarray(profile1.scores, dtype=np.int64)
-    s2 = np.asarray(profile2.scores, dtype=np.int64)
-
-    colf = np.empty((NCOLF, w2 + 1), dtype=np.int64)
-    colf[C_S2:C_S2 + NO_AMINOACIDS_AND_GAPS] = s2[:, :NO_AMINOACIDS_AND_GAPS].T
-    colf[C_P2O] = s2[:, GAP_OPEN]
-    colf[C_P2E] = s2[:, GAP_EXT]
-    colf[C_P2TO] = s2[:, GAP_TERM_OPEN]
-    colf[C_P2TE] = s2[:, GAP_TERM_EXT]
-    colf[C_G2CHG] = _gaps_change(profile2, params)
-    colf[C_G2SO:C_G2CTE + 1] = _corrections(profile2)
-    with np.errstate(over="ignore"):
-        colf[C_CUME] = np.concatenate([[0], np.cumsum(s2[1:, GAP_EXT])])
-        colf[C_CUMT] = np.concatenate([[0], np.cumsum(s2[1:, GAP_TERM_EXT])])
-        # row 0 boundary (profile_seq.cpp:555-579)
-        jj = np.arange(w2 + 1)
-        h0 = np.where(jj == 1, s2[1 if w2 >= 1 else 0, GAP_TERM_OPEN] * card1,
-                      s2[:, GAP_TERM_EXT] * card1)
-        h0 = np.concatenate([[0], np.cumsum(h0[1:])])
-    colf[C_H0] = np.where((jj == 0) | (jj == w2), NEG, h0)
-
-    rowf = np.zeros((w1 + 1, NROWF), dtype=np.int64)
-    cs = c1[:, :NO_AMINOACIDS_AND_GAPS]
-    order = np.argsort(cs == 0, axis=1, kind="stable")  # nonzeros first
-    rowf[:, R_NNZ] = np.count_nonzero(cs, axis=1)
-    rowf[:, R_CNT:R_CNT + 30] = np.take_along_axis(cs, order, axis=1)
-    rowf[:, R_SYM:R_SYM + 30] = order
-    rowf[:, R_NNG] = c1[:, :NO_AMINOACIDS].sum(axis=1)
-    rowf[:, R_N1C] = c1[:, GAP_OPEN]
-    rowf[:, R_N1TC] = c1[:, GAP_TERM_OPEN]
-    rowf[:, R_S1GO] = s1[:, GAP_OPEN]
-    rowf[:, R_S1GE] = s1[:, GAP_EXT]
-    rowf[:, R_S1GTO] = s1[:, GAP_TERM_OPEN]
-    rowf[:, R_S1GTE] = s1[:, GAP_TERM_EXT]
-    rowf[:, R_G1SO:R_G1CTE + 1] = _corrections(profile1).T
-    ii = np.arange(w1 + 1)
-    rowf[:, R_V0COST] = np.where(ii == 1, s1[:, GAP_TERM_OPEN] * card2,
-                                 s1[:, GAP_TERM_EXT] * card2)
-    if band is None:
-        rowf[:, R_LO] = 0
-        rowf[:, R_HI] = w2
-    else:
-        rowf[:, R_LO] = band[:w1 + 1, 0]
-        rowf[:, R_HI] = band[:w1 + 1, 1]
-    return colf, rowf
-
-
-def pack_batch(merges):
-    """Stack prepared merges into padded batch arrays.
-
-    merges: list of (colf, rowf).  Returns (colf [B, NCOLF, ldc],
-    rowf [B, ldr, NROWF], meta [B, 4] (w1, w2, dirs byte offset, 0),
-    total dirs bytes).  ldc is rounded up to even, so that every plane
-    starts 16-byte aligned (K3's bulk copies)."""
-    b = len(merges)
-    w2s = [c.shape[1] - 1 for c, _ in merges]
-    w1s = [r.shape[0] - 1 for _, r in merges]
-    ldc = -(-(max(w2s) + 1) // 2) * 2
-    ldr = max(w1s) + 1
-    colf = np.zeros((b, NCOLF, ldc), dtype=np.int64)
-    rowf = np.zeros((b, ldr, NROWF), dtype=np.int64)
-    meta = np.zeros((b, 4), dtype=np.int64)
-    off = 0
-    for k, (c, r) in enumerate(merges):
-        colf[k, :, :c.shape[1]] = c
-        rowf[k, :r.shape[0]] = r
-        meta[k] = (w1s[k], w2s[k], off, 0)
-        off += (w1s[k] + 1) * (w2s[k] + 1)
-    return colf, rowf, meta, off
 
 
 def _shift(x, fill):
@@ -272,12 +177,22 @@ def launch_geometry(max_w2):
     return ((threads + 31) // 32) * 32, s
 
 
-def dp_dirs(colf, rowf, meta, total):
+def k2_variant(max_w2):
+    """"staged" (max_w2 <= dp_wide.STAGED_MAX_W2: every merge a cluster of
+    K3's staged folds, one column a thread) or "global" (the first design:
+    one CTA a merge, stripes of columns, factors read from L2)."""
+    return "staged" if max_w2 <= dp_wide.STAGED_MAX_W2 else "global"
+
+
+def dp_dirs(colf, rowf, meta, total, variant=None):
     """Packed direction bytes and per-row last-column finals of a batch of
     merges (see pack_batch for the inputs).  Returns (dirs [total] uint8,
-    fin [B, ldr-1, 3] int64).
+    fin [B, ldr-1, 3] int64).  variant: "staged" or "global" (default:
+    k2_variant of the batch's widest w2).
 
-    CUDA tensors launch kernel K2; CPU tensors run dp_plain."""
+    CUDA tensors launch that variant of kernel K2.  CPU tensors run
+    dp_plain, or with variant="staged" its fold walk,
+    dp_wide.dp_staged_plain."""
     if colf.dim() != 3 or colf.shape[1] != NCOLF:
         raise ValueError("colf must be [B, NCOLF, ldc]")
     if rowf.dim() != 3 or rowf.shape[2] != NROWF or rowf.shape[0] != colf.shape[0]:
@@ -288,23 +203,43 @@ def dp_dirs(colf, rowf, meta, total):
         raise TypeError("colf, rowf and meta must be int64")
     if not (colf.device == rowf.device == meta.device):
         raise ValueError("inputs must be on one device")
+    if variant not in (None, "staged", "global"):
+        raise ValueError(f"unknown K2 variant {variant!r}")
+    b, _, ldc = colf.shape
+    ldr = rowf.shape[1]
+    w2s = meta[:, 1].tolist()
+    if variant == "staged":
+        dp_wide.staged_geometry(w2s)        # raises past STAGED_MAX_W2
     dev = colf.device
     if dev.type == "cpu":
+        if variant == "staged":
+            return dp_wide.dp_staged_plain(colf, rowf, meta, total)
         return dp_plain(colf, rowf, meta, total)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if not (colf.is_contiguous() and rowf.is_contiguous()
             and meta.is_contiguous()):
         raise ValueError("inputs must be contiguous")
-    b, _, ldc = colf.shape
-    ldr = rowf.shape[1]
-    threads, stripe = launch_geometry(ldc - 1)
     dirs = torch.empty(total, dtype=torch.uint8, device=dev)
     fin = torch.empty((b, ldr - 1, 3), dtype=torch.int64, device=dev)
     if b == 0:
         return dirs, fin
-    lib = kernels.get("dp")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if (variant or k2_variant(max(w2s))) == "staged":
+        if ldc % 2 or colf.data_ptr() % 16:
+            raise ValueError("K2 staged takes an even ldc and 16-byte "
+                             "aligned colf (pack_batch)")
+        folds, threads, _ = dp_wide.staged_geometry(w2s)
+        lib = kernels.get("dp_wide")
+        kernels.LAUNCHES["dp_staged"] += 1
+        err = lib.dp_profile_batched_staged(
+            colf.data_ptr(), rowf.data_ptr(), meta.data_ptr(), b, max(w2s),
+            folds, threads, ldc, ldr, ldr - 1, dp_wide.BLK, dirs.data_ptr(),
+            fin.data_ptr(), stream)
+        kernels.check(err, "dp_profile_batched_staged")
+        return dirs, fin
+    threads, stripe = launch_geometry(ldc - 1)
+    lib = kernels.get("dp")
     kernels.LAUNCHES["dp"] += 1
     err = lib.dp_profile_batched(colf.data_ptr(), rowf.data_ptr(),
                                  meta.data_ptr(), b, threads, stripe, ldc,
@@ -320,21 +255,9 @@ def dp_profile_torch_batched(params, pairs, bands=None, dirs_fn=None):
     pairs: list of (profile1, profile2) with counters/scores computed;
     bands: optional list aligned with pairs of band rows
     (core/dp_native.row_ranges) or None; dirs_fn: the DP on the packed
-    batch (default dp_dirs; ops/dp_wide.py passes K3's wrapper).
-    Returns a list of (dirs [w1+1, w2+1] uint8 numpy, last (D, H, V))."""
+    batch (default dp_dirs; the scheduler passes K3's wrapper for a lone
+    wide merge).  Returns a list of (dirs [w1+1, w2+1] uint8 numpy, last
+    (D, H, V))."""
     if bands is None:
         bands = [None] * len(pairs)
-    merges = [prepare_merge(params, p1, p2, bd)
-              for (p1, p2), bd in zip(pairs, bands)]
-    colf, rowf, meta, total = pack_batch(merges)
-    dev = torch.device(params.device)
-    dirs, fin = (dirs_fn or dp_dirs)(torch.from_numpy(colf).to(dev),
-                                     torch.from_numpy(rowf).to(dev),
-                                     torch.from_numpy(meta).to(dev), total)
-    dirs = dirs.cpu().numpy()
-    fin = fin.cpu().numpy()
-    out = []
-    for k, (w1, w2, off, _) in enumerate(meta):
-        d = dirs[off:off + (w1 + 1) * (w2 + 1)].reshape(w1 + 1, w2 + 1)
-        out.append((d, tuple(int(v) for v in fin[k, w1 - 1])))
-    return out
+    return run_batch(params, pairs, bands, dirs_fn or dp_dirs)

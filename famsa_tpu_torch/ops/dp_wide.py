@@ -1,6 +1,8 @@
-"""Profile DP of one wide merge over column folds: the fold geometry, the
-wrapper of the CUDA kernel K3 (csrc/dp_wide.cu: a staged variant up to
-w2 = 4095 and the L2 variant past it), its plain PyTorch version and the
+"""Profile DP over column folds: the fold geometry, the wrapper of the
+CUDA kernel K3 (one wide merge; csrc/dp_wide.cu: a staged variant up to
+w2 = 4095 and the L2 variant past it), its plain PyTorch version, the
+plain version of K2's staged variant (a batch of merges, each walked over
+the launch's folds; its wrapper is ops/dp_torch.py:dp_dirs) and the
 single-merge entry point used by the scheduler and the aligner.
 
 K3 computes what K2 (ops/dp_torch.py) computes for one merge, on the
@@ -18,13 +20,13 @@ decomposition itself is tested on the CPU against dp_plain.
 import torch
 
 from .. import kernels
-from .dp_torch import (C_CUME, C_CUMT, C_G2CE, C_G2CHG, C_G2CTE, C_G2SE,
-                       C_G2SO, C_G2STE, C_G2STO, C_H0, C_P2E, C_P2O, C_P2TE,
-                       C_P2TO, C_S2, COL0_PACK, IMIN, MAX_THREADS, NCOLF, NEG,
-                       NROWF, R_CNT, R_G1CE, R_G1CTE, R_G1SE, R_G1SO, R_G1STE,
-                       R_G1STO, R_HI, R_LO, R_N1C, R_N1TC, R_NNG, R_S1GE,
-                       R_S1GO, R_S1GTE, R_S1GTO, R_SYM, R_V0COST, ROW0_PACK,
-                       dp_profile_torch_batched)
+from .dp_pack import (C_CUME, C_CUMT, C_G2CE, C_G2CHG, C_G2CTE, C_G2SE,
+                      C_G2SO, C_G2STE, C_G2STO, C_H0, C_P2E, C_P2O, C_P2TE,
+                      C_P2TO, C_S2, COL0_PACK, IMIN, MAX_THREADS, NCOLF, NEG,
+                      NROWF, R_CNT, R_G1CE, R_G1CTE, R_G1SE, R_G1SO, R_G1STE,
+                      R_G1STO, R_HI, R_LO, R_N1C, R_N1TC, R_NNG, R_S1GE,
+                      R_S1GO, R_S1GTE, R_S1GTO, R_SYM, R_V0COST, ROW0_PACK,
+                      run_batch)
 
 MAX_FOLDS = 8                      # the portable thread-block cluster size
 STRIPES = (1, 2, 4, 8)
@@ -57,6 +59,19 @@ def k3_variant(w2):
     column factors in shared memory and registers) or "l2" (the first
     design: stripes of 2-8 columns, factors read from L2)."""
     return "staged" if w2 <= STAGED_MAX_W2 else "l2"
+
+
+def staged_geometry(w2s):
+    """(folds, fold_cols, merge_folds) of K2's staged launch on a batch of
+    merges of widths w2s: the folds of the widest merge (fold_geometry,
+    one column a thread), and for each merge the folds that hold one of
+    its columns, ceil((w2 + 1) / fold_cols).  Raises past STAGED_MAX_W2."""
+    widest = max(w2s)
+    if widest > STAGED_MAX_W2:
+        raise ValueError(f"K2 staged takes batches of w2 <= {STAGED_MAX_W2}, "
+                         f"not {widest}")
+    folds, threads, _ = fold_geometry(widest)
+    return folds, threads, [-(-(w2 + 1) // threads) for w2 in w2s]
 
 
 def _check_inputs(colf, rowf, meta):
@@ -224,6 +239,29 @@ def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK):
     return dirs, fin
 
 
+def dp_staged_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK):
+    """Plain PyTorch version of K2's staged variant on a packed batch (see
+    ops/dp_pack.py:pack_batch): every merge walked by dp_wide_plain over
+    the launch's folds of fold_cols columns (default: staged_geometry's),
+    so merge k crosses ceil((w2_k + 1) / fold_cols) of them, blk rows a
+    step.  Returns (dirs [total] uint8, fin [B, ldr-1, 3] int64: the
+    last-column D, H, V of every row)."""
+    meta_h = meta.tolist()
+    if fold_cols is None:
+        fold_cols = staged_geometry([m[1] for m in meta_h])[1]
+    dirs = torch.zeros(total, dtype=torch.uint8, device=colf.device)
+    fin = torch.zeros((colf.shape[0], rowf.shape[1] - 1, 3),
+                      dtype=torch.int64, device=colf.device)
+    for k, (w1, w2, off, _) in enumerate(meta_h):
+        n = (w1 + 1) * (w2 + 1)
+        one = torch.tensor([[w1, w2, 0, 0]], device=colf.device)
+        d, f = dp_wide_plain(colf[k:k + 1], rowf[k:k + 1], one, n,
+                             fold_cols=fold_cols, blk=blk)
+        dirs[off:off + n] = d
+        fin[k] = f[0]
+    return dirs, fin
+
+
 def dp_dirs_wide(colf, rowf, meta, total, variant=None):
     """Packed direction bytes and per-row last-column finals of ONE merge
     (pack_batch of one prepared merge).  Returns (dirs [total] uint8,
@@ -272,5 +310,4 @@ def dp_profile_torch_wide(params, p1, p2, band=None):
     """DP of one merge on params.device (one K3 launch on CUDA); band:
     optional band rows (core/dp_native.row_ranges).  Returns (dirs
     [w1+1, w2+1] uint8 numpy, last (D, H, V))."""
-    return dp_profile_torch_batched(params, [(p1, p2)], [band],
-                                    dirs_fn=dp_dirs_wide)[0]
+    return run_batch(params, [(p1, p2)], [band], dp_dirs_wide)[0]

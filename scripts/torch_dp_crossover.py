@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where each profile-DP route wins on the merges of the main path: the
-native host DP, kernel K2 (batched merges, one merge per SM) and kernel
-K3 (one wide merge over up to 8 SMs).
+native host DP, kernel K2 (batched merges in one launch; at w2 <= 4095
+its staged variant, one cluster of column folds a merge) and kernel K3
+(one wide merge over up to 8 SMs).
 
     python3 scripts/torch_dp_crossover.py [--n 1000] [--wide-n 10000]
         [--reps 3] [--rounds 4] [--wide-rounds 2] [--e2e auto]
@@ -28,8 +29,9 @@ K3 (one wide merge over up to 8 SMs).
    and the aligner's own routing (core/aligner.py device_dp_ok,
    split_wide, wide_dp_ok) under one setting of FAMSA_TORCH_DP_MIN_CELLS,
    FAMSA_TORCH_WIDE_MIN_CELLS and WIDE_MAX_READY.
-   On a CUDA device it first prints kernel-only times of K2 and K3 on a
-   few of those merges, K3 at several minimum fold widths.
+   On a CUDA device it first prints kernel-only times of K2 (both
+   variants) and K3 on a few of those merges, K3 at several minimum fold
+   widths.
 3. End to end under the rules of --e2e ("auto": PR 1's routing, K2 only,
    and the two fastest rules of step 2 that use the device; "none"
    skips this step), in rounds
@@ -165,23 +167,28 @@ def median_by_cells(merges):
         len(merges) // 2]
 
 
-def kernel_times(params, smi, cases, fold_cols=(128, 256, 512, 1024)):
-    """Kernel-only CUDA-event ms of K2 and K3 on single recorded merges
-    (guided ones with their band), K3 at several minimum fold widths."""
+def kernel_times(params, smi, cases, fold_cols=(128, 256, 512)):
+    """Kernel-only CUDA-event ms of K2 (the global variant, and the staged
+    one where it takes the merge) and K3 on single recorded merges (guided
+    ones with their band), K3 at several minimum fold widths."""
     import torch
     from chip_smoke import cuda_ms
     from famsa_tpu_torch.core.dp_native import row_ranges
     from famsa_tpu_torch.ops import dp_wide
-    from famsa_tpu_torch.ops.dp_torch import (dp_dirs, launch_geometry,
-                                              pack_batch, prepare_merge)
+    from famsa_tpu_torch.ops.dp_torch import (dp_dirs, k2_variant,
+                                              launch_geometry, pack_batch,
+                                              prepare_merge)
     for what, m in cases:
         band = row_ranges(params, m[2], m[3]) if len(m) > 2 else None
         colf, rowf, meta, total = pack_batch([prepare_merge(params, m[0],
                                                             m[1], band)])
         args = [torch.from_numpy(x).cuda() for x in (colf, rowf, meta)]
-        msg = (f"kernel only, {what} ({m[0].width}x{m[1].width}): K2 "
-               f"{launch_geometry(colf.shape[2] - 1)} "
-               f"{cuda_ms(lambda: dp_dirs(*args, total), 5):.3f} ms")
+        k2 = {v: cuda_ms(lambda: dp_dirs(*args, total, variant=v), 5)
+              for v in ("global", "staged")
+              if v == "global" or k2_variant(m[1].width) == "staged"}
+        msg = (f"kernel only, {what} ({m[0].width}x{m[1].width}): K2 global "
+               f"{launch_geometry(colf.shape[2] - 1)} {k2['global']:.3f} ms, "
+               f"K2 staged {k2.get('staged', float('nan')):.3f} ms")
         orig = dp_wide.MIN_FOLD_COLS
         try:
             for fc in fold_cols:

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Old against new designs of K1 and K3 on one card, in alternating order.
+"""Old against new designs of K1, K2 and K3 on one card, in alternating
+order.
 
     python3 scripts/torch_kernel_redesign.py [--reps 200] [--rounds 2]
-        [--parts k1,k3,e2e]
+        [--parts k1,k2,k3,e2e]
 
 The old designs are still in the port: K1's rows variant (one thread a
-query, ops/lcs_torch.py variant="rows") and K3's L2 variant (its first
+query, ops/lcs_torch.py variant="rows"), K2's global variant (one CTA a
+merge, ops/dp_torch.py variant="global") and K3's L2 variant (its first
 design, ops/dp_wide.py variant="l2"); the new ones are K1's wave variant
-and K3's staged variant.
+and K2's and K3's staged variants.
 
 k1   Kernel-only CUDA-event times of one MST-Prim round, the first
      reference of chip_smoke.py's 1000- and 10,000-sequence families
@@ -15,13 +17,23 @@ k1   Kernel-only CUDA-event times of one MST-Prim round, the first
      against all sequences, rows, wave, wave, rows; then the dispatch
      crossover: both variants for R = 1..256 references against each
      family, with the rows grid R x ceil(n / 128) beside them.
+k2   Kernel-only times of K2, global, staged, staged, global: a lone
+     2048x2048 merge (random profiles of 12 and 9 sequences, as
+     chip_smoke.py phase 3), and the largest batch of 16 merges (by
+     cells) that the 1000- and the 10,000-sequence default runs launch,
+     replayed from the inputs kept during the run; with the bound of each.
+     Then the staged launch of those batches three ways, in turns: as the
+     port runs it, with every fold 512 columns wide (the fewest folds and
+     CTAs a cluster), and split into one launch per merge fold count;
+     with the clusters that fit on the card at once.
 k3   Kernel-only times of one merge at the main path's shapes (random
      profiles of 50 sequences, 20 % gaps), l2, staged, staged, l2; then
      the staged variant at rows-per-step BLK 8, 16 and 32 and minimum
      fold widths of 128 and 256 columns.
 e2e  The 1000-sequence default run (refinement on) and the 10,000-
      sequence run (the wide route) through the CLI entry point, old
-     designs forced (WAVE_MAX_GRID 0, STAGED_MAX_W2 -1) and new, in
+     designs forced (WAVE_MAX_GRID 0, STAGED_MAX_W2 -1, which sends K2 to
+     its global variant and K3 to its L2 one) and new, in
      --rounds rounds of old, new, new, old: stage seconds and launches
      per kernel variant.
 
@@ -89,6 +101,119 @@ def part_k1(reps, smi):
             print(f"k1 crossover n={n} R={r} grid={grid}: rows {rows:.5f} "
                   f"wave {wave:.5f} ms ({'wave' if wave < rows else 'rows'} "
                   "faster)", flush=True)
+
+
+def largest_k2_batch(work, n, max_batch=16):
+    """(colf, rowf, meta, total) of the largest K2 launch of max_batch
+    merges (by direction bytes) in the n-sequence default run."""
+    from famsa_tpu_torch.ops import dp_torch
+    fa = os.path.join(work, f"fam{n}.fa")
+    with open(fa, "w") as f:
+        f.write(chip_smoke.make_family(n, 300, 7))
+    best = {}
+    orig = dp_torch.dp_dirs
+
+    def keep(colf, rowf, meta, total, variant=None):
+        if meta.shape[0] == max_batch and total > best.get("total", -1):
+            best.update(total=total, args=(colf, rowf, meta, total))
+        return orig(colf, rowf, meta, total, variant=variant)
+    dp_torch.dp_dirs = keep
+    try:
+        rc, _ = chip_smoke.run_cli(["-backend", "torch", "-device", "cuda", fa,
+                                    os.path.join(work, "out.fa")], {})
+    finally:
+        dp_torch.dp_dirs = orig
+    if rc != 0 or not best:
+        raise AssertionError(f"k2: no batch of {max_batch} in the {n} run")
+    return best["args"]
+
+
+def part_k2(reps, smi):
+    import torch
+    from famsa_tpu_torch.core.params import Params
+    from famsa_tpu_torch.ops.dp_torch import dp_dirs, pack_batch, prepare_merge
+    from famsa_tpu_torch.ops.dp_wide import staged_geometry
+    rng = np.random.default_rng(17)
+    params = Params(device="cuda")
+    params.adjust(1000)
+    p1 = chip_smoke.random_profile(rng, params, 12, 2048)
+    p2 = chip_smoke.random_profile(rng, params, 9, 2048)
+    colf, rowf, meta, total = pack_batch([prepare_merge(params, p1, p2)])
+    cases = [("lone 2048x2048",
+              [torch.from_numpy(x).cuda() for x in (colf, rowf, meta)] + [total])]
+    with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as work:
+        for n in (1000, 10000):
+            cases.append((f"largest 16-merge batch of the {n} run",
+                          list(largest_k2_batch(work, n))))
+    reps = max(3, reps // 20)
+    for what, args in cases:
+        t = {v: [] for v in ("global", "staged")}
+        for v in ("global", "staged", "staged", "global"):
+            t[v].append(chip_smoke.cuda_ms(
+                lambda: dp_dirs(*args, variant=v), reps))
+        w1s, w2s = args[2][:, 0].tolist(), args[2][:, 1].tolist()
+        bms, by = chip_smoke.dp_bound_ms(*args)
+        print(f"k2 {what}: merges (w1, w2) {list(zip(w1s, w2s))}, staged "
+              f"geometry {staged_geometry(w2s)}: global {t['global']} ms, "
+              f"staged {t['staged']} ms; us per row of the deepest merge "
+              f"global {[x / max(w1s) * 1e3 for x in t['global']]} staged "
+              f"{[x / max(w1s) * 1e3 for x in t['staged']]}; bound {bms:.5f} "
+              f"ms ({by}); {smi}", flush=True)
+        if len(w1s) > 1:
+            staged_alternatives(args, reps, smi, what)
+
+
+def staged_alternatives(args, reps, smi, what):
+    """CUDA-event ms of K2's staged variant on one batch as the port
+    launches it, with MIN_FOLD_COLS 512 (fold_geometry then picks the
+    fewest folds), and as one launch per group of merges of equal fold
+    count, in the order port, wide, split, split, wide, port."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops import dp_wide
+    from famsa_tpu_torch.ops.dp_torch import dp_dirs
+    colf, rowf, meta, total = args
+    w2s = meta[:, 1].tolist()
+    folds, fw, merge_folds = dp_wide.staged_geometry(w2s)
+    groups = {}
+    for k, f in enumerate(merge_folds):
+        groups.setdefault(f, []).append(k)
+    parts = []
+    for idx in groups.values():
+        i = torch.tensor(idx, device=colf.device)
+        parts.append((colf[i].contiguous(), rowf[i].contiguous(),
+                      meta[i].contiguous()))
+
+    def port():
+        dp_dirs(*args, variant="staged")
+
+    def split():
+        for c, r, m in parts:
+            dp_dirs(c, r, m, total, variant="staged")
+
+    def wide():
+        old = dp_wide.MIN_FOLD_COLS
+        dp_wide.MIN_FOLD_COLS = dp_wide.MAX_THREADS
+        try:
+            dp_dirs(*args, variant="staged")
+        finally:
+            dp_wide.MIN_FOLD_COLS = old
+    t = {"port": [], "wide": [], "split": []}
+    fns = {"port": port, "wide": wide, "split": split}
+    for v in ("port", "wide", "split", "split", "wide", "port"):
+        t[v].append(chip_smoke.cuda_ms(fns[v], reps))
+    lib = kernels.get("dp_wide")
+    old = dp_wide.MIN_FOLD_COLS
+    dp_wide.MIN_FOLD_COLS = dp_wide.MAX_THREADS
+    wide_geo = dp_wide.staged_geometry(w2s)
+    dp_wide.MIN_FOLD_COLS = old
+    print(f"k2 staged co-residency, {what}: {len(w2s)} merges, port "
+          f"geometry ({folds} folds of {fw}, merge folds {merge_folds}; "
+          f"{lib.dp_staged_max_clusters(folds, fw, dp_wide.BLK)} clusters "
+          f"fit) {t['port']} ms; folds of 512 ({wide_geo[0]} folds; "
+          f"{lib.dp_staged_max_clusters(wide_geo[0], wide_geo[1], dp_wide.BLK)}"
+          f" fit) {t['wide']} ms; one launch per fold count "
+          f"({len(parts)} launches) {t['split']} ms; {smi}", flush=True)
 
 
 def part_k3(reps, smi):
@@ -165,7 +290,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--parts", default="k1,k3,e2e")
+    ap.add_argument("--parts", default="k1,k2,k3,e2e")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -177,6 +302,8 @@ def main():
     parts = args.parts.split(",")
     if "k1" in parts:
         part_k1(args.reps, smi)
+    if "k2" in parts:
+        part_k2(args.reps, smi)
     if "k3" in parts:
         part_k3(args.reps, smi)
     if "e2e" in parts:
