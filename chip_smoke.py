@@ -26,7 +26,11 @@ Phases (one line each; any mismatch or exception exits non-zero):
     (every column stripe it has).  Prints both
     variants' ms at 2048^2 and on the 16-merge batch, and how many
     clusters of F = 1..8 staged folds fit on the card at once
-    (cudaOccupancyMaxActiveClusters);
+    (cudaOccupancyMaxActiveClusters).  On every batch, stage 0 on the
+    card (ops/dp_stage0.py, from the sides' counters) against the host
+    prep (prepare_merge + pack_batch) in every int64, and K4
+    (csrc/traceback.cu) on the kernel's direction bytes against its
+    plain version (every output byte) and the native trace_path;
  3b. K3 (csrc/dp_wide.cu) against its plain PyTorch version (the fold
     wavefront) and K2's, bit-exact in direction bytes, finals, last, path
     and total, and path/total against the native host DP.  Staged
@@ -35,6 +39,7 @@ Phases (one line each; any mismatch or exception exits non-zero):
     banded merge, cardinality > 2^16, 2^22-scaled scores; L2 variant:
     the 400x4000 and banded merges, 2^22-scaled scores at w2 6000, and
     the limits (w1 16384 x w2 16256, w2 32767) against K2 and the host DP;
+    a 3564x1334 prof-prof; stage 0 and K4 on every merge, as in phase 3;
  4. the main path: a seeded 1000-sequence family of mean length 300
     through the CLI entry point (refinement AUTO = on) with -backend torch
     at the default knobs, with every profile merge and guided
@@ -42,16 +47,23 @@ Phases (one line each; any mismatch or exception exits non-zero):
     torch output must equal the numpy one byte for byte, and each run
     must launch the kernel variants it is meant to exercise (every Prim
     round on K1 wave, every K2 launch whose widest w2 is <= 4095 on K2
-    staged, every K3 call at w2 <= 4095 on K3 staged);
+    staged, every K3 call at w2 <= 4095 on K3 staged).  The device DP
+    route (ops/dp_resident.py) is held to ResidencyWatch in every torch
+    run: one K4 launch per K2 launch and K3 call, at most
+    sum(w1 + w2 + 17) bytes copied down, exactly the sides a device merge
+    produced read resident; in the 1000-sequence runs every device
+    merge's resident counters equal the host counters construct made.
+    Per run: the route's bytes up and down, its resident, leaf and
+    uploaded sides and the peak device memory;
  5. the guide tree: -gt_export on a seeded 2000-sequence family, torch
     against numpy, with a Prim chunk small enough to cross chunk
     boundaries, and under -dist indel_div_lcs (K1's rows variant);
  6. the wide path: a seeded 10,000-sequence family of mean length 300
     (refinement AUTO = off) with -backend torch at the default knobs,
     against -backend numpy on the guide tree the torch -gt_export wrote;
-    byte-identical, and K1 wave, K2 staged and K3 staged launched as in
-    phase 4.  Prints the stage seconds and the profile merges per route
-    (host / K2 / K3).
+    byte-identical, and K1 wave, K2 staged, K3 staged and K4 launched
+    as in phase 4, the route held to ResidencyWatch as there.  Prints
+    the stage seconds and the profile merges per route (host / K2 / K3).
 Then a JSON line with every kernel variant's numbers, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -73,8 +85,11 @@ rate of 128 lanes a clock (33.5e12/s: the data sheet's 67 TFLOP/s
 float32 rate counts an FMA as two operations on 128 lanes per SM).  That
 rate is reached only with both integer pipes busy, the ALU pipe (adds,
 compares, selects, logic) and the FMA pipe (integer multiply-adds), 64
-lanes each, so the bound is a floor.  No kernel has a single PyTorch
-call computing the same function, so library_ms is null.
+lanes each, so the bound is a floor.  K4's bound counts bytes alone
+(a direction byte a step, finals and meta, the output): its walk is a
+chain of dependent loads, bound by their latency, so its line also
+gives ns a step.  No kernel has a single PyTorch call computing the
+same function, so library_ms is null.
 """
 
 import json
@@ -352,20 +367,24 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
                                      dp_staged_plain(*args, total)]
     hosts = [dp_profile(params, p1, p2, *(mappings[k] if mappings else ()))
              for k, (p1, p2) in enumerate(pairs)]
+    stage0_check(params, pairs, bands, (colf, rowf, meta), device,
+                 f"K2 {what}")
     for variant in variants:
         key = "dp_staged" if variant == "staged" else "dp"
         before = kernels.LAUNCHES[key]
-        dirs_k, fin_k = dp_dirs(*args, total, variant=variant)
+        dirs_d, fin_d = dp_dirs(*args, total, variant=variant)
         if device == "cuda":
             torch.cuda.synchronize()
             if kernels.LAUNCHES[key] != before + 1:
                 raise AssertionError(f"K2 {what}: the {variant} variant was "
                                      "not launched")
-        dirs_k, fin_k = dirs_k.cpu().numpy(), fin_k.cpu().numpy()
+        dirs_k, fin_k = dirs_d.cpu().numpy(), fin_d.cpu().numpy()
+        natives = []
         for k, (w1, w2, off, _) in enumerate(meta):
             n = (w1 + 1) * (w2 + 1)
             dk = dirs_k[off:off + n].reshape(w1 + 1, w2 + 1)
             rk = finish_path(dk, w1, w2, fin_k[k, w1 - 1])
+            natives.append(rk)
             for name, (dirs_p, fin_p) in plains.items():
                 if name == "dp_staged_plain" and variant != "staged":
                     continue
@@ -387,7 +406,73 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
             if rh.total != rk.total or not np.array_equal(rh.path, rk.path):
                 raise AssertionError(f"K2 {variant} {what} merge {k}: "
                                      "differs from the native host DP")
+        if variant == variants[0]:
+            k4_check(dirs_d, fin_d, args[2], f"K2 {variant} {what}", natives)
     return args, total, plain_ms
+
+
+def k4_check(dirs, fin, meta, what, natives):
+    """K4 (csrc/traceback.cu) on a DP kernel's output where it lies,
+    against its plain version (every byte of the output buffer: paths,
+    totals, lengths) and the native trace_path of each merge (natives:
+    finish_path results on the same bytes)."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.traceback_torch import (read_paths,
+                                                     trace_paths,
+                                                     trace_paths_plain)
+    meta_h = meta.cpu().numpy()
+    before = kernels.LAUNCHES["traceback"]
+    got = trace_paths(dirs, fin, meta, meta_host=meta_h)
+    want = trace_paths_plain(dirs, fin, meta)
+    if dirs.is_cuda:
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["traceback"] != before + 1:
+            raise AssertionError(f"K4 {what}: not launched")
+    if not torch.equal(got, want):
+        at = int((got != want).nonzero()[0, 0])
+        raise AssertionError(f"K4 {what}: output byte {at} differs from "
+                             f"trace_paths_plain: {int(got[at])} vs "
+                             f"{int(want[at])}")
+    for k, ((path, total), rn) in enumerate(zip(
+            read_paths(got.cpu().numpy(), meta_h), natives)):
+        if total != rn.total or not np.array_equal(path, rn.path):
+            raise AssertionError(f"K4 {what} merge {k}: path/total differ "
+                                 "from the native trace_path")
+
+
+def stage0_check(params, pairs, bands, packed, device, what):
+    """Stage 0 (ops/dp_stage0.py) on the card from the sides' counters
+    against the host prep, prepare_merge + pack_batch (`packed`: colf,
+    rowf, meta), in every int64."""
+    import torch
+    from famsa_tpu_torch.ops.dp_stage0 import score_table, stage0
+    w1p = max(p1.width for p1, _ in pairs)
+    w2p = max(p2.width for _, p2 in pairs)
+    c1 = np.zeros((len(pairs), w1p + 1, 32), dtype=np.int32)
+    c2 = np.zeros((len(pairs), w2p + 1, 32), dtype=np.int32)
+    hdr = np.zeros((len(pairs), 8), dtype=np.int64)
+    band = None
+    if any(bd is not None for bd in bands):
+        band = np.zeros((len(pairs), w1p + 1, 2), dtype=np.int64)
+    hdr[:, :4] = packed[2]
+    for k, ((p1, p2), bd) in enumerate(zip(pairs, bands)):
+        c1[k, :p1.width + 1] = p1.counters
+        c2[k, :p2.width + 1] = p2.counters
+        hdr[k, 4:6] = len(p1.data), len(p2.data)
+        if band is not None:
+            band[k, :, 1] = p2.width
+            if bd is not None:
+                band[k, :p1.width + 1] = bd[:p1.width + 1]
+    c1, c2, hdr, table, band = (
+        torch.from_numpy(x).to(device) if x is not None else None
+        for x in (c1, c2, hdr, score_table(params), band))
+    got = stage0(params, c1, c2, hdr, table, band)[:3]
+    for name, g, w in zip(("colf", "rowf", "meta"), got, packed):
+        if tuple(g.shape) != w.shape or not np.array_equal(g.cpu().numpy(),
+                                                           w):
+            raise AssertionError(f"stage 0 {what}: {name} differs from the "
+                                 "host prep")
 
 
 def dp_bound_ms(colf, rowf, meta, total):
@@ -407,6 +492,15 @@ def dp_bound_ms(colf, rowf, meta, total):
         + 8 * 3 * meta.shape[0] * (rowf.shape[1] - 1)
     t_b, t_o = nbytes / MEM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return max(t_b, t_o) * 1e3, "bytes" if t_b > t_o else "operations"
+
+
+def k4_bound_ms(out_bytes, steps, merges):
+    """Least time of one K4 call: the bytes it must move, one direction
+    byte read a step, each merge's finals (24 bytes) and meta (32), and
+    its output written once, over the memory rate.  The walk is a chain
+    of dependent loads, so it is bound by their latency, not by this."""
+    nbytes = steps + 56 * merges + out_bytes
+    return nbytes / MEM_BYTES_PER_S * 1e3, "bytes"
 
 
 def staged_cluster_fit(shapes):
@@ -533,9 +627,13 @@ def wide_check(params, p1, p2, band, device, what, mapping=None,
     w1, w2 = p1.width, p2.width
     times = {}
 
+    stage0_check(params, [(p1, p2)], [band], (colf, rowf, meta), device,
+                 f"K3 {what}")
+    raw = {}
+
     def run(name):
         t0 = time.perf_counter()
-        d, f = fns[name](*args, total)
+        d, f = raw[name] = fns[name](*args, total)
         d, f = d.cpu().numpy(), f.cpu().numpy()
         times[name] = (time.perf_counter() - t0) * 1e3
         d = d.reshape(w1 + 1, w2 + 1)
@@ -546,6 +644,7 @@ def wide_check(params, p1, p2, band, device, what, mapping=None,
     if device == "cuda" and kernels.LAUNCHES[key] != before + 1:
         raise AssertionError(f"K3 {what}: the {variant} variant was not "
                              "launched")
+    k4_check(*raw.pop("K3"), args[2], f"K3 {variant} {what}", [rk])
     for name in refs:
         d, f, r = run(name)
         if not np.array_equal(dk, d):
@@ -619,6 +718,11 @@ def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
             chain_args = (args, total)
             # the L2 variant on the same merge
             wide_check(params, p1, p2, None, device, what, variant="l2")
+    # the largest K3 merge of the main path's shape (its plain versions
+    # run on the runs' own largest call, in the kernel report)
+    wide_check(params, random_profile(rng, params, 30, 3564),
+               random_profile(rng, params, 40, 1334), None, device,
+               "3564x1334", refs=("K2",))
     a, b, cms, band = banded_case(rng, params)
     wide_check(params, a, b, band, device, "banded", cms)
     wide_check(params, a, b, band, device, "banded", cms, variant="l2")
@@ -634,7 +738,8 @@ def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
         raise AssertionError(f"K3 cases cover folds {folds}, not 1, 2, 8")
     msg = (f"phase 3b K3: staged bit-exact vs its plain version and K2's "
            f"(dirs, finals, last, path, total) and path/total = native host "
-           f"DP on {', '.join(w for w, _ in cases)} (folds {folds}), banded, "
+           f"DP on {', '.join(w for w, _ in cases)} (folds {folds}), "
+           f"3564x1334 (= K2 and host DP), banded, "
            f"card {card_big}, 2^22-scaled 100x3000; L2 variant on "
            f"{chain[0]}x{chain[1]}, banded, 2^22-scaled 100x6000")
     lims = [limit, (64, MAX_W2)]
@@ -695,7 +800,8 @@ def stage_report(name, secs, stats, counts):
             f"{float(st['time.refinement']):.2f}), launches K1 rows "
             f"{counts['lcs']} wave {counts['lcs_wave']} K2 staged "
             f"{counts['dp_staged']} global {counts['dp']} K3 staged "
-            f"{counts['dp_wide']} L2 {counts['dp_wide_l2']}")
+            f"{counts['dp_wide']} L2 {counts['dp_wide_l2']} K4 "
+            f"{counts['traceback']}")
 
 
 def check_launches(what, counts, needed, rec):
@@ -724,6 +830,97 @@ def check_launches(what, counts, needed, rec):
                                  f" wider, launches {counts}")
 
 
+class ResidencyWatch:
+    """Watches the device DP route of the main path, apart from the
+    route's own counters (kernels.TRAFFIC): it records every profile the
+    pipeline's construct built from a device result with merged counters
+    and, at each dispatch of the route, counts the sides that are such a
+    profile with its host counters unchanged (the sides that must be read
+    resident), the path bytes the route may copy down (16 + w1 + w2 a
+    merge) and the direction bytes the host-prep route copied down
+    ((w1+1)(w2+1)).  While `check` is set it holds every device merge's
+    resident counters against the host counters construct made."""
+
+    def __init__(self):
+        import famsa_tpu_torch.pipeline as pipeline
+        from famsa_tpu_torch.ops import dp_torch, dp_wide
+        self.check = False
+        self.reset()
+        orig_construct = pipeline.construct_profile
+        orig_k2 = dp_torch.dp_profile_torch_paths_async
+        orig_k3 = dp_wide.dp_profile_torch_wide_paths_async
+
+        def construct(dest, p1, p2, res):
+            out = orig_construct(dest, p1, p2, res)
+            md = getattr(res, "merged_dev", None)
+            if md is not None:
+                self.produced[id(dest)] = (dest, dest.counters)
+                if self.check:
+                    got = md.tensor().cpu().numpy()
+                    if not np.array_equal(got, dest.counters):
+                        raise AssertionError(
+                            f"resident counters of a {dest.width}-column "
+                            "merge differ from the host construct's")
+                    self.checked += 1
+            return out
+
+        def resident(p):
+            seen = self.produced.get(id(p))
+            return seen is not None and seen[0] is p \
+                and seen[1] is p.counters
+
+        def note(pairs):
+            for p1, p2 in pairs:
+                self.expected += resident(p1) + resident(p2)
+                self.bound += p1.width + p2.width + 17
+                self.dense += (p1.width + 1) * (p2.width + 1)
+                self.merges += 1
+
+        def k2(params, pairs, *a, **kw):
+            note(pairs)
+            return orig_k2(params, pairs, *a, **kw)
+
+        def k3(params, p1, p2, *a, **kw):
+            note([(p1, p2)])
+            return orig_k3(params, p1, p2, *a, **kw)
+
+        pipeline.construct_profile = construct
+        dp_torch.dp_profile_torch_paths_async = k2
+        dp_wide.dp_profile_torch_wide_paths_async = k3
+
+    def reset(self):
+        self.produced = {}
+        self.expected = self.bound = self.dense = 0
+        self.merges = self.checked = 0
+
+    def verify(self, what, counts, traffic):
+        """Every device merge's path came from K4, only paths came down,
+        and exactly the sides a device merge produced were resident."""
+        dp = (counts["dp"] + counts["dp_staged"] + counts["dp_wide"]
+              + counts["dp_wide_l2"])
+        if counts["traceback"] != dp:
+            raise AssertionError(f"{what}: {counts['traceback']} K4 launches "
+                                 f"for {dp} K2 launches and K3 calls")
+        if not 0 < traffic["bytes_down"] <= self.bound:
+            raise AssertionError(f"{what}: {traffic['bytes_down']} bytes "
+                                 f"down, bound {self.bound}")
+        if traffic["sides_resident"] != self.expected:
+            raise AssertionError(f"{what}: {traffic['sides_resident']} "
+                                 f"resident sides, {self.expected} produced "
+                                 "on the device")
+
+    def report(self, traffic, peak):
+        t = traffic
+        return (f"DP route: {self.merges} device merges, bytes down "
+                f"{t['bytes_down']} (bound sum(w1+w2+17) {self.bound}; dense "
+                f"direction bytes {self.dense}), bytes up {t['bytes_up']}, "
+                f"sides resident {t['sides_resident']} (produced on the "
+                f"device {self.expected}) leaf {t['sides_leaf']} uploaded "
+                f"{t['sides_uploaded']}, resident = host counters on "
+                f"{self.checked} merges, peak device memory "
+                f"{peak / 2 ** 20:.1f} MiB")
+
+
 # the kernels the default 1000-sequence run must launch: K1's wave variant
 # (the guide tree's Prim rounds), K2's staged variant (merges ready
 # together) and K3's staged variant (lone merges and refinement's guided
@@ -731,10 +928,34 @@ def check_launches(what, counts, needed, rec):
 DEFAULT_KERNELS = ("lcs_wave", "dp_staged", "dp_wide")
 
 
-def phase_main(work, recorder, device="cuda", n=1000, mean_len=300):
-    """The main path as a user runs it; the recorder times every kernel
-    launch of the default torch run ("1000")."""
+def run_torch(name, flags, env, recorder, watch, run, check, device):
+    """One CLI run of the port on the main path, its kernel counts reset
+    just before and read just after; returns (rc, seconds, counts, route
+    line).  The torch runs' device DP route is held to ResidencyWatch."""
+    import torch
     from famsa_tpu_torch import kernels
+    watch.reset()
+    watch.check = check
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    recorder.start(run)
+    kernels.reset_launches()
+    rc, secs = run_cli(flags, env)
+    counts, traffic = dict(kernels.LAUNCHES), dict(kernels.TRAFFIC)
+    recorder.stop(counts)
+    watch.check = False
+    if rc != 0 or "-backend" not in flags or "torch" not in flags:
+        return rc, secs, counts, ""
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    if device == "cuda":
+        watch.verify(f"{name}", counts, traffic)
+    return rc, secs, counts, "; " + watch.report(traffic, peak)
+
+
+def phase_main(work, recorder, watch, device="cuda", n=1000, mean_len=300):
+    """The main path as a user runs it; the recorder times every kernel
+    launch of the default torch run ("1000"); every device merge's
+    resident counters are held against the host's."""
     fa = os.path.join(work, "fam.fa")
     with open(fa, "w") as f:
         f.write(make_family(n, mean_len, 7))
@@ -752,16 +973,15 @@ def phase_main(work, recorder, device="cuda", n=1000, mean_len=300):
     for name, flags, env, needed in runs:
         out = os.path.join(work, f"out_{name}.fa")
         stats = os.path.join(work, f"stats_{name}.txt")
-        recorder.start("1000" if name == "torch" else None)
-        kernels.reset_launches()
-        rc, secs = run_cli(flags + ["-stats", stats, fa, out], env)
-        counts = dict(kernels.LAUNCHES)
-        recorder.stop(counts)
+        rc, secs, counts, route = run_torch(
+            f"main path {name}", flags + ["-stats", stats, fa, out], env,
+            recorder, watch, "1000" if name == "torch" else None,
+            name != "numpy", device)
         if rc != 0:
             raise AssertionError(f"main path {name}: rc={rc}")
         with open(out, "rb") as f:
             outs[name] = f.read()
-        report.append(stage_report(name, secs, stats, counts))
+        report.append(stage_report(name, secs, stats, counts) + route)
         if device == "cuda":
             check_launches(f"main path {name}", counts, needed, recorder)
     for name in ("torch", "torch_k2", "torch_k3"):
@@ -844,10 +1064,9 @@ class RouteCounter:
         pipeline.split_wide, pipeline.align_into = split_wide, align_into
 
 
-def phase_wide(work, recorder, device="cuda", n=10000, mean_len=300):
+def phase_wide(work, recorder, watch, device="cuda", n=10000, mean_len=300):
     """The wide path; the recorder times every kernel launch of the
     default torch run ("10000")."""
-    from famsa_tpu_torch import kernels
     fa = os.path.join(work, "fam_wide.fa")
     with open(fa, "w") as f:
         f.write(make_family(n, mean_len, 7))
@@ -864,11 +1083,10 @@ def phase_wide(work, recorder, device="cuda", n=10000, mean_len=300):
         out = os.path.join(work, f"wide_{name}.fa")
         stats = os.path.join(work, f"wide_stats_{name}.txt")
         routes.active = name == "torch"
-        recorder.start("10000" if name == "torch" else None)
-        kernels.reset_launches()
-        rc, secs = run_cli(flags + ["-stats", stats, fa, out], {})
-        counts = dict(kernels.LAUNCHES)
-        recorder.stop(counts)
+        rc, secs, counts, route = run_torch(
+            f"wide path {name}", flags + ["-stats", stats, fa, out], {},
+            recorder, watch, "10000" if name == "torch" else None, False,
+            device)
         routes.active = False
         if rc != 0:
             raise AssertionError(f"wide path {name}: rc={rc}")
@@ -877,7 +1095,7 @@ def phase_wide(work, recorder, device="cuda", n=10000, mean_len=300):
                            recorder)
         with open(out, "rb") as f:
             outs[name] = f.read()
-        report.append(stage_report(name, secs, stats, counts))
+        report.append(stage_report(name, secs, stats, counts) + route)
     if outs["torch"] != outs["numpy"]:
         raise AssertionError("wide path: torch output differs from numpy")
     c = routes.counts
@@ -904,11 +1122,15 @@ VARIANTS = {
     "dp_wide_l2": ("dp_wide", "dp_profile_wide_l2",
                    "famsa_tpu_torch/csrc/dp_wide.cu",
                    "famsa_tpu/ops/dp_giant.py:90"),
+    "traceback": ("traceback", "trace_paths",
+                  "famsa_tpu_torch/csrc/traceback.cu",
+                  "famsa_tpu/ops/dp_pallas.py:948"),
 }
 # the run whose launch count a variant's entry reports: the main path's
 # default run, and for K1's rows variant the -dist tree run
 LAUNCH_RUN = {"lcs": "dist", "lcs_wave": "1000", "dp": "1000",
-              "dp_staged": "1000", "dp_wide": "1000", "dp_wide_l2": "10000"}
+              "dp_staged": "1000", "dp_wide": "1000", "dp_wide_l2": "10000",
+              "traceback": "1000"}
 
 
 class LaunchRecorder:
@@ -922,6 +1144,7 @@ class LaunchRecorder:
     def __init__(self):
         import torch
         from famsa_tpu_torch import kernels
+        import famsa_tpu_torch.ops.dp_resident as dpr
         import famsa_tpu_torch.ops.dp_torch as dpt
         import famsa_tpu_torch.ops.dp_wide as dpw
         import famsa_tpu_torch.ops.lcs_torch as lct
@@ -991,8 +1214,18 @@ class LaunchRecorder:
             return orig_lcs(table, syms, n_queries=n_queries,
                             out_dtype=out_dtype, variant=variant)
 
+        orig_tb = dpr.trace_paths
+
+        def trace_paths(dirs, fin, meta, meta_host=None):
+            if meta_host is not None:
+                keep("traceback", int((meta_host[:, 0]
+                                       + meta_host[:, 1]).sum()),
+                     (dirs, fin, meta, meta_host))
+            return orig_tb(dirs, fin, meta, meta_host=meta_host)
+
         dpt.dp_dirs, dpw.dp_dirs_wide = dp_dirs, dp_dirs_wide
         lct.lcs_rows = pt.lcs_rows = lcs_rows
+        dpr.trace_paths = trace_paths
 
     def start(self, run):
         """Record the launches of `run` (None: record nothing but the
@@ -1063,6 +1296,9 @@ def kernel_report(rec, chain):
     from famsa_tpu_torch.ops.dp_wide import (dp_dirs_wide, dp_staged_plain,
                                              dp_wide_plain)
     from famsa_tpu_torch.ops.lcs_torch import lcs_plain, lcs_rows
+    from famsa_tpu_torch.ops.traceback_torch import (read_paths,
+                                                     trace_paths,
+                                                     trace_paths_plain)
     dp_fns = {"dp": (lambda *a: dp_dirs(*a, variant="global"), dp_plain),
               "dp_staged": (lambda *a: dp_dirs(*a, variant="staged"),
                             dp_staged_plain),
@@ -1099,6 +1335,21 @@ def kernel_report(rec, chain):
             bms, by = lcs_bound_ms(table, syms, q)
             shapes.append(f"{entry} {syms.shape[0]} ref x {q} queries "
                           f"(L={syms.shape[1]}, W={table.shape[1]})")
+        elif key == "traceback":
+            dirs, fin, meta, meta_h = args
+            res = {}
+            plain_ms = wall_ms(lambda: res.setdefault(
+                "plain", trace_paths_plain(dirs, fin, meta)))
+            got = trace_paths(dirs, fin, meta, meta_host=meta_h)
+            err = int((got.long() - res["plain"].long()).abs().max())
+            ms = cuda_ms(lambda: trace_paths(dirs, fin, meta,
+                                             meta_host=meta_h), 20)
+            steps = sum(len(p) for p, _ in read_paths(got.cpu().numpy(),
+                                                      meta_h))
+            bms, by = k4_bound_ms(got.numel(), steps, meta.shape[0])
+            shapes.append(f"{entry} {meta.shape[0]} merge(s) "
+                          f"{meta_h[:, :2].tolist()}, {steps} steps: "
+                          f"{ms * 1e6 / steps:.1f} ns a step")
         else:
             colf, rowf, meta, total = args
             fn, plain = dp_fns[key]
@@ -1151,11 +1402,12 @@ def main():
     phase_k2()
     chain = phase_k3()
     rec = LaunchRecorder()
+    watch = ResidencyWatch()
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=os.path.dirname(
             os.path.abspath(__file__))) as work:
-        phase_main(work, rec)
+        phase_main(work, rec, watch)
         phase_tree(work, rec)
-        phase_wide(work, rec)
+        phase_wide(work, rec, watch)
     kern = kernel_report(rec, chain)
     log(f"smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kern}))

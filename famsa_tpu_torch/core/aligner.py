@@ -8,7 +8,7 @@ if os.environ.get("FAMSA_TORCH_FAST_CONSTRUCT", "1") == "1":
     from .construct_fast import construct_profile_fast as construct_profile
 else:
     from .construct import construct_profile
-from .dp_native import dp_profile, dp_seq_seq, finish_path, row_ranges
+from .dp_native import dp_profile, dp_seq_seq, row_ranges
 from .profile import Profile
 
 # With the torch backend a profile merge (or guided re-alignment) of at
@@ -101,15 +101,18 @@ def split_wide(device, max_batch):
 
 def _dp_torch(params, p1, p2, cm1=None, cm2=None):
     """One merge on the device DP (K3 when wide_dp_ok accepts it, else
-    K2); guided when column mappings are given."""
-    from ..ops.dp_torch import dp_profile_torch_batched
-    from ..ops.dp_wide import dp_profile_torch_wide
+    K2), traced on the device (K4): only its path comes back, and no
+    merged counters are built (famsa_tpu/core/aligner.py:72-91); guided
+    when column mappings are given."""
+    from ..ops import dp_torch, dp_wide
     band = None if cm1 is None else row_ranges(params, cm1, cm2)
     if wide_dp_ok(p1, p2):
-        dirs, last = dp_profile_torch_wide(params, p1, p2, band)
+        pend = dp_wide.dp_profile_torch_wide_paths_async(params, p1, p2,
+                                                         band=band)
     else:
-        (dirs, last), = dp_profile_torch_batched(params, [(p1, p2)], [band])
-    return finish_path(dirs, p1.width, p2.width, last)
+        pend = dp_torch.dp_profile_torch_paths_async(params, [(p1, p2)],
+                                                     bands=[band])
+    return pend.resolve()[0]
 
 
 def align_into(dest: Profile, profile1: Profile, profile2: Profile,

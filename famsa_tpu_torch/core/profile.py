@@ -26,8 +26,10 @@ class Profile:
         self.scores = None        # int64 [width+1, 32]
         self.width = 0
         self.total_score = 0
-        # device-resident copy of `counters`: reserved for the device
-        # merged-counter route, which this port does not have yet
+        # device-resident copy of `counters` (ops/dp_resident.py:
+        # MergedRef), left by the device merge that built this profile
+        # for its parent's merge; dropped whenever the host recomputes
+        # `counters`
         self.dev_counters = None
         # magnitude-statistics cache for the DP dispatch bounds
         self._dp_stats = None
@@ -62,7 +64,9 @@ class Profile:
 
     # ------------------------------------------------------------------
     def calculate_counters_scores(self):
-        """profile.cpp:220-235; vectorized over member sequences."""
+        """profile.cpp:220-235; vectorized over member sequences.  Drops
+        the device-resident copy, which would be stale."""
+        self.dev_counters = None
         if not self.data:
             return
         self.width = self.data[0].gapped_size

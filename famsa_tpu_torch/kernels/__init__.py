@@ -10,7 +10,8 @@ no CUDA toolkit, where only the kernels' plain PyTorch versions run.
 
 LAUNCHES counts kernel launches per kernel: each wrapper adds one where
 it launches its kernel, and nowhere else (chip_smoke.py resets it before
-driving the main path and reads it after)."""
+driving the main path and reads it after); TRAFFIC counts the device DP
+route's copies and sides, reset with it."""
 
 import ctypes
 import hashlib
@@ -24,13 +25,19 @@ import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("lcs", "dp", "dp_wide")
+KERNELS = ("lcs", "dp", "dp_wide", "traceback")
 
 # one count per hand-written kernel variant: K1 rows and wave, K2 global
 # (one CTA a merge) and staged (a cluster of folds a merge, w2 <= 4095),
-# K3 staged (w2 <= 4095) and K3 with its column factors in L2 (wider)
+# K3 staged (w2 <= 4095) and K3 with its column factors in L2 (wider),
+# and K4, the traceback
 LAUNCHES = {"lcs": 0, "lcs_wave": 0, "dp": 0, "dp_staged": 0, "dp_wide": 0,
-            "dp_wide_l2": 0}
+            "dp_wide_l2": 0, "traceback": 0}
+# the device DP route's traffic (ops/dp_resident.py): bytes copied to and
+# from the device, and the launch sides that were resident on the device,
+# ungapped leaves (their symbol bytes uploaded) or uploaded counters
+TRAFFIC = {"bytes_up": 0, "bytes_down": 0, "sides_resident": 0,
+           "sides_leaf": 0, "sides_uploaded": 0}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _libs = {}
@@ -38,8 +45,9 @@ _lock = threading.Lock()
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, TRAFFIC):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc():
@@ -128,6 +136,9 @@ def _configure(name, lib):
         for fn in (lib.lcs_bitpar, lib.lcs_wave):
             fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, ci, vp]
             fn.restype = ci
+    elif name == "traceback":
+        lib.trace_paths.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        lib.trace_paths.restype = ci
     elif name == "dp":
         lib.dp_profile_batched.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                            vp, vp, vp]

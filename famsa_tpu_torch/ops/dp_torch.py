@@ -1,6 +1,10 @@
 """Batched profile-profile DP on torch: the plain PyTorch version, the
-wrapper of the CUDA kernel K2 and the batched entry point used by the
-pipeline and the aligner (host prep and packing: ops/dp_pack.py).
+wrapper of the CUDA kernel K2 and the batched entry points: the
+device-resident path route used by the pipeline and the aligner
+(dp_profile_torch_paths_async: stage 0, K2, the traceback K4 and the
+merged counters on the device, ops/dp_resident.py) and the host-prep
+route (dp_profile_torch_batched: ops/dp_pack.py), which the kernel checks
+and scripts/torch_dp_crossover.py use.
 
 K2 has two variants, chosen by the batch's widest w2 (k2_variant):
 "staged" (csrc/dp_wide.cu:dp_profile_batched_staged, w2 <= 4095) runs
@@ -29,6 +33,7 @@ import torch
 
 from .. import kernels
 from . import dp_wide
+from .dp_resident import dispatch_paths
 from .dp_pack import (  # noqa: F401  (prepare_merge, pack_batch: public here)
     C_CUME, C_CUMT, C_G2CE, C_G2CHG, C_G2CTE, C_G2SE, C_G2SO, C_G2STE,
     C_G2STO, C_H0, C_P2E, C_P2O, C_P2TE, C_P2TO, C_S2, COL0_PACK, IMIN,
@@ -261,3 +266,15 @@ def dp_profile_torch_batched(params, pairs, bands=None, dirs_fn=None):
     if bands is None:
         bands = [None] * len(pairs)
     return run_batch(params, pairs, bands, dirs_fn or dp_dirs)
+
+
+def dp_profile_torch_paths_async(params, pairs, dev_pairs=None,
+                                 want_merged=False, bands=None,
+                                 dirs_fn=None):
+    """DP and traceback of a batch of merges on params.device, dispatched
+    without waiting: side assembly, stage 0, K2 (dirs_fn, default
+    dp_dirs), K4 and, when want_merged, the merged counters, with only the
+    paths copied back (ops/dp_resident.py:dispatch_paths).  Returns a
+    PendingPaths whose resolve() gives one PathResult per merge."""
+    return dispatch_paths(params, pairs, dirs_fn or dp_dirs, dev_pairs,
+                          want_merged, bands)

@@ -3,12 +3,15 @@ CUDA kernel K3 (one wide merge; csrc/dp_wide.cu: a staged variant up to
 w2 = 4095 and the L2 variant past it), its plain PyTorch version, the
 plain version of K2's staged variant (a batch of merges, each walked over
 the launch's folds; its wrapper is ops/dp_torch.py:dp_dirs) and the
-single-merge entry point used by the scheduler and the aligner.
+single-merge entry points: the device-resident path route of the
+scheduler and the aligner (dp_profile_torch_wide_paths_async) and the
+host-prep route (dp_profile_torch_wide).
 
 K3 computes what K2 (ops/dp_torch.py) computes for one merge, on the
-same packed inputs (prepare_merge / pack_batch with B = 1) and with the
-same output (native (w1+1) x (w2+1) direction bytes and the per-row
-last-column finals), so core/dp_native.finish_path serves both.  It
+same packed inputs (prepare_merge / pack_batch, or stage 0 on the device,
+with B = 1) and with the same output (native (w1+1) x (w2+1) direction
+bytes and the per-row last-column finals), so the traceback K4
+(ops/traceback_torch.py) and core/dp_native.finish_path serve both.  It
 splits columns 0..w2 into F folds of `threads * stripe` columns, one CTA
 each, run as a staggered wavefront: at step s fold f computes row block
 s - f.  Per row, fold f takes from fold f-1 its last-column D and V and
@@ -27,6 +30,7 @@ from .dp_pack import (C_CUME, C_CUMT, C_G2CE, C_G2CHG, C_G2CTE, C_G2SE,
                       R_G1STO, R_HI, R_LO, R_N1C, R_N1TC, R_NNG, R_S1GE,
                       R_S1GO, R_S1GTE, R_S1GTO, R_SYM, R_V0COST, ROW0_PACK,
                       run_batch)
+from .dp_resident import dispatch_paths
 
 MAX_FOLDS = 8                      # the portable thread-block cluster size
 STRIPES = (1, 2, 4, 8)
@@ -311,3 +315,14 @@ def dp_profile_torch_wide(params, p1, p2, band=None):
     optional band rows (core/dp_native.row_ranges).  Returns (dirs
     [w1+1, w2+1] uint8 numpy, last (D, H, V))."""
     return run_batch(params, [(p1, p2)], [band], dp_dirs_wide)[0]
+
+
+def dp_profile_torch_wide_paths_async(params, p1, p2, dev1=None, dev2=None,
+                                      want_merged=False, band=None):
+    """DP and traceback of one merge on params.device (one K3 launch on
+    CUDA), dispatched without waiting, as
+    ops/dp_torch.py:dp_profile_torch_paths_async with B = 1: dev1, dev2
+    its sides' resident counters (MergedRef or None), band its optional
+    band rows.  Returns a PendingPaths."""
+    return dispatch_paths(params, [(p1, p2)], dp_dirs_wide, [(dev1, dev2)],
+                          want_merged, [band])

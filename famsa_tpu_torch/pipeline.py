@@ -2,8 +2,9 @@
 
 Stages: sort+dedup -> MST-Prim guide tree (device rounds on the torch
 backend, ops/prim_torch.py) -> progressive profile alignment up the tree
-(batched device DP, ops/dp_torch.py) -> iterative refinement (guided
-device DP) -> duplicate restoration and input-order output."""
+(batched device DP with device-resident profiles, ops/dp_torch.py,
+ops/dp_resident.py) -> iterative refinement (guided device DP) ->
+duplicate restoration and input-order output."""
 
 import heapq
 import os
@@ -16,7 +17,6 @@ from .core.aligner import (align_into, construct_profile, split_ready,
                            split_wide)
 from .core.construct_fast import drain_gap_queue, reset_gap_queue
 from .core.defs import UNKNOWN_SYMBOL
-from .core.dp_native import finish_path
 from .core.profile import Profile
 from .core.refinement import refine_alignment
 from .core.sequence import GappedSequence
@@ -150,9 +150,14 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
     batches of up to FAMSA_TORCH_MAX_BATCH merges per device DP launch,
     or alone on the wide-merge DP when few are ready (split_wide), and
     the rest run on the native host DP (a small thread pool: the native
-    DP releases the GIL).  Dispatch is synchronous."""
-    from .ops.dp_torch import dp_dirs, dp_profile_torch_batched
-    from .ops.dp_wide import dp_dirs_wide
+    DP releases the GIL).  Every device chunk of a ready set is
+    dispatched before the first is resolved, and the host merges run
+    while they are in flight; device merges take the resident route
+    (ops/dp_resident.py): a side that a previous device merge produced is
+    read from the device (Profile.dev_counters moves into the dispatch),
+    only paths come back, and each result's merged counters stay on the
+    device for its parent."""
+    from .ops import dp_torch, dp_wide
 
     max_batch = int(os.environ.get("FAMSA_TORCH_MAX_BATCH", "16"))
     n = len(gapped_sequences)
@@ -201,6 +206,11 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
             return Profile.from_gapped_sequence(gapped_sequences[child], params)
         return done.pop(child)
 
+    def take_dev(p):
+        """The resident counters of a side, moved into its dispatch."""
+        dev, p.dev_counters = p.dev_counters, None
+        return dev
+
     def finish(node_id, dest):
         done[node_id] = dest
         parent = parent_of.get(node_id)
@@ -241,6 +251,19 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
             host += host_prof
             wide, device = split_wide(device, max_batch)
 
+            # one K3 launch per wide merge, one K2 launch per chunk, all
+            # dispatched before the host merges run and the first resolves
+            pending = [([m], dp_wide.dp_profile_torch_wide_paths_async(
+                params, m[1], m[2], take_dev(m[1]), take_dev(m[2]),
+                want_merged=True)) for m in wide]
+            for k0 in range(0, len(device), max_batch):
+                chunk = device[k0:k0 + max_batch]
+                pending.append((chunk, dp_torch.dp_profile_torch_paths_async(
+                    params, [(p1, p2) for _, p1, p2 in chunk],
+                    dev_pairs=[(take_dev(p1), take_dev(p2))
+                               for _, p1, p2 in chunk],
+                    want_merged=True)))
+
             if len(host) > 1 and host_pool is not None:
                 futs = [(node_id, host_pool.submit(
                     align_into, Profile(params), p1, p2, backend="numpy"))
@@ -252,19 +275,11 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
                     finish(node_id, align_into(Profile(params), p1, p2,
                                                backend="numpy"))
 
-            # one K3 launch per wide merge, one K2 launch per chunk
-            chunks = [([m], dp_dirs_wide) for m in wide]
-            chunks += [(device[k0:k0 + max_batch], dp_dirs)
-                       for k0 in range(0, len(device), max_batch)]
-            for chunk, dirs_fn in chunks:
-                results = dp_profile_torch_batched(
-                    params, [(p1, p2) for _, p1, p2 in chunk],
-                    dirs_fn=dirs_fn)
-                for (node_id, p1, p2), (dirs, last) in zip(chunk, results):
+            for chunk, pend in pending:
+                for (node_id, p1, p2), res in zip(chunk, pend.resolve()):
                     dest = Profile(params)
-                    construct_profile(dest, p1, p2,
-                                      finish_path(dirs, p1.width, p2.width,
-                                                  last))
+                    construct_profile(dest, p1, p2, res)
+                    dest.dev_counters = res.merged_dev
                     finish(node_id, dest)
     finally:
         if host_pool is not None:
