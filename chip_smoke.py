@@ -26,11 +26,14 @@ Phases (one line each; any mismatch or exception exits non-zero):
     (every column stripe it has).  Prints both
     variants' ms at 2048^2 and on the 16-merge batch, and how many
     clusters of F = 1..8 staged folds fit on the card at once
-    (cudaOccupancyMaxActiveClusters).  On every batch, stage 0 on the
-    card (ops/dp_stage0.py, from the sides' counters) against the host
-    prep (prepare_merge + pack_batch) in every int64, and K4
-    (csrc/traceback.cu) on the kernel's direction bytes against its
-    plain version (every output byte) and the native trace_path;
+    (cudaOccupancyMaxActiveClusters).  On every batch: K5
+    (csrc/stage0.cu, stage 0, reading the sides through their
+    descriptors) against its plain twin stage0_plain on the same
+    descriptors and against the host prep (prepare_merge + pack_batch),
+    in every int64; K4 (csrc/traceback.cu) on the kernel's direction
+    bytes against its plain version (every output byte) and the native
+    trace_path; and K6 (csrc/merged.cu, the merged counters) on K4's
+    output as it lies against its plain twin, every int32;
  3b. K3 (csrc/dp_wide.cu) against its plain PyTorch version (the fold
     wavefront) and K2's, bit-exact in direction bytes, finals, last, path
     and total, and path/total against the native host DP.  Staged
@@ -39,7 +42,7 @@ Phases (one line each; any mismatch or exception exits non-zero):
     banded merge, cardinality > 2^16, 2^22-scaled scores; L2 variant:
     the 400x4000 and banded merges, 2^22-scaled scores at w2 6000, and
     the limits (w1 16384 x w2 16256, w2 32767) against K2 and the host DP;
-    a 3564x1334 prof-prof; stage 0 and K4 on every merge, as in phase 3;
+    a 3564x1334 prof-prof; K5, K4 and K6 on every merge, as in phase 3;
  4. the main path: a seeded 1000-sequence family of mean length 300
     through the CLI entry point (refinement AUTO = on) with -backend torch
     at the default knobs, with every profile merge and guided
@@ -49,20 +52,26 @@ Phases (one line each; any mismatch or exception exits non-zero):
     round on K1 wave, every K2 launch whose widest w2 is <= 4095 on K2
     staged, every K3 call at w2 <= 4095 on K3 staged).  The device DP
     route (ops/dp_resident.py) is held to ResidencyWatch in every torch
-    run: one K4 launch per K2 launch and K3 call, at most
+    run: one K5 and one K4 launch per K2 launch and K3 call, one K6
+    launch per dispatch that asks for merged counters, at most
     sum(w1 + w2 + 17) bytes copied down, exactly the sides a device merge
-    produced read resident; in the 1000-sequence runs every device
-    merge's resident counters equal the host counters construct made.
-    Per run: the route's bytes up and down, its resident, leaf and
-    uploaded sides and the peak device memory;
+    produced read resident, and no host read of a device tensor inside
+    a dispatch (each dispatch runs under torch.cuda.set_sync_debug_mode
+    ("error")); in the 1000-sequence runs every device merge's resident
+    counters equal the host counters construct made.  Per run: the
+    route's bytes up and down, its resident, leaf and uploaded sides and
+    the peak device memory.  In the forced-K2 and forced-K3 runs, four
+    dispatches each (after the first ten) run under torch.profiler: the
+    device operations (kernels, copies, fills) a dispatch, with their
+    names;
  5. the guide tree: -gt_export on a seeded 2000-sequence family, torch
     against numpy, with a Prim chunk small enough to cross chunk
     boundaries, and under -dist indel_div_lcs (K1's rows variant);
  6. the wide path: a seeded 10,000-sequence family of mean length 300
     (refinement AUTO = off) with -backend torch at the default knobs,
     against -backend numpy on the guide tree the torch -gt_export wrote;
-    byte-identical, and K1 wave, K2 staged, K3 staged and K4 launched
-    as in phase 4, the route held to ResidencyWatch as there.  Prints
+    byte-identical, and K1 wave, K2 staged, K3 staged, K4, K5 and K6
+    launched as in phase 4, the route held to ResidencyWatch as there.  Prints
     the stage seconds and the profile merges per route (host / K2 / K3).
 Then a JSON line with every kernel variant's numbers, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
@@ -88,8 +97,12 @@ compares, selects, logic) and the FMA pipe (integer multiply-adds), 64
 lanes each, so the bound is a floor.  K4's bound counts bytes alone
 (a direction byte a step, finals and meta, the output): its walk is a
 chain of dependent loads, bound by their latency, so its line also
-gives ns a step.  No kernel has a single PyTorch call computing the
-same function, so library_ms is null.
+gives ns a step.  K5's and K6's bound is the larger of their bytes
+(each side's counter rows or symbol bytes read once, the path bytes, the
+outputs written once) and the int64 multiply-adds and adds their rows
+need (K5: 32 lanes a row times its nonzero amino-acid counts plus one;
+K6: a row of 32 adds a parent's advance).  No kernel has a single
+PyTorch call computing the same function, so library_ms is null.
 """
 
 import json
@@ -205,15 +218,19 @@ def lcs_case_w(n_refs, n_queries, w, seed, device, ref_len=None):
     return table.to(device), syms.contiguous().to(device)
 
 
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the larger of nbytes over the memory
+    rate and ops int32 instructions over the issue rate."""
+    t_b, t_o = nbytes / MEM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b > t_o else "operations"
+
+
 def lcs_bound_ms(table, syms, n_queries):
     _, w, n = table.shape
     r, length = syms.shape
     live = int((syms.cpu() < 20).sum())           # no-op symbols are skipped
     ops = 6 * live * n_queries * w                # and, 2 add, cmp, sub, or
-    nbytes = 4 * table.numel() + 4 * syms.numel() + 2 * r * n
-    return max(nbytes / MEM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3, \
-        ("bytes" if nbytes / MEM_BYTES_PER_S > ops / INT32_OPS_PER_S
-         else "operations")
+    return bound(4 * table.numel() + 4 * syms.numel() + 2 * r * n, ops)
 
 
 def lcs_check(table, syms, q, variant, what):
@@ -367,8 +384,8 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
                                      dp_staged_plain(*args, total)]
     hosts = [dp_profile(params, p1, p2, *(mappings[k] if mappings else ()))
              for k, (p1, p2) in enumerate(pairs)]
-    stage0_check(params, pairs, bands, (colf, rowf, meta), device,
-                 f"K2 {what}")
+    sides, hdr = stage0_check(params, pairs, bands, (colf, rowf, meta),
+                              device, f"K2 {what}")
     for variant in variants:
         key = "dp_staged" if variant == "staged" else "dp"
         before = kernels.LAUNCHES[key]
@@ -407,7 +424,9 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
                 raise AssertionError(f"K2 {variant} {what} merge {k}: "
                                      "differs from the native host DP")
         if variant == variants[0]:
-            k4_check(dirs_d, fin_d, args[2], f"K2 {variant} {what}", natives)
+            paths = k4_check(dirs_d, fin_d, args[2], f"K2 {variant} {what}",
+                             natives)
+            k6_check(sides, hdr, paths, f"K2 {variant} {what}")
     return args, total, plain_ms
 
 
@@ -439,40 +458,91 @@ def k4_check(dirs, fin, meta, what, natives):
         if total != rn.total or not np.array_equal(path, rn.path):
             raise AssertionError(f"K4 {what} merge {k}: path/total differ "
                                  "from the native trace_path")
+    return got
 
 
-def stage0_check(params, pairs, bands, packed, device, what):
-    """Stage 0 (ops/dp_stage0.py) on the card from the sides' counters
-    against the host prep, prepare_merge + pack_batch (`packed`: colf,
-    rowf, meta), in every int64."""
+def first_diff(got, want):
+    """(index, got, want) of the first element where two tensors of one
+    shape differ."""
+    at = tuple((got != want).nonzero()[0].tolist())
+    return at, int(got[at]), int(want[at])
+
+
+def launch_inputs(params, pairs, bands, meta, device):
+    """(hdr, band, sides) of a batch on the device as the route uploads
+    them (ops/dp_resident.py:upload_launch): no side resident, so every
+    side is a leaf's symbol bytes or uploaded counters."""
     import torch
-    from famsa_tpu_torch.ops.dp_stage0 import score_table, stage0
-    w1p = max(p1.width for p1, _ in pairs)
-    w2p = max(p2.width for _, p2 in pairs)
-    c1 = np.zeros((len(pairs), w1p + 1, 32), dtype=np.int32)
-    c2 = np.zeros((len(pairs), w2p + 1, 32), dtype=np.int32)
+    from famsa_tpu_torch.ops.dp_resident import upload_launch
     hdr = np.zeros((len(pairs), 8), dtype=np.int64)
+    hdr[:, :4] = meta
+    hdr[:, 4] = [len(p1.data) for p1, _ in pairs]
+    hdr[:, 5] = [len(p2.data) for _, p2 in pairs]
     band = None
     if any(bd is not None for bd in bands):
-        band = np.zeros((len(pairs), w1p + 1, 2), dtype=np.int64)
-    hdr[:, :4] = packed[2]
-    for k, ((p1, p2), bd) in enumerate(zip(pairs, bands)):
-        c1[k, :p1.width + 1] = p1.counters
-        c2[k, :p2.width + 1] = p2.counters
-        hdr[k, 4:6] = len(p1.data), len(p2.data)
-        if band is not None:
+        band = np.zeros((len(pairs), max(p1.width for p1, _ in pairs) + 1,
+                         2), dtype=np.int64)
+        for k, ((p1, p2), bd) in enumerate(zip(pairs, bands)):
             band[k, :, 1] = p2.width
             if bd is not None:
                 band[k, :p1.width + 1] = bd[:p1.width + 1]
-    c1, c2, hdr, table, band = (
-        torch.from_numpy(x).to(device) if x is not None else None
-        for x in (c1, c2, hdr, score_table(params), band))
-    got = stage0(params, c1, c2, hdr, table, band)[:3]
-    for name, g, w in zip(("colf", "rowf", "meta"), got, packed):
+    return upload_launch(pairs, [(None, None)] * len(pairs), hdr, band,
+                         torch.device(device))
+
+
+def stage0_check(params, pairs, bands, packed, device, what):
+    """K5 (csrc/stage0.cu, ops/dp_stage0.py:stage0) on the card, reading
+    the sides through their descriptors, against its plain twin
+    stage0_plain on the sides the plain reader gives for the same
+    descriptors, and against the host prep, prepare_merge + pack_batch
+    (`packed`: colf, rowf, meta), in every int64.  Returns (sides, hdr)
+    on the device, for the K6 check."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.dp_stage0 import (score_table, stage0,
+                                               stage0_plain)
+    from famsa_tpu_torch.ops.sides import read_sides_plain
+    hdr, band, sides = launch_inputs(params, pairs, bands, packed[2], device)
+    table = torch.from_numpy(score_table(params)).to(device)
+    before = kernels.LAUNCHES["stage0"]
+    got = stage0(params, sides, hdr, table, band)
+    want = stage0_plain(params, *read_sides_plain(sides), hdr, table, band)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["stage0"] != before + 1:
+            raise AssertionError(f"K5 {what}: not launched")
+    for name, g, p, w in zip(("colf", "rowf", "meta"), got, want, packed):
+        if g.shape != p.shape or not torch.equal(g, p):
+            raise AssertionError(f"K5 {what}: {name} differs from "
+                                 f"stage0_plain: {first_diff(g, p)}")
         if tuple(g.shape) != w.shape or not np.array_equal(g.cpu().numpy(),
                                                            w):
-            raise AssertionError(f"stage 0 {what}: {name} differs from the "
-                                 "host prep")
+            raise AssertionError(f"K5 {what}: {name} differs from the host "
+                                 "prep")
+    return sides, hdr
+
+
+def k6_check(sides, hdr, paths, what):
+    """K6 (csrc/merged.cu, ops/merged_torch.py:merged_from_paths) on K4's
+    output as it lies on the card, against its plain twin on the same
+    inputs, every int32."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.merged_torch import (merged_from_paths,
+                                                  merged_from_paths_plain)
+    w1, w2 = sides.widths()
+    smax = int((w1 + w2).max())
+    before = kernels.LAUNCHES["merged"]
+    got = merged_from_paths(sides, paths, hdr, smax)
+    want = merged_from_paths_plain(sides, paths, hdr, smax)
+    if paths.is_cuda:
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["merged"] != before + 1:
+            raise AssertionError(f"K6 {what}: not launched")
+    if not torch.equal(got, want):
+        raise AssertionError(f"K6 {what}: differs from "
+                             f"merged_from_paths_plain: "
+                             f"{first_diff(got, want)}")
 
 
 def dp_bound_ms(colf, rowf, meta, total):
@@ -490,8 +560,7 @@ def dp_bound_ms(colf, rowf, meta, total):
         ops += w2 * (w1 * (17 * 3 + 23 * 2 + 17 * 2 + 11 * 2) + 5 * nnz)
     nbytes = 8 * (colf.numel() + rowf.numel() + meta.numel()) + total \
         + 8 * 3 * meta.shape[0] * (rowf.shape[1] - 1)
-    t_b, t_o = nbytes / MEM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return max(t_b, t_o) * 1e3, "bytes" if t_b > t_o else "operations"
+    return bound(nbytes, ops)
 
 
 def k4_bound_ms(out_bytes, steps, merges):
@@ -501,6 +570,41 @@ def k4_bound_ms(out_bytes, steps, merges):
     of dependent loads, so it is bound by their latency, not by this."""
     nbytes = steps + 56 * merges + out_bytes
     return nbytes / MEM_BYTES_PER_S * 1e3, "bytes"
+
+
+def side_bytes(sides):
+    """Bytes of a launch's sides, each read once: 128 (w + 1) for counter
+    rows, w for a leaf's symbol bytes."""
+    from famsa_tpu_torch.ops.sides import D_KIND, D_WIDTH, SIDE_LEAF
+    d = sides.desc_h
+    w = d[:, D_WIDTH]
+    return int(np.where(d[:, D_KIND] == SIDE_LEAF, w, 128 * (w + 1)).sum())
+
+
+def k5_bound_ms(sides, hdr, band, out):
+    """Least time of one K5 call: its bytes (the sides, descriptors, hdr,
+    the score table and the band read once; colf, rowf and meta written
+    once) against the int64 multiply-adds of its scores, 32 lanes a
+    counter row times the row's nonzero amino-acid counts plus one, at 5
+    int32 instructions each."""
+    from famsa_tpu_torch.ops.sides import D_WIDTH, read_sides_plain
+    nnz = sum(int((c[..., :24] != 0).sum()) for c in read_sides_plain(sides))
+    rows = int((sides.desc_h[:, D_WIDTH] + 1).sum())
+    nbytes = side_bytes(sides) + sides.desc_h.nbytes + 8 * hdr.numel() \
+        + 25 * 32 * 8 + (0 if band is None else 8 * band.numel()) \
+        + 8 * sum(x.numel() for x in out)
+    return bound(nbytes, 5 * 32 * (nnz + rows))
+
+
+def k6_bound_ms(sides, hdr, paths, out):
+    """Least time of one K6 call: its bytes (the sides, descriptors, hdr
+    and K4's buffer read once, the merged counters written once) against
+    a row of 32 int64 adds (2 int32 instructions each) for every step a
+    parent advances, w1 + w2 a merge."""
+    w1, w2 = sides.widths()
+    nbytes = side_bytes(sides) + sides.desc_h.nbytes + 8 * hdr.numel() \
+        + paths.numel() + 4 * out.numel()
+    return bound(nbytes, 2 * 32 * int((w1 + w2).sum()))
 
 
 def staged_cluster_fit(shapes):
@@ -627,8 +731,8 @@ def wide_check(params, p1, p2, band, device, what, mapping=None,
     w1, w2 = p1.width, p2.width
     times = {}
 
-    stage0_check(params, [(p1, p2)], [band], (colf, rowf, meta), device,
-                 f"K3 {what}")
+    sides, hdr = stage0_check(params, [(p1, p2)], [band],
+                              (colf, rowf, meta), device, f"K3 {what}")
     raw = {}
 
     def run(name):
@@ -644,7 +748,8 @@ def wide_check(params, p1, p2, band, device, what, mapping=None,
     if device == "cuda" and kernels.LAUNCHES[key] != before + 1:
         raise AssertionError(f"K3 {what}: the {variant} variant was not "
                              "launched")
-    k4_check(*raw.pop("K3"), args[2], f"K3 {variant} {what}", [rk])
+    paths = k4_check(*raw.pop("K3"), args[2], f"K3 {variant} {what}", [rk])
+    k6_check(sides, hdr, paths, f"K3 {variant} {what}")
     for name in refs:
         d, f, r = run(name)
         if not np.array_equal(dk, d):
@@ -801,7 +906,8 @@ def stage_report(name, secs, stats, counts):
             f"{counts['lcs']} wave {counts['lcs_wave']} K2 staged "
             f"{counts['dp_staged']} global {counts['dp']} K3 staged "
             f"{counts['dp_wide']} L2 {counts['dp_wide_l2']} K4 "
-            f"{counts['traceback']}")
+            f"{counts['traceback']} K5 {counts['stage0']} K6 "
+            f"{counts['merged']}")
 
 
 def check_launches(what, counts, needed, rec):
@@ -837,14 +943,22 @@ class ResidencyWatch:
     and, at each dispatch of the route, counts the sides that are such a
     profile with its host counters unchanged (the sides that must be read
     resident), the path bytes the route may copy down (16 + w1 + w2 a
-    merge) and the direction bytes the host-prep route copied down
-    ((w1+1)(w2+1)).  While `check` is set it holds every device merge's
-    resident counters against the host counters construct made."""
+    merge), the direction bytes the host-prep route copied down
+    ((w1+1)(w2+1)) and the dispatches that ask for merged counters.
+    Every dispatch runs under torch.cuda.set_sync_debug_mode("error"), so
+    a host read of a device tensor inside it fails the run.  While
+    `check` is set it holds every device merge's resident counters
+    against the host counters construct made; while `profile` is set
+    (skip, count) it runs `count` dispatches after the first `skip` under
+    torch.profiler and keeps their device operations (ops)."""
 
     def __init__(self):
+        import torch
         import famsa_tpu_torch.pipeline as pipeline
         from famsa_tpu_torch.ops import dp_torch, dp_wide
         self.check = False
+        self.profile = None
+        self.ops = []
         self.reset()
         orig_construct = pipeline.construct_profile
         orig_k2 = dp_torch.dp_profile_torch_paths_async
@@ -869,20 +983,54 @@ class ResidencyWatch:
             return seen is not None and seen[0] is p \
                 and seen[1] is p.counters
 
-        def note(pairs):
+        def note(pairs, kw):
             for p1, p2 in pairs:
                 self.expected += resident(p1) + resident(p2)
                 self.bound += p1.width + p2.width + 17
                 self.dense += (p1.width + 1) * (p2.width + 1)
                 self.merges += 1
+            self.merged += bool(kw.get("want_merged"))
+            self.dispatches += 1
+
+        def strict(fn, *a, **kw):
+            """fn inside a window where a host read of a device tensor
+            raises."""
+            if not torch.cuda.is_available():
+                return fn(*a, **kw)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        def dispatch(fn, *a, **kw):
+            skip, count = self.profile or (0, 0)
+            if not skip < self.dispatches <= skip + count:
+                return strict(fn, *a, **kw)
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # a session after the first in a process may drop its
+                # first one or two device records: two spin kernels, not
+                # counted, open the window on an idle device
+                torch.cuda.synchronize()
+                torch.cuda._sleep(1000)
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                out = strict(fn, *a, **kw)
+                torch.cuda.synchronize()
+            self.ops.append([e.name for e in prof.events()
+                             if e.device_type == DeviceType.CUDA
+                             and "spin_kernel" not in e.name])
+            return out
 
         def k2(params, pairs, *a, **kw):
-            note(pairs)
-            return orig_k2(params, pairs, *a, **kw)
+            note(pairs, kw)
+            return dispatch(orig_k2, params, pairs, *a, **kw)
 
         def k3(params, p1, p2, *a, **kw):
-            note([(p1, p2)])
-            return orig_k3(params, p1, p2, *a, **kw)
+            note([(p1, p2)], kw)
+            return dispatch(orig_k3, params, p1, p2, *a, **kw)
 
         pipeline.construct_profile = construct
         dp_torch.dp_profile_torch_paths_async = k2
@@ -891,16 +1039,26 @@ class ResidencyWatch:
     def reset(self):
         self.produced = {}
         self.expected = self.bound = self.dense = 0
-        self.merges = self.checked = 0
+        self.merges = self.checked = self.merged = self.dispatches = 0
 
     def verify(self, what, counts, traffic):
-        """Every device merge's path came from K4, only paths came down,
-        and exactly the sides a device merge produced were resident."""
+        """Every device merge's planes came from K5 and its path from K4,
+        every merged-counter dispatch's counters from K6, only paths came
+        down, and exactly the sides a device merge produced were
+        resident."""
         dp = (counts["dp"] + counts["dp_staged"] + counts["dp_wide"]
               + counts["dp_wide_l2"])
-        if counts["traceback"] != dp:
-            raise AssertionError(f"{what}: {counts['traceback']} K4 launches "
-                                 f"for {dp} K2 launches and K3 calls")
+        if dp != self.dispatches:
+            raise AssertionError(f"{what}: {dp} K2 launches and K3 calls "
+                                 f"for {self.dispatches} dispatches")
+        for key, name in (("traceback", "K4"), ("stage0", "K5")):
+            if counts[key] != dp:
+                raise AssertionError(f"{what}: {counts[key]} {name} launches"
+                                     f" for {dp} K2 launches and K3 calls")
+        if counts["merged"] != self.merged:
+            raise AssertionError(f"{what}: {counts['merged']} K6 launches "
+                                 f"for {self.merged} dispatches that want "
+                                 "merged counters")
         if not 0 < traffic["bytes_down"] <= self.bound:
             raise AssertionError(f"{what}: {traffic['bytes_down']} bytes "
                                  f"down, bound {self.bound}")
@@ -911,7 +1069,9 @@ class ResidencyWatch:
 
     def report(self, traffic, peak):
         t = traffic
-        return (f"DP route: {self.merges} device merges, bytes down "
+        return (f"DP route: {self.merges} device merges in "
+                f"{self.dispatches} dispatches ({self.merged} with merged "
+                f"counters, every one free of host reads), bytes down "
                 f"{t['bytes_down']} (bound sum(w1+w2+17) {self.bound}; dense "
                 f"direction bytes {self.dense}), bytes up {t['bytes_up']}, "
                 f"sides resident {t['sides_resident']} (produced on the "
@@ -952,6 +1112,21 @@ def run_torch(name, flags, env, recorder, watch, run, check, device):
     return rc, secs, counts, "; " + watch.report(traffic, peak)
 
 
+def ops_report(ops):
+    """The device operations of the profiled dispatches: their count a
+    dispatch and the names of the first one's."""
+    if not ops:
+        return ""
+
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "")
+        return name.split("(")[0].split("<")[0].strip() or name
+    counts = [len(o) for o in ops]
+    return (f"; device operations a dispatch (torch.profiler, "
+            f"{len(ops)} dispatches): {counts}, the first: "
+            f"{[short(n) for n in ops[0]]}")
+
+
 def phase_main(work, recorder, watch, device="cuda", n=1000, mean_len=300):
     """The main path as a user runs it; the recorder times every kernel
     launch of the default torch run ("1000"); every device merge's
@@ -973,15 +1148,21 @@ def phase_main(work, recorder, watch, device="cuda", n=1000, mean_len=300):
     for name, flags, env, needed in runs:
         out = os.path.join(work, f"out_{name}.fa")
         stats = os.path.join(work, f"stats_{name}.txt")
+        # the forced runs profile four dispatches each, after the first ten
+        watch.profile = (10, 4) if device == "cuda" and name in (
+            "torch_k2", "torch_k3") else None
+        watch.ops = []
         rc, secs, counts, route = run_torch(
             f"main path {name}", flags + ["-stats", stats, fa, out], env,
             recorder, watch, "1000" if name == "torch" else None,
             name != "numpy", device)
+        watch.profile = None
         if rc != 0:
             raise AssertionError(f"main path {name}: rc={rc}")
         with open(out, "rb") as f:
             outs[name] = f.read()
-        report.append(stage_report(name, secs, stats, counts) + route)
+        report.append(stage_report(name, secs, stats, counts) + route
+                      + ops_report(watch.ops))
         if device == "cuda":
             check_launches(f"main path {name}", counts, needed, recorder)
     for name in ("torch", "torch_k2", "torch_k3"):
@@ -1125,12 +1306,16 @@ VARIANTS = {
     "traceback": ("traceback", "trace_paths",
                   "famsa_tpu_torch/csrc/traceback.cu",
                   "famsa_tpu/ops/dp_pallas.py:948"),
+    "stage0": ("stage0", "stage0", "famsa_tpu_torch/csrc/stage0.cu",
+               "famsa_tpu/ops/dp_pallas.py:844"),
+    "merged": ("merged", "merged_counters", "famsa_tpu_torch/csrc/merged.cu",
+               "famsa_tpu/ops/dp_pallas.py:1919"),
 }
 # the run whose launch count a variant's entry reports: the main path's
 # default run, and for K1's rows variant the -dist tree run
 LAUNCH_RUN = {"lcs": "dist", "lcs_wave": "1000", "dp": "1000",
               "dp_staged": "1000", "dp_wide": "1000", "dp_wide_l2": "10000",
-              "traceback": "1000"}
+              "traceback": "1000", "stage0": "1000", "merged": "1000"}
 
 
 class LaunchRecorder:
@@ -1183,8 +1368,9 @@ class LaunchRecorder:
         orig_dp, orig_wide = dpt.dp_dirs, dpw.dp_dirs_wide
         orig_lcs = lct.lcs_rows
 
-        def dp_dirs(colf, rowf, meta, total, variant=None):
-            w2s = meta[:, 1].tolist()
+        def dp_dirs(colf, rowf, meta, total, variant=None, meta_host=None):
+            w2s = list((meta.cpu().numpy() if meta_host is None
+                        else meta_host)[:, 1])
             variant = variant or dpt.k2_variant(max(w2s))
             self.k2_calls.append(max(w2s))
             if self.run is not None:
@@ -1194,15 +1380,19 @@ class LaunchRecorder:
                         dpw.staged_geometry(w2s))
             keep("dp_staged" if variant == "staged" else "dp", total,
                  (colf, rowf, meta, total))
-            return orig_dp(colf, rowf, meta, total, variant=variant)
+            return orig_dp(colf, rowf, meta, total, variant=variant,
+                           meta_host=meta_host)
 
-        def dp_dirs_wide(colf, rowf, meta, total, variant=None):
-            w2 = int(meta[0, 1])
+        def dp_dirs_wide(colf, rowf, meta, total, variant=None,
+                         meta_host=None):
+            w2 = int((meta.cpu().numpy() if meta_host is None
+                      else meta_host)[0, 1])
             variant = variant or dpw.k3_variant(w2)
             self.wide_calls.append(w2)
             keep("dp_wide" if variant == "staged" else "dp_wide_l2", total,
                  (colf, rowf, meta, total))
-            return orig_wide(colf, rowf, meta, total, variant=variant)
+            return orig_wide(colf, rowf, meta, total, variant=variant,
+                             meta_host=meta_host)
 
         def lcs_rows(table, syms, n_queries=None, out_dtype=torch.int32,
                      variant=None):
@@ -1214,7 +1404,18 @@ class LaunchRecorder:
             return orig_lcs(table, syms, n_queries=n_queries,
                             out_dtype=out_dtype, variant=variant)
 
-        orig_tb = dpr.trace_paths
+        orig_tb, orig_s0, orig_mg = (dpr.trace_paths, dpr.stage0,
+                                     dpr.merged_from_paths)
+
+        def stage0(params, sides, hdr, table, band=None):
+            keep("stage0", int(sides.desc_h[:, 3].sum()),
+                 (params, sides, hdr, table, band))
+            return orig_s0(params, sides, hdr, table, band)
+
+        def merged_from_paths(sides, paths, hdr, smax):
+            keep("merged", int(sides.desc_h[:, 3].sum()),
+                 (sides, paths, hdr, smax))
+            return orig_mg(sides, paths, hdr, smax)
 
         def trace_paths(dirs, fin, meta, meta_host=None):
             if meta_host is not None:
@@ -1226,6 +1427,7 @@ class LaunchRecorder:
         dpt.dp_dirs, dpw.dp_dirs_wide = dp_dirs, dp_dirs_wide
         lct.lcs_rows = pt.lcs_rows = lcs_rows
         dpr.trace_paths = trace_paths
+        dpr.stage0, dpr.merged_from_paths = stage0, merged_from_paths
 
     def start(self, run):
         """Record the launches of `run` (None: record nothing but the
@@ -1249,6 +1451,17 @@ class LaunchRecorder:
         ev = self.events.get(run, {}).get(key, [])
         tot = sum(s.elapsed_time(e) for s, e in ev)
         return len(ev), tot, tot / len(ev) if ev else None
+
+
+def int_err(got, want):
+    """Max abs difference of two integer tensors of one shape, in exact
+    integers (an int64 difference could wrap)."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes {tuple(got.shape)} and "
+                             f"{tuple(want.shape)} differ")
+    bad = (got != want).nonzero()
+    return max((abs(int(got[tuple(at)]) - int(want[tuple(at)]))
+                for at in bad[:1000].tolist()), default=0)
 
 
 def dp_max_err(got, want, meta):
@@ -1292,10 +1505,14 @@ def kernel_report(rec, chain):
     of every launch the recorder timed.  A variant those runs never
     launched is measured on other inputs (its entry's "at"): K2 global on
     the runs' largest K2 batch, K3 L2 on `chain` (phase 3b's lone merge)."""
+    from famsa_tpu_torch.ops.dp_stage0 import stage0, stage0_plain
     from famsa_tpu_torch.ops.dp_torch import dp_dirs, dp_plain
     from famsa_tpu_torch.ops.dp_wide import (dp_dirs_wide, dp_staged_plain,
                                              dp_wide_plain)
     from famsa_tpu_torch.ops.lcs_torch import lcs_plain, lcs_rows
+    from famsa_tpu_torch.ops.merged_torch import (merged_from_paths,
+                                                  merged_from_paths_plain)
+    from famsa_tpu_torch.ops.sides import read_sides_plain
     from famsa_tpu_torch.ops.traceback_torch import (read_paths,
                                                      trace_paths,
                                                      trace_paths_plain)
@@ -1335,6 +1552,31 @@ def kernel_report(rec, chain):
             bms, by = lcs_bound_ms(table, syms, q)
             shapes.append(f"{entry} {syms.shape[0]} ref x {q} queries "
                           f"(L={syms.shape[1]}, W={table.shape[1]})")
+        elif key == "stage0":
+            params, sides, hdr, table, band = args
+            res = {}
+            plain_ms = wall_ms(lambda: res.setdefault(
+                "plain", stage0_plain(params, *read_sides_plain(sides), hdr,
+                                      table, band)))
+            got = stage0(params, sides, hdr, table, band)
+            err = max(int_err(g, w) for g, w in zip(got, res["plain"]))
+            ms = cuda_ms(lambda: stage0(params, sides, hdr, table, band), 20)
+            bms, by = k5_bound_ms(sides, hdr, band, got)
+            w1, w2 = sides.widths()
+            shapes.append(f"{entry} {len(w1)} merge(s), w1 up to "
+                          f"{int(w1.max())}, w2 up to {int(w2.max())}")
+        elif key == "merged":
+            sides, paths, hdr, smax = args
+            res = {}
+            plain_ms = wall_ms(lambda: res.setdefault(
+                "plain", merged_from_paths_plain(sides, paths, hdr, smax)))
+            got = merged_from_paths(sides, paths, hdr, smax)
+            err = int_err(got, res["plain"])
+            ms = cuda_ms(lambda: merged_from_paths(sides, paths, hdr, smax),
+                         20)
+            bms, by = k6_bound_ms(sides, hdr, paths, got)
+            shapes.append(f"{entry} {sides.b} merge(s), {smax} steps at "
+                          "most")
         elif key == "traceback":
             dirs, fin, meta, meta_h = args
             res = {}

@@ -25,14 +25,14 @@ import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("lcs", "dp", "dp_wide", "traceback")
+KERNELS = ("lcs", "dp", "dp_wide", "traceback", "stage0", "merged")
 
 # one count per hand-written kernel variant: K1 rows and wave, K2 global
 # (one CTA a merge) and staged (a cluster of folds a merge, w2 <= 4095),
 # K3 staged (w2 <= 4095) and K3 with its column factors in L2 (wider),
-# and K4, the traceback
+# K4, the traceback, K5, stage 0, and K6, the merged counters
 LAUNCHES = {"lcs": 0, "lcs_wave": 0, "dp": 0, "dp_staged": 0, "dp_wide": 0,
-            "dp_wide_l2": 0, "traceback": 0}
+            "dp_wide_l2": 0, "traceback": 0, "stage0": 0, "merged": 0}
 # the device DP route's traffic (ops/dp_resident.py): bytes copied to and
 # from the device, and the launch sides that were resident on the device,
 # ungapped leaves (their symbol bytes uploaded) or uploaded counters
@@ -139,6 +139,12 @@ def _configure(name, lib):
     elif name == "traceback":
         lib.trace_paths.argtypes = [vp, vp, vp, ci, ci, vp, vp]
         lib.trace_paths.restype = ci
+    elif name == "stage0":
+        lib.stage0.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp]
+        lib.stage0.restype = ci
+    elif name == "merged":
+        lib.merged_counters.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        lib.merged_counters.restype = ci
     elif name == "dp":
         lib.dp_profile_batched.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                            vp, vp, vp]

@@ -37,6 +37,18 @@ NROWF = 77
 MAX_THREADS = 512                          # threads of a CTA in K2 and K3
 
 
+def host_meta(meta, meta_host=None):
+    """A batch's meta [B, 4] (w1, w2, dirs byte offset, 0) as a host
+    array: meta_host, checked against meta's shape, or else read from
+    meta (which waits for its device)."""
+    if meta_host is None:
+        return meta.cpu().numpy()
+    meta_h = np.asarray(meta_host, dtype=np.int64)
+    if meta_h.shape != tuple(meta.shape):
+        raise ValueError("meta_host does not match meta")
+    return meta_h
+
+
 def _corrections(profile):
     """The six gap-correction count arrays [6, w+1] of a profile
     (DP_SolveGapsProblemWhenStarting/Continuing, profile.cpp:1223-1315)."""

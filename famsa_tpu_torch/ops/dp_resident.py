@@ -1,8 +1,10 @@
-"""The device-resident route of the profile DP: a launch's two sides
-assembled on the card, stage 0, the DP kernel (K2 or K3), the traceback
-K4 and, for the alignment stage, the merged counters, all dispatched on
-the current stream without waiting; only the paths and totals come back,
-in one copy into pinned host memory.
+"""The device-resident route of the profile DP: one upload of a launch's
+header, band rows and side descriptors, stage 0 (K5), the DP kernel (K2
+or K3), the traceback K4 and, for the alignment stage, the merged
+counters (K6), all dispatched on the current stream without waiting;
+only the paths and totals come back, in one copy into pinned host
+memory.  On the card a dispatch is seven device operations: the upload,
+K5, K2 or K3, the zero fill of K4's buffer, K4, K6 and the copy down.
 
 Port of famsa_tpu/ops/dp_pallas.py:MergedRef (:1375), JaxPathResult
 (:1399), PendingPaths (:1532), _leaf_counters_dev_b (:1570),
@@ -12,12 +14,16 @@ dp_profile_pallas_paths_async (:1676), and of ops/dp_giant.py:_gather_side
 (CSC) upload, _shrink's narrow upload dtypes, the i32 "single" mode with
 its bounds, and the 16-codes-per-int32 packing of the path.
 
-A side of a launch, [B, W+1, 32] int32 on the card, comes from three
-kinds of rows: counters that a previous merge of this route left on the
-card (MergedRef, gathered by index once per source batch), ungapped
-leaves (their symbol bytes uploaded and one-hotted on the card) and every
-other profile (one pinned upload of its host counters).  kernels.TRAFFIC
-counts the sides of each kind and the bytes the route copies up and down.
+A side of a launch is read where it lies, through its descriptor
+(ops/sides.py): counters that a previous merge of this route left on the
+card (MergedRef, inside its batch tensor), an ungapped leaf (its symbol
+bytes, one-hotted by the reader) or any other profile (its host counters,
+uploaded).  upload_launch puts the header, the descriptors, the band
+rows, the uploaded counters and the leaves' symbol bytes in one pinned
+buffer and copies it in one non-blocking copy.  kernels.TRAFFIC counts
+the sides of each kind and the bytes the route copies up and down.
+assemble_side, the earlier copy of a side into one padded tensor, stays
+as the reference the descriptor reader is held to.
 """
 
 import numpy as np
@@ -25,15 +31,17 @@ import torch
 
 from .. import kernels
 from .dp_stage0 import score_table, stage0
-from .merged_torch import merged_counters
-from .traceback_torch import forward_paths, read_paths, trace_paths
+from .merged_torch import merged_from_paths
+from .sides import (D_ADDR, D_CARD, D_KIND, D_STRIDE, D_WIDTH, DESC_WORDS,
+                    SIDE_LEAF, SIDE_RESIDENT, SIDE_UPLOADED, LaunchSides)
+from .traceback_torch import read_paths, trace_paths
 
 
 class MergedRef:
     """One merge's counters inside a batch's merged-counter tensor on the
-    card (merged_counters' output [B, S+1, 32] int32, zero past each
-    merge's width).  Profile.dev_counters holds one; the next merge's side
-    assembly gathers from the batch tensor directly."""
+    card (K6's output [B, S+1, 32] int32, zero past each merge's width).
+    Profile.dev_counters holds one; the next merge's side descriptor
+    points into the batch tensor directly."""
     __slots__ = ("batch", "k", "rows")
 
     def __init__(self, batch, k, rows):
@@ -116,8 +124,92 @@ def _leaf_symbols(p):
     return gs.symbols
 
 
+def _align(n):
+    return -(-n // 16) * 16
+
+
+def upload_launch(pairs, dev_pairs, hdr, band_h, device):
+    """One upload of a launch's inputs: hdr [B, 8] int64, the 2B side
+    descriptors, the band rows band_h ([B, W1+1, 2] int64, or None), the
+    counter rows of the sides that are neither resident nor leaves and
+    the leaves' symbol bytes, in one pinned buffer copied to `device` in
+    one non-blocking copy (on the CPU the buffer is used where it lies).
+
+    pairs: [(profile1, profile2)] with host counters computed; dev_pairs:
+    their resident counters [(MergedRef | None, MergedRef | None)].
+    Returns (hdr, band or None, LaunchSides) on `device`.  Counted in
+    kernels.TRAFFIC: the buffer's bytes and every side by kind."""
+    b = len(pairs)
+    profs = [p for pair in zip(*pairs) for p in pair]     # side 1s, side 2s
+    devs = [d for pair in zip(*dev_pairs) for d in pair]
+    kinds, leaves = [], []
+    for p, d in zip(profs, devs):
+        sym = None if d is not None else _leaf_symbols(p)
+        kinds.append(SIDE_RESIDENT if d is not None
+                     else SIDE_LEAF if sym is not None else SIDE_UPLOADED)
+        leaves.append(sym)
+    o_desc = _align(hdr.nbytes)
+    o_band = o_desc + _align(2 * b * DESC_WORDS * 8)
+    o_rows = o_band + _align(0 if band_h is None else band_h.nbytes)
+    o_syms = o_rows + _align(sum(128 * (p.width + 1) for p, k in
+                                 zip(profs, kinds) if k == SIDE_UPLOADED))
+    nbytes = o_syms + sum(p.width for p, k in zip(profs, kinds)
+                          if k == SIDE_LEAF)
+    if device.type == "cpu":
+        host = dbuf = torch.empty(nbytes, dtype=torch.uint8)
+    else:
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        dbuf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    h = host.numpy()
+    h[:hdr.nbytes].view(np.int64)[:] = hdr.ravel()
+    desc = h[o_desc:o_desc + 2 * b * DESC_WORDS * 8].view(np.int64) \
+        .reshape(2 * b, DESC_WORDS)
+    desc[:] = 0
+    if band_h is not None:
+        h[o_band:o_band + band_h.nbytes].view(np.int64)[:] = band_h.ravel()
+    base, at_rows, at_syms = dbuf.data_ptr(), o_rows, o_syms
+    sources = {id(dbuf): dbuf}
+    rows = []
+    for p, d, kind, sym in zip(profs, devs, kinds, leaves):
+        if kind == SIDE_RESIDENT:
+            batch = d.batch
+            sources[id(batch)] = batch
+            addr = batch.data_ptr() \
+                + d.k * batch.stride(0) * batch.element_size()
+            stride = batch.stride(1)
+        elif kind == SIDE_LEAF:
+            h[at_syms:at_syms + p.width] = sym
+            addr, stride = base + at_syms, 1
+            at_syms += p.width
+        else:
+            n = 128 * (p.width + 1)
+            h[at_rows:at_rows + n].view(np.int32).reshape(-1, 32)[:] = \
+                p.counters
+            addr, stride = base + at_rows, 32
+            at_rows += n
+        rows.append((kind, addr, stride, p.width, len(p.data)))
+    desc[:, [D_KIND, D_ADDR, D_STRIDE, D_WIDTH, D_CARD]] = rows
+    if device.type != "cpu":
+        dbuf.copy_(host, non_blocking=True)
+    tr = kernels.TRAFFIC
+    tr["bytes_up"] += nbytes
+    tr["sides_resident"] += kinds.count(SIDE_RESIDENT)
+    tr["sides_leaf"] += kinds.count(SIDE_LEAF)
+    tr["sides_uploaded"] += kinds.count(SIDE_UPLOADED)
+    hdr_d = dbuf[:hdr.nbytes].view(torch.int64).view(b, 8)
+    desc_d = dbuf[o_desc:o_desc + desc.nbytes].view(torch.int64) \
+        .view(2 * b, DESC_WORDS)
+    band_d = None if band_h is None else \
+        dbuf[o_band:o_band + band_h.nbytes].view(torch.int64) \
+        .view(band_h.shape)
+    return hdr_d, band_d, LaunchSides(desc_d, desc.copy(),
+                                      list(sources.values()))
+
+
 def assemble_side(profiles, devs, wp, device):
-    """[B, wp+1, 32] int32 counters of one side of a launch on `device`.
+    """[B, wp+1, 32] int32 counters of one side of a launch on `device`:
+    the reference of ops/sides.py:read_sides_plain (the route reads its
+    sides through descriptors, upload_launch).
 
     profiles: the side's Profiles (host counters computed); devs: their
     resident counters (MergedRef or None), aligned.  Rows past a profile's
@@ -197,42 +289,34 @@ def dispatch_paths(params, pairs, dirs_fn, dev_pairs=None, want_merged=False,
     if b == 0 or w1s.min() < 1 or w2s.min() < 1:
         raise ValueError("the device DP takes one or more merges of "
                          "profiles at least one column wide")
-    w1p, w2p = int(w1s.max()), int(w2s.max())
+    w1p = int(w1s.max())
     sizes = (w1s + 1) * (w2s + 1)
     hdr = np.zeros((b, 8), dtype=np.int64)
     hdr[:, 0], hdr[:, 1] = w1s, w2s
     hdr[:, 2] = np.concatenate([[0], np.cumsum(sizes)[:-1]])
     hdr[:, 4] = [len(p1.data) for p1, _ in pairs]
     hdr[:, 5] = [len(p2.data) for _, p2 in pairs]
-    band = None
+    band_h = None
     if bands is not None and any(bd is not None for bd in bands):
         band_h = np.zeros((b, w1p + 1, 2), dtype=np.int64)
         band_h[:, :, 1] = w2s[:, None]
         for k, bd in enumerate(bands):
             if bd is not None:
                 band_h[k, :w1s[k] + 1] = bd[:w1s[k] + 1]
-        band = upload(band_h, dev)
-    hdr_d = upload(hdr, dev)
-    c1 = assemble_side([p1 for p1, _ in pairs], [d1 for d1, _ in dev_pairs],
-                       w1p, dev)
-    c2 = assemble_side([p2 for _, p2 in pairs], [d2 for _, d2 in dev_pairs],
-                       w2p, dev)
+    hdr_d, band, sides = upload_launch(pairs, dev_pairs, hdr, band_h, dev)
     # each input is freed once its last reader is enqueued: the caching
     # allocator orders a later reuse of its memory on the same stream
-    colf, rowf, meta, sides = stage0(params, c1, c2, hdr_d,
-                                     _score_table(params, dev), band)
-    del c1, c2
+    colf, rowf, meta = stage0(params, sides, hdr_d, _score_table(params, dev),
+                              band)
     meta_h = hdr[:, :4].copy()
-    # the DP wrappers read their widths from meta, which waits for the
-    # stream; everything after the kernel is dispatched without waiting
-    dirs, fin = dirs_fn(colf, rowf, meta, int(sizes.sum()))
+    # the widths come from the host: nothing here waits for the device
+    dirs, fin = dirs_fn(colf, rowf, meta, int(sizes.sum()), meta_host=meta_h)
     del colf, rowf
     out = trace_paths(dirs, fin, meta, meta_host=meta_h)
     del dirs, fin
     merged = None
     if want_merged:
-        fwd = forward_paths(out, meta, int((w1s + w2s).max()))
-        merged = merged_counters(sides, fwd)
+        merged = merged_from_paths(sides, out, hdr_d, int((w1s + w2s).max()))
     kernels.TRAFFIC["bytes_down"] += out.numel()
     if dev.type == "cpu":
         return PendingPaths(out, None, meta_h, merged)
@@ -241,4 +325,3 @@ def dispatch_paths(params, pairs, dirs_fn, dev_pairs=None, want_merged=False,
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(dev))
     return PendingPaths(host, event, meta_h, merged)
-

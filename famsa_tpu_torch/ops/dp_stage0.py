@@ -3,23 +3,29 @@ K3 (the plane layout of ops/dp_pack.py and csrc/dp_common.cuh) built
 from the two sides' counters where they lie, so that a merge whose
 counters are already on the card uploads nothing but its widths.
 
-Port of famsa_tpu/ops/dp_pallas.py:_scores_from_counters (:791),
-_gap_corrections_device (:819) and _stage0_one (:844) as batched torch
-ops.  The result equals ops/dp_pack.py:prepare_merge + pack_batch in
-every int64, padding included: the arithmetic is the host's (exact int64
-with two's-complement wrap, the wrap of its np.errstate(over="ignore")
-cumsums included), the symbol scores counters[:, :24] @ SM a broadcast
-multiply and sum (torch has no int64 matmul on CUDA, and a float product
-would not be exact), and the nonzero compaction of R_CNT / R_SYM a
-stable sort on int keys.
+stage0 is the wrapper of the CUDA kernel K5 (csrc/stage0.cu), which
+reads the sides through the launch's descriptors (ops/sides.py);
+stage0_plain is its plain PyTorch twin, on sides already read into
+tensors.  Both port famsa_tpu/ops/dp_pallas.py:_scores_from_counters
+(:791), _gap_corrections_device (:819) and _stage0_one (:844), batched
+over a launch's merges.  The result equals ops/dp_pack.py:prepare_merge
++ pack_batch in every int64, padding included: the arithmetic is the
+host's (exact int64 with two's-complement wrap, the wrap of its
+np.errstate(over="ignore") cumsums included), the symbol scores
+counters[:, :24] @ SM a broadcast multiply and sum in the plain twin
+(torch has no int64 matmul on CUDA, and a float product would not be
+exact), and the nonzero compaction of R_CNT / R_SYM a stable sort on int
+keys there.
 """
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..core.defs import (GAP_EXT, GAP_OPEN, GAP_TERM_EXT, GAP_TERM_OPEN,
                          NO_AMINOACIDS, NO_AMINOACIDS_AND_GAPS)
 from .dp_pack import (C_H0, C_S2, NCOLF, NEG, NROWF, R_HI, R_NNZ)
+from .sides import read_sides_plain
 
 # the planes are concatenated in their layout order
 assert C_S2 == 0 and C_H0 == NCOLF - 1 and R_NNZ == 0 and R_HI == NROWF - 1
@@ -101,8 +107,9 @@ def both_sides(c1, c2, hdr):
     return torch.where(live[..., None], c, 0), w, card, live
 
 
-def stage0(params, c1, c2, hdr, table, band=None):
-    """Packed DP inputs of a batch of merges from their sides' counters.
+def stage0_plain(params, c1, c2, hdr, table, band=None):
+    """Plain PyTorch twin of K5: the packed DP inputs of a batch of merges
+    from their sides' counters.
 
     c1 [B, W1+1, 32], c2 [B, W2+1, 32]: any integer dtype, on the DP's
     device (W1, W2 the batch's widest profiles; rows past a profile's
@@ -111,11 +118,9 @@ def stage0(params, c1, c2, hdr, table, band=None):
     [25, 32] on that device; band: None, or [B, W1+1, 2] int64 (lo, hi)
     per DP row on that device (rows past w1 ignored).  Returns (colf
     [B, NCOLF, ldc], rowf [B, W1+1, NROWF], meta [B, 4]) int64, equal to
-    pack_batch of prepare_merge's, and the sides as both_sides returns
-    them (for the merged counters)."""
+    pack_batch of prepare_merge's."""
     b, w1p, w2p = c1.shape[0], c1.shape[1] - 1, c2.shape[1] - 1
-    sides = both_sides(c1, c2, hdr)
-    c, w, card, live = sides
+    c, w, card, live = both_sides(c1, c2, hdr)
     s = scores_from_counters(c, card, table)
     g = gap_corrections(c, w, card)
     gap_col = list(_GAPS)
@@ -158,4 +163,53 @@ def stage0(params, c1, c2, hdr, table, band=None):
                       g[:b, :w1p + 1], (v0 * card2[:, None])[..., None],
                       band], dim=-1)
     rowf = torch.where(live[:b, :w1p + 1, None], rowf, 0)
-    return colf, rowf, hdr[:, :4].contiguous(), sides
+    return colf, rowf, hdr[:, :4].contiguous()
+
+
+def stage0(params, sides, hdr, table, band=None):
+    """Packed DP inputs of a launch's merges from its sides where they lie.
+
+    sides: the launch's side descriptors (ops/sides.py:LaunchSides); hdr
+    [B, 8] int64: (w1, w2, dirs byte offset, 0, card1, card2, 0, 0) per
+    merge; table: score_table's [25, 32] int64; band: None, or [B, W1+1,
+    2] int64 (lo, hi) per DP row (W1 the widest side 1; rows past w1
+    ignored); all on the launch's device.  Returns (colf [B, NCOLF, ldc],
+    rowf [B, W1+1, NROWF], meta [B, 4]) int64, equal to pack_batch of
+    prepare_merge's in every int64, ldc = W2 + 1 rounded up to even.
+
+    CUDA tensors launch kernel K5 (csrc/stage0.cu); CPU tensors read the
+    sides with read_sides_plain and run stage0_plain."""
+    b = sides.b
+    w1, w2 = sides.widths()
+    w1p, w2p = int(w1.max()), int(w2.max())
+    if hdr.dtype != torch.int64 or tuple(hdr.shape) != (b, 8):
+        raise ValueError("hdr must be [B, 8] int64")
+    if table.dtype != torch.int64 or tuple(table.shape) != (TABLE_ROWS, 32):
+        raise ValueError(f"table must be [{TABLE_ROWS}, 32] int64")
+    if band is not None and (band.dtype != torch.int64
+                             or tuple(band.shape) != (b, w1p + 1, 2)):
+        raise ValueError("band must be [B, W1+1, 2] int64")
+    dev = hdr.device
+    if sides.desc.device != dev or table.device != dev or \
+            (band is not None and band.device != dev):
+        raise ValueError("inputs must be on one device")
+    if dev.type == "cpu":
+        c1, c2 = read_sides_plain(sides)
+        return stage0_plain(params, c1, c2, hdr, table, band)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not all(x.is_contiguous() for x in (sides.desc, hdr, table)) or \
+            (band is not None and not band.is_contiguous()):
+        raise ValueError("inputs must be contiguous")
+    ldc = -(-(w2p + 1) // 2) * 2
+    colf = torch.empty((b, NCOLF, ldc), dtype=torch.int64, device=dev)
+    rowf = torch.empty((b, w1p + 1, NROWF), dtype=torch.int64, device=dev)
+    meta = torch.empty((b, 4), dtype=torch.int64, device=dev)
+    lib = kernels.get("stage0")
+    kernels.LAUNCHES["stage0"] += 1
+    err = lib.stage0(sides.desc.data_ptr(), hdr.data_ptr(), table.data_ptr(),
+                     None if band is None else band.data_ptr(), b, w1p, ldc,
+                     colf.data_ptr(), rowf.data_ptr(), meta.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "stage0")
+    return colf, rowf, meta

@@ -39,8 +39,8 @@ from .dp_pack import (  # noqa: F401  (prepare_merge, pack_batch: public here)
     C_G2STO, C_H0, C_P2E, C_P2O, C_P2TE, C_P2TO, C_S2, COL0_PACK, IMIN,
     MAX_THREADS, NCOLF, NEG, NROWF, R_CNT, R_G1CE, R_G1CTE, R_G1SE, R_G1SO,
     R_G1STE, R_G1STO, R_HI, R_LO, R_N1C, R_N1TC, R_NNG, R_S1GE, R_S1GO,
-    R_S1GTE, R_S1GTO, R_SYM, R_V0COST, ROW0_PACK, pack_batch, prepare_merge,
-    run_batch)
+    R_S1GTE, R_S1GTO, R_SYM, R_V0COST, ROW0_PACK, host_meta, pack_batch,
+    prepare_merge, run_batch)
 
 MAX_STRIPE = 256
 MAX_W2 = MAX_THREADS * MAX_STRIPE - 1      # widest profile2 K2 takes
@@ -51,15 +51,16 @@ def _shift(x, fill):
     return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
 
 
-def dp_plain(colf, rowf, meta, total):
+def dp_plain(colf, rowf, meta, total, meta_host=None):
     """Plain PyTorch version of K2 on the same packed inputs: the
     row-serial recurrence of ops/dp_jax.py:_dp_kernel with the band.
-    Returns (dirs [total] uint8, fin [B, ldr-1, 3] int64: the last-column
-    D, H, V of every row)."""
+    meta_host: meta as a host array (default: read from meta).  Returns
+    (dirs [total] uint8, fin [B, ldr-1, 3] int64: the last-column D, H,
+    V of every row)."""
     dev = colf.device
     b, _, ldc = colf.shape
     ldr = rowf.shape[1]
-    meta_h = meta.cpu().numpy()
+    meta_h = host_meta(meta, meta_host)
     w1s, w2s = meta_h[:, 0], meta_h[:, 1]
     jj = torch.arange(ldc, device=dev)[None, :]
     w2t = torch.from_numpy(w2s).to(dev)[:, None]
@@ -189,11 +190,13 @@ def k2_variant(max_w2):
     return "staged" if max_w2 <= dp_wide.STAGED_MAX_W2 else "global"
 
 
-def dp_dirs(colf, rowf, meta, total, variant=None):
+def dp_dirs(colf, rowf, meta, total, variant=None, meta_host=None):
     """Packed direction bytes and per-row last-column finals of a batch of
     merges (see pack_batch for the inputs).  Returns (dirs [total] uint8,
     fin [B, ldr-1, 3] int64).  variant: "staged" or "global" (default:
-    k2_variant of the batch's widest w2).
+    k2_variant of the batch's widest w2).  meta_host: meta as a host
+    array; the widths are then taken from it, and nothing here waits for
+    the device (without it they are read from meta, which does).
 
     CUDA tensors launch that variant of kernel K2.  CPU tensors run
     dp_plain, or with variant="staged" its fold walk,
@@ -212,14 +215,16 @@ def dp_dirs(colf, rowf, meta, total, variant=None):
         raise ValueError(f"unknown K2 variant {variant!r}")
     b, _, ldc = colf.shape
     ldr = rowf.shape[1]
-    w2s = meta[:, 1].tolist()
+    meta_h = host_meta(meta, meta_host)
+    w2s = meta_h[:, 1].tolist()
     if variant == "staged":
         dp_wide.staged_geometry(w2s)        # raises past STAGED_MAX_W2
     dev = colf.device
     if dev.type == "cpu":
         if variant == "staged":
-            return dp_wide.dp_staged_plain(colf, rowf, meta, total)
-        return dp_plain(colf, rowf, meta, total)
+            return dp_wide.dp_staged_plain(colf, rowf, meta, total,
+                                           meta_host=meta_h)
+        return dp_plain(colf, rowf, meta, total, meta_host=meta_h)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if not (colf.is_contiguous() and rowf.is_contiguous()
@@ -272,9 +277,10 @@ def dp_profile_torch_paths_async(params, pairs, dev_pairs=None,
                                  want_merged=False, bands=None,
                                  dirs_fn=None):
     """DP and traceback of a batch of merges on params.device, dispatched
-    without waiting: side assembly, stage 0, K2 (dirs_fn, default
-    dp_dirs), K4 and, when want_merged, the merged counters, with only the
-    paths copied back (ops/dp_resident.py:dispatch_paths).  Returns a
-    PendingPaths whose resolve() gives one PathResult per merge."""
+    without waiting: one upload of the sides' descriptors, stage 0 (K5),
+    K2 (dirs_fn, default dp_dirs, given the widths from the host), K4 and,
+    when want_merged, the merged counters (K6), with only the paths copied
+    back (ops/dp_resident.py:dispatch_paths).  Returns a PendingPaths
+    whose resolve() gives one PathResult per merge."""
     return dispatch_paths(params, pairs, dirs_fn or dp_dirs, dev_pairs,
                           want_merged, bands)

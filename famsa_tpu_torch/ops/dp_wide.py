@@ -29,7 +29,7 @@ from .dp_pack import (C_CUME, C_CUMT, C_G2CE, C_G2CHG, C_G2CTE, C_G2SE,
                       NROWF, R_CNT, R_G1CE, R_G1CTE, R_G1SE, R_G1SO, R_G1STE,
                       R_G1STO, R_HI, R_LO, R_N1C, R_N1TC, R_NNG, R_S1GE,
                       R_S1GO, R_S1GTE, R_S1GTO, R_SYM, R_V0COST, ROW0_PACK,
-                      run_batch)
+                      host_meta, run_batch)
 from .dp_resident import dispatch_paths
 
 MAX_FOLDS = 8                      # the portable thread-block cluster size
@@ -96,15 +96,17 @@ def _cat1(head, x):
     return torch.cat([head.reshape(1), x[:-1]])
 
 
-def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK):
+def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
+                  meta_host=None):
     """Plain PyTorch version of K3 on the same inputs (B = 1): the
     recurrence of dp_plain walked fold by fold in K3's wavefront order,
     fold_cols columns a fold (default: fold_geometry's), blk rows a
     step, with the fold edges passed through a buffer double-buffered by
-    step parity as K3 does.  Returns (dirs [total] uint8, fin [1, ldr-1,
-    3] int64: the last-column D, H, V of every row)."""
+    step parity as K3 does.  meta_host: meta as a host array (default:
+    read from meta).  Returns (dirs [total] uint8, fin [1, ldr-1, 3]
+    int64: the last-column D, H, V of every row)."""
     dev = colf.device
-    w1, w2, off = (int(v) for v in meta[0, :3].tolist())
+    w1, w2, off = (int(v) for v in host_meta(meta, meta_host)[0, :3])
     cols = w2 + 1
     if fold_cols is None:
         _, threads, stripe = fold_geometry(w2)
@@ -243,14 +245,16 @@ def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK):
     return dirs, fin
 
 
-def dp_staged_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK):
+def dp_staged_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
+                    meta_host=None):
     """Plain PyTorch version of K2's staged variant on a packed batch (see
     ops/dp_pack.py:pack_batch): every merge walked by dp_wide_plain over
     the launch's folds of fold_cols columns (default: staged_geometry's),
     so merge k crosses ceil((w2_k + 1) / fold_cols) of them, blk rows a
-    step.  Returns (dirs [total] uint8, fin [B, ldr-1, 3] int64: the
-    last-column D, H, V of every row)."""
-    meta_h = meta.tolist()
+    step.  meta_host: meta as a host array (default: read from meta).
+    Returns (dirs [total] uint8, fin [B, ldr-1, 3] int64: the last-column
+    D, H, V of every row)."""
+    meta_h = host_meta(meta, meta_host).tolist()
     if fold_cols is None:
         fold_cols = staged_geometry([m[1] for m in meta_h])[1]
     dirs = torch.zeros(total, dtype=torch.uint8, device=colf.device)
@@ -258,31 +262,36 @@ def dp_staged_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK):
                       dtype=torch.int64, device=colf.device)
     for k, (w1, w2, off, _) in enumerate(meta_h):
         n = (w1 + 1) * (w2 + 1)
-        one = torch.tensor([[w1, w2, 0, 0]], device=colf.device)
-        d, f = dp_wide_plain(colf[k:k + 1], rowf[k:k + 1], one, n,
-                             fold_cols=fold_cols, blk=blk)
+        one = [[w1, w2, 0, 0]]
+        d, f = dp_wide_plain(colf[k:k + 1], rowf[k:k + 1],
+                             torch.tensor(one, device=colf.device), n,
+                             fold_cols=fold_cols, blk=blk, meta_host=one)
         dirs[off:off + n] = d
         fin[k] = f[0]
     return dirs, fin
 
 
-def dp_dirs_wide(colf, rowf, meta, total, variant=None):
+def dp_dirs_wide(colf, rowf, meta, total, variant=None, meta_host=None):
     """Packed direction bytes and per-row last-column finals of ONE merge
     (pack_batch of one prepared merge).  Returns (dirs [total] uint8,
     fin [1, ldr-1, 3] int64).  variant: "staged" or "l2" (default:
-    k3_variant(w2)); both walk fold_geometry's folds.
+    k3_variant(w2)); both walk fold_geometry's folds.  meta_host: meta as
+    a host array; w1, w2 and the offset are then taken from it, and
+    nothing here waits for the device (without it they are read from
+    meta, which does).
 
     CUDA tensors launch that variant of kernel K3; CPU tensors run
     dp_wide_plain."""
     _check_inputs(colf, rowf, meta)
+    meta_h = host_meta(meta, meta_host)
     dev = colf.device
     if dev.type == "cpu":
-        return dp_wide_plain(colf, rowf, meta, total)
+        return dp_wide_plain(colf, rowf, meta, total, meta_host=meta_h)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if not (colf.is_contiguous() and rowf.is_contiguous()):
         raise ValueError("inputs must be contiguous")
-    w1, w2, off = (int(v) for v in meta[0, :3].tolist())
+    w1, w2, off = (int(v) for v in meta_h[0, :3])
     ldc, ldr = colf.shape[2], rowf.shape[1]
     if off != 0 or total != (w1 + 1) * (w2 + 1) or ldc < w2 + 1 \
             or ldr < w1 + 1:

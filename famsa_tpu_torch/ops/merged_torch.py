@@ -1,12 +1,17 @@
 """Merged profile counters on the device: the counters of each merge of
-a batch, built from its two sides' counters (already on the card) and its
-forward path (K4's output), so that the parent's merge reads them
-without an upload.
+a launch, built from its two sides' counters (read where they lie, on
+the card) and its forward path (K4's output), so that the parent's merge
+reads them without an upload.
 
-Port of famsa_tpu/ops/dp_pallas.py:merged_counters_device (:1919; its
-_forward_paths, :1219, is ops/traceback_torch.py:forward_paths) as torch
-ops batched over a launch's merges, with direct row gathers where the TPU
-needed one-hot limb matmuls.  The identities that make it vectorisable
+merged_from_paths is the wrapper of the CUDA kernel K6 (csrc/merged.cu);
+merged_from_paths_plain is its plain PyTorch twin behind the same
+interface: the sides read with ops/sides.py:read_sides_plain, the paths
+with ops/traceback_torch.py:forward_paths, and merged_counters.
+
+merged_counters ports famsa_tpu/ops/dp_pallas.py:merged_counters_device
+(:1919; its _forward_paths, :1219, is forward_paths) as torch ops batched
+over a launch's merges, with direct row gathers where the TPU needed
+one-hot limb matmuls.  The identities that make it vectorisable
 (dp_pallas.py:1933-1943):
   - scores are a fixed linear function of counters, so only counters
     stay on the card (stage 0 re-derives scores);
@@ -22,8 +27,12 @@ builds on the host for the same path.
 
 import torch
 
+from .. import kernels
 from ..core.defs import (GAP, GAP_EXT, GAP_OPEN, GAP_TERM_EXT,
                          GAP_TERM_OPEN)
+from .dp_stage0 import both_sides
+from .sides import read_sides_plain
+from .traceback_torch import forward_paths
 
 _H, _V = 1, 2                      # path codes of a gap in parent 1, 2
 
@@ -89,3 +98,48 @@ def merged_counters(sides, fwd):
         gaps.sum(dim=0)
     rows[..., GAP] += torch.where(run, size, 0).sum(dim=0)
     return torch.nn.functional.pad(rows, (0, 0, 1, 0)).to(torch.int32)
+
+
+def merged_from_paths_plain(sides, paths, hdr, smax):
+    """Plain PyTorch twin of K6 on the same inputs (see
+    merged_from_paths)."""
+    c1, c2 = read_sides_plain(sides)
+    return merged_counters(both_sides(c1, c2, hdr),
+                           forward_paths(paths, hdr, smax))
+
+
+def merged_from_paths(sides, paths, hdr, smax):
+    """Merged counters [B, smax+1, 32] int32 of a launch's merges.
+
+    sides: the launch's side descriptors (ops/sides.py:LaunchSides);
+    paths: K4's output buffer (ops/traceback_torch.py) as it lies on the
+    device; hdr [B, 8] int64 (w1, w2, ..., card1, card2, ...) on that
+    device; smax >= every merge's w1 + w2.  Row 0 and the rows past each
+    path are zero.  CUDA tensors launch kernel K6 (csrc/merged.cu); CPU
+    tensors run merged_from_paths_plain."""
+    b = sides.b
+    if paths.dtype != torch.uint8 or paths.dim() != 1:
+        raise TypeError("paths must be a 1-D uint8 tensor")
+    if hdr.dtype != torch.int64 or tuple(hdr.shape) != (b, 8):
+        raise ValueError("hdr must be [B, 8] int64")
+    w1, w2 = sides.widths()
+    if smax < int((w1 + w2).max()):
+        raise ValueError("smax is shorter than a merge's path")
+    dev = paths.device
+    if hdr.device != dev or sides.desc.device != dev:
+        raise ValueError("inputs must be on one device")
+    if dev.type == "cpu":
+        return merged_from_paths_plain(sides, paths, hdr, smax)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not (paths.is_contiguous() and hdr.is_contiguous()
+            and sides.desc.is_contiguous()):
+        raise ValueError("inputs must be contiguous")
+    out = torch.empty((b, smax + 1, 32), dtype=torch.int32, device=dev)
+    lib = kernels.get("merged")
+    kernels.LAUNCHES["merged"] += 1
+    err = lib.merged_counters(sides.desc.data_ptr(), hdr.data_ptr(),
+                              paths.data_ptr(), b, smax, out.data_ptr(),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "merged_counters")
+    return out

@@ -113,10 +113,11 @@ def largest_k2_batch(work, n, max_batch=16):
     best = {}
     orig = dp_torch.dp_dirs
 
-    def keep(colf, rowf, meta, total, variant=None):
+    def keep(colf, rowf, meta, total, variant=None, meta_host=None):
         if meta.shape[0] == max_batch and total > best.get("total", -1):
             best.update(total=total, args=(colf, rowf, meta, total))
-        return orig(colf, rowf, meta, total, variant=variant)
+        return orig(colf, rowf, meta, total, variant=variant,
+                    meta_host=meta_host)
     dp_torch.dp_dirs = keep
     try:
         rc, _ = chip_smoke.run_cli(["-backend", "torch", "-device", "cuda", fa,

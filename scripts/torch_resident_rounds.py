@@ -12,8 +12,9 @@ split  One run per tree and family with every step of a device merge
        seconds of the alignment stage per device merge, split into the
        steps the tree has (host-prep route: prepare_merge, pack_batch,
        the copies, K2/K3, the native traceback; resident route: side
-       assembly, stage 0, K2/K3, K4, merged counters, the wait in
-       resolve), and construct.  The synchronisation serialises what the
+       assembly or the one upload of the side descriptors, stage 0
+       (torch ops or K5), K2/K3, K4, merged counters (torch ops or K6),
+       the wait in resolve), and construct.  The synchronisation serialises what the
        resident route overlaps, so these are costs, not the stage time.
        Also the bytes each route copies: direction bytes and planes for
        the host-prep route (from the kernels' arguments), kernels.TRAFFIC
@@ -48,9 +49,11 @@ STEPS = [
     ("famsa_tpu_torch.ops.dp_wide", "dp_dirs_wide", "K3"),
     ("famsa_tpu_torch.pipeline", "finish_path", "native traceback"),
     ("famsa_tpu_torch.ops.dp_resident", "assemble_side", "sides"),
+    ("famsa_tpu_torch.ops.dp_resident", "upload_launch", "sides"),
     ("famsa_tpu_torch.ops.dp_resident", "stage0", "stage 0"),
     ("famsa_tpu_torch.ops.dp_resident", "trace_paths", "K4"),
     ("famsa_tpu_torch.ops.dp_resident", "merged_counters", "merged"),
+    ("famsa_tpu_torch.ops.dp_resident", "merged_from_paths", "merged"),
     ("famsa_tpu_torch.ops.dp_resident", "PendingPaths.resolve", "resolve"),
     ("famsa_tpu_torch.ops.dp_torch", "dp_profile_torch_paths_async",
      "dispatch"),

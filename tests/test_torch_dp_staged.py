@@ -97,9 +97,9 @@ def test_staged_plain_equals_dp_plain_mixed_batch(monkeypatch, small_folds):
     seen = []
     orig = dp_wide.dp_wide_plain
 
-    def spy(*a, fold_cols=None, blk=dp_wide.BLK):
+    def spy(*a, fold_cols=None, blk=dp_wide.BLK, meta_host=None):
         seen.append(fold_cols)
-        return orig(*a, fold_cols=fold_cols, blk=blk)
+        return orig(*a, fold_cols=fold_cols, blk=blk, meta_host=meta_host)
     monkeypatch.setattr(dp_wide, "dp_wide_plain", spy)
     want_d, want_f = dp_plain(colf, rowf, meta, total)
     got_d, got_f = dp_dirs(colf, rowf, meta, total, variant="staged")
@@ -247,9 +247,10 @@ def test_whole_run_k2_staged_forced(monkeypatch, small_folds):
     calls = []
     orig = dp_torch.dp_dirs
 
-    def staged(colf, rowf, meta, total, variant=None):
+    def staged(colf, rowf, meta, total, variant=None, meta_host=None):
         calls.append(meta[:, 1].tolist())
-        return orig(colf, rowf, meta, total, variant="staged")
+        return orig(colf, rowf, meta, total, variant="staged",
+                    meta_host=meta_host)
     monkeypatch.setattr(dp_torch, "dp_dirs", staged)
     strings = _family_strings(12, 40, 70)
     params = TParams(backend="torch", device="cpu")

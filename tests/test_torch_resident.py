@@ -42,7 +42,7 @@ from famsa_tpu_torch.ops.dp_pack import pack_batch, prepare_merge
 from famsa_tpu_torch.ops.dp_resident import (MergedRef, PathResult,
                                              assemble_side, dispatch_paths)
 from famsa_tpu_torch.ops.dp_stage0 import (both_sides, score_table,
-                                           scores_from_counters, stage0)
+                                           scores_from_counters, stage0_plain)
 from famsa_tpu_torch.ops.merged_torch import merged_counters
 
 from test_dp_jax_parity import _make_profile
@@ -85,7 +85,8 @@ def _assert_stage0(tp, pairs, bands=None, dtype=np.int32):
                        for (p1, p2), bd in zip(pairs, bands)])
     c1, c2, hdr = _stage0_inputs(pairs, dtype)
     band = None if all(b is None for b in bands) else _band_rows(pairs, bands)
-    got = stage0(tp, c1, c2, hdr, torch.from_numpy(score_table(tp)), band)
+    got = stage0_plain(tp, c1, c2, hdr, torch.from_numpy(score_table(tp)),
+                       band)
     for name, g, w in zip(("colf", "rowf", "meta"), got[:3], want[:3]):
         assert g.dtype == torch.int64 and g.shape == w.shape, name
         assert np.array_equal(g.numpy(), w), name
