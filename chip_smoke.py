@@ -72,7 +72,28 @@ Phases (one line each; any mismatch or exception exits non-zero):
     against -backend numpy on the guide tree the torch -gt_export wrote;
     byte-identical, and K1 wave, K2 staged, K3 staged, K4, K5 and K6
     launched as in phase 4, the route held to ResidencyWatch as there.  Prints
-    the stage seconds and the profile merges per route (host / K2 / K3).
+    the stage seconds and the profile merges per route (host / K2 / K3);
+ 7. the chain route (ops/dp_chain.py): K7 (csrc/chain.cu) against
+    chain_carry_plain on every case of its state (a step that ran, an
+    overflow, a poisoned chain, an invalid lane, a failed walk, the fold
+    after the last step), every word; one chunk's CUDA-graph replay
+    against the plain chunk on the same card buffers at a staged (K2) and
+    an L2 (K3) capacity, with an overflow forced mid-chunk and 26 trailing
+    invalid lanes: state, recorded widths, both carry buffers and every
+    path of a step that ran, its launches counted, no host read; then a
+    family of 4000 variants of one 800-residue protein (make_variants,
+    seed 5: its guide tree is one caterpillar of 3998 merges) through the
+    CLI entry point with -backend torch at the default knobs (host merges
+    below 1536 columns, then chunks), with FAMSA_TORCH_CHAIN_MIN_W2=0
+    (every merge on chunks) and with FAMSA_TORCH_CHAIN=0 (one resident
+    dispatch a merge), each byte-identical to -backend numpy on the
+    torch tree; the chain counters (one run, prefix + chain merges = the
+    run, one replay a chunk), every chunk under set_sync_debug_mode
+    ("error"), the device operations of one chunk (torch.profiler), the
+    replays' CUDA-event times, one chunk's replay against its launch loop
+    and by kernel, ms a merge by chain width on the chain and on the host
+    route, and alternating alignment rounds (chain, per-merge,
+    per-merge, chain; for the record).
 Then a JSON line with every kernel variant's numbers, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -101,8 +122,15 @@ gives ns a step.  K5's and K6's bound is the larger of their bytes
 (each side's counter rows or symbol bytes read once, the path bytes, the
 outputs written once) and the int64 multiply-adds and adds their rows
 need (K5: 32 lanes a row times its nonzero amino-acid counts plus one;
-K6: a row of 32 adds a parent's advance).  No kernel has a single
-PyTorch call computing the same function, so library_ms is null.
+K6: a row of 32 adds a parent's advance).  K7's bound counts the ~260
+bytes it reads and writes; its "ms" is a launch's device time from 100
+launches captured in one CUDA graph (a launch loop from Python, its
+"launch_loop_ms", measures the host's launch rate).  Its entry's
+"graph" holds the chain's chunks: replays, their CUDA-event total and
+mean in the all-chain run, one chunk's replay and launch-loop ms and
+bound (the DP's work on its steps), and the checked chunks' replay
+against plain ms.  No kernel has a single PyTorch call computing the
+same function, so library_ms is null.
 """
 
 import json
@@ -181,6 +209,35 @@ def make_family(n, mean_len, seed):
         lines.append(f">synth_{i}")
         lines.extend(txt[p:p + 60] for p in range(0, len(txt), 60))
     return "\n".join(lines) + "\n"
+
+
+def make_variants(n, root_len, seed, indel_rate):
+    """FASTA text of n variants of one protein (a mutant library, or a
+    virus's within-host samples): sequence 0 is a random root of root_len
+    residues; each other one copies it, mutates max(1, floor(r L))
+    positions at a rate r ~ U(0.01, 0.25), then applies Poisson
+    (indel_rate) indels of 1-8 residues, half insertions, half
+    deletions.  Each variant is nearest the root, so the MST is a star and
+    the guide tree one caterpillar run."""
+    rng = np.random.default_rng(seed)
+    root = rng.integers(0, 20, size=root_len)
+    seqs = [root]
+    for _ in range(1, n):
+        r = rng.uniform(0.01, 0.25)
+        c = root.copy()
+        k = max(1, int(root_len * r))
+        pos = rng.integers(0, len(c), size=k)
+        c[pos] = rng.integers(0, 20, size=k)
+        for _ in range(rng.poisson(indel_rate)):
+            p = rng.integers(0, len(c))
+            ln = int(rng.integers(1, 9))
+            if rng.random() < 0.5:
+                c = np.insert(c, p, rng.integers(0, 20, size=ln))
+            else:
+                c = np.delete(c, slice(p, p + ln))
+        seqs.append(c)
+    return "".join(f">v_{i}\n{''.join(AA[x] for x in s)}\n"
+                   for i, s in enumerate(seqs))
 
 
 # ----------------------------------------------------------------------
@@ -1112,19 +1169,21 @@ def run_torch(name, flags, env, recorder, watch, run, check, device):
     return rc, secs, counts, "; " + watch.report(traffic, peak)
 
 
+def short_name(name):
+    """A device operation's name without namespaces and arguments."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].strip() or name
+
+
 def ops_report(ops):
     """The device operations of the profiled dispatches: their count a
     dispatch and the names of the first one's."""
     if not ops:
         return ""
-
-    def short(name):
-        name = name.replace("(anonymous namespace)::", "")
-        return name.split("(")[0].split("<")[0].strip() or name
     counts = [len(o) for o in ops]
     return (f"; device operations a dispatch (torch.profiler, "
             f"{len(ops)} dispatches): {counts}, the first: "
-            f"{[short(n) for n in ops[0]]}")
+            f"{[short_name(n) for n in ops[0]]}")
 
 
 def phase_main(work, recorder, watch, device="cuda", n=1000, mean_len=300):
@@ -1286,6 +1345,608 @@ def phase_wide(work, recorder, watch, device="cuda", n=10000, mean_len=300):
         f"{c['host']}, K2 {c['K2']}, K3 {c['K3']}; " + "; ".join(report))
 
 
+# ----------------------------------------------------------------------
+# the chain route
+# the variant family of phase 7: variants, root length, seed, indel rate
+CHAIN_FAMILY = (4000, 800, 5, 0.6)
+CHAIN_WIDTHS = 256          # width bucket of the per-merge times
+
+
+def addr_offsets(bufs, s):
+    """Step s's two descriptors with their addresses made offsets into
+    the buffers they point into (two buffer sets compare equal)."""
+    d = bufs.desc[s].cpu().clone()
+    d[0, 1] -= bufs.leaf.data_ptr()
+    d[1, 1] -= bufs.carry.data_ptr()
+    return d
+
+
+def k7_check(device, k=32, w1p=1024, cap=4095):
+    """K7 (csrc/chain.cu) against chain_carry_plain on two buffer sets of
+    one content: a step that ran, an overflow, a poisoned chain, an
+    invalid lane, a failed walk and the fold after the last step; the
+    state, the recorded widths, the header and the descriptors, every
+    word.  Returns (buffers in the "ran" state, its step, the max abs
+    error, plain ms)."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops import dp_chain
+    dev = torch.device(device)
+    a = dp_chain.ChainBuffers(dev, k, w1p, cap)
+    b = dp_chain.ChainBuffers(dev, k, w1p, cap)
+    ps = dp_chain.path_stride(w1p, cap)
+    # (what, step, state, w1 of the step before, its path length, lw)
+    cases = [("ran", 1, (1500, 40, 0), 800, 1620, 790),
+             ("overflow", 1, (4000, 40, 0), 800, cap + 5, 790),
+             ("poisoned", 5, (cap + 5, 41, 1), 0, 1700, 790),
+             ("invalid lane", 7, (1700, 44, 0), 780, 1710, 0),
+             ("failed walk", 2, (1500, 40, 0), 800, -1, 790),
+             ("last step", k, (1500, 40, 0), 800, 1550, 0)]
+    err, plain_ms = 0, None
+    for what, s, st, w1_prev, n, lw in reversed(cases):
+        for bufs in (a, b):
+            bufs.st[:3] = torch.tensor(st)
+            bufs.lw.zero_()
+            if s < k:
+                bufs.lw[s] = lw
+            bufs.hdr.zero_()
+            bufs.desc.zero_()
+            bufs.out.zero_()
+            bufs.hdr[s - 1, 0] = w1_prev
+            at = (s - 1) * ps + 8
+            bufs.out[at:at + 4].view(torch.int32)[0] = n
+        before = kernels.LAUNCHES["chain"]
+        dp_chain.chain_carry(a, s, cap)
+        t0 = time.perf_counter()
+        dp_chain.chain_carry_plain(b, s, cap)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["chain"] != before + 1:
+            raise AssertionError(f"K7 {what}: not launched")
+        got = [a.st, a.hdr, a.widths(cap)]
+        want = [b.st, b.hdr, b.widths(cap)]
+        if s < k:
+            got.append(addr_offsets(a, s))
+            want.append(addr_offsets(b, s))
+        for g, w in zip(got, want):
+            e = int_err(g.cpu(), w.cpu())
+            if e:
+                raise AssertionError(f"K7 {what}: differs from "
+                                     f"chain_carry_plain: "
+                                     f"{first_diff(g.cpu(), w.cpu())}")
+            err = max(err, e)
+    return a, cases[0][1], cap, err, plain_ms
+
+
+def chain_case(params, seed, width, n_leaves=6):
+    """(start profile, leaves): a 12-member profile of `width` columns and
+    n_leaves ungapped leaves of 120-200 residues, made from `seed`."""
+    rng = np.random.default_rng(seed)
+    start = random_profile(rng, params, 12, width)
+    leaves = [random_profile(rng, params, 1, int(rng.integers(120, 201)),
+                             0.0) for _ in range(n_leaves)]
+    return start, leaves
+
+
+def chunk_check(params, device, seed, width, cap=None, k=32, w1p=1024):
+    """One chunk's graph replay against the plain chunk on the card: a
+    chain of `width` columns and 6 leaves in a chunk of k lanes (26
+    trailing invalid lanes).  With no `cap`, at a capacity equal to the
+    host route's width after the last step that the next one widens, so
+    that one overflows it and poisons the steps after it; with a `cap`
+    (a CHAIN_CAPS bucket well past the chain's width), all 6 steps run
+    and the DP's folds past the width are dead.  The state, the recorded
+    widths, both carry buffers and every path of a step that ran must be
+    equal; the resolved results stop at the overflow.  Then the chunk is
+    timed again from the same state, one replay against the plain
+    chunk's wall time.  Returns (cap, variant, overflow step or None,
+    replay ms, plain ms, live DP folds a step of the folds launched)."""
+    import copy
+
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.core.aligner import align_into
+    from famsa_tpu_torch.core.profile import Profile
+    from famsa_tpu_torch.ops import dp_chain
+    from famsa_tpu_torch.ops.dp_wide import fold_geometry, staged_geometry
+    from famsa_tpu_torch.ops.traceback_torch import PATH_TRAILER
+    start, leaves = chain_case(params, seed, width)
+    prof, widths = copy.deepcopy(start), []
+    for leaf in copy.deepcopy(leaves):
+        prof = align_into(Profile(params), leaf, prof, backend="numpy")
+        widths.append(prof.width)
+    if cap is None:
+        j = max(j for j in range(len(widths) - 1)
+                if widths[j + 1] > widths[j])
+        cap, ran, over = widths[j], j + 2, j + 1
+    else:
+        ran, over = len(widths), None
+        if widths[-1] > cap:
+            raise AssertionError(f"chain chunk at {cap}: the chain reaches "
+                                 f"{widths[-1]} columns")
+    # the DP's folds holding a column of each step's merge (K3 L2's F)
+    if dp_chain.dp_variant(cap) == "staged":
+        folds, fw = staged_geometry([cap])[:2]
+    else:
+        folds, threads, stripe = fold_geometry(cap)
+        fw = threads * stripe
+    live = [min(folds, (w2 + fw) // fw)
+            for w2 in [start.width] + widths[:ran - 1]]
+    dev = torch.device(device)
+    bufs = [dp_chain.ChainBuffers(dev, k, w1p, cap) for _ in range(2)]
+    states = [dp_chain.ChainState(b, start) for b in bufs]
+    for st in states:
+        st.seed(params, start)
+    counts = dict(kernels.LAUNCHES)
+    replays = kernels.CHAIN["replays"]
+    a0 = [x.clone() for x in (bufs[0].st, bufs[0].carry)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pend = dp_chain.dispatch_chain_chunk(params, states[0], leaves, cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    dp_chain.upload_leaves(bufs[1], leaves)
+    t0 = time.perf_counter()
+    dp_chain.chunk_plain(params, bufs[1], cap)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    res = pend.resolve()
+    torch.cuda.synchronize()
+    variant = dp_chain.dp_variant(cap)
+    dp = "dp_staged" if variant == "staged" else "dp_wide_l2"
+    # the warm-up launch sequence and the replay
+    for key, times in (("stage0", 2 * k), (dp, 2 * k), ("traceback", 2 * k),
+                       ("merged", 2 * k), ("chain", 2 * (k + 1))):
+        if kernels.LAUNCHES[key] - counts[key] != times:
+            raise AssertionError(f"chain chunk {variant}: {key} launched "
+                                 f"{kernels.LAUNCHES[key] - counts[key]} "
+                                 f"times, not {times}")
+    if kernels.CHAIN["replays"] != replays + 1:
+        raise AssertionError(f"chain chunk {variant}: not one replay")
+    a, b = bufs
+    for name in ("st", "carry"):
+        g, w = getattr(a, name).cpu(), getattr(b, name).cpu()
+        if not torch.equal(g, w):
+            raise AssertionError(f"chain chunk {variant}: {name} differs "
+                                 f"from the plain chunk: {first_diff(g, w)}")
+    wa, wb = a.widths(cap).cpu(), b.widths(cap).cpu()
+    want = widths[:ran] + [dp_chain.NOT_RUN] * (k - ran)
+    if not torch.equal(wa, wb) or wa.tolist() != want:
+        raise AssertionError(f"chain chunk {variant}: widths {wa.tolist()}, "
+                             f"plain {wb.tolist()}, host {want}")
+    ps = dp_chain.path_stride(w1p, cap)
+    for t in range(ran):
+        n = PATH_TRAILER + int(wa[t])
+        g, w = a.out[t * ps:t * ps + n].cpu(), b.out[t * ps:t * ps + n].cpu()
+        if not torch.equal(g, w):
+            raise AssertionError(f"chain chunk {variant} step {t}: path "
+                                 f"differs from the plain chunk")
+    if len(res) != ran or (over is not None) != (len(res[-1].path) > cap):
+        raise AssertionError(f"chain chunk {variant}: {len(res)} results, "
+                             f"the overflow at step {over}")
+
+    def restore():
+        a.st.copy_(a0[0])
+        a.carry.copy_(a0[1])
+    graph = a.graph(cap).graph
+    replay_ms = cuda_ms(lambda: (restore(), graph.replay()), 5) \
+        - cuda_ms(restore, 5)
+    return cap, variant, over, replay_ms, plain_ms, (live, folds)
+
+
+class ChainWatch:
+    """Watches the chain route of the phase 7 runs while `active`: every
+    chunk's dispatch (and every seed) runs under torch.cuda.
+    set_sync_debug_mode("error"); per chunk the chain width and merges
+    at its dispatch and the host clock there (per-merge wall by width);
+    CUDA events around every graph replay; the chain's state
+    before a replay past the tenth (`saved`, to time that chunk again);
+    and per host merge (align_into) its wall and width.  Whether active or
+    not, the dispatch numbered `profile_at` of a run runs under
+    torch.profiler and its device operations are kept (`ops`)."""
+
+    def __init__(self):
+        import torch
+        import famsa_tpu_torch.pipeline as pipeline
+        from famsa_tpu_torch.ops import dp_chain
+        self.active = False
+        self.profile_at = None
+        self.ops = {}
+        self.reset()
+        orig_dispatch = dp_chain.dispatch_chain_chunk
+        orig_seed = dp_chain.ChainState.seed
+        orig_replay = dp_chain.ChainGraph.replay
+        orig_align = pipeline.align_into
+
+        def strict(fn, *a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        def dispatch(params, state, leaves, cap):
+            self.dispatches += 1
+            if self.active:
+                self.chunks.append((time.perf_counter(), state.w_host,
+                                    len(leaves)))
+            if self.dispatches != self.profile_at:
+                return strict(orig_dispatch, params, state, leaves, cap)
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                torch.cuda._sleep(1000)
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                out = strict(orig_dispatch, params, state, leaves, cap)
+                torch.cuda.synchronize()
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA and \
+                        "spin_kernel" not in e.name:
+                    name = short_name(e.name)
+                    self.ops[name] = self.ops.get(name, 0) + 1
+            return out
+
+        def seed(state, *a, **kw):
+            return strict(orig_seed, state, *a, **kw)
+
+        def replay(graph):
+            if not self.active:
+                return orig_replay(graph)
+            if self.saved is None and len(self.events) >= 10:
+                b = graph.bufs
+                self.saved = (graph, b.st.clone(), b.carry.clone(),
+                              b.inp.clone())
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig_replay(graph)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        def align_into(dest, *a, **kw):
+            if not self.active:
+                return orig_align(dest, *a, **kw)
+            t0 = time.perf_counter()
+            out = orig_align(dest, *a, **kw)
+            self.host.append((out.width, time.perf_counter() - t0))
+            return out
+
+        dp_chain.dispatch_chain_chunk = dispatch
+        dp_chain.ChainState.seed = seed
+        dp_chain.ChainGraph.replay = replay
+        pipeline.align_into = align_into
+
+    def reset(self):
+        self.chunks, self.events, self.host = [], [], []
+        self.saved, self.dispatches = None, 0
+
+    def replay_ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+    def chain_by_width(self):
+        """{width bucket: (merges, ms a merge)}: the wall from a chunk's
+        dispatch to the next one's over its merges, by the chain's width
+        at its dispatch (the last chunk, whose cycle the run's end cuts,
+        is left out)."""
+        out = {}
+        for (t, w, n), (t1, _, _) in zip(self.chunks, self.chunks[1:]):
+            key = w // CHAIN_WIDTHS * CHAIN_WIDTHS
+            m, ms = out.get(key, (0, 0.0))
+            out[key] = (m + n, ms + (t1 - t) * 1e3)
+        return {k: (m, ms / m) for k, (m, ms) in sorted(out.items())}
+
+    def host_by_width(self):
+        out = {}
+        for w, sec in self.host:
+            key = w // CHAIN_WIDTHS * CHAIN_WIDTHS
+            m, ms = out.get(key, (0, 0.0))
+            out[key] = (m + 1, ms + sec * 1e3)
+        return {k: (m, ms / m) for k, (m, ms) in sorted(out.items())}
+
+
+def time_saved_chunk(watch):
+    """The saved chunk of the all-chain run timed again: one replay of
+    its graph against its launch sequence as separate launches, each run
+    from the saved state (the restore's own time taken off).  Returns
+    (capacity, replay ms, launch loop ms, bound ms, bound by, the
+    chunk's (w1, w2) a step)."""
+    import torch
+    graph, st, carry, inp = watch.saved
+    b = graph.bufs
+
+    def restore():
+        b.st.copy_(st)
+        b.carry.copy_(carry)
+        b.inp.copy_(inp)
+    base = cuda_ms(restore, 10)
+    rep = cuda_ms(lambda: (restore(), graph.graph.replay()), 10) - base
+    loop = cuda_ms(lambda: (restore(), graph.launch()), 10) - base
+    split = chunk_split(graph, restore)
+    # the DP's work, as dp_bound_ms counts it (a leaf row holds one
+    # symbol), and its bytes, over the steps that ran
+    w1s = [w for w in b.lw.tolist() if w > 0]
+    w2s = [int(st[0])] + b.widths(graph.cap).tolist()[:len(w1s) - 1]
+    ops = sum(w2 * w1 * (17 * 3 + 23 * 2 + 17 * 2 + 11 * 2 + 5)
+              for w1, w2 in zip(w1s, w2s))
+    nbytes = sum(8 * 44 * (w2 + 1) + 8 * 77 * (w1 + 1) + (w1 + 1) * (w2 + 1)
+                 + 24 * w1 for w1, w2 in zip(w1s, w2s))
+    bms, by = bound(nbytes, ops)
+    return graph.cap, rep, loop, bms, by, list(zip(w1s, w2s)), split
+
+
+def saved_chunk_check(params, watch, steps=3):
+    """The saved chunk of the all-chain run held against the plain chunk
+    on the same state at the main path's shapes: its first `steps` leaves
+    (the other lanes made invalid) through one replay of its graph, and
+    through chunk_plain on a second ChainBuffers given the same state,
+    carry, leaves and score table.  The state, the recorded widths, both
+    carry buffers and the paths must be equal.  Returns the steps' (w1,
+    w2) and the plain chunk's wall ms."""
+    import torch
+    from famsa_tpu_torch.ops import dp_chain
+    from famsa_tpu_torch.ops.traceback_torch import PATH_TRAILER
+    graph, st, carry, inp = watch.saved
+    a, cap = graph.bufs, graph.cap
+    b = dp_chain.ChainBuffers(a.device, a.k, a.w1p, a.max_cap)
+    for x in (a, b):
+        x.st.copy_(st)
+        x.carry.copy_(carry)
+        x.inp.copy_(inp)
+        x.lw[steps:] = 0
+    b.table.copy_(a.table)
+    graph.graph.replay()
+    t0 = time.perf_counter()
+    dp_chain.chunk_plain(params, b, cap)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for name in ("st", "carry"):
+        g, w = getattr(a, name).cpu(), getattr(b, name).cpu()
+        if not torch.equal(g, w):
+            raise AssertionError(f"saved chain chunk: {name} differs from "
+                                 f"the plain chunk: {first_diff(g, w)}")
+    wa, wb = a.widths(cap).cpu(), b.widths(cap).cpu()
+    ran = [w for w in wa.tolist() if w != dp_chain.NOT_RUN]
+    if not torch.equal(wa, wb) or len(ran) != steps:
+        raise AssertionError(f"saved chain chunk: widths {wa.tolist()}, "
+                             f"plain {wb.tolist()}")
+    ps = dp_chain.path_stride(a.w1p, cap)
+    for t, w in enumerate(ran):
+        n = PATH_TRAILER + w
+        if not torch.equal(a.out[t * ps:t * ps + n].cpu(),
+                           b.out[t * ps:t * ps + n].cpu()):
+            raise AssertionError(f"saved chain chunk step {t}: path differs "
+                                 f"from the plain chunk")
+    w1s = a.lw[:steps].tolist()
+    return list(zip(w1s, [int(st[0])] + ran[:-1])), plain_ms
+
+
+def chunk_split(graph, restore):
+    """{kernel: ms} of one run of a chunk's launch sequence from the
+    restored state: CUDA events around each entry point (the launches are
+    device-bound, so each span is its kernel's)."""
+    import torch
+    from famsa_tpu_torch import kernels
+    entries = {"K5": ("stage0", "stage0_chain"),
+               "DP": ("dp_wide", "dp_profile_batched_staged"
+                      if graph.variant == "staged"
+                      else "dp_profile_wide_l2_meta"),
+               "K4": ("traceback", "trace_paths"),
+               "K6": ("merged", "merged_counters"),
+               "K7": ("chain", "chain_carry")}
+    spans = {k: [] for k in entries}
+    origs = {}
+    for key, (lib, entry) in entries.items():
+        fn = getattr(kernels.get(lib), entry)
+        origs[key] = (kernels.get(lib), entry, fn)
+
+        def timed(*a, _fn=fn, _key=key):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = _fn(*a)
+            end.record()
+            spans[_key].append((start, end))
+            return err
+        setattr(kernels.get(lib), entry, timed)
+    try:
+        restore()
+        graph.launch()
+        torch.cuda.synchronize()
+    finally:
+        for lib, entry, fn in origs.values():
+            setattr(lib, entry, fn)
+    return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()}
+
+
+def k7_device_ms(bufs, step, cap, n=100):
+    """K7's device time a launch: n launches captured in one CUDA graph
+    and replayed (a loop of launches from Python measures the host's
+    launch rate, not the kernel)."""
+    import torch
+    from famsa_tpu_torch.ops import dp_chain
+    graph = torch.cuda.CUDAGraph()
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        for _ in range(n):
+            dp_chain.chain_carry(bufs, step, cap)
+        graph.capture_end()
+    cur.wait_stream(side)
+    return cuda_ms(graph.replay, 10) / n
+
+
+def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
+    """The chain route (ops/dp_chain.py): K7 against its plain twin, one
+    chunk's graph against the plain chunk at a staged and an L2 capacity,
+    and the variant family through the CLI entry point with -backend
+    torch at the default knobs and with FAMSA_TORCH_CHAIN_MIN_W2=0, each
+    byte-identical to -backend numpy on the torch run's guide tree; then
+    alternating rounds of the all-chain run and FAMSA_TORCH_CHAIN=0 (one
+    resident dispatch a merge).  The recorder counts the all-chain run's
+    launches ("chain").  Returns the K7 entry of the kernel report."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.core.params import Params
+    from famsa_tpu_torch.ops import dp_chain
+    params = Params(device=device)
+    params.adjust(family[0])
+    k7_bufs, k7_step, k7_cap, k7_err, k7_plain = k7_check(device)
+    # an overflow at a staged and at an L2 capacity, then the buckets past
+    # 4095 columns that chains reach with folds left dead (8 folds of
+    # 1024 and of 2048 columns)
+    checks = [chunk_check(params, device, 41, 3400),
+              chunk_check(params, device, 43, 5600),
+              chunk_check(params, device, 47, 3600, cap=8191),
+              chunk_check(params, device, 53, 5000, cap=16256)]
+    if [c[1] for c in checks] != ["staged", "l2", "l2", "l2"]:
+        raise AssertionError(f"chain chunk checks at {checks}")
+    if any(c[2] is None for c in checks[:2]) or any(
+            max(c[5][0]) >= c[5][1] for c in checks[2:]):
+        raise AssertionError(f"chain chunk checks: overflows "
+                             f"{[c[2] for c in checks]}, live folds "
+                             f"{[c[5] for c in checks]}")
+    fasta = make_variants(*family)
+    n_unique = len(set(fasta.split("\n")[1::2]))
+    fa = os.path.join(work, "variants.fa")
+    with open(fa, "w") as f:
+        f.write(fasta)
+    tree = os.path.join(work, "variants.dnd")
+    torch_flags = ["-backend", "torch", "-device", device]
+    rc, t_tree = run_cli(torch_flags + ["-gt_export", fa, tree], {})
+    if rc != 0:
+        raise AssertionError(f"variants gt_export: rc={rc}")
+    imported = ["-gt", "import", tree]
+    all_chain = {"FAMSA_TORCH_CHAIN_MIN_W2": "0"}
+    per_merge = {"FAMSA_TORCH_CHAIN": "0"}
+    runs = [("numpy", ["-backend", "numpy"] + imported, {}),
+            ("default", torch_flags, {}),
+            ("chain", torch_flags, all_chain),
+            ("per_merge", torch_flags, per_merge),
+            ("per_merge_2", torch_flags + imported, per_merge),
+            ("chain_2", torch_flags + imported, all_chain)]
+    watch = ChainWatch()
+    outs, secs, chains, report = {}, {}, {}, []
+    host_ms, chain_ms, replay_ms = {}, {}, []
+    for name, flags, env in runs:
+        out = os.path.join(work, f"variants_{name}.fa")
+        stats = os.path.join(work, f"variants_stats_{name}.txt")
+        watch.reset()
+        watch.active = name in ("numpy", "chain")
+        # one profiled dispatch, in a run whose seconds are not compared
+        watch.profile_at = 20 if name == "default" else None
+        recorder.start("chain" if name == "chain" else None)
+        kernels.reset_launches()
+        rc, wall = run_cli(flags + ["-stats", stats, fa, out], env)
+        counts, ch = dict(kernels.LAUNCHES), dict(kernels.CHAIN)
+        recorder.stop(counts)
+        watch.active = False
+        if rc != 0:
+            raise AssertionError(f"variants {name}: rc={rc}")
+        with open(out, "rb") as f:
+            outs[name] = f.read()
+        secs[name] = float(read_stats(stats)["time.alignment"])
+        chains[name] = ch
+        if name == "numpy":
+            host_ms = watch.host_by_width()
+        elif name == "chain":
+            chain_ms = watch.chain_by_width()
+            replay_ms = watch.replay_ms()
+            saved = time_saved_chunk(watch)
+            saved_steps, saved_plain_ms = saved_chunk_check(params, watch)
+        if name in ("default", "chain", "chain_2"):
+            # the default run's tail passes the width floor in the full
+            # family; a reduced one may stay below it
+            ok = (ch["runs"] == 1 and ch["aborts"] == 0
+                  and ch["prefix"] + ch["merges"] == n_unique - 2
+                  and ch["chunks"] == ch["replays"]
+                  and (ch["prefix"] > 0) == (name == "default")
+                  and (ch["merges"] > 0 or (name == "default"
+                                            and family != CHAIN_FAMILY)))
+            if not ok:
+                raise AssertionError(f"variants {name}: chain counters {ch}"
+                                     f" for one run of {n_unique - 2} merges")
+            need = ("chain", "stage0", "traceback", "merged")
+            if ch["merges"] and (
+                    any(counts[k] == 0 for k in need)
+                    or counts["dp_staged"] + counts["dp_wide_l2"] == 0):
+                raise AssertionError(f"variants {name}: the chain's kernels "
+                                     f"were not all launched: {counts}")
+        elif name != "numpy" and ch["runs"]:
+            raise AssertionError(f"variants {name}: chain runs {ch}")
+        report.append(f"{name} {wall:.2f} s (alignment {secs[name]:.2f})")
+    for name in outs:
+        if outs[name] != outs["numpy"]:
+            raise AssertionError(f"variants: {name} output differs from "
+                                 "numpy")
+    ch = chains["chain"]
+    rounds = [secs[n] for n in ("chain", "per_merge", "per_merge_2",
+                                "chain_2")]
+    log(f"phase 7 chain route: K7 bit-exact vs chain_carry_plain (ran, "
+        f"overflow, poisoned, invalid lane, failed walk, last step); chunk "
+        f"graph = plain chunk (state, widths, carry, paths) at capacities "
+        f"{[c[:2] for c in checks]} with the overflow at steps "
+        f"{[c[2] for c in checks]} (live DP folds a step of those launched "
+        f"{[c[5] for c in checks]}) and 26 invalid lanes, no host read, "
+        f"replay ms {[round(c[3], 4) for c in checks]} against plain chunk "
+        f"ms {[round(c[4], 1) for c in checks]}; the all-chain run's saved "
+        f"chunk = plain chunk over its first steps (w1, w2) {saved_steps} "
+        f"(plain {saved_plain_ms:.1f} ms); "
+        f"{family[0]} variants of {family[1]} (seed {family[2]}, indel rate "
+        f"{family[3]}, {n_unique} unique; -gt_export {t_tree:.2f} s): "
+        f"default, all-chain and per-merge runs byte-identical to numpy; "
+        + "; ".join(report)
+        + f"; chain counters default {chains['default']}, all-chain {ch}; "
+        f"alignment s chain / per-merge / per-merge / chain {rounds}; "
+        f"replays {len(replay_ms)}: {sum(replay_ms):.3f} ms in all, "
+        f"{sum(replay_ms) / max(1, len(replay_ms)):.4f} ms mean; chunk at "
+        f"capacity {saved[0]}: replay {saved[1]:.4f} ms, launch loop "
+        f"{saved[2]:.4f} ms, bound {saved[3]:.5f} ms ({saved[4]}), steps "
+        f"(w1, w2) {saved[5]}, launch loop by kernel (ms) {saved[6]}; "
+        f"device operations of the default run's twentieth chunk "
+        f"(torch.profiler) {watch.ops}")
+    log("phase 7 ms a merge by chain width (bucket: merges, ms): host "
+        f"(numpy run) {host_ms}; chain (all-chain run, dispatch to "
+        f"dispatch) {chain_ms}")
+    loop_ms = cuda_ms(lambda: dp_chain.chain_carry(k7_bufs, k7_step, k7_cap),
+                      200)
+    ms = k7_device_ms(k7_bufs, k7_step, k7_cap)
+    # state, w1 before, path length, lw read; state, width, header and
+    # descriptors written
+    bms, by = bound(24 + 8 + 4 + 8 + 24 + 4 + 64 + 128, 0)
+    return {"name": "chain_carry", "route": "cuda",
+            "source": "famsa_tpu_torch/csrc/chain.cu",
+            "replaces": "famsa_tpu/ops/dp_chain.py:74",
+            "launches": recorder.counts["chain"]["chain"],
+            "max_abs_err": k7_err, "ms": ms, "plain_ms": k7_plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "launches_run": "chain", "at": "K7 check's step that ran, 100 "
+            "launches in one CUDA graph", "launch_loop_ms": loop_ms,
+            "runs": {},
+            "graph": {"replays": ch["replays"], "chunks": ch["chunks"],
+                      "captures": ch["captures"],
+                      "replay_total_ms": sum(replay_ms),
+                      "replay_mean_ms": sum(replay_ms) / max(1,
+                                                             len(replay_ms)),
+                      "chunk_cap": saved[0], "chunk_replay_ms": saved[1],
+                      "chunk_launch_loop_ms": saved[2],
+                      "chunk_bound_ms": saved[3], "chunk_bound_by": saved[4],
+                      "chunk_split_ms": saved[6],
+                      "chunk_device_ops": watch.ops,
+                      "checks": [dict(zip(("cap", "variant", "overflow_step",
+                                           "replay_ms", "plain_ms",
+                                           "live_folds"), c))
+                                 for c in checks],
+                      "saved_chunk_plain": {"steps": saved_steps,
+                                            "plain_ms": saved_plain_ms}}}
+
+
 # kernel variant -> (library, C entry point, source, the TPU kernel it
 # replaces)
 VARIANTS = {
@@ -1310,12 +1971,16 @@ VARIANTS = {
                "famsa_tpu/ops/dp_pallas.py:844"),
     "merged": ("merged", "merged_counters", "famsa_tpu_torch/csrc/merged.cu",
                "famsa_tpu/ops/dp_pallas.py:1919"),
+    "chain": ("chain", "chain_carry", "famsa_tpu_torch/csrc/chain.cu",
+              "famsa_tpu/ops/dp_chain.py:74"),
 }
 # the run whose launch count a variant's entry reports: the main path's
-# default run, and for K1's rows variant the -dist tree run
+# default run, for K1's rows variant the -dist tree run, and for K7 the
+# variant family's all-chain run
 LAUNCH_RUN = {"lcs": "dist", "lcs_wave": "1000", "dp": "1000",
               "dp_staged": "1000", "dp_wide": "1000", "dp_wide_l2": "10000",
-              "traceback": "1000", "stage0": "1000", "merged": "1000"}
+              "traceback": "1000", "stage0": "1000", "merged": "1000",
+              "chain": "chain"}
 
 
 class LaunchRecorder:
@@ -1323,8 +1988,9 @@ class LaunchRecorder:
     events recorded on the launch stream right around the C entry point,
     counts the launches per variant, and keeps the inputs of the largest
     call of each variant (the main path's shapes, timed after the runs).
-    Launches outside a started run (the checks, the timing) are not
-    recorded."""
+    Launches outside a started run (the checks, the timing) and launches
+    captured into a chain chunk's CUDA graph are not recorded (a replay
+    runs no entry point)."""
 
     def __init__(self):
         import torch
@@ -1348,7 +2014,8 @@ class LaunchRecorder:
             orig = getattr(lib, entry)
 
             def timed(*a, _key=key, _orig=orig):
-                if self.run is None:
+                if self.run is None or \
+                        torch.cuda.is_current_stream_capturing():
                     return _orig(*a)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
@@ -1498,13 +2165,16 @@ def staged_coresidency(rec):
     return "K2 staged co-residency: " + "; ".join(parts)
 
 
-def kernel_report(rec, chain):
+def kernel_report(rec, chain, k7):
     """One entry per kernel variant: held against its plain version at
     the largest input the main-path runs gave it (bit-exact, or the smoke
     fails), its CUDA-event time there, the bound, and the per-run totals
     of every launch the recorder timed.  A variant those runs never
     launched is measured on other inputs (its entry's "at"): K2 global on
-    the runs' largest K2 batch, K3 L2 on `chain` (phase 3b's lone merge)."""
+    the runs' largest K2 batch, K3 L2 on `chain` (phase 3b's lone merge).
+    K7's entry (k7) comes from phase 7, which holds and times it; its
+    launches in the all-chain run are graph replays' in the main, so its
+    totals are the replays' ("graph")."""
     from famsa_tpu_torch.ops.dp_stage0 import stage0, stage0_plain
     from famsa_tpu_torch.ops.dp_torch import dp_dirs, dp_plain
     from famsa_tpu_torch.ops.dp_wide import (dp_dirs_wide, dp_staged_plain,
@@ -1528,6 +2198,9 @@ def kernel_report(rec, chain):
                 "dp_wide_l2": ("phase 3b's lone merge", lambda: chain)}
     out, shapes = [], []
     for key, (_, entry, source, replaces) in VARIANTS.items():
+        if key == "chain":
+            out.append(k7)
+            continue
         # its count in its own run, else in the first run that launched it
         run = next((r for r in (LAUNCH_RUN[key], "1000", "10000", "dist")
                     if rec.counts[r][key]), None)
@@ -1650,7 +2323,8 @@ def main():
         phase_main(work, rec, watch)
         phase_tree(work, rec)
         phase_wide(work, rec, watch)
-    kern = kernel_report(rec, chain)
+        k7 = phase_chain(work, rec)
+    kern = kernel_report(rec, chain, k7)
     log(f"smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kern}))
     print(smi)

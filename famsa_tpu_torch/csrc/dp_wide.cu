@@ -43,6 +43,14 @@
 // 1-8 columns a thread, column and row factors read from global memory
 // (L2-resident) and two CTA barriers a row (BlockXch).
 //
+// A chain chunk (ops/dp_chain.py) launches the DP inside a CUDA graph,
+// where a step's widths exist only on the card: it launches K2's staged
+// entry with B = 1 (capacity <= 4095) or dp_profile_wide_l2_meta, both
+// with the fold geometry of the chunk's capacity and w1, w2 read from the
+// step's meta.  A fold that holds no column of the merge does no row work
+// but takes every cluster barrier, and a step with w1 0 (K7 skipped it)
+// returns at once.
+//
 // The staged kernel also serves K2: dp_profile_batched_staged launches it
 // on a batch of merges whose widest w2 is <= 4095, one cluster per merge
 // (ops/dp_torch.py:k2_variant; the note above dp_staged_kernel).
@@ -69,15 +77,24 @@ constexpr size_t STAGED_SMEM_MAX =
 template <int S>
 __global__ void __launch_bounds__(MAX_THREADS)
 dp_wide_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
-               i64 w1, i64 w2, int ldc, int blk, uint8_t* __restrict__ dirs,
-               i64* __restrict__ fin) {
+               const i64* __restrict__ meta, i64 w1, i64 w2, int ldc,
+               int blk, uint8_t* __restrict__ dirs, i64* __restrict__ fin) {
     __shared__ RowShared sh;
     // edges of the fold to the left, per row of a block: D, V, run
     __shared__ i64 edge[2][BLK_MAX][3];
 
+    if (meta != nullptr) {          // the widths of a chain step
+        w1 = meta[0];
+        w2 = meta[1];
+        if (w1 < 1) return;
+    }
     cg::cluster_group cluster = cg::this_cluster();
     const int f = (int)cluster.block_rank();
-    const int F = (int)cluster.num_blocks();
+    const i64 fw = (i64)blockDim.x * S;
+    // folds holding a column of the merge: all of them unless the launch
+    // was sized for a capacity wider than w2
+    const int F = (int)min((i64)cluster.num_blocks(), (w2 + fw) / fw);
+    const bool live = f < F;
     const int t = threadIdx.x;
     const i64 j0 = ((i64)f * blockDim.x + t) * S;
     const i64 stride = w2 + 1;
@@ -93,7 +110,7 @@ dp_wide_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
     cluster.sync();     // every fold runs before the first remote store
     for (i64 s = 0; s < nrb + F - 1; ++s) {
         const i64 b = s - f;
-        if (b >= 0 && b < nrb) {
+        if (live && b >= 0 && b < nrb) {
             const int in = (int)((s + 1) & 1), out = (int)(s & 1);
             for (int r = 0; r < blk; ++r) {
                 const i64 i = b * blk + r + 1;
@@ -248,6 +265,7 @@ dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
         const int b = blockIdx.y;
         w1 = meta[4 * b];
         w2 = meta[4 * b + 1];
+        if (w1 < 1) return;         // a chain step K7 skipped
         dirs += meta[4 * b + 2];
         colf += (size_t)b * NCOLF * ldc;
         rowf += (size_t)b * ldr * NROWF;
@@ -370,13 +388,13 @@ cudaLaunchConfig_t cluster_config(int folds, int batch, int threads,
 }
 
 template <int S>
-cudaError_t launch(const i64* colf, const i64* rowf, i64 w1, i64 w2,
-                   int folds, int threads, int ldc, int blk, uint8_t* dirs,
-                   i64* fin, cudaStream_t stream) {
+cudaError_t launch(const i64* colf, const i64* rowf, const i64* meta, i64 w1,
+                   i64 w2, int folds, int threads, int ldc, int blk,
+                   uint8_t* dirs, i64* fin, cudaStream_t stream) {
     cudaLaunchAttribute attr[1];
     cudaLaunchConfig_t cfg = cluster_config(folds, 1, threads, 0, stream, attr);
     cudaError_t err = cudaLaunchKernelEx(&cfg, dp_wide_kernel<S>, colf, rowf,
-                                         w1, w2, ldc, blk, dirs, fin);
+                                         meta, w1, w2, ldc, blk, dirs, fin);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -424,6 +442,18 @@ cudaError_t launch_staged(const i64* colf, const i64* rowf, const i64* meta,
     return cudaGetLastError();
 }
 
+cudaError_t launch_l2(const i64* c, const i64* r, const i64* meta, i64 w1,
+                      i64 w2, int folds, int threads, int stripe, int ldc,
+                      int blk, uint8_t* d, i64* f, cudaStream_t st) {
+    switch (stripe) {
+        case 1: return launch<1>(c, r, meta, w1, w2, folds, threads, ldc, blk, d, f, st);
+        case 2: return launch<2>(c, r, meta, w1, w2, folds, threads, ldc, blk, d, f, st);
+        case 4: return launch<4>(c, r, meta, w1, w2, folds, threads, ldc, blk, d, f, st);
+        case 8: return launch<8>(c, r, meta, w1, w2, folds, threads, ldc, blk, d, f, st);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -445,13 +475,26 @@ int dp_profile_wide_l2(const void* colf, const void* rowf, long long w1,
     uint8_t* d = static_cast<uint8_t*>(dirs);
     i64* f = static_cast<i64*>(fin);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (stripe) {
-        case 1: return (int)launch<1>(c, r, w1, w2, folds, threads, ldc, blk, d, f, st);
-        case 2: return (int)launch<2>(c, r, w1, w2, folds, threads, ldc, blk, d, f, st);
-        case 4: return (int)launch<4>(c, r, w1, w2, folds, threads, ldc, blk, d, f, st);
-        case 8: return (int)launch<8>(c, r, w1, w2, folds, threads, ldc, blk, d, f, st);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)launch_l2(c, r, nullptr, w1, w2, folds, threads, stripe, ldc,
+                          blk, d, f, st);
+}
+
+// The L2 variant on a chain step: w1 and w2 read from meta [4] = (w1, w2,
+// 0, 0) on the card (w1 0: return at once), the geometry that of the
+// chunk's capacity cap >= w2 (as dp_profile_wide_l2 checks it for w2 =
+// cap); dirs: (w1p+1)*(cap+1) bytes, row stride w2 + 1.  Returns the
+// launch's cudaError_t.
+int dp_profile_wide_l2_meta(const void* colf, const void* rowf,
+                            const void* meta, long long cap, int folds,
+                            int threads, int stripe, int ldc, int blk,
+                            void* dirs, void* fin, void* stream) {
+    if (cap < 1 || bad_geometry(1, cap, folds, threads, stripe, ldc, blk))
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_l2(
+        static_cast<const i64*>(colf), static_cast<const i64*>(rowf),
+        static_cast<const i64*>(meta), 0, 0, folds, threads, stripe, ldc, blk,
+        static_cast<uint8_t*>(dirs), static_cast<i64*>(fin),
+        static_cast<cudaStream_t>(stream));
 }
 
 // The staged variant, on the same arguments: stripe must be 1 (w2 <=

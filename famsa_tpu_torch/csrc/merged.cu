@@ -110,6 +110,7 @@ merged_kernel(const i64* __restrict__ desc, const i64* __restrict__ hdr,
     __shared__ i64 dlt[5][THREADS];
     const int b = blockIdx.x, tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
+    if (hdr[8 * (i64)b] < 1) return;     // a chain step K7 skipped
     const Side s1 = load_side(desc, b), s2 = load_side(desc, nb + b);
     i64 poff = 16 * (i64)nb;
     for (int c = 0; c < b; ++c) poff += hdr[8 * (i64)c] + hdr[8 * (i64)c + 1];
@@ -194,8 +195,10 @@ extern "C" {
 // desc [2 nb][8] int64: the side descriptors; hdr [nb][8] int64 (w1, w2,
 // ...); paths: K4's output buffer (16-byte trailers, then the forward
 // paths, merge b's at 16 nb + sum_{c<b} (w1_c + w2_c)); out [nb][smax+1]
-// [32] int32, every element written; smax >= every w1 + w2.  Returns the
-// launch's cudaError_t.
+// [32] int32, every element written (a merge of w1 0 is skipped: nothing
+// of its rows is written); smax >= every w1 + w2 (a chain step: its
+// capacity, and a longer path, an overflow, is cut at smax rows).
+// Returns the launch's cudaError_t.
 int merged_counters(const void* desc, const void* hdr, const void* paths,
                     int nb, int smax, void* out, void* stream) {
     if (nb <= 0) return 0;

@@ -39,6 +39,13 @@
 // sum of the GAP_EXT / GAP_TERM_EXT scores over rows 1..r0-1 is the score
 // of the column sums of their counts (exact mod 2^64), and h0's sum is
 // card1 (s[1][GTO] + that GAP_TERM_EXT sum - s[1][GTE]).
+//
+// The chain's entry, stage0_chain (ops/dp_chain.py): one merge whose
+// header K7 (csrc/chain.cu) wrote on the card, with the grid sized for
+// the chunk's capacity.  A step K7 marked skipped (w1 0) writes its meta
+// and returns; a CTA whose rows start past its side's width + 1 returns
+// at once (the DP kernels read no column past w2 + 1 and no row past
+// w1).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -137,6 +144,7 @@ __device__ __forceinline__ void gap_corrections(Row& rw, i64 r, i64 w,
     }
 }
 
+template <bool CHAIN>
 __global__ void __launch_bounds__(THREADS)
 stage0_kernel(const i64* __restrict__ desc, const i64* __restrict__ hdr,
               const i64* __restrict__ table, const i64* __restrict__ band,
@@ -157,6 +165,9 @@ stage0_kernel(const i64* __restrict__ desc, const i64* __restrict__ hdr,
     const Side so = load_side(desc, cols ? b : nb + b);
     if (blockIdx.y == 0 && threadIdx.x < 4)
         meta[4 * (i64)b + threadIdx.x] = hdr[8 * (i64)b + threadIdx.x];
+    if constexpr (CHAIN) {
+        if (hdr[8 * (i64)b] < 1 || r0 > s.w + 1) return;
+    }
     const i64 rows = cols ? ldc : (i64)w1p + 1;
     const i64 r1 = r0 + CHUNK < rows ? r0 + CHUNK : rows;
     __syncthreads();
@@ -290,6 +301,22 @@ stage0_kernel(const i64* __restrict__ desc, const i64* __restrict__ hdr,
     }
 }
 
+template <bool CHAIN>
+int launch(const void* desc, const void* hdr, const void* table,
+           const void* band, int nb, int w1p, int ldc, void* colf, void* rowf,
+           void* meta, void* stream) {
+    if (nb <= 0) return 0;
+    const int nch1 = (w1p + 1 + CHUNK - 1) / CHUNK;
+    const int nch2 = (ldc + CHUNK - 1) / CHUNK;
+    stage0_kernel<CHAIN><<<dim3(nb, nch1 + nch2), THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const i64*>(desc), static_cast<const i64*>(hdr),
+        static_cast<const i64*>(table), static_cast<const i64*>(band), nb,
+        w1p, ldc, nch1, static_cast<i64*>(colf), static_cast<i64*>(rowf),
+        static_cast<i64*>(meta));
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -303,16 +330,19 @@ extern "C" {
 int stage0(const void* desc, const void* hdr, const void* table,
            const void* band, int nb, int w1p, int ldc, void* colf,
            void* rowf, void* meta, void* stream) {
-    if (nb <= 0) return 0;
-    const int nch1 = (w1p + 1 + CHUNK - 1) / CHUNK;
-    const int nch2 = (ldc + CHUNK - 1) / CHUNK;
-    stage0_kernel<<<dim3(nb, nch1 + nch2), THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const i64*>(desc), static_cast<const i64*>(hdr),
-        static_cast<const i64*>(table), static_cast<const i64*>(band), nb,
-        w1p, ldc, nch1, static_cast<i64*>(colf), static_cast<i64*>(rowf),
-        static_cast<i64*>(meta));
-    return (int)cudaGetLastError();
+    return launch<false>(desc, hdr, table, band, nb, w1p, ldc, colf, rowf,
+                         meta, stream);
+}
+
+// One step of a chain chunk: desc [2][8] and hdr [8] as K7 wrote them (w1
+// 0: a skipped step), no band; the grid covers w1p + 1 rows and ldc
+// columns, but only the rows and columns up to each side's width + 1
+// (rounded up to a chunk of 256) are written.  meta is always written.
+int stage0_chain(const void* desc, const void* hdr, const void* table,
+                 int w1p, int ldc, void* colf, void* rowf, void* meta,
+                 void* stream) {
+    return launch<true>(desc, hdr, table, nullptr, 1, w1p, ldc, colf, rowf,
+                        meta, stream);
 }
 
 }  // extern "C"

@@ -49,6 +49,7 @@ trace_kernel(const uint8_t* __restrict__ dirs, const i64* __restrict__ fin,
     i64 poff = 16 * (i64)nb;
     for (int c = 0; c < b; ++c) poff += meta[4 * c] + meta[4 * c + 1];
     const i64 w1 = meta[4 * b], w2 = meta[4 * b + 1];
+    if (w1 < 1) return;              // a chain step K7 skipped
     const i64 stride = w2 + 1;
     const uint8_t* dm = dirs + meta[4 * b + 2];
     const i64* f = fin + ((i64)b * ldf + (w1 - 1)) * 3;
@@ -115,8 +116,9 @@ extern "C" {
 
 // dirs: the packed direction bytes of nb merges; fin [nb][ldf][3] int64:
 // per-row last-column (D, H, V); meta [nb][4] int64: (w1, w2, dirs byte
-// offset, unused), w1, w2 >= 1; out: 16 nb + sum (w1 + w2) bytes.
-// Returns the launch's cudaError_t.
+// offset, unused), w1, w2 >= 1 (a merge of w1 0 is skipped: its trailer
+// and path are not written); out: 16 nb + sum (w1 + w2) bytes.  Returns
+// the launch's cudaError_t.
 int trace_paths(const void* dirs, const void* fin, const void* meta, int nb,
                 int ldf, void* out, void* stream) {
     if (nb <= 0) return 0;

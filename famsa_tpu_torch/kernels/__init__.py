@@ -10,8 +10,10 @@ no CUDA toolkit, where only the kernels' plain PyTorch versions run.
 
 LAUNCHES counts kernel launches per kernel: each wrapper adds one where
 it launches its kernel, and nowhere else (chip_smoke.py resets it before
-driving the main path and reads it after); TRAFFIC counts the device DP
-route's copies and sides, reset with it."""
+driving the main path and reads it after; a chain chunk's CUDA graph
+adds its launches at each replay); TRAFFIC counts the device DP route's
+copies and sides, CHAIN the chain route's runs, merges, chunks and
+copies, both reset with it."""
 
 import ctypes
 import hashlib
@@ -25,19 +27,29 @@ import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("lcs", "dp", "dp_wide", "traceback", "stage0", "merged")
+KERNELS = ("lcs", "dp", "dp_wide", "traceback", "stage0", "merged", "chain")
 
 # one count per hand-written kernel variant: K1 rows and wave, K2 global
 # (one CTA a merge) and staged (a cluster of folds a merge, w2 <= 4095),
 # K3 staged (w2 <= 4095) and K3 with its column factors in L2 (wider),
-# K4, the traceback, K5, stage 0, and K6, the merged counters
+# K4, the traceback, K5, stage 0, K6, the merged counters, and K7, the
+# chain's carry
 LAUNCHES = {"lcs": 0, "lcs_wave": 0, "dp": 0, "dp_staged": 0, "dp_wide": 0,
-            "dp_wide_l2": 0, "traceback": 0, "stage0": 0, "merged": 0}
+            "dp_wide_l2": 0, "traceback": 0, "stage0": 0, "merged": 0,
+            "chain": 0}
 # the device DP route's traffic (ops/dp_resident.py): bytes copied to and
 # from the device, and the launch sides that were resident on the device,
 # ungapped leaves (their symbol bytes uploaded) or uploaded counters
 TRAFFIC = {"bytes_up": 0, "bytes_down": 0, "sides_resident": 0,
            "sides_leaf": 0, "sides_uploaded": 0}
+# the chain route (ops/dp_chain.py, pipeline.py): caterpillar runs taken,
+# their merges on the native host DP below the width floor (prefix) and
+# in chunks (merges), chunks dispatched, overflows recovered, runs handed
+# back to the other routes (aborts), CUDA graphs captured and replayed,
+# and the bytes its chunks and seeds copied up and down
+CHAIN = {"runs": 0, "prefix": 0, "merges": 0, "chunks": 0, "overflows": 0,
+         "aborts": 0, "captures": 0, "replays": 0, "bytes_up": 0,
+         "bytes_down": 0}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _libs = {}
@@ -45,7 +57,7 @@ _lock = threading.Lock()
 
 
 def reset_launches():
-    for counts in (LAUNCHES, TRAFFIC):
+    for counts in (LAUNCHES, TRAFFIC, CHAIN):
         for k in counts:
             counts[k] = 0
 
@@ -142,6 +154,13 @@ def _configure(name, lib):
     elif name == "stage0":
         lib.stage0.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp]
         lib.stage0.restype = ci
+        lib.stage0_chain.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp, vp]
+        lib.stage0_chain.restype = ci
+    elif name == "chain":
+        ll = ctypes.c_longlong
+        lib.chain_carry.argtypes = [vp, vp, vp, vp, ll, vp, vp, vp, vp, vp,
+                                    ll, ci, ci, ci, vp]
+        lib.chain_carry.restype = ci
     elif name == "merged":
         lib.merged_counters.argtypes = [vp, vp, vp, ci, ci, vp, vp]
         lib.merged_counters.restype = ci
@@ -160,6 +179,9 @@ def _configure(name, lib):
         lib.dp_profile_batched_staged.restype = ci
         lib.dp_staged_max_clusters.argtypes = [ci, ci, ci]
         lib.dp_staged_max_clusters.restype = ci
+        lib.dp_profile_wide_l2_meta.argtypes = [
+            vp, vp, vp, ctypes.c_longlong, ci, ci, ci, ci, ci, vp, vp, vp]
+        lib.dp_profile_wide_l2_meta.restype = ci
 
 
 def get(name):

@@ -3,15 +3,18 @@
 Stages: sort+dedup -> MST-Prim guide tree (device rounds on the torch
 backend, ops/prim_torch.py) -> progressive profile alignment up the tree
 (batched device DP with device-resident profiles, ops/dp_torch.py,
-ops/dp_resident.py) -> iterative refinement (guided device DP) ->
+ops/dp_resident.py; caterpillar runs as device-resident chunks,
+ops/dp_chain.py) -> iterative refinement (guided device DP) ->
 duplicate restoration and input-order output."""
 
 import heapq
 import os
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from . import kernels
 from .core import params as P
 from .core.aligner import (align_into, construct_profile, split_ready,
                            split_wide)
@@ -156,8 +159,10 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
     (ops/dp_resident.py): a side that a previous device merge produced is
     read from the device (Profile.dev_counters moves into the dispatch),
     only paths come back, and each result's merged counters stay on the
-    device for its parent."""
-    from .ops import dp_torch, dp_wide
+    device for its parent.  Caterpillar runs of at least CHAIN_MIN_LEN
+    merges (each merges the previous one's profile with one leaf) take
+    the chain route instead when their start is popped (run_chain)."""
+    from .ops import dp_chain, dp_torch, dp_wide
 
     max_batch = int(os.environ.get("FAMSA_TORCH_MAX_BATCH", "16"))
     n = len(gapped_sequences)
@@ -211,14 +216,124 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
         dev, p.dev_counters = p.dev_counters, None
         return dev
 
-    def finish(node_id, dest):
-        done[node_id] = dest
+    def release(node_id):
         parent = parent_of.get(node_id)
         if parent is not None:
             n_pending[parent] -= 1
             if n_pending[parent] == 0:
                 heapq.heappush(heap, (-depth.get(parent, 0), parent))
+
+    def finish(node_id, dest):
+        done[node_id] = dest
+        release(node_id)
         _tick()
+
+    chain_by_start = {}
+    if ref_thr == 0 and dp_chain.knob("CHAIN") == 1:
+        chain_by_start = find_chain_runs(
+            children, parent_of, n, [gs.size for gs in gapped_sequences],
+            dp_chain.CHAIN_W1P, dp_chain.knob("CHAIN_MIN_LEN"))
+
+    def run_chain(run):
+        """One caterpillar run (famsa_tpu/pipeline.py:406-533 _run_chain):
+        its merges on the native host DP while the chain is narrower than
+        CHAIN_MIN_W2, then in device-resident chunks of CHAIN_K merges,
+        two in flight; the run's inner merges release nothing, the last
+        completed one is released (on an abort the rest of the run goes
+        back to the other routes from there)."""
+        ch = kernels.CHAIN
+        ch["runs"] += 1
+        v0, leaf0 = run[0]
+        a0, b0 = children[v0]
+        start_id = a0 if b0 == leaf0 else b0
+        chain_prof = get_profile(start_id)
+        if chain_prof.counters is None:
+            chain_prof.calculate_counters_scores()
+        idx, last_v = 0, None
+        min_w2 = dp_chain.knob("CHAIN_MIN_W2")
+        while idx < len(run) and chain_prof.width < min_w2:
+            v, leaf = run[idx]
+            lp = get_profile(leaf)
+            pair = (lp, chain_prof) if children[v][0] == leaf \
+                else (chain_prof, lp)
+            chain_prof = align_into(Profile(params), *pair, backend="numpy")
+            last_v = v
+            idx += 1
+            ch["prefix"] += 1
+            _tick()
+        if idx < len(run):
+            k = dp_chain.knob("CHAIN_K")
+            margin = dp_chain.knob("CHAIN_MARGIN")
+            state = dp_chain.ChainState(dp_chain.buffers(
+                params.device, k, dp_chain.CHAIN_W1P), chain_prof)
+            todo = deque((v, get_profile(leaf)) for v, leaf in run[idx:])
+            inflight = deque()          # (chunk [(v, leaf)], pending, cap)
+            aborted = False
+
+            def resolve_one():
+                nonlocal chain_prof, last_v
+                chunk, pend, cap = inflight.popleft()
+                results = pend.resolve()
+                built, overflow = 0, False
+                for (v, lp), res in zip(chunk, results):
+                    if lp.counters is None:
+                        lp.calculate_counters_scores()
+                    dest = Profile(params)
+                    construct_profile(dest, lp, chain_prof, res)
+                    chain_prof, last_v = dest, v
+                    built += 1
+                    ch["merges"] += 1
+                    _tick()
+                    if dest.width > cap:
+                        overflow = True
+                        break
+                if not overflow and built < len(chunk):
+                    raise RuntimeError("a chain chunk stopped before an "
+                                       "overflow")
+                if overflow:
+                    # the chain on the card is poisoned past the overflow:
+                    # requeue every merge not built, in order, and seed
+                    # again from the last host profile
+                    redo = chunk[built:]
+                    while inflight:
+                        redo.extend(inflight.popleft()[0])
+                    todo.extendleft(reversed(redo))
+                    state.dirty = True
+                    ch["overflows"] += 1
+                state.w_host = chain_prof.width
+
+            while todo or inflight:
+                if todo and len(inflight) < 2:
+                    cap = dp_chain.cap_for(state.w_host
+                                           + margin * (len(inflight) + 1))
+                    if cap is None:
+                        if inflight:
+                            resolve_one()
+                            continue
+                        aborted = True
+                        ch["aborts"] += 1
+                        break
+                    if state.dirty:
+                        state.seed(params, chain_prof,
+                                   dev=take_dev(chain_prof))
+                    chunk = [todo.popleft()
+                             for _ in range(min(len(todo), k))]
+                    inflight.append((chunk, dp_chain.dispatch_chain_chunk(
+                        params, state, [lp for _, lp in chunk], cap), cap))
+                    continue
+                resolve_one()
+            if not aborted and not state.dirty and last_v == run[-1][0]:
+                # the post-chain profile keeps its counters on the card
+                # (after an overflow on the run's last merge it has none)
+                chain_prof.dev_counters = state.final_ref(chain_prof.width)
+        if last_v is None:
+            # nothing merged (the start already too wide): v0 takes the
+            # other routes
+            done[start_id] = chain_prof
+            heapq.heappush(heap, (-depth.get(v0, 0), v0))
+        else:
+            done[last_v] = chain_prof
+            release(last_v)
 
     chunk_nodes = max_batch * 4
     n_workers = min(os.cpu_count() or 1, 8)
@@ -228,6 +343,15 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
         while heap:
             batch_nodes = [heapq.heappop(heap)[1]
                            for _ in range(min(len(heap), chunk_nodes))]
+            if chain_by_start:
+                rest = []
+                for node_id in batch_nodes:
+                    run = chain_by_start.pop(node_id, None)
+                    if run is None:
+                        rest.append(node_id)
+                    else:
+                        run_chain(run)
+                batch_nodes = rest
             ready = []
             host = []
             for node_id in batch_nodes:
@@ -286,6 +410,31 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
             host_pool.shutdown()
     assert len(done) == 1
     return done.popitem()[1]
+
+
+def find_chain_runs(children, parent_of, n, leaf_sizes, w1p, min_len):
+    """The caterpillar runs of a guide tree (famsa_tpu/pipeline.py:
+    386-404): maximal sequences of merges [(node, leaf)] in which each
+    merges the previous one's profile with one leaf of at most w1p
+    symbols; returns {first node: run} for the runs of at least min_len
+    merges.  children: {node: (a, b)}, nodes n.. ; leaf_sizes: each
+    leaf's length."""
+    runs_by_tail = {}
+    for v in sorted(children):
+        a, b = children[v]
+        if (a < n) == (b < n):
+            continue                      # leaf-leaf or internal pair
+        leaf, internal = (a, b) if a < n else (b, a)
+        if leaf_sizes[leaf] > w1p:
+            continue
+        if internal in runs_by_tail and parent_of.get(internal) == v:
+            run = runs_by_tail.pop(internal)
+        else:
+            run = []
+        run.append((v, leaf))
+        runs_by_tail[v] = run
+    return {run[0][0]: run for run in runs_by_tail.values()
+            if len(run) >= min_len}
 
 
 # ----------------------------------------------------------------------
