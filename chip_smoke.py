@@ -42,7 +42,19 @@ Phases (one line each; any mismatch or exception exits non-zero):
     banded merge, cardinality > 2^16, 2^22-scaled scores; L2 variant:
     the 400x4000 and banded merges, 2^22-scaled scores at w2 6000, and
     the limits (w1 16384 x w2 16256, w2 32767) against K2 and the host DP;
-    a 3564x1334 prof-prof; K5, K4 and K6 on every merge, as in phase 3;
+    a 3564x1334 prof-prof and a lone 300x3850 (the 10,000-sequence
+    family's wide merges) against K2; K5, K4 and K6 on every merge, as in
+    phase 3;
+ 3c. K4 and K6 at their kernels' edges (phase_edges): at each of
+    EDGE_WIDTHS, a batch of 41 merges whose direction bytes are made from
+    chosen paths (k4_edge_paths, path_matrix): widths at the window's
+    rows and columns and at the whole-matrix limit, H, V and D runs of
+    31, 32 and 33 cells ending beside, on and past the first window's
+    edges, an all-H top row and an all-V first column; and 11 merges at
+    K6's tile edges (k6_edge_paths: lengths T - 1, T, T + 1, 2T + 1, runs
+    straddling or starting on a tile boundary).  K4 bit-exact against its
+    plain twin and the native trace_path, K6 against its plain twin with
+    a tile of rows past the longest path;
  4. the main path: a seeded 1000-sequence family of mean length 300
     through the CLI entry point (refinement AUTO = on) with -backend torch
     at the default knobs, with every profile merge and guided
@@ -118,7 +130,12 @@ compares, selects, logic) and the FMA pipe (integer multiply-adds), 64
 lanes each, so the bound is a floor.  K4's bound counts bytes alone
 (a direction byte a step, finals and meta, the output): its walk is a
 chain of dependent loads, bound by their latency, so its line also
-gives ns a step.  K5's and K6's bound is the larger of their bytes
+gives ns a step.  K4's and K6's entries also give "graph_ms", the C
+entry's device time a launch from 20 launches captured in one CUDA graph
+(a launch loop from Python floors a short kernel at the host's launch
+rate), and "slowest": the same numbers on the inputs of the launch that
+took longest in the 10,000-sequence run ("launch_ms", its time there).
+K5's and K6's bound is the larger of their bytes
 (each side's counter rows or symbol bytes read once, the path bytes, the
 outputs written once) and the int64 multiply-adds and adds their rows
 need (K5: 32 lanes a row times its nonzero amino-acid counts plus one;
@@ -173,6 +190,27 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, n=20, reps=10):
+    """Device milliseconds a call of fn() (one or more kernel launches on
+    the current stream, no host read): n calls captured in one CUDA graph
+    and replayed, so that the host's launch rate does not floor a short
+    kernel's time as it does in cuda_ms."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        for _ in range(n):
+            fn()
+        graph.capture_end()
+    cur.wait_stream(side)
+    return cuda_ms(graph.replay, reps) / n
 
 
 def wall_ms(fn):
@@ -579,16 +617,17 @@ def stage0_check(params, pairs, bands, packed, device, what):
     return sides, hdr
 
 
-def k6_check(sides, hdr, paths, what):
+def k6_check(sides, hdr, paths, what, smax=None):
     """K6 (csrc/merged.cu, ops/merged_torch.py:merged_from_paths) on K4's
     output as it lies on the card, against its plain twin on the same
-    inputs, every int32."""
+    inputs, every int32 (smax: the rows a merge, default its longest
+    path)."""
     import torch
     from famsa_tpu_torch import kernels
     from famsa_tpu_torch.ops.merged_torch import (merged_from_paths,
                                                   merged_from_paths_plain)
     w1, w2 = sides.widths()
-    smax = int((w1 + w2).max())
+    smax = smax or int((w1 + w2).max())
     before = kernels.LAUNCHES["merged"]
     got = merged_from_paths(sides, paths, hdr, smax)
     want = merged_from_paths_plain(sides, paths, hdr, smax)
@@ -881,10 +920,14 @@ def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
             # the L2 variant on the same merge
             wide_check(params, p1, p2, None, device, what, variant="l2")
     # the largest K3 merge of the main path's shape (its plain versions
-    # run on the runs' own largest call, in the kernel report)
+    # run on the runs' own largest call, in the kernel report), and a lone
+    # merge of the 10,000-sequence family's shape (K4 and K6 held there)
     wide_check(params, random_profile(rng, params, 30, 3564),
                random_profile(rng, params, 40, 1334), None, device,
                "3564x1334", refs=("K2",))
+    wide_check(params, random_profile(rng, params, 30, 300),
+               random_profile(rng, params, 200, 3850), None, device,
+               "lone 300x3850", refs=("K2",))
     a, b, cms, band = banded_case(rng, params)
     wide_check(params, a, b, band, device, "banded", cms)
     wide_check(params, a, b, band, device, "banded", cms, variant="l2")
@@ -901,7 +944,7 @@ def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
     msg = (f"phase 3b K3: staged bit-exact vs its plain version and K2's "
            f"(dirs, finals, last, path, total) and path/total = native host "
            f"DP on {', '.join(w for w, _ in cases)} (folds {folds}), "
-           f"3564x1334 (= K2 and host DP), banded, "
+           f"3564x1334 and lone 300x3850 (= K2 and host DP), banded, "
            f"card {card_big}, 2^22-scaled 100x3000; L2 variant on "
            f"{chain[0]}x{chain[1]}, banded, 2^22-scaled 100x6000")
     lims = [limit, (64, MAX_W2)]
@@ -923,6 +966,239 @@ def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
     log(msg)
     args, total = chain_args
     return (*args, total)
+
+
+# ----------------------------------------------------------------------
+# K4 and K6 at the edges of their windows and tiles
+# the smoke's widths whose K4 windows place the edge cases: the 10,000-
+# sequence family's lone wide merge, the widest merge of its largest K2
+# batch, and a chain step of the variant family
+EDGE_WIDTHS = ((300, 3850), (450, 891), (800, 1040))
+_STEP = {0: (1, 1), 1: (0, 1), 2: (1, 0)}       # D, H, V: (di, dj)
+
+
+def path_widths(path):
+    """(w1, w2) of a forward path (codes 0 D, 1 H, 2 V)."""
+    path = np.asarray(path)
+    return int((path != 1).sum()), int((path != 2).sum())
+
+
+def path_matrix(path, rng):
+    """(packed direction bytes [w1+1, w2+1] uint8, last-row finals (D, H,
+    V)) whose walk from (w1, w2) is the forward path `path`: row 0
+    ROW0_PACK and column 0 COL0_PACK as the DP kernels write them, every
+    other cell random channels in 0..2 but the channel the walk reads
+    there, which names the step before."""
+    from famsa_tpu_torch.ops.dp_pack import COL0_PACK, ROW0_PACK
+    w1, w2 = path_widths(path)
+    ch = rng.integers(0, 3, size=(3, w1 + 1, w2 + 1), dtype=np.uint8)
+    i, j = w1, w2
+    for k in range(len(path) - 1, -1, -1):
+        d = int(path[k])
+        if k >= 1 and i > 0 and j > 0:
+            ch[d, i, j] = path[k - 1]
+        di, dj = _STEP[d]
+        i, j = i - di, j - dj
+    if (i, j) != (0, 0):
+        raise ValueError("the path does not end at (w1, w2)")
+    m = ch[0] | (ch[1] << 2) | (ch[2] << 4)
+    m[0, :] = ROW0_PACK
+    m[1:, 0] = COL0_PACK
+    last = [0, 0, 0]
+    last[int(path[-1])] = 5
+    return m, tuple(last)
+
+
+def _spread(cols, rows, run):
+    """Backward steps that move `cols` cells along runs of `run` (1 H, 2
+    V), each run closed by a D, using at most `rows` D steps."""
+    blocks = max(1, min(rows, cols // 2)) if cols else 0
+    out = []
+    for b in range(blocks):
+        n = cols // blocks + (b < cols % blocks)
+        out += [run] * (n - 1) + [0]
+    return out
+
+
+def _finish(back, w1, w2, rng, p_d=0.6):
+    """Forward path of the backward steps `back` from (w1, w2), closed by
+    a random mix of D, H and V steps down to (0, 0)."""
+    i = w1 - sum(_STEP[s][0] for s in back)
+    j = w2 - sum(_STEP[s][1] for s in back)
+    if i < 0 or j < 0:
+        raise ValueError("edge case does not fit its merge")
+    nd = int(min(i, j) * p_d)
+    rest = [0] * nd + [1] * (j - nd) + [2] * (i - nd)
+    rng.shuffle(rest)
+    return np.array(rest + back[::-1], dtype=np.uint8)
+
+
+def random_path(rng, w1, w2, p_d=0.6):
+    """A random forward path of a w1 x w2 merge."""
+    return _finish([], w1, w2, rng, p_d)
+
+
+def k4_edge_paths(w1, w2, rng):
+    """[(name, forward path)]: K4's edge cases at the smoke width (w1, w2)
+    (its window (R, C), anchored first at (w1, w2), spans rows
+    [r0, w1] and columns [c0, w2]): random paths of w2 + 1 = C - 1, C,
+    C + 1 (w1 kept) and of w1 + 1 = R - 1, R, R + 1 (w2 kept); random
+    paths one below, at and one past the widest and the deepest matrix
+    staged whole; on (w1, w2) itself, H runs of 31, 32 and 33 cells whose
+    last cell is one column left of, on and one right of the window's
+    left edge c0, V runs the same at its top edge r0 and D runs at the
+    nearer edge; an all-H top row (the path's first C + 40 steps H) and an
+    all-V first column."""
+    from famsa_tpu_torch.ops.traceback_torch import (TB_WINDOW_BYTES,
+                                                     row_stride,
+                                                     window_shape)
+    r, c = window_shape(w1, w2)
+    out = []
+    for cols in (c - 1, c, c + 1):
+        out.append((f"{w1}x{cols - 1} (C{cols - c:+d})",
+                    random_path(rng, w1, cols - 1)))
+    for rows in (r - 1, r, r + 1):
+        out.append((f"{rows - 1}x{w2} (R{rows - r:+d})",
+                    random_path(rng, rows - 1, w2)))
+    fit_c = max(k for k in range(1, w2 + 2)
+                if (w1 + 1) * row_stride(k) <= TB_WINDOW_BYTES)
+    fit_r = TB_WINDOW_BYTES // row_stride(w2 + 1)
+    for cols in (fit_c - 1, fit_c, fit_c + 1):
+        out.append((f"{w1}x{cols - 1} (whole fits to {fit_c})",
+                    random_path(rng, w1, cols - 1)))
+    for rows in (fit_r - 1, fit_r, fit_r + 1):
+        if rows >= 2:
+            out.append((f"{rows - 1}x{w2} (whole fits to {fit_r})",
+                        random_path(rng, rows - 1, w2)))
+    r0, c0 = max(0, w1 - r + 1), max(0, w2 - c + 1)
+    # the steps before a run stay inside the first window
+    for run, edge, name in ((1, c0, "H"), (2, r0, "V")):
+        for length in (31, 32, 33):
+            for delta in (-1, 0, 1):
+                last = edge + delta         # the run's last cell
+                first = last + length - 1
+                if run == 1:                # reach column first, by a D
+                    back = _spread(w2 - first - 1, min(w1 // 2, r - 3), 1)
+                else:
+                    back = _spread(w1 - first - 1, min(w2 // 2, c - 3), 2)
+                back += [0] + [run] * length + [0]
+                out.append((f"{name} run of {length} ending at "
+                            f"{'c0' if run == 1 else 'r0'}{delta:+d}",
+                            _finish(back, w1, w2, rng)))
+    cols_first = w2 - c0 < w1 - r0
+    edge = c0 if cols_first else r0
+    for length in (31, 32, 33):
+        for delta in (-1, 0, 1):
+            last = edge + delta
+            first = last + length - 1
+            # reach the run's first cell by an H (a V), then a D run of
+            # `length` cells closed by a V (an H)
+            if cols_first:
+                back = _spread(w2 - first - 1, r - length - 5, 1) + [1]
+            else:
+                back = _spread(w1 - first - 1, c - length - 5, 2) + [2]
+            back += [0] * length + [2 if cols_first else 1]
+            out.append((f"D run of {length} ending at "
+                        f"{'c0' if cols_first else 'r0'}{delta:+d}",
+                        _finish(back, w1, w2, rng)))
+    top = min(w2 - 1, c + 40)
+    out.append(("all-H top row",
+                np.array([1] * top + list(random_path(rng, w1, w2 - top)),
+                         dtype=np.uint8)))
+    left = min(w1 - 1, r + 40)
+    out.append(("all-V first column",
+                np.array([2] * left + list(random_path(rng, w1 - left, w2)),
+                         dtype=np.uint8)))
+    return out
+
+
+def k6_edge_paths(rng):
+    """[(name, forward path)]: K6's edge cases at its tile of T =
+    MERGED_TILE steps: path lengths T - 1, T, T + 1 and 2T + 1; an H run
+    and a V run that straddle a tile boundary; runs that start on a
+    tile's first step (after a D, and right after the other side's run);
+    a path of one long H run across three tiles."""
+    from famsa_tpu_torch.ops.merged_torch import MERGED_TILE as T
+    out = []
+    for n in (T - 1, T, T + 1, 2 * T + 1):
+        p = np.zeros(n, dtype=np.uint8)
+        p[rng.random(n) < 0.3] = 1
+        p[rng.random(n) < 0.2] = 2
+        p[0] = 0
+        out.append((f"length {n}", p))
+    for code, name in ((1, "H"), (2, "V")):
+        p = rng.choice(3, size=2 * T + 40, p=[0.6, 0.2, 0.2]).astype(np.uint8)
+        p[T - 20:T + 20] = code
+        p[T - 21] = p[T + 20] = 0
+        out.append((f"{name} run straddling step {T}", p))
+        p = rng.choice(3, size=2 * T + 40, p=[0.6, 0.2, 0.2]).astype(np.uint8)
+        p[T - 1], p[T:T + 7] = 0, code
+        out.append((f"{name} run starting on step {T} after a D", p))
+        p = p.copy()
+        p[T - 3:T] = 3 - code
+        out.append((f"{name} run starting on step {T} after the other "
+                    "side's run", p))
+    p = np.concatenate([[0, 2, 0], np.full(3 * T, 1), [2, 0]]).astype(np.uint8)
+    out.append((f"H run of {3 * T} steps", p))
+    return out
+
+
+def edge_batch(paths, rng, device):
+    """(dirs, fin, meta) on the device of a batch of merges whose walks
+    are the forward paths, and the native trace_path of each."""
+    import torch
+    from famsa_tpu_torch.core.dp_native import finish_path
+    mats, fins, meta, natives, off = [], [], [], [], 0
+    for p in paths:
+        m, last = path_matrix(p, rng)
+        w1, w2 = path_widths(p)
+        mats.append(m.reshape(-1))
+        fins.append(last)
+        meta.append((w1, w2, off, 0))
+        natives.append(finish_path(m, w1, w2, last))
+        off += m.size
+    meta = np.array(meta, dtype=np.int64)
+    fin = np.zeros((len(paths), int(meta[:, 0].max()), 3), dtype=np.int64)
+    for k, last in enumerate(fins):
+        fin[k, meta[k, 0] - 1] = last
+    return ([torch.from_numpy(x).to(device)
+             for x in (np.concatenate(mats), fin, meta)], natives)
+
+
+def phase_edges(device="cuda"):
+    """K4 and K6 on their edge cases (k4_edge_paths at each of
+    EDGE_WIDTHS, k6_edge_paths): a batch of merges a set, their direction
+    bytes made from the paths (path_matrix), K4 against its plain twin
+    and the native trace_path, then K6 on K4's buffer against its plain
+    twin with smax a tile past the longest path, the sides random
+    profiles of the merges' widths (side 1 of the first merge a leaf)."""
+    from famsa_tpu_torch.core.params import Params
+    from famsa_tpu_torch.ops.merged_torch import MERGED_TILE
+    from famsa_tpu_torch.ops.traceback_torch import window_shape
+    rng = np.random.default_rng(41)
+    params = Params(device=device)
+    params.adjust(1000)
+    sets = [(f"{w1}x{w2} (window {window_shape(w1, w2)})",
+             k4_edge_paths(w1, w2, rng)) for w1, w2 in EDGE_WIDTHS]
+    sets.append((f"K6 tile {MERGED_TILE}", k6_edge_paths(rng)))
+    counts = []
+    for what, cases in sets:
+        (dirs, fin, meta), natives = edge_batch([p for _, p in cases], rng,
+                                                device)
+        paths = k4_check(dirs, fin, meta, f"edges {what}", natives)
+        meta_h = meta.cpu().numpy()
+        pairs = [(random_profile(rng, params, 1 if k == 0 else 3, w1,
+                                 0.0 if k == 0 else 0.2),
+                  random_profile(rng, params, 2, w2))
+                 for k, (w1, w2, _, _) in enumerate(meta_h)]
+        hdr, _, sides = launch_inputs(params, pairs, [None] * len(pairs),
+                                      meta_h, device)
+        k6_check(sides, hdr, paths, f"edges {what}",
+                 smax=int((meta_h[:, 0] + meta_h[:, 1]).max()) + MERGED_TILE)
+        counts.append(f"{what}: {len(cases)}")
+    log("phase 3c K4/K6 edges: K4 bit-exact vs trace_paths_plain and the "
+        "native trace_path, K6 vs merged_from_paths_plain, on "
+        + "; ".join(counts) + " merges")
 
 
 # ----------------------------------------------------------------------
@@ -1987,7 +2263,10 @@ class LaunchRecorder:
     """Times every kernel launch of the run it is started for with CUDA
     events recorded on the launch stream right around the C entry point,
     counts the launches per variant, and keeps the inputs of the largest
-    call of each variant (the main path's shapes, timed after the runs).
+    call of each variant (the main path's shapes, timed after the runs)
+    and of K4's and K6's slowest launch in the 10,000-sequence run (each
+    launch's inputs held until its events have completed, read without a
+    wait).
     Launches outside a started run (the checks, the timing) and launches
     captured into a chain chunk's CUDA graph are not recorded (a replay
     runs no entry point)."""
@@ -2008,6 +2287,8 @@ class LaunchRecorder:
         self.staged_shapes = {}     # run -> [staged_geometry of a launch]
         self.k2_calls = []          # widest w2 of each K2 call of the run
         self.wide_calls = []        # w2 of each K3 call of the run
+        self.slowest = {}           # variant -> (launch ms, args)
+        self.pending = []           # (variant, (start, end), args)
 
         for key, (lib_name, entry, _, _) in VARIANTS.items():
             lib = kernels.get(lib_name)
@@ -2080,16 +2361,21 @@ class LaunchRecorder:
             return orig_s0(params, sides, hdr, table, band)
 
         def merged_from_paths(sides, paths, hdr, smax):
-            keep("merged", int(sides.desc_h[:, 3].sum()),
-                 (sides, paths, hdr, smax))
-            return orig_mg(sides, paths, hdr, smax)
+            args = (sides, paths, hdr, smax)
+            keep("merged", int(sides.desc_h[:, 3].sum()), args)
+            out = orig_mg(sides, paths, hdr, smax)
+            self.track("merged", args)
+            return out
 
         def trace_paths(dirs, fin, meta, meta_host=None):
+            args = (dirs, fin, meta, meta_host)
             if meta_host is not None:
                 keep("traceback", int((meta_host[:, 0]
-                                       + meta_host[:, 1]).sum()),
-                     (dirs, fin, meta, meta_host))
-            return orig_tb(dirs, fin, meta, meta_host=meta_host)
+                                       + meta_host[:, 1]).sum()), args)
+            out = orig_tb(dirs, fin, meta, meta_host=meta_host)
+            if meta_host is not None:
+                self.track("traceback", args)
+            return out
 
         dpt.dp_dirs, dpw.dp_dirs_wide = dp_dirs, dp_dirs_wide
         lct.lcs_rows = pt.lcs_rows = lcs_rows
@@ -2105,10 +2391,35 @@ class LaunchRecorder:
             self.events[run] = {}
             self.staged_shapes[run] = []
 
+    def track(self, key, args):
+        """Hold the inputs of the launch of `key` just made in the
+        10,000-sequence run until its events complete; keep the slowest."""
+        if self.run != "10000":
+            return
+        self.pending.append((key, self.events[self.run][key][-1], args))
+        self.settle()
+
+    def settle(self):
+        """Read the pending launches whose events have completed (query
+        does not wait) and keep the slowest of each variant."""
+        left = []
+        for key, (start, end), args in self.pending:
+            if not end.query():
+                left.append((key, (start, end), args))
+                continue
+            ms = start.elapsed_time(end)
+            if ms > self.slowest.get(key, (-1.0,))[0]:
+                self.slowest[key] = (ms, args)
+        self.pending = left
+
     def stop(self, counts):
         """End the run."""
+        import torch
         if self.run is not None:
             self.counts[self.run] = counts
+        if self.pending:
+            torch.cuda.synchronize()
+            self.settle()
         self.run = None
 
     def totals(self, run, key):
@@ -2165,6 +2476,60 @@ def staged_coresidency(rec):
     return "K2 staged co-residency: " + "; ".join(parts)
 
 
+def k4_measure(args):
+    """K4 on a recorded launch's inputs: (max abs error against its plain
+    twin, CUDA-event ms of the wrapper, device ms of the C entry in a CUDA
+    graph, plain ms, bound ms, bound by, shape)."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.traceback_torch import (read_paths,
+                                                     trace_paths,
+                                                     trace_paths_plain)
+    dirs, fin, meta, meta_h = args
+    res = {}
+    plain_ms = wall_ms(lambda: res.setdefault(
+        "plain", trace_paths_plain(dirs, fin, meta)))
+    got = trace_paths(dirs, fin, meta, meta_host=meta_h)
+    err = int((got.long() - res["plain"].long()).abs().max())
+    ms = cuda_ms(lambda: trace_paths(dirs, fin, meta, meta_host=meta_h), 20)
+    lib, out = kernels.get("traceback"), torch.zeros_like(got)
+    gms = graph_ms(lambda: kernels.check(lib.trace_paths(
+        dirs.data_ptr(), fin.data_ptr(), meta.data_ptr(), meta.shape[0],
+        fin.shape[1], out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "trace_paths"))
+    steps = sum(len(p) for p, _ in read_paths(got.cpu().numpy(), meta_h))
+    bms, by = k4_bound_ms(got.numel(), steps, meta.shape[0])
+    return err, ms, gms, plain_ms, bms, by, (
+        f"{meta.shape[0]} merge(s) {meta_h[:, :2].tolist()}, {steps} steps: "
+        f"{ms:.5f} ms, in a graph {gms:.5f} ms, "
+        f"{gms * 1e6 / steps:.1f} ns a step")
+
+
+def k6_measure(args):
+    """K6 on a recorded launch's inputs, as k4_measure."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.merged_torch import (merged_from_paths,
+                                                  merged_from_paths_plain)
+    sides, paths, hdr, smax = args
+    res = {}
+    plain_ms = wall_ms(lambda: res.setdefault(
+        "plain", merged_from_paths_plain(sides, paths, hdr, smax)))
+    got = merged_from_paths(sides, paths, hdr, smax)
+    err = int_err(got, res["plain"])
+    ms = cuda_ms(lambda: merged_from_paths(sides, paths, hdr, smax), 20)
+    lib, out = kernels.get("merged"), torch.empty_like(got)
+    gms = graph_ms(lambda: kernels.check(lib.merged_counters(
+        sides.desc.data_ptr(), hdr.data_ptr(), paths.data_ptr(), sides.b,
+        smax, out.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        "merged_counters"))
+    bms, by = k6_bound_ms(sides, hdr, paths, got)
+    w1, w2 = sides.widths()
+    return err, ms, gms, plain_ms, bms, by, (
+        f"{sides.b} merge(s) of w1 + w2 up to {int((w1 + w2).max())}, "
+        f"smax {smax}: {ms:.5f} ms, in a graph {gms:.5f} ms")
+
+
 def kernel_report(rec, chain, k7):
     """One entry per kernel variant: held against its plain version at
     the largest input the main-path runs gave it (bit-exact, or the smoke
@@ -2180,12 +2545,7 @@ def kernel_report(rec, chain, k7):
     from famsa_tpu_torch.ops.dp_wide import (dp_dirs_wide, dp_staged_plain,
                                              dp_wide_plain)
     from famsa_tpu_torch.ops.lcs_torch import lcs_plain, lcs_rows
-    from famsa_tpu_torch.ops.merged_torch import (merged_from_paths,
-                                                  merged_from_paths_plain)
     from famsa_tpu_torch.ops.sides import read_sides_plain
-    from famsa_tpu_torch.ops.traceback_torch import (read_paths,
-                                                     trace_paths,
-                                                     trace_paths_plain)
     dp_fns = {"dp": (lambda *a: dp_dirs(*a, variant="global"), dp_plain),
               "dp_staged": (lambda *a: dp_dirs(*a, variant="staged"),
                             dp_staged_plain),
@@ -2196,7 +2556,7 @@ def kernel_report(rec, chain, k7):
     stand_in = {"dp": ("the main-path runs' largest K2 batch",
                        lambda: rec.inputs["dp_staged"][1]),
                 "dp_wide_l2": ("phase 3b's lone merge", lambda: chain)}
-    out, shapes = [], []
+    out, shapes, extra = [], [], {}
     for key, (_, entry, source, replaces) in VARIANTS.items():
         if key == "chain":
             out.append(k7)
@@ -2238,33 +2598,20 @@ def kernel_report(rec, chain, k7):
             w1, w2 = sides.widths()
             shapes.append(f"{entry} {len(w1)} merge(s), w1 up to "
                           f"{int(w1.max())}, w2 up to {int(w2.max())}")
-        elif key == "merged":
-            sides, paths, hdr, smax = args
-            res = {}
-            plain_ms = wall_ms(lambda: res.setdefault(
-                "plain", merged_from_paths_plain(sides, paths, hdr, smax)))
-            got = merged_from_paths(sides, paths, hdr, smax)
-            err = int_err(got, res["plain"])
-            ms = cuda_ms(lambda: merged_from_paths(sides, paths, hdr, smax),
-                         20)
-            bms, by = k6_bound_ms(sides, hdr, paths, got)
-            shapes.append(f"{entry} {sides.b} merge(s), {smax} steps at "
-                          "most")
-        elif key == "traceback":
-            dirs, fin, meta, meta_h = args
-            res = {}
-            plain_ms = wall_ms(lambda: res.setdefault(
-                "plain", trace_paths_plain(dirs, fin, meta)))
-            got = trace_paths(dirs, fin, meta, meta_host=meta_h)
-            err = int((got.long() - res["plain"].long()).abs().max())
-            ms = cuda_ms(lambda: trace_paths(dirs, fin, meta,
-                                             meta_host=meta_h), 20)
-            steps = sum(len(p) for p, _ in read_paths(got.cpu().numpy(),
-                                                      meta_h))
-            bms, by = k4_bound_ms(got.numel(), steps, meta.shape[0])
-            shapes.append(f"{entry} {meta.shape[0]} merge(s) "
-                          f"{meta_h[:, :2].tolist()}, {steps} steps: "
-                          f"{ms * 1e6 / steps:.1f} ns a step")
+        elif key in ("merged", "traceback"):
+            measure = k6_measure if key == "merged" else k4_measure
+            err, ms, gms, plain_ms, bms, by, shape = measure(args)
+            shapes.append(f"{entry} {shape}")
+            extra[key] = {"graph_ms": gms}
+            if key in rec.slowest:
+                launch_ms, sargs = rec.slowest[key]
+                serr, sms, sgms, _, sbms, _, sshape = measure(sargs)
+                err = max(err, serr)
+                extra[key]["slowest"] = {
+                    "run": "10000", "launch_ms": launch_ms, "ms": sms,
+                    "graph_ms": sgms, "bound_ms": sbms, "shape": sshape}
+                shapes.append(f"{entry} slowest launch of run 10000 "
+                              f"({launch_ms:.5f} ms in the run): {sshape}")
         else:
             colf, rowf, meta, total = args
             fn, plain = dp_fns[key]
@@ -2288,7 +2635,8 @@ def kernel_report(rec, chain, k7):
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bms, "bound_by": by, "library_ms": None,
-                    "launches_run": run, "at": at, "runs": runs})
+                    "launches_run": run, "at": at, "runs": runs,
+                    **extra.get(key, {})})
     hist = np.bincount(rec.batch_sizes) if rec.batch_sizes else []
     log("kernels at main-path shapes (largest call of each variant): "
         + "; ".join(shapes) + f"; K2 batch sizes (count by size 0..): "
@@ -2316,6 +2664,7 @@ def main():
     phase_k1()
     phase_k2()
     chain = phase_k3()
+    phase_edges()
     rec = LaunchRecorder()
     watch = ResidencyWatch()
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=os.path.dirname(

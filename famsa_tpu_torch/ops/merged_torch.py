@@ -3,7 +3,8 @@ a launch, built from its two sides' counters (read where they lie, on
 the card) and its forward path (K4's output), so that the parent's merge
 reads them without an upload.
 
-merged_from_paths is the wrapper of the CUDA kernel K6 (csrc/merged.cu);
+merged_from_paths is the wrapper of the CUDA kernel K6 (csrc/merged.cu,
+one CTA a tile of MERGED_TILE steps of a merge's path);
 merged_from_paths_plain is its plain PyTorch twin behind the same
 interface: the sides read with ops/sides.py:read_sides_plain, the paths
 with ops/traceback_torch.py:forward_paths, and merged_counters.
@@ -35,6 +36,10 @@ from .sides import read_sides_plain
 from .traceback_torch import forward_paths
 
 _H, _V = 1, 2                      # path codes of a gap in parent 1, 2
+# csrc/merged.cu: K6 spreads a merge over CTAs of MERGED_TILE path steps
+# each (a grid of (merges, ceil(smax / MERGED_TILE))); tests and
+# chip_smoke.py place cases on its tile edges
+MERGED_TILE = 512
 
 
 def merged_counters(sides, fwd):

@@ -16,7 +16,15 @@ merge, then the paths):
 Its contract is the native trace_path (core/dp_native.py:finish_path),
 which the pipeline ran on the host before: path = finish_path(...).path,
 total = finish_path(...).total.
+
+K4 walks a window of each merge's direction bytes staged in shared
+memory (csrc/traceback.cu); TB_WINDOW_BYTES and window_shape mirror the
+kernel's, so that tests and chip_smoke.py can place cases on the
+window's edges.  The plain version has no window: its result does not
+depend on one.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -24,6 +32,37 @@ import torch
 from .. import kernels
 
 PATH_TRAILER = 16                   # bytes of a merge's total and length
+# csrc/traceback.cu: the window's bytes of shared memory
+TB_WINDOW_BYTES = 196608
+
+
+def row_stride(cols):
+    """Shared-memory bytes of a window row of `cols` columns (an odd
+    multiple of 16 that holds the row's span from its aligned-down
+    start)."""
+    s = -(-cols // 16) * 16 + 16
+    return s + 16 if (s // 16) % 2 == 0 else s
+
+
+def window_shape(w1, w2):
+    """(rows, cols) of the window K4 stages for a merge of w1 x w2: the
+    whole matrix when it fits in TB_WINDOW_BYTES; else about
+    sqrt(TB_WINDOW_BYTES (w2+1) / (w1+1)) columns and the rows that fit
+    beside them, widened to the most columns that fit when every row
+    fits.  The same integer arithmetic as csrc/traceback.cu:window_shape."""
+    rows_all, cols_all = w1 + 1, w2 + 1
+    if rows_all * row_stride(cols_all) <= TB_WINDOW_BYTES:
+        return rows_all, cols_all
+    c = min(max(math.isqrt(TB_WINDOW_BYTES * cols_all // rows_all), 1),
+            cols_all)
+    r = TB_WINDOW_BYTES // row_stride(c)
+    if r >= rows_all:
+        r = rows_all
+        s = TB_WINDOW_BYTES // rows_all // 16 * 16
+        if (s // 16) % 2 == 0:
+            s -= 16
+        c = min(s - 16, cols_all)
+    return r, c
 
 
 def path_offsets(meta_h):
