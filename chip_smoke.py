@@ -98,21 +98,44 @@ Phases (one line each; any mismatch or exception exits non-zero):
     CLI entry point with -backend torch at the default knobs (host merges
     below 1536 columns, then chunks), with FAMSA_TORCH_CHAIN_MIN_W2=0
     (every merge on chunks) and with FAMSA_TORCH_CHAIN=0 (one resident
-    dispatch a merge), each byte-identical to -backend numpy on the
-    torch tree; the chain counters (one run, prefix + chain merges = the
+    dispatch a merge, on the torch tree read back through -gt import),
+    each byte-identical to -backend numpy on the torch tree; the chain
+    counters (one run, prefix + chain merges = the
     run, one replay a chunk), every chunk under set_sync_debug_mode
     ("error"), the device operations of one chunk (torch.profiler), the
     replays' CUDA-event times, one chunk's replay against its launch loop
     and by kernel, ms a merge by chain width on the chain and on the host
-    route, and alternating alignment rounds (chain, per-merge,
-    per-merge, chain; for the record).
+    route, and the alignment seconds of the all-chain and the per-merge
+    run (one each, for the record);
+ 8. the guide-tree methods and the distance export (TREE_RUNS) through
+    the CLI entry point, -backend torch against -backend numpy byte for
+    byte (the numpy runs in three child processes beside the torch runs):
+    -gt slink, upgma and upgma_modified with -gt_export on phase 5's 2000
+    sequences, -gt nj -gt_export on phase 4's 1000, -gt upgma aligned
+    (refinement on) on the 1000, -dist_export, -dist_export -pid and
+    -dist_export -square_matrix on the 2000, -medoidtree and -parttree
+    with -gt_export on phase 6's 10,000 at the default medoid parameters
+    (threshold 2000, subtree 100, sample 2000), and -medoidtree aligned on
+    3000 sequences (seed 13).  Each torch run launches exactly the K1
+    variants listed (a prefix sweep over 2000 sequences stays on the wave
+    variant; the square export's blocks of 256 x 2000, and the heuristics'
+    first row of 256 x 10,000 and CLARANS sample blocks, go to rows), its
+    largest launch of each variant is held bit-exact against lcs_plain
+    and timed, and a tree run leaves no device memory allocated; the two
+    alignments are held to ResidencyWatch and their K2/K3 calls to the
+    staged variants as in phase 4.  Prints per run the tree and total
+    seconds of torch and numpy, K1's launches, CUDA-event total and mean
+    ms, its largest launch's ms and bound, and the peak device memory
+    (with what the recorder held of it); then each torch tree and export
+    run again alone on the host (the numpy children ended), each
+    byte-identical to its first run, and its seconds.
 Then a JSON line with every kernel variant's numbers, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
 
 Every kernel launch of the 1000-sequence default run, the -dist tree
-run and the 10,000-sequence run is timed with CUDA events recorded
-around its C entry point on the launch stream; the JSON line gives each
-variant's launches, total ms and mean ms per run ("runs").  "ms" is a
+run, the 10,000-sequence run and phase 8's runs is timed with CUDA events
+recorded around its C entry point on the launch stream; the JSON line
+gives each variant's launches, total ms and mean ms per run ("runs").  "ms" is a
 CUDA-event mean over repeated launches on the largest input the runs
 gave the variant, after it is held bit-exact against its plain version
 there; "launches" counts its launches in the run named by
@@ -162,6 +185,7 @@ import numpy as np
 MEM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 AA = "ARNDCQEGHILKMFPSTWYV"
+ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 
 
@@ -1243,10 +1267,11 @@ def stage_report(name, secs, stats, counts):
             f"{counts['merged']}")
 
 
-def check_launches(what, counts, needed, rec):
+def check_launches(what, counts, needed, rec, prim=True):
     """Each run must launch the kernels it is meant to exercise.  Every
     Prim round's LCS (a single reference) goes to K1's wave variant, so a
-    run that builds the default guide tree launches no rows variant; every
+    run that builds the default guide tree (prim) launches no rows
+    variant; every
     K2 launch whose widest w2 is <= STAGED_MAX_W2 and every K3 call at w2
     <= STAGED_MAX_W2 must have gone to the staged variant (rec holds the
     widths of the run's K2 and K3 calls)."""
@@ -1255,7 +1280,7 @@ def check_launches(what, counts, needed, rec):
     if missing:
         raise AssertionError(f"{what}: kernels {missing} were never "
                              f"launched: {counts}")
-    if "lcs_wave" in needed and counts["lcs"]:
+    if prim and "lcs_wave" in needed and counts["lcs"]:
         raise AssertionError(f"{what}: Prim rounds launched K1's rows "
                              f"variant: {counts}")
     for name, calls, keys in (("K2", rec.k2_calls, ("dp_staged", "dp")),
@@ -2062,11 +2087,11 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
     """The chain route (ops/dp_chain.py): K7 against its plain twin, one
     chunk's graph against the plain chunk at a staged and an L2 capacity,
     and the variant family through the CLI entry point with -backend
-    torch at the default knobs and with FAMSA_TORCH_CHAIN_MIN_W2=0, each
-    byte-identical to -backend numpy on the torch run's guide tree; then
-    alternating rounds of the all-chain run and FAMSA_TORCH_CHAIN=0 (one
-    resident dispatch a merge).  The recorder counts the all-chain run's
-    launches ("chain").  Returns the K7 entry of the kernel report."""
+    torch at the default knobs, with FAMSA_TORCH_CHAIN_MIN_W2=0 (all
+    chain) and with FAMSA_TORCH_CHAIN=0 (one resident dispatch a merge,
+    on the torch run's guide tree through -gt import), each
+    byte-identical to -backend numpy on that tree.  The recorder counts
+    the all-chain run's launches ("chain").  Returns the K7 entry of the kernel report."""
     import torch
     from famsa_tpu_torch import kernels
     from famsa_tpu_torch.core.params import Params
@@ -2104,9 +2129,7 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
     runs = [("numpy", ["-backend", "numpy"] + imported, {}),
             ("default", torch_flags, {}),
             ("chain", torch_flags, all_chain),
-            ("per_merge", torch_flags, per_merge),
-            ("per_merge_2", torch_flags + imported, per_merge),
-            ("chain_2", torch_flags + imported, all_chain)]
+            ("per_merge", torch_flags + imported, per_merge)]
     watch = ChainWatch()
     outs, secs, chains, report = {}, {}, {}, []
     host_ms, chain_ms, replay_ms = {}, {}, []
@@ -2136,7 +2159,7 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
             replay_ms = watch.replay_ms()
             saved = time_saved_chunk(watch)
             saved_steps, saved_plain_ms = saved_chunk_check(params, watch)
-        if name in ("default", "chain", "chain_2"):
+        if name in ("default", "chain"):
             # the default run's tail passes the width floor in the full
             # family; a reduced one may stay below it
             ok = (ch["runs"] == 1 and ch["aborts"] == 0
@@ -2162,8 +2185,7 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
             raise AssertionError(f"variants: {name} output differs from "
                                  "numpy")
     ch = chains["chain"]
-    rounds = [secs[n] for n in ("chain", "per_merge", "per_merge_2",
-                                "chain_2")]
+    rounds = [secs[n] for n in ("chain", "per_merge")]
     log(f"phase 7 chain route: K7 bit-exact vs chain_carry_plain (ran, "
         f"overflow, poisoned, invalid lane, failed walk, last step); chunk "
         f"graph = plain chunk (state, widths, carry, paths) at capacities "
@@ -2179,7 +2201,7 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
         f"default, all-chain and per-merge runs byte-identical to numpy; "
         + "; ".join(report)
         + f"; chain counters default {chains['default']}, all-chain {ch}; "
-        f"alignment s chain / per-merge / per-merge / chain {rounds}; "
+        f"alignment s chain / per-merge {rounds}; "
         f"replays {len(replay_ms)}: {sum(replay_ms):.3f} ms in all, "
         f"{sum(replay_ms) / max(1, len(replay_ms)):.4f} ms mean; chunk at "
         f"capacity {saved[0]}: replay {saved[1]:.4f} ms, launch loop "
@@ -2221,6 +2243,259 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
                                  for c in checks],
                       "saved_chunk_plain": {"steps": saved_steps,
                                             "plain_ms": saved_plain_ms}}}
+
+
+# ----------------------------------------------------------------------
+# the guide-tree methods and the distance export
+# phase 8's runs (names apart from the other phases' recorded runs):
+# name, family, flags, the K1 variants the run launches
+# (exactly those: lcs_variant's rule on its blocks; a prefix sweep over
+# 2000 sequences keeps every block of R rows x n_queries below
+# WAVE_MAX_GRID, a square export or a 10,000-sequence first row does not)
+# and the DP kernels an alignment must launch
+TREE_RUNS = (
+    ("slink", "2000", ["-gt", "slink", "-gt_export"], ("lcs_wave",), ()),
+    ("upgma", "2000", ["-gt", "upgma", "-gt_export"], ("lcs_wave",), ()),
+    ("upgma_modified", "2000", ["-gt", "upgma_modified", "-gt_export"],
+     ("lcs_wave",), ()),
+    ("nj", "1000", ["-gt", "nj", "-gt_export"], ("lcs_wave",), ()),
+    ("dist_export", "2000", ["-dist_export"], ("lcs_wave",), ()),
+    ("dist_export_pid", "2000", ["-dist_export", "-pid"], ("lcs_wave",),
+     ()),
+    ("dist_export_square", "2000", ["-dist_export", "-square_matrix"],
+     ("lcs", "lcs_wave"), ()),
+    ("medoid", "10000", ["-medoidtree", "-gt_export"], ("lcs", "lcs_wave"),
+     ()),
+    ("parttree", "10000", ["-parttree", "-gt_export"], ("lcs", "lcs_wave"),
+     ()),
+    ("upgma_align", "1000", ["-gt", "upgma"], ("lcs_wave",),
+     ("dp_staged", "dp_wide")),
+    ("medoid_align", "3000", ["-medoidtree"], ("lcs", "lcs_wave"),
+     ("dp_staged",)),
+)
+
+
+class NumpyRefs:
+    """The -backend numpy reference runs of phase 8 as child processes of
+    the port's CLI, at most `width` at a time, started while the torch
+    runs go on in this process (they share the host's cores); every child
+    is killed if the phase fails (close)."""
+
+    def __init__(self, work, jobs, width=3):
+        self.work = work
+        self.todo = list(jobs)          # (name, argv)
+        self.running = {}               # name -> (Popen, stderr file)
+        self.width = width
+        self.poll()
+
+    def poll(self):
+        """Reap finished children and start queued ones."""
+        for name, (proc, err) in list(self.running.items()):
+            if proc.poll() is None:
+                continue
+            err.close()
+            del self.running[name]
+            if proc.returncode != 0:
+                with open(err.name) as f:
+                    raise AssertionError(f"numpy reference run {name}: rc "
+                                         f"{proc.returncode}: "
+                                         f"{f.read()[-2000:]}")
+        while self.todo and len(self.running) < self.width:
+            name, argv = self.todo.pop(0)
+            err = open(os.path.join(self.work, f"np_{name}.err"), "w")
+            self.running[name] = (subprocess.Popen(
+                [sys.executable, "-m", "famsa_tpu_torch", "-backend",
+                 "numpy"] + argv, cwd=ROOT, stdout=subprocess.DEVNULL,
+                stderr=err), err)
+
+    def wait_all(self):
+        while self.todo or self.running:
+            self.poll()
+            time.sleep(0.1)
+
+    def close(self):
+        for proc, err in self.running.values():
+            proc.kill()
+            proc.wait()
+            err.close()
+        self.running = {}
+
+
+def k1_largest(rec, run):
+    """Each K1 variant's largest launch of `run` (by its work), held bit-
+    exact against lcs_plain and timed (CUDA events); the held inputs are
+    dropped.  Returns {variant: {shape, ms, bound_ms, bound_by}}."""
+    from famsa_tpu_torch.ops.lcs_torch import lcs_rows
+    out = {}
+    for key, (_, (table, syms, q, dt)) in sorted(
+            rec.lcs_largest.pop(run, {}).items()):
+        variant = "wave" if key == "lcs_wave" else "rows"
+        lcs_check(table, syms, q, variant, f"{run}'s largest launch")
+        ms = cuda_ms(lambda: lcs_rows(table, syms, n_queries=q,
+                                      out_dtype=dt, variant=variant),
+                     10) if table.is_cuda else float("nan")
+        bms, by = lcs_bound_ms(table, syms, q)
+        out[key] = {"refs": syms.shape[0], "queries": q,
+                    "L": syms.shape[1], "W": table.shape[1], "ms": ms,
+                    "bound_ms": bms, "bound_by": by}
+    return out
+
+
+def k1_text(rec, run, largest):
+    """K1's launches, CUDA-event total and mean ms of `run` by variant,
+    and its largest launch of each."""
+    parts = []
+    for key, label in (("lcs", "rows"), ("lcs_wave", "wave")):
+        n, tot, mean = rec.totals(run, key)
+        if not n:
+            parts.append(f"K1 {label} 0")
+            continue
+        g = largest[key]
+        parts.append(f"K1 {label} {n} launches, {tot:.3f} ms in all, "
+                     f"{mean:.5f} mean, largest {g['refs']} x {g['queries']}"
+                     f" (L={g['L']}, W={g['W']}) {g['ms']:.4f} ms, bound "
+                     f"{g['bound_ms']:.5f} ({g['bound_by']})")
+    return ", ".join(parts)
+
+
+def phase_trees(work, recorder, watch, device="cuda"):
+    """Every guide-tree method, the PartTree/MedoidTree heuristic and the
+    distance export through the CLI entry point (TREE_RUNS), -backend
+    torch against -backend numpy byte for byte (the numpy runs as child
+    processes beside the torch runs); each torch run launches exactly the
+    K1 variants listed, its largest launch of each is held bit-exact
+    against lcs_plain, and no device memory is left allocated after a
+    tree run (hundreds of subgroup backends in the heuristics); the
+    alignments are held to ResidencyWatch as in phase 4.  Then each tree
+    and export run of torch again, alone on the host, byte-identical to
+    its first run.  The recorder times every K1 launch of each first run
+    (run names: TREE_RUNS' names)."""
+    import gc
+    import torch
+    from famsa_tpu_torch import kernels
+    cuda = device == "cuda"
+    clash = {r[0] for r in TREE_RUNS} & set(recorder.events)
+    if clash:
+        raise AssertionError(f"phase 8 runs {clash} would overwrite the "
+                             "recorder's earlier runs")
+    fams = {"1000": "fam.fa", "2000": "fam_tree.fa", "10000": "fam_wide.fa",
+            "3000": "fam_3000.fa"}
+    fams = {k: os.path.join(work, v) for k, v in fams.items()}
+    with open(fams["3000"], "w") as f:
+        f.write(make_family(3000, 300, 13))
+
+    def argv(name, fam, flags, side):
+        return flags + ["-stats", os.path.join(work, f"t8_{name}_{side}.st"),
+                        fams[fam], os.path.join(work, f"t8_{name}_{side}")]
+
+    # the longest numpy runs first
+    order = sorted(TREE_RUNS, key=lambda r: ("align" not in r[0],
+                                             r[1] != "10000"))
+    refs = NumpyRefs(work, [(name, argv(name, fam, flags, "numpy"))
+                            for name, fam, flags, _, _ in order])
+    torch_flags = ["-backend", "torch", "-device", device]
+    lines = []
+    try:
+        for name, fam, flags, k1, dp in TREE_RUNS:
+            align = bool(dp)
+            gc.collect()
+            before = torch.cuda.memory_allocated() if cuda else 0
+            args = torch_flags + argv(name, fam, flags, "torch")
+            if align:
+                watch.profile, watch.ops = None, []
+                rc, _, counts, route = run_torch(
+                    f"phase 8 {name}", args, {}, recorder, watch, name,
+                    False, device)
+                watch.reset()           # it holds the run's profiles
+            else:
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                recorder.start(name)
+                kernels.reset_launches()
+                rc, _ = run_cli(args, {})
+                counts, route = dict(kernels.LAUNCHES), ""
+                recorder.stop(counts)
+            refs.poll()
+            if rc != 0:
+                raise AssertionError(f"phase 8 {name}: rc={rc}")
+            peak = torch.cuda.max_memory_allocated() if cuda else 0
+            launched = tuple(k for k in ("lcs", "lcs_wave") if counts[k])
+            if cuda and launched != k1:
+                raise AssertionError(f"phase 8 {name}: K1 variants "
+                                     f"{launched} launched, {k1} expected: "
+                                     f"{counts}")
+            if cuda and align:
+                check_launches(f"phase 8 {name}", counts, dp, recorder,
+                               prim=False)
+            elif any(counts[k] for k in VARIANTS if k not in ("lcs",
+                                                               "lcs_wave")):
+                raise AssertionError(f"phase 8 {name}: a tree run launched "
+                                     f"DP kernels: {counts}")
+            # the recorder's hold on the largest launches' inputs (in the
+            # peak: it keeps their mask tables alive past their backends)
+            kept = {id(t): t.numel() * t.element_size()
+                    for _, (table, syms, _, _) in recorder.lcs_largest.get(
+                        name, {}).values()
+                    for t in (table, syms) if t.is_cuda}
+            largest = k1_largest(recorder, name)
+            gc.collect()
+            # the recorder holds no new input: phases 4 and 5 gave it both
+            # K1 variants' first calls, and k1_largest dropped this run's
+            held = (torch.cuda.memory_allocated() if cuda else 0) - before
+            if not align and held >= 2 ** 20:
+                raise AssertionError(f"phase 8 {name}: {held} bytes of "
+                                     "device memory left allocated")
+            st = read_stats(os.path.join(work, f"t8_{name}_torch.st"))
+            lines.append((name, st, k1_text(recorder, name, largest)
+                          + (route if align else
+                             ", peak device memory above the run's start "
+                             f"{(peak - before) / 2 ** 20:.1f} MiB (the "
+                             "recorder's held inputs "
+                             f"{sum(kept.values()) / 2 ** 20:.1f})")
+                          + f", left allocated {held} bytes"))
+            refs.poll()
+        refs.wait_all()
+    finally:
+        refs.close()
+    report = []
+    for name, st, text in lines:
+        outs = []
+        for side in ("torch", "numpy"):
+            with open(os.path.join(work, f"t8_{name}_{side}"), "rb") as f:
+                outs.append(f.read())
+        if outs[0] != outs[1]:
+            raise AssertionError(f"phase 8 {name}: torch output differs "
+                                 "from numpy")
+        nst = read_stats(os.path.join(work, f"t8_{name}_numpy.st"))
+        secs = "; ".join(
+            f"{k[5:]} torch {float(st[k]):.2f} numpy {float(nst[k]):.2f} s"
+            for k in ("time.tree_build", "time.total") if k in st)
+        report.append(f"{name}: {secs}; {text}")
+    log("phase 8 tree methods and distance export, torch byte-identical "
+        "to numpy (numpy in child processes beside the torch runs): "
+        + "; ".join(report))
+    # the torch tree and export runs again, alone on the host: the
+    # seconds above share its cores with the numpy children
+    alone = []
+    for name, fam, flags, _, dp in TREE_RUNS:
+        if dp:
+            continue
+        rc, _ = run_cli(torch_flags + argv(name, fam, flags, "alone"), {})
+        if rc != 0:
+            raise AssertionError(f"phase 8 {name} alone: rc={rc}")
+        outs = []
+        for side in ("torch", "alone"):
+            with open(os.path.join(work, f"t8_{name}_{side}"), "rb") as f:
+                outs.append(f.read())
+        if outs[0] != outs[1]:
+            raise AssertionError(f"phase 8 {name} alone: output differs "
+                                 "from its first run")
+        st = read_stats(os.path.join(work, f"t8_{name}_alone.st"))
+        alone.append(f"{name} " + ", ".join(
+            f"{k[5:]} {float(st[k]):.2f}"
+            for k in ("time.tree_build", "time.total") if k in st))
+    log("phase 8 torch tree and export runs again, alone on the host, "
+        "every output identical to its first run (s): " + "; ".join(alone))
 
 
 # kernel variant -> (library, C entry point, source, the TPU kernel it
@@ -2283,6 +2558,7 @@ class LaunchRecorder:
         self.events = {}            # run -> variant -> [(start, end)]
         self.counts = {}            # run -> LAUNCHES after the run
         self.inputs = {}            # variant -> (size, args)
+        self.lcs_largest = {}       # run -> K1 variant -> (work, args)
         self.batch_sizes = []
         self.staged_shapes = {}     # run -> [staged_geometry of a launch]
         self.k2_calls = []          # widest w2 of each K2 call of the run
@@ -2349,6 +2625,13 @@ class LaunchRecorder:
             key = "lcs_wave" if variant == "wave" else "lcs"
             if self.run is not None and key not in self.inputs:
                 keep(key, 0, (table, syms.clone(), nq))
+            if self.run is not None:
+                # the run's largest launch of each variant, by its work
+                size = syms.shape[0] * syms.shape[1] * min(nq,
+                                                           table.shape[2])
+                big = self.lcs_largest.setdefault(self.run, {})
+                if size > big.get(key, (-1,))[0]:
+                    big[key] = (size, (table, syms.clone(), nq, out_dtype))
             return orig_lcs(table, syms, n_queries=n_queries,
                             out_dtype=out_dtype, variant=variant)
 
@@ -2627,7 +2910,7 @@ def kernel_report(rec, chain, k7):
             raise AssertionError(f"{entry} at the main path's shape: max abs "
                                  f"error {err} against the plain version")
         runs = {}
-        for r in ("1000", "10000", "dist"):
+        for r in ("1000", "10000", "dist") + tuple(t[0] for t in TREE_RUNS):
             n, tot, mean = rec.totals(r, key)
             if n:
                 runs[r] = {"launches": n, "total_ms": tot, "mean_ms": mean}
@@ -2667,12 +2950,12 @@ def main():
     phase_edges()
     rec = LaunchRecorder()
     watch = ResidencyWatch()
-    with tempfile.TemporaryDirectory(prefix=".smoke_", dir=os.path.dirname(
-            os.path.abspath(__file__))) as work:
+    with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as work:
         phase_main(work, rec, watch)
         phase_tree(work, rec)
         phase_wide(work, rec, watch)
         k7 = phase_chain(work, rec)
+        phase_trees(work, rec, watch)
     kern = kernel_report(rec, chain, k7)
     log(f"smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kern}))

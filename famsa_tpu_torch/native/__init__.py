@@ -61,6 +61,8 @@ def _configure(lib):
     p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     p_u64 = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+    p_f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    p_f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 
     lib.dp_seq_seq.argtypes = [p_i8, p_i8, i64, i64, p_i64,
                                i64, i64, i64, i64, p_u8, p_i64]
@@ -68,6 +70,16 @@ def _configure(lib):
                                  p_i64, p_i64, i64, i64,
                                  i64, i64, i64, i64,
                                  ctypes.c_void_p, p_u8, p_i64]
+    lib.slink_update_row.argtypes = [i64, p_f64, p_u64, p_i64, p_f64, p_u64]
+    lib.clarans_deltas.argtypes = [p_f32, i64, i64, i64, p_i64,
+                                   p_f32, p_f32, p_i64, p_f32]
+    lib.clarans_apply_swap.argtypes = [p_f32, i64, i64, i64, i64, p_i64,
+                                       p_f32, p_f32, p_i64, p_i64,
+                                       ctypes.c_float]
+    lib.clarans_apply_swap.restype = ctypes.c_float
+    lib.clarans_init.argtypes = [p_f32, i64, i64, p_i64, p_f32, p_f32,
+                                 p_i64, p_i64]
+    lib.clarans_init.restype = ctypes.c_float
     lib.lcs_batch.argtypes = [p_u64, i64, p_i8, i64, i64, p_i64]
     lib.apply_column_inserts_batch.argtypes = [p_u64, p_i64, i64,
                                                p_i64, p_i64, i64, i64]

@@ -1,12 +1,15 @@
 """End-to-end MSA pipeline (port of FAMSA src/msa.cpp CFAMSA).
 
-Stages: sort+dedup -> MST-Prim guide tree (device rounds on the torch
-backend, ops/prim_torch.py) -> progressive profile alignment up the tree
-(batched device DP with device-resident profiles, ops/dp_torch.py,
-ops/dp_resident.py; caterpillar runs as device-resident chunks,
-ops/dp_chain.py) -> iterative refinement (guided device DP) ->
-duplicate restoration and input-order output."""
+Stages: sort+dedup -> guide tree (MST-Prim as device rounds on the torch
+backend, ops/prim_torch.py; SLINK, UPGMA, NJ and the PartTree/MedoidTree
+heuristic on distance rows from K1) -> progressive profile alignment up
+the tree (batched device DP with device-resident profiles,
+ops/dp_torch.py, ops/dp_resident.py; caterpillar runs as device-resident
+chunks, ops/dp_chain.py) -> iterative refinement (guided device DP) ->
+duplicate restoration and input-order output.  -dist_export writes the
+distance CSV instead (tree/distance_export.py)."""
 
+import contextlib
 import heapq
 import os
 from collections import deque
@@ -24,8 +27,13 @@ from .core.profile import Profile
 from .core.refinement import refine_alignment
 from .core.sequence import GappedSequence
 from .ops.distance import get_distance_backend
+from .tree.distance_export import export_distances
+from .tree.fast_tree import FastTree
 from .tree.guide_tree import GuideTree
 from .tree.mst_prim import mst_prim_tree
+from .tree.nj import nj_tree
+from .tree.slink import slink_tree
+from .tree.upgma import upgma_distance_matrix, upgma_tree
 from .utils import logger
 from .utils.stats import Statistics, StopWatch
 
@@ -59,41 +67,117 @@ def remove_duplicates(sorted_seqs, original2sorted):
     return uniq
 
 
-def check_ported(params):
-    """Raise for options whose code this port does not have yet, instead
-    of silently running something else."""
-    missing = []
-    if params.gt_method in (P.GT_SLINK, P.GT_UPGMA, P.GT_UPGMA_MODIFIED,
-                            P.GT_NJ):
-        missing.append(f"-gt {params.gt_method}")
-    if params.gt_heuristic != P.HEUR_NONE:
-        missing.append(f"-{params.gt_heuristic}")
-    if params.export_distances:
-        missing.append("-dist_export")
-    if missing:
-        raise ValueError("Error: not yet ported to famsa_tpu_torch: "
-                         + ", ".join(missing)
-                         + " (use python -m famsa_tpu for these options)")
-
-
 # ----------------------------------------------------------------------
+def _distances(params, measure):
+    """(sequences, dtype) -> the run's distance backend: K1 on `-backend
+    torch` (on params.device), the native host LCS on `-backend numpy`."""
+    return lambda seqs, dtype: get_distance_backend(
+        seqs, measure, dtype, params.backend, device=params.device)
+
+
+def _make_partial_generator(params, measure):
+    """Partial generator used by FastTree (createTreeGenerator semantics):
+    each subgroup's tree by SLINK (for MST-Prim too), UPGMA or NJ, its
+    rows from a distance backend of its own."""
+    method = params.gt_method
+    distances = _distances(params, measure)
+
+    def partial(seqs, tree_list):
+        if len(seqs) < 2:
+            return
+        if method in (P.GT_SLINK, P.GT_MST_PRIM):
+            be = distances(seqs, np.float64)
+            slink_tree(len(seqs), lambda i: be.row_prefix(i, i), tree_list)
+        elif method in (P.GT_UPGMA, P.GT_UPGMA_MODIFIED):
+            be = distances(seqs, np.float32)
+            dmat = upgma_distance_matrix(len(seqs),
+                                         lambda i: be.row_prefix(i, i))
+            upgma_tree(dmat, len(seqs), tree_list,
+                       modified=(method == P.GT_UPGMA_MODIFIED))
+        elif method == P.GT_NJ:
+            be = distances(seqs, np.float32)
+            dmat = upgma_distance_matrix(len(seqs),
+                                         lambda i: be.row_prefix(i, i))
+            nj_tree(dmat, len(seqs), tree_list)
+        else:
+            raise ValueError("Error: Illegal guide tree method.")
+
+    return partial
+
+
 def build_guide_tree(params, sequences, tree: GuideTree):
-    """MST-Prim guide tree (msa.cpp:109-242, 570-573): device rounds on the
-    torch backend for the default distance, host rows otherwise."""
+    """createTreeGenerator + run (msa.cpp:109-242, 570-573).  On the torch
+    backend every distance row comes from K1 (TorchDistanceBackend; the
+    default MST-Prim tree from the device Prim, ops/prim_torch.py)."""
+    measure = params.distance
+    backend = params.backend
     n = len(sequences)
     tree.init_leaves(n)
-    if params.gt_method != P.GT_MST_PRIM:
-        raise ValueError("Error: Illegal guide tree method.")
-    if params.backend == "torch" and \
-            params.distance == P.DIST_INDEL075_DIV_LCS:
-        from .ops.prim_torch import mst_prim_tree_torch
-        mst_prim_tree_torch(sequences, tree.tree, device=params.device)
+    tree_list = tree.tree
+    distances = _distances(params, measure)
+
+    def rows(dtype):
+        be = distances(sequences, dtype)
+        return lambda i: be.row_prefix(i, i)
+
+    if params.gt_heuristic != P.HEUR_NONE:
+        with (open(params.seed_file_name, "w") if params.seed_file_name
+              else contextlib.nullcontext()) as seed_file:
+            ft = FastTree(
+                measure,
+                _make_partial_generator(params, measure),
+                params.medoid.subtree_size,
+                params.medoid.sample_size,
+                params.medoid.num_evaluations,
+                params.medoid.threshold,
+                use_clustering=(params.gt_heuristic == P.HEUR_MEDOIDTREE),
+                cluster_fraction=params.medoid.cluster_fraction,
+                cluster_iters=params.medoid.cluster_iters,
+                seed_observer=(_make_seed_dumper(seed_file)
+                               if seed_file else None),
+                # concurrent depth-0 subtree builds on the host path; on
+                # the torch backend they would share one device and one
+                # stream, so keep it sequential there
+                n_threads=1 if backend == "torch" else (os.cpu_count() or 1),
+                # medoid-path distances (seeds, assignment, CLARANS sample)
+                # ride K1 on the torch backend (reference FastTree.cpp:
+                # 302-330, 385-436)
+                backend_factory=distances if backend == "torch" else None,
+            )
+            ft.run(sequences, tree_list)
         return
-    be = get_distance_backend(sequences, params.distance, np.float64,
-                              params.backend, device=params.device)
-    mst_prim_tree(n, lambda ref, ids: be.row(ref, ids), tree.tree,
-                  lengths=[s.length for s in sequences],
-                  measure=params.distance)
+
+    if params.gt_method == P.GT_SLINK:
+        slink_tree(n, rows(np.float64), tree_list)
+    elif params.gt_method == P.GT_MST_PRIM:
+        if backend == "torch" and measure == P.DIST_INDEL075_DIV_LCS:
+            from .ops.prim_torch import mst_prim_tree_torch
+            mst_prim_tree_torch(sequences, tree_list, device=params.device)
+            return
+        be = distances(sequences, np.float64)
+        mst_prim_tree(n, lambda ref, ids: be.row(ref, ids), tree_list,
+                      lengths=[s.length for s in sequences],
+                      measure=measure)
+    elif params.gt_method in (P.GT_UPGMA, P.GT_UPGMA_MODIFIED):
+        dmat = upgma_distance_matrix(n, rows(np.float32))
+        upgma_tree(dmat, n, tree_list,
+                   modified=(params.gt_method == P.GT_UPGMA_MODIFIED))
+    elif params.gt_method == P.GT_NJ:
+        dmat = upgma_distance_matrix(n, rows(np.float32))
+        nj_tree(dmat, n, tree_list)
+    else:
+        raise ValueError("Error: Illegal guide tree method.")
+
+
+def _make_seed_dumper(f):
+    """Seed observer writing the depth-0 seeds' ids to the open file f
+    (-seed_file)."""
+    def dump(seeds, depth):
+        if depth == 0:
+            for s in seeds:
+                f.write(s.id[1:] + "\n")
+            f.flush()
+    return dump
 
 
 # ----------------------------------------------------------------------
@@ -448,11 +532,19 @@ class MSAResult:
 def compute_msa(params, sequences):
     """Full pipeline (msa.cpp:470-672). `sequences` is a list of Sequence
     in input order; consumed. Returns MSAResult."""
-    check_ported(params)
     result = MSAResult()
     params.adjust(len(sequences))
 
     tree = GuideTree()
+
+    if params.export_distances:
+        # input order, every sequence padded to the longest; no sort, no
+        # dedup (msa.cpp's distance export)
+        max_len = max(s.length for s in sequences)
+        for s in sequences:
+            s.resize(max_len, UNKNOWN_SYMBOL)
+        export_distances(params, sequences)
+        return result
 
     t_sort = StopWatch()
     t_sort.start()

@@ -203,19 +203,6 @@ def test_backend_auto_without_cuda_raises(tmp_path, capsys):
     assert t_main(["-backend", "jax", str(fa), str(tmp_path / "o")]) == -1
 
 
-@pytest.mark.parametrize("flags", [
-    ["-gt", "slink"], ["-gt", "upgma"], ["-gt", "upgma_modified"],
-    ["-gt", "nj"], ["-medoidtree"], ["-parttree"], ["-dist_export"]])
-def test_unported_flags_raise(flags, tmp_path, capsys):
-    fa = tmp_path / "in.fa"
-    fa.write_text(">a\nARNDCQ\n>b\nARNDQ\n>c\nRNDCQE\n")
-    rc = t_main(["-backend", "torch", "-device", "cpu"] + flags
-                + [str(fa), str(tmp_path / "out")])
-    assert rc == -1
-    assert "not yet ported" in capsys.readouterr().err
-    assert not (tmp_path / "out").exists()
-
-
 def test_params_from_fields():
     jp = JParams(gap_open_base=12.0)
     jp.guided_alignment_radius = 7
