@@ -21,12 +21,17 @@ Phases (one line each; any mismatch or exception exits non-zero):
     <= 512^2 (one seq-prof), one banded merge, one merge with cardinality
     > 2^16, 60x700, 60x1500, 16 merges of 1 to 8 folds (one at w2 4095),
     w2 on a fold edge and one column past it, 2^22-scaled scores, one
-    2048x2048 prof-prof.  Global variant (csrc/dp.cu, one CTA a merge):
-    60x5000, and forced on the mixed batch, 60x700, 60x1500 and 2048^2
-    (every column stripe it has).  Prints both
-    variants' ms at 2048^2 and on the 16-merge batch, and how many
-    clusters of F = 1..8 staged folds fit on the card at once
-    (cudaOccupancyMaxActiveClusters).  On every batch: K5
+    2048x2048 prof-prof; on 9-16 folds a batch whose widest merge is
+    5906.  Stripes variant (dp_profile_batched_stripes, held as staged): a
+    batch with one merge past 4095 and one past 8191, a banded batch
+    (60 x 9000 split), 2^22-scaled at w2 8500.  Global variant
+    (csrc/dp.cu, one CTA a merge): 60x5000, and forced on the mixed
+    batch, 60x700, 60x1500, 2048^2 (every column stripe it has) and both
+    batches past 4095.  Prints both variants' ms at 2048^2, on the
+    16-merge batch and on the batches past 4095, how many clusters of F =
+    1..16 staged folds and of 16 stripes folds fit on the card at once
+    (cudaOccupancyMaxActiveClusters; fails if one fits nowhere) and the
+    columns a stripes fold keeps in shared memory.  On every batch: K5
     (csrc/stage0.cu, stage 0, reading the sides through their
     descriptors) against its plain twin stage0_plain on the same
     descriptors and against the host prep (prepare_merge + pack_batch),
@@ -38,13 +43,15 @@ Phases (one line each; any mismatch or exception exits non-zero):
     wavefront) and K2's, bit-exact in direction bytes, finals, last, path
     and total, and path/total against the native host DP.  Staged
     variant: 1, 2 and 8 folds, w2 on a fold edge and one column past it,
-    seq-prof, a 400x4000 prof-prof, the widest staged fold (w2 4095), a
-    banded merge, cardinality > 2^16, 2^22-scaled scores; L2 variant:
-    the 400x4000 and banded merges, 2^22-scaled scores at w2 6000, and
-    the limits (w1 16384 x w2 16256, w2 32767) against K2 and the host DP;
-    a 3564x1334 prof-prof and a lone 300x3850 (the 10,000-sequence
-    family's wide merges) against K2; K5, K4 and K6 on every merge, as in
-    phase 3;
+    seq-prof, a 400x4000 prof-prof, the widest 8-fold merge (w2 4095), a
+    banded merge, cardinality > 2^16, 2^22-scaled scores; on 9-16 folds
+    lone merges at w2 4096 (seq-prof) and 8191 and 2^22-scaled at 6000;
+    stripes variant: lone merges at 8192 (seq-prof), 14,000 and 16,256, a
+    banded 60 x 9000 split (against K2's plain version), 2^22-scaled and
+    cardinality > 2^16 at 9000; the limits (w1 16384 x w2 16256, w2
+    32767) against K2's global variant and the host DP; a 3564x1334
+    prof-prof and a lone 300x3850 (the 10,000-sequence family's wide
+    merges) against K2; K5, K4 and K6 on every merge, as in phase 3;
  3c. K4 and K6 at their kernels' edges (phase_edges): at each of
     EDGE_WIDTHS, a batch of 41 merges whose direction bytes are made from
     chosen paths (k4_edge_paths, path_matrix): widths at the window's
@@ -83,18 +90,30 @@ Phases (one line each; any mismatch or exception exits non-zero):
     (refinement AUTO = off) with -backend torch at the default knobs,
     against -backend numpy on the guide tree the torch -gt_export wrote;
     byte-identical, and K1 wave, K2 staged, K3 staged, K4, K5 and K6
-    launched as in phase 4, the route held to ResidencyWatch as there.  Prints
-    the stage seconds and the profile merges per route (host / K2 / K3);
+    launched as in phase 4, the route held to ResidencyWatch as there (the
+    numpy run in a child process beside phase 8's torch runs, so that no
+    phase-7 time shares the host with it).  Prints the stage seconds and
+    the profile merges per route (host / K2 / K3);
+ 6b. the wide family past 4095 columns (WIDE_FAMILY: 10,000 sequences of
+    mean length 600, seed 7, an alignment of 5906 columns) the same way,
+    its numpy reference (-gt import of the torch tree) in a child process
+    beside phase 8's; every DP launch on the variant its width selects, the
+    staged body on 9-16 folds launched at least once and K2's global
+    variant never.  Prints the stage seconds, the merges per route, the
+    device merges past 4095 columns on K3 and in K2 batches, and the DP
+    launches per variant with their CUDA-event totals and means;
  7. the chain route (ops/dp_chain.py): K7 (csrc/chain.cu) against
     chain_carry_plain on every case of its state (a step that ran, an
     overflow, a poisoned chain, an invalid lane, a failed walk, the fold
     after the last step), every word; one chunk's CUDA-graph replay
-    against the plain chunk on the same card buffers at a staged (K2) and
-    an L2 (K3) capacity, with an overflow forced mid-chunk and 26 trailing
-    invalid lanes: state, recorded widths, both carry buffers and every
-    path of a step that ran, its launches counted, no host read; then a
-    family of 4000 variants of one 800-residue protein (make_variants,
-    seed 5: its guide tree is one caterpillar of 3998 merges) through the
+    against the plain chunk on the same card buffers at a staged
+    capacity of 8 and of 9-16 folds (6 and 4 leaves, the other lanes of
+    32 invalid), with an overflow forced mid-chunk, and at the buckets
+    8191 (16 staged folds) and 16256 (the stripes body; 2 leaves) with DP
+    folds past the chain's width left dead: state, recorded widths, both
+    carry buffers and every path of a step that ran, its launches counted, no host read; then a
+    family of 2500 variants of one 800-residue protein (make_variants,
+    seed 5: its guide tree is one caterpillar of 2498 merges) through the
     CLI entry point with -backend torch at the default knobs (host merges
     below 1536 columns, then chunks), with FAMSA_TORCH_CHAIN_MIN_W2=0
     (every merge on chunks) and with FAMSA_TORCH_CHAIN=0 (one resident
@@ -109,7 +128,8 @@ Phases (one line each; any mismatch or exception exits non-zero):
     run (one each, for the record);
  8. the guide-tree methods and the distance export (TREE_RUNS) through
     the CLI entry point, -backend torch against -backend numpy byte for
-    byte (the numpy runs in three child processes beside the torch runs):
+    byte (the numpy runs in three child processes beside the torch runs,
+    with phases 6 and 6b's two):
     -gt slink, upgma and upgma_modified with -gt_export on phase 5's 2000
     sequences, -gt nj -gt_export on phase 4's 1000, -gt upgma aligned
     (refinement on) on the 1000, -dist_export, -dist_export -pid and
@@ -127,23 +147,30 @@ Phases (one line each; any mismatch or exception exits non-zero):
     seconds of torch and numpy, K1's launches, CUDA-event total and mean
     ms, its largest launch's ms and bound, and the peak device memory
     (with what the recorder held of it); then each torch tree and export
-    run again alone on the host (the numpy children ended), each
+    run again alone on the host (every numpy child ended), each
     byte-identical to its first run, and its seconds.
 Then a JSON line with every kernel variant's numbers, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
 
 Every kernel launch of the 1000-sequence default run, the -dist tree
-run, the 10,000-sequence run and phase 8's runs is timed with CUDA events
+run, the 10,000-sequence runs (phases 6 and 6b) and phase 8's runs is timed with CUDA events
 recorded around its C entry point on the launch stream; the JSON line
 gives each variant's launches, total ms and mean ms per run ("runs").  "ms" is a
 CUDA-event mean over repeated launches on the largest input the runs
 gave the variant, after it is held bit-exact against its plain version
-there; "launches" counts its launches in the run named by
-"launches_run" (the 1000-sequence default run; K1 rows: the -dist run).
-A variant that no main-path run launched (K2 global and K3 L2: every
-merge of these runs is at most 4095 columns wide) has launches 0 and is
-measured where "at" says: K2 global on the largest K2 batch of the runs,
-K3 L2 on phase 3b's lone 400x4000 merge.
+there (the DP variants against dp_plain, the row-serial plain version of
+the same function; phases 3 and 3b hold them against their fold walks
+too), and "plain_ms" that plain version's time; "launches" counts its launches in the run named by
+"launches_run" (the 1000-sequence default run; K1 rows: the -dist run;
+the DP variants past 4095 columns: phase 6b's run).  A variant that no
+main-path run launched has launches 0 and is measured where "at" says:
+K2 global (every batch of these runs is at most 32767 wide) on the
+largest K2 batch of the runs; K3's and K2's stripes bodies (no family
+that fits the smoke reaches 8192 columns) on phase 3b's lone 100 x
+14,000 merge and phase 3's batch with merges past 4095 and 8191; K2's
+staged body on 9-16 folds, if phase 6b launched none, on phase 3's batch
+of widest w2 5906.  The variants that share an entry point with another
+(the staged bodies on 9-16 folds) carry "[9-16 folds]" in their name.
 bound_ms is the larger of the bytes the call must move over 3.35 TB/s
 and the int32 instructions its arithmetic needs over the SM's issue
 rate of 128 lanes a clock (33.5e12/s: the data sheet's 67 TFLOP/s
@@ -451,19 +478,22 @@ def random_profile(rng, params, n_seqs, width, gap_frac=0.2):
     return prof
 
 
-def banded_case(rng, params):
-    """A refinement-style guided merge: align, split, condense, re-align
-    with the find_row_ranges band."""
+def banded_case(rng, params, w1=300, w2=320, split=None):
+    """A refinement-style guided merge: align profiles of 6 and 5
+    sequences of widths w1 and w2, split, condense, re-align with the
+    find_row_ranges band.  split: the first `split` sequences against the
+    rest (default: alternate ones)."""
     from famsa_tpu_torch.core.aligner import align_into
     from famsa_tpu_torch.core.profile import Profile
     from famsa_tpu_torch.core.dp_native import row_ranges
-    p1 = random_profile(rng, params, 6, 300)
-    p2 = random_profile(rng, params, 5, 320)
+    p1 = random_profile(rng, params, 6, w1)
+    p2 = random_profile(rng, params, 5, w2)
     dest = Profile(params)
     align_into(dest, p1, p2, backend="numpy")
     a, b = Profile(params), Profile(params)
     for k, gs in enumerate(dest.data):
-        (a if k % 2 == 0 else b).append_raw_sequence(gs)
+        first = k % 2 == 0 if split is None else k < split
+        (a if first else b).append_raw_sequence(gs)
     _, cm1 = a.condense()
     _, cm2 = b.condense()
     a.optimize_gaps()
@@ -477,7 +507,8 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
              variants=(None,)):
     """K2 against its plain versions on one batch, once per variant in
     `variants` (None: the one k2_variant picks): dp_plain, and for the
-    staged variant its fold walk dp_staged_plain too; full direction
+    staged and stripes variants their fold walk dp_staged_plain too; full
+    direction
     bytes (so D everywhere and H/V on [1:, 1:]), per-row finals, last,
     path and total; and path/total vs the native host DP (guided by
     `mappings`, the column mappings the bands came from).  Each launch
@@ -498,7 +529,7 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
     t0 = time.perf_counter()
     plains = {"dp_plain": [x.cpu().numpy() for x in dp_plain(*args, total)]}
     plain_ms = (time.perf_counter() - t0) * 1e3
-    if "staged" in variants:
+    if {"staged", "stripes"} & set(variants):
         plains["dp_staged_plain"] = [x.cpu().numpy() for x in
                                      dp_staged_plain(*args, total)]
     hosts = [dp_profile(params, p1, p2, *(mappings[k] if mappings else ()))
@@ -506,7 +537,7 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
     sides, hdr = stage0_check(params, pairs, bands, (colf, rowf, meta),
                               device, f"K2 {what}")
     for variant in variants:
-        key = "dp_staged" if variant == "staged" else "dp"
+        key = dp_key("K2", list(meta[:, 1]), variant)
         before = kernels.LAUNCHES[key]
         dirs_d, fin_d = dp_dirs(*args, total, variant=variant)
         if device == "cuda":
@@ -522,7 +553,7 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
             rk = finish_path(dk, w1, w2, fin_k[k, w1 - 1])
             natives.append(rk)
             for name, (dirs_p, fin_p) in plains.items():
-                if name == "dp_staged_plain" and variant != "staged":
+                if name == "dp_staged_plain" and variant == "global":
                     continue
                 dp_ = dirs_p[off:off + n].reshape(w1 + 1, w2 + 1)
                 if not np.array_equal(dk, dp_):
@@ -727,26 +758,50 @@ def k6_bound_ms(sides, hdr, paths, out):
     return bound(nbytes, 2 * 32 * int((w1 + w2).sum()))
 
 
-def staged_cluster_fit(shapes):
-    """{(folds, threads): clusters of the staged kernel that are resident
-    on the card at once} for each (folds, threads) of shapes, at the
-    launch's BLK (cudaOccupancyMaxActiveClusters)."""
+def staged_cluster_fit(shapes, stripe=1):
+    """{(folds, threads): clusters of the batched staged body (stripe 1)
+    or stripes body (2, 4) that are resident on the card at once} for each
+    (folds, threads) of shapes, at the launch's BLK
+    (cudaOccupancyMaxActiveClusters)."""
     from famsa_tpu_torch import kernels
     from famsa_tpu_torch.ops.dp_wide import BLK
     lib = kernels.get("dp_wide")
     fit = {}
     for folds, threads in shapes:
-        n = lib.dp_staged_max_clusters(folds, threads, BLK)
+        n = lib.dp_wide_max_clusters(folds, threads, stripe, BLK)
         if n < 0:
-            kernels.check(-n, "dp_staged_max_clusters")
+            kernels.check(-n, "dp_wide_max_clusters")
         fit[folds, threads] = n
     return fit
+
+
+# the DP variants' kernels.LAUNCHES keys: K2 staged on up to 8 folds and
+# on 9-16, stripes and global; K3 staged on up to 8 folds and on 9-16,
+# and stripes
+K2_KEYS = ("dp_staged", "dp_staged16", "dp_stripes", "dp")
+K3_KEYS = ("dp_wide", "dp_wide16", "dp_wide_stripes")
+DP_KEYS = K2_KEYS + K3_KEYS
+
+
+def dp_key(kernel, w2s, variant=None):
+    """The kernels.LAUNCHES key of a K2 launch on a batch of widths w2s
+    (kernel "K2") or of a K3 call on one (kernel "K3") of `variant`
+    (default: the one its wrapper picks)."""
+    from famsa_tpu_torch.ops import dp_torch, dp_wide
+    widest = int(max(w2s))
+    pick = dp_torch.k2_variant if kernel == "K2" else dp_wide.k3_variant
+    variant = variant or pick(widest)
+    if variant == "global":
+        return "dp"
+    return dp_wide.launch_key(kernel, variant,
+                              dp_wide.fold_geometry(widest)[0])
 
 
 def phase_k2(device="cuda", big=2048, card_big=70000):
     from famsa_tpu_torch.core.params import Params
     from famsa_tpu_torch.ops.dp_torch import dp_dirs
-    from famsa_tpu_torch.ops.dp_wide import STAGED_MAX_W2, staged_geometry
+    from famsa_tpu_torch.ops.dp_wide import staged_geometry
+    widest8 = 4095                  # the widest merge on 8 folds
     rng = np.random.default_rng(17)
     params = Params(device=device)
     params.adjust(1000)
@@ -773,7 +828,7 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
                  device, f"60x{w2}", variants=(None, "global"))
     # 16 merges crossing 1 to 8 folds of 512 columns, two of each count
     w2s = [200, 511, 600, 1023, 1100, 1535, 1600, 2047, 2100, 2559, 2600,
-           3071, 3100, 3583, 3700, STAGED_MAX_W2]
+           3071, 3100, 3583, 3700, widest8]
     geo = staged_geometry(w2s)
     if geo != (8, 512, [1 + k // 2 for k in range(16)]):
         raise AssertionError(f"K2 staged 16-merge batch geometry {geo}")
@@ -795,13 +850,40 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
              random_profile(rng, params, 9, big))]
     args, total, pms = dp_check(params, bigp, [None], device, f"{big}^2",
                                 variants=(None, "global"))
+    # past 4095 columns: the staged body on 9-16 folds (a batch whose
+    # widest merge is 5906 wide), the stripes body (one merge past 4095
+    # and one past 8191), banded and 2^22-scaled
+    wide_batches = {}
+    for what, shapes in (("staged16", [(4, 60, 3, 5906), (2, 40, 3, 300),
+                                       (1, 50, 5, 4100)]),
+                         ("stripes", [(3, 50, 4, 5000), (2, 40, 3, 300),
+                                      (1, 60, 2, 9000)])):
+        pairs = [(random_profile(rng, params, n1, w1,
+                                 0.0 if n1 == 1 else 0.2),
+                  random_profile(rng, params, n2, w2))
+                 for n1, w1, n2, w2 in shapes]
+        wide_batches[what] = dp_check(params, pairs, [None] * len(pairs),
+                                      device, f"{what} batch {shapes}",
+                                      variants=(None, "global"))
+    a, b, cms, band = banded_case(rng, params, 60, 9000, split=6)
+    dp_check(params, [(a, b), (random_profile(rng, params, 3, 40),
+                               random_profile(rng, params, 2, 200))],
+             [band, None], device, f"banded {a.width}x{b.width}", [cms, ()])
+    dp_check(big_params, [(random_profile(rng, big_params, 3, 60),
+                           random_profile(rng, big_params, 2, w2))
+                          for w2 in (8500, 300)], [None] * 2, device,
+             "2^22-scaled stripes")
     msg = (f"phase 3 K2: staged bit-exact vs dp_plain and dp_staged_plain "
            f"(dirs, finals, last, path, total) and path/total = native host "
            f"DP on 8 mixed merges <= 512^2 (1 seq-prof), 1 banded, 1 of card "
            f"{card_big}, 60x700, 60x1500, 16 merges of folds 1-8 (w2 up to "
-           f"{STAGED_MAX_W2}), w2={on_edge}/{past_edge} (fold edge), "
-           f"2^22-scaled, 1 of {big}x{big}; global bit-exact vs dp_plain on "
-           f"60x700, 60x1500, 60x5000, the mixed batch and {big}x{big}")
+           f"{widest8}), w2={on_edge}/{past_edge} (fold edge), "
+           f"2^22-scaled, 1 of {big}x{big}; past 4095 columns (staged on 9-16 "
+           f"folds, stripes; both also vs global) on a batch widest 5906, one "
+           f"with merges past 4095 and 8191, a banded batch of "
+           f"{a.width}x{b.width}, 2^22-scaled w2 8500; global bit-exact vs "
+           f"dp_plain on 60x700, 60x1500, 60x5000, the mixed batch and "
+           f"{big}x{big}")
     if device == "cuda":
         st = cuda_ms(lambda: dp_dirs(*args, total, variant="staged"), 5)
         gl = cuda_ms(lambda: dp_dirs(*args, total, variant="global"), 3)
@@ -812,16 +894,35 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
                        5)
         bms16, _ = dp_bound_ms(*args16, total16)
         fit = staged_cluster_fit([(f, t) for t in (512, 256)
-                                  for f in range(1, 9)])
+                                  for f in range(1, 17)])
+        sfit = {s: staged_cluster_fit([(16, 512)], s)[16, 512]
+                for s in (2, 4)}
         msg += (f"; {big}x{big}: staged {st:.3f} ms "
                 f"({big * big / st * 1e3:.4g} cells/s), global {gl:.3f} ms, "
                 f"plain {pms:.1f} ms, bound {bms:.4f} ms; 16 merges of 1-8 "
                 f"folds: staged {st16:.3f} ms, global {gl16:.3f} ms, bound "
                 f"{bms16:.4f} ms; staged clusters resident at once by folds "
-                f"1..8: 512 threads "
-                f"{[fit[f, 512] for f in range(1, 9)]}, 256 threads "
-                f"{[fit[f, 256] for f in range(1, 9)]}")
+                f"1..16: 512 threads "
+                f"{[fit[f, 512] for f in range(1, 17)]}, 256 threads "
+                f"{[fit[f, 256] for f in range(1, 17)]}; stripes clusters of "
+                f"16 folds of 512 threads: S=2 {sfit[2]}, S=4 {sfit[4]}")
+        if min(fit[f, 512] for f in range(1, 17)) < 1 or min(sfit.values()) < 1:
+            raise AssertionError("a cluster of the DP's folds fits nowhere on "
+                                 "the card")
+    for what, (wargs, wtotal, _) in wide_batches.items():
+        if device == "cuda":
+            k = cuda_ms(lambda: dp_dirs(*wargs, wtotal), 5)
+            g = cuda_ms(lambda: dp_dirs(*wargs, wtotal, variant="global"), 5)
+            bms_w, _ = dp_bound_ms(*wargs, wtotal)
+            msg += (f"; {what} batch: {k:.3f} ms, global {g:.3f} ms, bound "
+                    f"{bms_w:.4f} ms")
     log(msg)
+    return {"dp_staged16": ("phase 3's batch of widest w2 5906",
+                            (*wide_batches["staged16"][0],
+                             wide_batches["staged16"][1])),
+            "dp_stripes": ("phase 3's batch with merges past 4095 and 8191",
+                           (*wide_batches["stripes"][0],
+                            wide_batches["stripes"][1]))}
 
 
 # ----------------------------------------------------------------------
@@ -831,7 +932,8 @@ def wide_check(params, p1, p2, band, device, what, mapping=None,
     """K3 (its `variant`, default the one k3_variant picks) on one merge
     against each of refs on the same inputs ("plain": its plain version,
     the fold wavefront; "dp_plain": K2's plain version; "K2": kernel K2,
-    held against its plain version in phase 3): every direction byte, the
+    "K2 global": its global variant, each held against its plain version
+    in phase 3): every direction byte, the
     per-row finals, last, path and total; and path/total against the
     native host DP (guided by `mapping`).  Returns the packed inputs on
     the device and K3's and each ref's wall ms."""
@@ -843,8 +945,9 @@ def wide_check(params, p1, p2, band, device, what, mapping=None,
     from famsa_tpu_torch.ops.dp_wide import (dp_dirs_wide, dp_wide_plain,
                                              k3_variant)
     variant = variant or k3_variant(p2.width)
-    key = "dp_wide" if variant == "staged" else "dp_wide_l2"
+    key = dp_key("K3", [p2.width], variant)
     fns = {"plain": dp_wide_plain, "dp_plain": dp_plain, "K2": dp_dirs,
+           "K2 global": lambda *a: dp_dirs(*a, variant="global"),
            "K3": lambda *a: dp_dirs_wide(*a, variant=variant)}
     colf, rowf, meta, total = pack_batch([prepare_merge(params, p1, p2, band)])
     args = [torch.from_numpy(x).to(device) for x in (colf, rowf, meta)]
@@ -915,8 +1018,11 @@ def scaled_params(device, shift=22):
     return big
 
 
-def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
+def phase_k3(device="cuda", lone=(400, 4000), limit=(16384, 16256),
              card_big=70000):
+    """K3's variants against their plain versions and the host DP;
+    returns the stand-in inputs of the stripes body for the kernel report
+    (phase 3b's lone 100 x 14,000 merge)."""
     from famsa_tpu_torch.core.params import Params
     from famsa_tpu_torch.ops.dp_torch import dp_dirs
     from famsa_tpu_torch.ops.dp_wide import (MAX_W2, STAGED_MAX_W2,
@@ -929,10 +1035,8 @@ def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
              ("2 folds", (5, 180, 4, 400)),
              (f"w2={on_edge} on a fold edge", (4, 90, 3, on_edge)),
              (f"w2={past_edge} one past it", (4, 90, 3, past_edge)),
-             (f"{chain[0]}x{chain[1]} prof-prof", (40, chain[0], 300,
-                                                   chain[1])),
-             (f"widest staged fold 300x{STAGED_MAX_W2}",
-              (20, 300, 10, STAGED_MAX_W2))]
+             (f"{lone[0]}x{lone[1]} prof-prof", (40, lone[0], 300, lone[1])),
+             (f"widest 8-fold staged 300x4095", (20, 300, 10, 4095))]
     folds = []
     for what, (n1, w1, n2, w2) in cases:
         p1 = random_profile(rng, params, n1, w1, 0.0 if n1 == 1 else 0.2)
@@ -940,9 +1044,7 @@ def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
         folds.append(fold_geometry(w2)[0])
         args, total, _ = wide_check(params, p1, p2, None, device, what)
         if what.endswith("prof-prof"):
-            chain_args = (args, total)
-            # the L2 variant on the same merge
-            wide_check(params, p1, p2, None, device, what, variant="l2")
+            lone_args = (args, total)
     # the largest K3 merge of the main path's shape (its plain versions
     # run on the runs' own largest call, in the kernel report), and a lone
     # merge of the 10,000-sequence family's shape (K4 and K6 held there)
@@ -954,42 +1056,72 @@ def phase_k3(device="cuda", chain=(400, 4000), limit=(16384, 16256),
                "lone 300x3850", refs=("K2",))
     a, b, cms, band = banded_case(rng, params)
     wide_check(params, a, b, band, device, "banded", cms)
-    wide_check(params, a, b, band, device, "banded", cms, variant="l2")
     wide_check(params, random_profile(rng, params, card_big, 24, 0.1),
                random_profile(rng, params, 4, 700), None, device,
                f"card {card_big}")
     big = scaled_params(device)
-    for w2 in (3000, 6000):          # staged, then the L2 variant
-        wide_check(big, random_profile(rng, big, 3, 100),
-                   random_profile(rng, big, 2, w2), None, device,
-                   f"2^22-scaled 100x{w2}")
+    wide_check(big, random_profile(rng, big, 3, 100),
+               random_profile(rng, big, 2, 3000), None, device,
+               "2^22-scaled 100x3000")
     if folds[0] != 1 or folds[1] != 2 or max(folds) != 8:
         raise AssertionError(f"K3 cases cover folds {folds}, not 1, 2, 8")
     msg = (f"phase 3b K3: staged bit-exact vs its plain version and K2's "
            f"(dirs, finals, last, path, total) and path/total = native host "
            f"DP on {', '.join(w for w, _ in cases)} (folds {folds}), "
            f"3564x1334 and lone 300x3850 (= K2 and host DP), banded, "
-           f"card {card_big}, 2^22-scaled 100x3000; L2 variant on "
-           f"{chain[0]}x{chain[1]}, banded, 2^22-scaled 100x6000")
-    lims = [limit, (64, MAX_W2)]
-    for w1, w2 in lims:
+           f"card {card_big}, 2^22-scaled 100x3000")
+    # past 4095 columns: lone merges on 9-16 staged folds and on the
+    # stripes body against the fold walk, K2's plain version and the host
+    # DP; banded, 2^22-scaled and cardinality > 2^16 there; the limits
+    # against K2's global variant and the host DP
+    wide = []
+    for n1, w1, n2, w2 in ((1, 120, 30, 4096), (20, 80, 10, STAGED_MAX_W2),
+                           (1, 100, 10, STAGED_MAX_W2 + 1),
+                           (1, 100, 10, 14000), (20, 64, 10, 16256)):
+        p1 = random_profile(rng, params, n1, w1, 0.0 if n1 == 1 else 0.2)
+        p2 = random_profile(rng, params, n2, w2)
+        args, total, t = wide_check(params, p1, p2, None, device,
+                                    f"{w1}x{w2}")
+        wide.append((w1, w2, fold_geometry(w2), args, total, t))
+    a, b, cms, band = banded_case(rng, params, 60, 9000, split=6)
+    wide_check(params, a, b, band, device, f"banded {a.width}x{b.width}",
+               cms, refs=("dp_plain",))
+    banded_w = (a.width, b.width)
+    for w2 in (6000, 9000):
+        wide_check(big, random_profile(rng, big, 3, 100),
+                   random_profile(rng, big, 2, w2), None, device,
+                   f"2^22-scaled 100x{w2}")
+    wide_check(params, random_profile(rng, params, card_big, 24, 0.1),
+               random_profile(rng, params, 4, 9000), None, device,
+               f"card {card_big} x 9000")
+    msg += ("; past 4095 columns bit-exact vs the plain version, K2's and "
+            "the host DP: " + ", ".join(
+                f"{w1}x{w2} {geo}" for w1, w2, geo, _, _, _ in wide)
+            + f", banded {banded_w[0]}x{banded_w[1]} (vs K2's plain version"
+            f"), 2^22-scaled 100x6000 and 100x9000, card {card_big} x 9000")
+    for w1, w2 in [limit, (64, MAX_W2)]:
         _, _, t = wide_check(params, random_profile(rng, params, 4, w1),
                              random_profile(rng, params, 3, w2), None, device,
-                             f"{w1}x{w2}", refs=("K2",))
-        msg += (f"; L2 {w1}x{w2} (geometry {fold_geometry(w2)}) = K2 and host "
-                f"DP, call ms K3 {t['K3']:.1f} K2 {t['K2']:.1f}")
+                             f"{w1}x{w2}", refs=("K2 global",))
+        msg += (f"; {w1}x{w2} (geometry {fold_geometry(w2)}) = K2 global and "
+                f"host DP, call ms K3 {t['K3']:.1f} K2 global "
+                f"{t['K2 global']:.1f}")
     if device == "cuda":
-        args, total = chain_args
+        args, total = lone_args
         k3 = cuda_ms(lambda: dp_dirs_wide(*args, total), 5)
-        l2 = cuda_ms(lambda: dp_dirs_wide(*args, total, variant="l2"), 5)
         k2 = cuda_ms(lambda: dp_dirs(*args, total), 5)
-        cells = chain[0] * chain[1]
-        msg += (f"; lone {chain[0]}x{chain[1]}: K3 staged {k3:.3f} ms "
-                f"({cells / k3 * 1e3:.4g} cells/s), L2 {l2:.3f} ms, K2 "
-                f"{k2:.3f} ms")
+        cells = lone[0] * lone[1]
+        msg += (f"; lone {lone[0]}x{lone[1]}: K3 staged {k3:.3f} ms "
+                f"({cells / k3 * 1e3:.4g} cells/s), K2 {k2:.3f} ms")
+        for w1, w2, geo, args, total, t in wide:
+            k3 = cuda_ms(lambda: dp_dirs_wide(*args, total), 5)
+            bms, _ = dp_bound_ms(*args, total)
+            msg += (f"; {w1}x{w2}: {k3:.3f} ms, bound {bms:.5f} ms, plain "
+                    f"{t['plain']:.0f} ms")
     log(msg)
-    args, total = chain_args
-    return (*args, total)
+    stand = next(x for x in wide if x[1] == 14000)
+    return {"dp_wide_stripes": (f"phase 3b's lone {stand[0]}x{stand[1]}",
+                                (*stand[3], stand[4]))}
 
 
 # ----------------------------------------------------------------------
@@ -1261,21 +1393,21 @@ def stage_report(name, secs, stats, counts):
             f"alignment {float(st['time.alignment']):.2f}, refinement "
             f"{float(st['time.refinement']):.2f}), launches K1 rows "
             f"{counts['lcs']} wave {counts['lcs_wave']} K2 staged "
-            f"{counts['dp_staged']} global {counts['dp']} K3 staged "
-            f"{counts['dp_wide']} L2 {counts['dp_wide_l2']} K4 "
-            f"{counts['traceback']} K5 {counts['stage0']} K6 "
-            f"{counts['merged']}")
+            f"{counts['dp_staged']} staged16 {counts['dp_staged16']} stripes "
+            f"{counts['dp_stripes']} global {counts['dp']} K3 staged "
+            f"{counts['dp_wide']} staged16 {counts['dp_wide16']} stripes "
+            f"{counts['dp_wide_stripes']} K4 {counts['traceback']} K5 "
+            f"{counts['stage0']} K6 {counts['merged']}")
 
 
 def check_launches(what, counts, needed, rec, prim=True):
     """Each run must launch the kernels it is meant to exercise.  Every
     Prim round's LCS (a single reference) goes to K1's wave variant, so a
     run that builds the default guide tree (prim) launches no rows
-    variant; every
-    K2 launch whose widest w2 is <= STAGED_MAX_W2 and every K3 call at w2
-    <= STAGED_MAX_W2 must have gone to the staged variant (rec holds the
-    widths of the run's K2 and K3 calls)."""
-    from famsa_tpu_torch.ops.dp_wide import STAGED_MAX_W2
+    variant; every K2 launch and K3 call must have gone to the variant
+    its widest w2 selects (dp_key: staged on up to 8 folds to 4095,
+    on 9-16 folds to 8191, stripes to 32767, K2 global past it; rec holds
+    the widths of the run's K2 and K3 calls)."""
     missing = [k for k in needed if counts[k] == 0]
     if missing:
         raise AssertionError(f"{what}: kernels {missing} were never "
@@ -1283,15 +1415,14 @@ def check_launches(what, counts, needed, rec, prim=True):
     if prim and "lcs_wave" in needed and counts["lcs"]:
         raise AssertionError(f"{what}: Prim rounds launched K1's rows "
                              f"variant: {counts}")
-    for name, calls, keys in (("K2", rec.k2_calls, ("dp_staged", "dp")),
-                              ("K3", rec.wide_calls,
-                               ("dp_wide", "dp_wide_l2"))):
-        staged = sum(w2 <= STAGED_MAX_W2 for w2 in calls)
-        if (staged, len(calls) - staged) != (counts[keys[0]],
-                                             counts[keys[1]]):
-            raise AssertionError(f"{what}: {staged} {name} calls at w2 <= "
-                                 f"{STAGED_MAX_W2} and {len(calls) - staged}"
-                                 f" wider, launches {counts}")
+    for name, calls, keys in (("K2", rec.k2_calls, K2_KEYS),
+                              ("K3", rec.wide_calls, K3_KEYS)):
+        want = dict.fromkeys(keys, 0)
+        for w2 in calls:
+            want[dp_key(name, [w2])] += 1
+        if want != {k: counts[k] for k in keys}:
+            raise AssertionError(f"{what}: {name} calls by variant "
+                                 f"{want}, launches {counts}")
 
 
 class ResidencyWatch:
@@ -1404,8 +1535,7 @@ class ResidencyWatch:
         every merged-counter dispatch's counters from K6, only paths came
         down, and exactly the sides a device merge produced were
         resident."""
-        dp = (counts["dp"] + counts["dp_staged"] + counts["dp_wide"]
-              + counts["dp_wide_l2"])
+        dp = sum(counts[k] for k in DP_KEYS)
         if dp != self.dispatches:
             raise AssertionError(f"{what}: {dp} K2 launches and K3 calls "
                                  f"for {self.dispatches} dispatches")
@@ -1605,51 +1735,111 @@ class RouteCounter:
         pipeline.split_wide, pipeline.align_into = split_wide, align_into
 
 
-def phase_wide(work, recorder, watch, device="cuda", n=10000, mean_len=300):
-    """The wide path; the recorder times every kernel launch of the
-    default torch run ("10000")."""
-    fa = os.path.join(work, "fam_wide.fa")
+# the wide families: phase 6's (sequences, mean length, seed), and phase
+# 6b's past 4095 columns (scripts/make_family.py 10000 600 f.fa 7: its
+# alignment is 5906 columns)
+WIDE_300 = (10000, 300, 7)
+WIDE_FAMILY = (10000, 600, 7)
+
+
+def phase_wide(work, recorder, watch, device="cuda", family=WIDE_300,
+               run="10000", label="6 wide path"):
+    """Phases 6 and 6b: the wide path of a family, refinement off.  The
+    torch run at the default knobs (its launches recorded as `run`), then
+    -backend numpy on the torch tree (-gt import) started as a child
+    process by the returned function's start(); the function waits for
+    it, checks the output byte for byte and logs the phase (phase 8
+    starts the children of phases 6 and 6b beside its own, whose torch
+    seconds it takes again alone, so that they contend with no timed
+    run of phase 7).  The
+    run past 4095 columns ("wide600") must launch the staged body on
+    9-16 folds and never K2's global variant."""
+    n, mean_len, seed = family
+    fa = os.path.join(work, f"fam_{run}.fa")
     with open(fa, "w") as f:
-        f.write(make_family(n, mean_len, 7))
-    tree = os.path.join(work, "wide.dnd")
+        f.write(make_family(n, mean_len, seed))
+    tree = os.path.join(work, f"{run}.dnd")
     torch_flags = ["-backend", "torch", "-device", device]
     rc, t_tree = run_cli(torch_flags + ["-gt_export", fa, tree], {})
     if rc != 0:
-        raise AssertionError(f"wide path gt_export: rc={rc}")
+        raise AssertionError(f"wide family gt_export: rc={rc}")
     routes = RouteCounter()
-    outs, report = {}, []
-    for name, flags in (("torch", torch_flags),
-                        ("numpy", ["-backend", "numpy", "-gt", "import",
-                                   tree])):
-        out = os.path.join(work, f"wide_{name}.fa")
-        stats = os.path.join(work, f"wide_stats_{name}.txt")
-        routes.active = name == "torch"
-        rc, secs, counts, route = run_torch(
-            f"wide path {name}", flags + ["-stats", stats, fa, out], {},
-            recorder, watch, "10000" if name == "torch" else None, False,
-            device)
-        routes.active = False
-        if rc != 0:
-            raise AssertionError(f"wide path {name}: rc={rc}")
-        if name == "torch" and device == "cuda":
-            check_launches("wide path torch", counts, DEFAULT_KERNELS,
-                           recorder)
-        with open(out, "rb") as f:
-            outs[name] = f.read()
-        report.append(stage_report(name, secs, stats, counts) + route)
-    if outs["torch"] != outs["numpy"]:
-        raise AssertionError("wide path: torch output differs from numpy")
+    out = os.path.join(work, f"{run}_torch.fa")
+    stats = os.path.join(work, f"{run}_stats_torch.txt")
+    routes.active = True
+    rc, secs, counts, route = run_torch(
+        f"{label} torch", torch_flags + ["-stats", stats, fa, out], {},
+        recorder, watch, run, False, device)
+    routes.active = False
+    if rc != 0:
+        raise AssertionError(f"{label} torch: rc={rc}")
+    k3_past = sum(w2 > 4095 for w2 in recorder.wide_calls)
+    k2_past = sum(w2 > 4095 for w2 in recorder.k2_merges)
+    widest = max(recorder.wide_calls + recorder.k2_merges, default=0)
+    if device == "cuda":
+        check_launches(f"{label} torch", counts, DEFAULT_KERNELS, recorder)
+        if run == "wide600" and (
+                counts["dp_wide16"] + counts["dp_staged16"] == 0
+                or counts["dp"]):
+            raise AssertionError(f"{label} torch: the 9-16-fold staged "
+                                 f"body launched {counts['dp_wide16']} + "
+                                 f"{counts['dp_staged16']} times, K2 global "
+                                 f"{counts['dp']}")
+    report = stage_report("torch", secs, stats, counts) + route
+    np_out = os.path.join(work, f"{run}_numpy.fa")
+    np_stats = os.path.join(work, f"{run}_stats_numpy.txt")
+    refs = []
+
+    def start():
+        refs.append(NumpyRefs(work, [(run, ["-gt", "import", tree, "-stats",
+                                            np_stats, fa, np_out])], width=1))
+
+    def close():
+        for r in refs:
+            r.close()
+    variants = ", ".join(
+        f"{k} {v[0]} launches, {v[1]:.3f} ms in all, "
+        f"{v[2] or 0:.5f} ms mean" for k, v in
+        ((k, recorder.totals(run, k)) for k in DP_KEYS)
+        if v[0]) if device == "cuda" else ""
     c = routes.counts
-    log(f"phase 6 wide path ({n} seqs, mean len {mean_len}, refinement "
-        f"off): torch byte-identical to numpy on the torch tree "
-        f"(-gt_export {t_tree:.2f} s); profile merges per route: host "
-        f"{c['host']}, K2 {c['K2']}, K3 {c['K3']}; " + "; ".join(report))
+    recorder_calls = {"wide": list(recorder.wide_calls),
+                      "k2": list(recorder.k2_merges)}
+
+    def finish():
+        if not refs:
+            start()
+        t0 = time.perf_counter()
+        try:
+            refs[0].wait_all()
+        finally:
+            close()
+        waited = time.perf_counter() - t0
+        with open(out, "rb") as f, open(np_out, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{label}: torch output differs from "
+                                     "numpy")
+        st = read_stats(np_stats)
+        with open(out) as f:
+            width = len("".join(f.read().split(">", 2)[1].splitlines()[1:]))
+        log(f"phase {label} ({n} seqs, mean len {mean_len}, seed "
+            f"{seed}, alignment {width} columns, refinement off): torch "
+            f"byte-identical to numpy on the torch tree (-gt_export "
+            f"{t_tree:.2f} s); profile merges per route: host {c['host']}, "
+            f"K2 {c['K2']}, K3 {c['K3']}; device merges past 4095 columns: "
+            f"K3 {k3_past} of {len(recorder_calls['wide'])}, K2 {k2_past} of "
+            f"{len(recorder_calls['k2'])} (widest w2 {widest}); {report}; DP "
+            f"launches by variant (CUDA events) {variants}; numpy: alignment "
+            f"{float(st['time.alignment']):.2f} s (beside phase 8's torch "
+            f"and numpy runs; waited {waited:.1f} s after them)")
+    finish.start, finish.close = start, close
+    return finish
 
 
 # ----------------------------------------------------------------------
 # the chain route
 # the variant family of phase 7: variants, root length, seed, indel rate
-CHAIN_FAMILY = (4000, 800, 5, 0.6)
+CHAIN_FAMILY = (2500, 800, 5, 0.6)
 CHAIN_WIDTHS = 256          # width bucket of the per-merge times
 
 
@@ -1729,13 +1919,15 @@ def chain_case(params, seed, width, n_leaves=6):
     return start, leaves
 
 
-def chunk_check(params, device, seed, width, cap=None, k=32, w1p=1024):
+def chunk_check(params, device, seed, width, cap=None, k=32, w1p=1024,
+                n_leaves=6):
     """One chunk's graph replay against the plain chunk on the card: a
-    chain of `width` columns and 6 leaves in a chunk of k lanes (26
-    trailing invalid lanes).  With no `cap`, at a capacity equal to the
+    chain of `width` columns and n_leaves leaves in a chunk of k lanes
+    (k - n_leaves trailing invalid lanes).  With no `cap`, at a capacity
+    equal to the
     host route's width after the last step that the next one widens, so
     that one overflows it and poisons the steps after it; with a `cap`
-    (a CHAIN_CAPS bucket well past the chain's width), all 6 steps run
+    (a CHAIN_CAPS bucket well past the chain's width), all steps run
     and the DP's folds past the width are dead.  The state, the recorded
     widths, both carry buffers and every path of a step that ran must be
     equal; the resolved results stop at the overflow.  Then the chunk is
@@ -1749,9 +1941,9 @@ def chunk_check(params, device, seed, width, cap=None, k=32, w1p=1024):
     from famsa_tpu_torch.core.aligner import align_into
     from famsa_tpu_torch.core.profile import Profile
     from famsa_tpu_torch.ops import dp_chain
-    from famsa_tpu_torch.ops.dp_wide import fold_geometry, staged_geometry
+    from famsa_tpu_torch.ops.dp_wide import fold_geometry, launch_key
     from famsa_tpu_torch.ops.traceback_torch import PATH_TRAILER
-    start, leaves = chain_case(params, seed, width)
+    start, leaves = chain_case(params, seed, width, n_leaves)
     prof, widths = copy.deepcopy(start), []
     for leaf in copy.deepcopy(leaves):
         prof = align_into(Profile(params), leaf, prof, backend="numpy")
@@ -1765,12 +1957,9 @@ def chunk_check(params, device, seed, width, cap=None, k=32, w1p=1024):
         if widths[-1] > cap:
             raise AssertionError(f"chain chunk at {cap}: the chain reaches "
                                  f"{widths[-1]} columns")
-    # the DP's folds holding a column of each step's merge (K3 L2's F)
-    if dp_chain.dp_variant(cap) == "staged":
-        folds, fw = staged_geometry([cap])[:2]
-    else:
-        folds, threads, stripe = fold_geometry(cap)
-        fw = threads * stripe
+    # the DP's folds holding a column of each step's merge (its F)
+    folds, threads, stripe = fold_geometry(cap)
+    fw = threads * stripe
     live = [min(folds, (w2 + fw) // fw)
             for w2 in [start.width] + widths[:ran - 1]]
     dev = torch.device(device)
@@ -1794,7 +1983,7 @@ def chunk_check(params, device, seed, width, cap=None, k=32, w1p=1024):
     res = pend.resolve()
     torch.cuda.synchronize()
     variant = dp_chain.dp_variant(cap)
-    dp = "dp_staged" if variant == "staged" else "dp_wide_l2"
+    dp = launch_key("K2", variant, folds)
     # the warm-up launch sequence and the replay
     for key, times in (("stage0", 2 * k), (dp, 2 * k), ("traceback", 2 * k),
                        ("merged", 2 * k), ("chain", 2 * (k + 1))):
@@ -2033,9 +2222,7 @@ def chunk_split(graph, restore):
     import torch
     from famsa_tpu_torch import kernels
     entries = {"K5": ("stage0", "stage0_chain"),
-               "DP": ("dp_wide", "dp_profile_batched_staged"
-                      if graph.variant == "staged"
-                      else "dp_profile_wide_l2_meta"),
+               "DP": ("dp_wide", f"dp_profile_batched_{graph.variant}"),
                "K4": ("traceback", "trace_paths"),
                "K6": ("merged", "merged_counters"),
                "K7": ("chain", "chain_carry")}
@@ -2085,7 +2272,8 @@ def k7_device_ms(bufs, step, cap, n=100):
 
 def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
     """The chain route (ops/dp_chain.py): K7 against its plain twin, one
-    chunk's graph against the plain chunk at a staged and an L2 capacity,
+    chunk's graph against the plain chunk at staged capacities of 8, 12
+    and 16 folds and at a stripes one,
     and the variant family through the CLI entry point with -backend
     torch at the default knobs, with FAMSA_TORCH_CHAIN_MIN_W2=0 (all
     chain) and with FAMSA_TORCH_CHAIN=0 (one resident dispatch a merge,
@@ -2099,14 +2287,17 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
     params = Params(device=device)
     params.adjust(family[0])
     k7_bufs, k7_step, k7_cap, k7_err, k7_plain = k7_check(device)
-    # an overflow at a staged and at an L2 capacity, then the buckets past
-    # 4095 columns that chains reach with folds left dead (8 folds of
-    # 1024 and of 2048 columns)
+    # an overflow at a staged capacity of 8 and of 12 folds, then the
+    # buckets past 4095 columns that chains reach with folds left dead
+    # (16 staged folds of 512 columns, 16 stripes folds of 1024)
     checks = [chunk_check(params, device, 41, 3400),
-              chunk_check(params, device, 43, 5600),
-              chunk_check(params, device, 47, 3600, cap=8191),
-              chunk_check(params, device, 53, 5000, cap=16256)]
-    if [c[1] for c in checks] != ["staged", "l2", "l2", "l2"]:
+              chunk_check(params, device, 43, 5600, n_leaves=4),
+              chunk_check(params, device, 47, 3600, cap=8191, n_leaves=2),
+              chunk_check(params, device, 53, 5000, cap=16256, n_leaves=2)]
+    folds = [c[5][1] for c in checks]
+    if [c[1] for c in checks] != ["staged", "staged", "staged", "stripes"] \
+            or folds[0] > 8 or not 8 < folds[1] <= 16 \
+            or folds[2:] != [16, 16]:
         raise AssertionError(f"chain chunk checks at {checks}")
     if any(c[2] is None for c in checks[:2]) or any(
             max(c[5][0]) >= c[5][1] for c in checks[2:]):
@@ -2158,7 +2349,8 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
             chain_ms = watch.chain_by_width()
             replay_ms = watch.replay_ms()
             saved = time_saved_chunk(watch)
-            saved_steps, saved_plain_ms = saved_chunk_check(params, watch)
+            saved_steps, saved_plain_ms = saved_chunk_check(params, watch,
+                                                            steps=2)
         if name in ("default", "chain"):
             # the default run's tail passes the width floor in the full
             # family; a reduced one may stay below it
@@ -2174,7 +2366,7 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
             need = ("chain", "stage0", "traceback", "merged")
             if ch["merges"] and (
                     any(counts[k] == 0 for k in need)
-                    or counts["dp_staged"] + counts["dp_wide_l2"] == 0):
+                    or sum(counts[k] for k in K2_KEYS) == 0):
                 raise AssertionError(f"variants {name}: the chain's kernels "
                                      f"were not all launched: {counts}")
         elif name != "numpy" and ch["runs"]:
@@ -2191,7 +2383,8 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
         f"graph = plain chunk (state, widths, carry, paths) at capacities "
         f"{[c[:2] for c in checks]} with the overflow at steps "
         f"{[c[2] for c in checks]} (live DP folds a step of those launched "
-        f"{[c[5] for c in checks]}) and 26 invalid lanes, no host read, "
+        f"{[c[5] for c in checks]}) and {[32 - n for n in (6, 4, 2, 2)]} "
+        f"invalid lanes, no host read, "
         f"replay ms {[round(c[3], 4) for c in checks]} against plain chunk "
         f"ms {[round(c[4], 1) for c in checks]}; the all-chain run's saved "
         f"chunk = plain chunk over its first steps (w1, w2) {saved_steps} "
@@ -2358,7 +2551,7 @@ def k1_text(rec, run, largest):
     return ", ".join(parts)
 
 
-def phase_trees(work, recorder, watch, device="cuda"):
+def phase_trees(work, recorder, watch, device="cuda", wide=()):
     """Every guide-tree method, the PartTree/MedoidTree heuristic and the
     distance export through the CLI entry point (TREE_RUNS), -backend
     torch against -backend numpy byte for byte (the numpy runs as child
@@ -2369,7 +2562,9 @@ def phase_trees(work, recorder, watch, device="cuda"):
     alignments are held to ResidencyWatch as in phase 4.  Then each tree
     and export run of torch again, alone on the host, byte-identical to
     its first run.  The recorder times every K1 launch of each first run
-    (run names: TREE_RUNS' names)."""
+    (run names: TREE_RUNS' names).  `wide`: phase_wide's finishers,
+    whose numpy children start with phase 8's and are checked before the
+    runs alone."""
     import gc
     import torch
     from famsa_tpu_torch import kernels
@@ -2378,7 +2573,7 @@ def phase_trees(work, recorder, watch, device="cuda"):
     if clash:
         raise AssertionError(f"phase 8 runs {clash} would overwrite the "
                              "recorder's earlier runs")
-    fams = {"1000": "fam.fa", "2000": "fam_tree.fa", "10000": "fam_wide.fa",
+    fams = {"1000": "fam.fa", "2000": "fam_tree.fa", "10000": "fam_10000.fa",
             "3000": "fam_3000.fa"}
     fams = {k: os.path.join(work, v) for k, v in fams.items()}
     with open(fams["3000"], "w") as f:
@@ -2391,6 +2586,8 @@ def phase_trees(work, recorder, watch, device="cuda"):
     # the longest numpy runs first
     order = sorted(TREE_RUNS, key=lambda r: ("align" not in r[0],
                                              r[1] != "10000"))
+    for finish in wide:
+        finish.start()
     refs = NumpyRefs(work, [(name, argv(name, fam, flags, "numpy"))
                             for name, fam, flags, _, _ in order])
     torch_flags = ["-backend", "torch", "-device", device]
@@ -2455,8 +2652,12 @@ def phase_trees(work, recorder, watch, device="cuda"):
                           + f", left allocated {held} bytes"))
             refs.poll()
         refs.wait_all()
+        for finish in wide:
+            finish()
     finally:
         refs.close()
+        for finish in wide:
+            finish.close()
     report = []
     for name, st, text in lines:
         outs = []
@@ -2510,11 +2711,20 @@ VARIANTS = {
     "dp_staged": ("dp_wide", "dp_profile_batched_staged",
                   "famsa_tpu_torch/csrc/dp_wide.cu",
                   "famsa_tpu/ops/dp_pallas.py:186"),
+    "dp_staged16": ("dp_wide", "dp_profile_batched_staged",
+                    "famsa_tpu_torch/csrc/dp_wide.cu",
+                    "famsa_tpu/ops/dp_pallas.py:186"),
+    "dp_stripes": ("dp_wide", "dp_profile_batched_stripes",
+                   "famsa_tpu_torch/csrc/dp_wide.cu",
+                   "famsa_tpu/ops/dp_pallas.py:186"),
     "dp_wide": ("dp_wide", "dp_profile_wide", "famsa_tpu_torch/csrc/dp_wide.cu",
                 "famsa_tpu/ops/dp_giant.py:90"),
-    "dp_wide_l2": ("dp_wide", "dp_profile_wide_l2",
-                   "famsa_tpu_torch/csrc/dp_wide.cu",
-                   "famsa_tpu/ops/dp_giant.py:90"),
+    "dp_wide16": ("dp_wide", "dp_profile_wide",
+                  "famsa_tpu_torch/csrc/dp_wide.cu",
+                  "famsa_tpu/ops/dp_giant.py:90"),
+    "dp_wide_stripes": ("dp_wide", "dp_profile_wide_stripes",
+                        "famsa_tpu_torch/csrc/dp_wide.cu",
+                        "famsa_tpu/ops/dp_giant.py:90"),
     "traceback": ("traceback", "trace_paths",
                   "famsa_tpu_torch/csrc/traceback.cu",
                   "famsa_tpu/ops/dp_pallas.py:948"),
@@ -2525,13 +2735,27 @@ VARIANTS = {
     "chain": ("chain", "chain_carry", "famsa_tpu_torch/csrc/chain.cu",
               "famsa_tpu/ops/dp_chain.py:74"),
 }
+# the entry points that two variants share, told apart by the launch's
+# fold count (its argument at this index): up to PORTABLE_FOLDS folds the
+# first key, more the second
+SPLIT_BY_FOLDS = {"dp_profile_batched_staged": (5, "dp_staged",
+                                                "dp_staged16"),
+                  "dp_profile_wide": (4, "dp_wide", "dp_wide16")}
+# the name of a variant in the kernel report where it shares its entry
+REPORT_NAME = {"dp_staged16": "dp_profile_batched_staged[9-16 folds]",
+               "dp_wide16": "dp_profile_wide[9-16 folds]"}
 # the run whose launch count a variant's entry reports: the main path's
-# default run, for K1's rows variant the -dist tree run, and for K7 the
-# variant family's all-chain run
+# default run, for K1's rows variant the -dist tree run, for the DP past
+# 4095 columns the wide family's run (phase 6b), and for K7 the variant
+# family's all-chain run
 LAUNCH_RUN = {"lcs": "dist", "lcs_wave": "1000", "dp": "1000",
-              "dp_staged": "1000", "dp_wide": "1000", "dp_wide_l2": "10000",
+              "dp_staged": "1000", "dp_staged16": "wide600",
+              "dp_stripes": "wide600", "dp_wide": "1000",
+              "dp_wide16": "wide600", "dp_wide_stripes": "wide600",
               "traceback": "1000", "stage0": "1000", "merged": "1000",
               "chain": "chain"}
+# the recorded runs whose per-variant totals the report gives
+RECORDED_RUNS = ("1000", "10000", "wide600", "dist")
 
 
 class LaunchRecorder:
@@ -2562,18 +2786,27 @@ class LaunchRecorder:
         self.batch_sizes = []
         self.staged_shapes = {}     # run -> [staged_geometry of a launch]
         self.k2_calls = []          # widest w2 of each K2 call of the run
+        self.k2_merges = []         # w2 of each merge of the run's K2 calls
         self.wide_calls = []        # w2 of each K3 call of the run
         self.slowest = {}           # variant -> (launch ms, args)
         self.pending = []           # (variant, (start, end), args)
 
+        from famsa_tpu_torch.ops.dp_wide import PORTABLE_FOLDS
+        entries = {}
         for key, (lib_name, entry, _, _) in VARIANTS.items():
+            entries.setdefault((lib_name, entry), key)
+        for (lib_name, entry), key in entries.items():
             lib = kernels.get(lib_name)
             orig = getattr(lib, entry)
+            split = SPLIT_BY_FOLDS.get(entry)
 
-            def timed(*a, _key=key, _orig=orig):
+            def timed(*a, _key=key, _orig=orig, _split=split):
                 if self.run is None or \
                         torch.cuda.is_current_stream_capturing():
                     return _orig(*a)
+                if _split is not None:
+                    at, few, many = _split
+                    _key = few if a[at] <= PORTABLE_FOLDS else many
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -2585,6 +2818,10 @@ class LaunchRecorder:
             setattr(lib, entry, timed)
 
         def keep(key, size, args):
+            # the wide family's run keeps only its own variants' inputs
+            # (the others' largest calls stay those of the earlier runs)
+            if self.run == "wide600" and LAUNCH_RUN[key] != "wide600":
+                return
             if self.run is not None and (key not in self.inputs
                                          or size > self.inputs[key][0]):
                 self.inputs[key] = (size, args)
@@ -2597,13 +2834,13 @@ class LaunchRecorder:
                         else meta_host)[:, 1])
             variant = variant or dpt.k2_variant(max(w2s))
             self.k2_calls.append(max(w2s))
+            self.k2_merges.extend(int(w) for w in w2s)
             if self.run is not None:
                 self.batch_sizes.append(len(w2s))
                 if variant == "staged":
                     self.staged_shapes[self.run].append(
                         dpw.staged_geometry(w2s))
-            keep("dp_staged" if variant == "staged" else "dp", total,
-                 (colf, rowf, meta, total))
+            keep(dp_key("K2", w2s, variant), total, (colf, rowf, meta, total))
             return orig_dp(colf, rowf, meta, total, variant=variant,
                            meta_host=meta_host)
 
@@ -2613,8 +2850,7 @@ class LaunchRecorder:
                       else meta_host)[0, 1])
             variant = variant or dpw.k3_variant(w2)
             self.wide_calls.append(w2)
-            keep("dp_wide" if variant == "staged" else "dp_wide_l2", total,
-                 (colf, rowf, meta, total))
+            keep(dp_key("K3", [w2], variant), total, (colf, rowf, meta, total))
             return orig_wide(colf, rowf, meta, total, variant=variant,
                              meta_host=meta_host)
 
@@ -2669,7 +2905,7 @@ class LaunchRecorder:
         """Record the launches of `run` (None: record nothing but the
         widths of the K2 and K3 calls)."""
         self.run = run
-        self.k2_calls, self.wide_calls = [], []
+        self.k2_calls, self.k2_merges, self.wide_calls = [], [], []
         if run is not None:
             self.events[run] = {}
             self.staged_shapes[run] = []
@@ -2740,7 +2976,7 @@ def staged_coresidency(rec):
     merge, and the launches that need more clusters than fit on the card
     at once."""
     parts = []
-    for run in ("1000", "10000"):
+    for run in ("1000", "10000", "wide600"):
         shapes = rec.staged_shapes.get(run, [])
         if not shapes:
             continue
@@ -2813,39 +3049,44 @@ def k6_measure(args):
         f"smax {smax}: {ms:.5f} ms, in a graph {gms:.5f} ms")
 
 
-def kernel_report(rec, chain, k7):
+def kernel_report(rec, stand_ins, k7):
     """One entry per kernel variant: held against its plain version at
     the largest input the main-path runs gave it (bit-exact, or the smoke
     fails), its CUDA-event time there, the bound, and the per-run totals
     of every launch the recorder timed.  A variant those runs never
     launched is measured on other inputs (its entry's "at"): K2 global on
-    the runs' largest K2 batch, K3 L2 on `chain` (phase 3b's lone merge).
+    the runs' largest K2 batch, the others on stand_ins ({variant: (at,
+    (colf, rowf, meta, total))}: phase 3's and 3b's inputs).
     K7's entry (k7) comes from phase 7, which holds and times it; its
     launches in the all-chain run are graph replays' in the main, so its
     totals are the replays' ("graph")."""
     from famsa_tpu_torch.ops.dp_stage0 import stage0, stage0_plain
     from famsa_tpu_torch.ops.dp_torch import dp_dirs, dp_plain
-    from famsa_tpu_torch.ops.dp_wide import (dp_dirs_wide, dp_staged_plain,
-                                             dp_wide_plain)
+    from famsa_tpu_torch.ops.dp_wide import dp_dirs_wide
     from famsa_tpu_torch.ops.lcs_torch import lcs_plain, lcs_rows
     from famsa_tpu_torch.ops.sides import read_sides_plain
-    dp_fns = {"dp": (lambda *a: dp_dirs(*a, variant="global"), dp_plain),
-              "dp_staged": (lambda *a: dp_dirs(*a, variant="staged"),
-                            dp_staged_plain),
-              "dp_wide": (lambda *a: dp_dirs_wide(*a, variant="staged"),
-                          dp_wide_plain),
-              "dp_wide_l2": (lambda *a: dp_dirs_wide(*a, variant="l2"),
-                             dp_wide_plain)}
+    # every DP variant against dp_plain, the row-serial plain version of
+    # the same function (phases 3 and 3b hold each against its fold walk
+    # too, which takes minutes a call at these shapes)
+    dp_fns = {"dp": lambda *a: dp_dirs(*a, variant="global"),
+              "dp_staged": lambda *a: dp_dirs(*a, variant="staged"),
+              "dp_staged16": lambda *a: dp_dirs(*a, variant="staged"),
+              "dp_stripes": lambda *a: dp_dirs(*a, variant="stripes"),
+              "dp_wide": lambda *a: dp_dirs_wide(*a, variant="staged"),
+              "dp_wide16": lambda *a: dp_dirs_wide(*a, variant="staged"),
+              "dp_wide_stripes": lambda *a: dp_dirs_wide(*a,
+                                                         variant="stripes")}
     stand_in = {"dp": ("the main-path runs' largest K2 batch",
-                       lambda: rec.inputs["dp_staged"][1]),
-                "dp_wide_l2": ("phase 3b's lone merge", lambda: chain)}
+                       lambda: rec.inputs["dp_staged"][1])}
+    for key, (at, args) in stand_ins.items():
+        stand_in[key] = (at, lambda a=args: a)
     out, shapes, extra = [], [], {}
     for key, (_, entry, source, replaces) in VARIANTS.items():
         if key == "chain":
             out.append(k7)
             continue
         # its count in its own run, else in the first run that launched it
-        run = next((r for r in (LAUNCH_RUN[key], "1000", "10000", "dist")
+        run = next((r for r in (LAUNCH_RUN[key],) + RECORDED_RUNS
                     if rec.counts[r][key]), None)
         if run is not None:
             launches, at = rec.counts[run][key], "largest main-path call"
@@ -2897,24 +3138,25 @@ def kernel_report(rec, chain, k7):
                               f"({launch_ms:.5f} ms in the run): {sshape}")
         else:
             colf, rowf, meta, total = args
-            fn, plain = dp_fns[key]
+            fn = dp_fns[key]
             res = {}
             plain_ms = wall_ms(lambda: res.setdefault(
-                "plain", plain(colf, rowf, meta, total)))
+                "plain", dp_plain(colf, rowf, meta, total)))
             err = dp_max_err(fn(colf, rowf, meta, total), res["plain"], meta)
             ms = cuda_ms(lambda: fn(colf, rowf, meta, total), 5)
             bms, by = dp_bound_ms(colf, rowf, meta, total)
-            shapes.append(f"{entry} ({at}) {meta.shape[0]} merge(s), "
-                          f"{meta[:, :2].tolist()}")
+            shapes.append(f"{REPORT_NAME.get(key, entry)} ({at}) "
+                          f"{meta.shape[0]} merge(s), {meta[:, :2].tolist()}")
         if err:
             raise AssertionError(f"{entry} at the main path's shape: max abs "
                                  f"error {err} against the plain version")
         runs = {}
-        for r in ("1000", "10000", "dist") + tuple(t[0] for t in TREE_RUNS):
+        for r in RECORDED_RUNS + tuple(t[0] for t in TREE_RUNS):
             n, tot, mean = rec.totals(r, key)
             if n:
                 runs[r] = {"launches": n, "total_ms": tot, "mean_ms": mean}
-        out.append({"name": entry, "route": "cuda", "source": source,
+        out.append({"name": REPORT_NAME.get(key, entry), "route": "cuda",
+                    "source": source,
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bms, "bound_by": by, "library_ms": None,
@@ -2945,18 +3187,20 @@ def main():
     log(f"phase 1 build: {secs:.1f} s for {len(kernels.KERNELS)} kernel "
         f"sources; {smi}")
     phase_k1()
-    phase_k2()
-    chain = phase_k3()
+    stand_ins = phase_k2()
+    stand_ins.update(phase_k3())
     phase_edges()
     rec = LaunchRecorder()
     watch = ResidencyWatch()
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as work:
         phase_main(work, rec, watch)
         phase_tree(work, rec)
-        phase_wide(work, rec, watch)
+        wide = [phase_wide(work, rec, watch),
+                phase_wide(work, rec, watch, family=WIDE_FAMILY,
+                           run="wide600", label="6b wide family")]
         k7 = phase_chain(work, rec)
-        phase_trees(work, rec, watch)
-    kern = kernel_report(rec, chain, k7)
+        phase_trees(work, rec, watch, wide=wide)
+    kern = kernel_report(rec, stand_ins, k7)
     log(f"smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kern}))
     print(smi)

@@ -2,7 +2,8 @@
 //
 // A chunk (ops/dp_chain.py) merges up to K leaves, one a step, into the
 // chain's profile, all in one CUDA graph: per step K5 (stage 0), the DP
-// (K2 staged or K3 L2), K4 (the traceback) and K6 (the merged counters,
+// (K2 staged or stripes, B = 1), K4 (the traceback) and K6 (the merged
+// counters,
 // into the other of two ping-pong carry buffers).  Step k's profile width
 // and cardinality exist only on the card, as the result of step k-1, so
 // K7 runs between two steps and writes what the next step's kernels read:

@@ -1,6 +1,6 @@
 // The profile DP row shared by K2 (batched merges: csrc/dp.cu, one CTA
-// per merge, and the staged variant in csrc/dp_wide.cu, one cluster of
-// column folds per merge) and K3 (csrc/dp_wide.cu, one merge over a
+// per merge, and the staged and stripes variants in csrc/dp_wide.cu, one
+// cluster of column folds per merge) and K3 (csrc/dp_wide.cu, one merge over a
 // cluster of column folds): plane layouts, wrapped int64 arithmetic and
 // the per-thread body of one DP row.
 //
@@ -31,12 +31,14 @@
 //
 // dp_row is one body for both kernels, templated on where its column
 // factors come from (Cols: GlobalCols reads the planes from global memory,
-// K2 and K3's L2 variant; K3's staged variant keeps its column's factors
-// in registers and the score planes in shared memory) and on how threads
-// exchange the stripe-end D/V and the warp maxima of the scan (Xch:
-// BlockXch, two CTA barriers a row; K3's staged variant passes them by
-// shuffles and one CTA barrier, csrc/dp_wide.cu).  The row factors are
-// read through a pointer, global (K2) or shared (K3 staged).
+// K2's global variant; the staged body keeps its column's factors in
+// registers and the score planes in shared memory, the stripes body
+// reads every plane through one pointer, shared or global,
+// csrc/dp_wide.cu) and on how threads exchange the stripe-end D/V and the
+// warp maxima of the scan (Xch: BlockXch, two CTA barriers a row; the
+// fold bodies pass them by shuffles and one CTA barrier).  The row factors
+// are read through a pointer, global (K2 global) or shared (the fold
+// bodies).
 
 #pragma once
 

@@ -1,5 +1,6 @@
 // K3: FAMSA profile DP of ONE wide merge over a thread-block cluster of
-// column folds (affine gaps, exact int64), with the optional guided band.
+// column folds (affine gaps, exact int64), with the optional guided band;
+// and K2's variants that run a batch of merges, one cluster a merge.
 //
 // Replaces the Pallas kernel famsa_tpu/ops/dp_giant.py:_make_giant_kernel
 // (launched by _run_giant; the B3 kernel).  It computes what K2 computes
@@ -8,52 +9,70 @@
 // direction bytes in the native (w1+1) x (w2+1) layout and the last-column
 // (D, H, V) of every row.
 //
-// What bounds it on the H100: the integer-op issue rate, as K2; but K2
-// runs one merge on one SM, because rows are serial.  K3 splits columns
-// 0..w2 into F <= 8 folds of threads * S columns, one CTA per fold, all
-// in one cluster (8 is the portable cluster size), so one merge uses F
-// SMs.  The folds run as B3's staggered wavefront: at step s, fold f
-// computes row block s - f (blk rows).  Per row, fold f needs fold f-1's
-// last-column D and V of that row and the running max of m - bc through
-// that column (the seed of its block max-scan; H at its left halo follows
-// from it).  Fold f-1 produced them one step earlier and stored them
-// straight into fold f's shared memory (distributed shared memory); one
-// cluster barrier per step publishes them, and the edge buffer is
-// double-buffered by step parity, so no fold waits on a flag.  A banded
-// merge computes every row in full and masks it, as B3 does.
+// What bounds it on the H100: the integer-op issue rate, as K2; but K2's
+// global variant runs one merge on one SM, because rows are serial.  K3
+// splits columns 0..w2 into F <= 16 folds of threads * S columns, one CTA
+// per fold, all in one cluster, so one merge uses F SMs.  The folds run
+// as B3's staggered wavefront: at step s, fold f computes row block s - f
+// (blk rows).  Per row, fold f needs fold f-1's last-column D and V of
+// that row and the running max of m - bc through that column (the seed
+// of its block max-scan; H at its left halo follows from it).  Fold f-1
+// produced them one step earlier and stored them straight into fold f's
+// shared memory (distributed shared memory); one cluster barrier per step
+// publishes them, and the edge buffer is double-buffered by step parity,
+// so no fold waits on a flag.  A banded merge computes every row in full
+// and masks it, as B3 does.
 //
-// Two variants, chosen by w2 (ops/dp_wide.py:k3_variant):
+// Two bodies, chosen by w2 (ops/dp_wide.py:k3_variant, fold_geometry):
 //
-// dp_profile_wide, "staged" (w2 <= 4095: folds of <= 512 columns, one
-// column a thread).  A row is latency-bound, so it keeps every operand
-// on chip: at launch the fold's 30 score planes are copied once into
-// shared memory by TMA bulk copies (cp.async.bulk, completion on an
-// mbarrier; <= 120 KB of dynamic shared memory), and the 13 other column
-// factors of the thread's column stay in registers for the whole launch.
-// The next step's block of row factors (blk x 77 i64) is prefetched with
-// cp.async into a double-buffered shared tile while the current block
-// computes, so passes A-C read no global memory.  Exchange (WarpXch): the
-// left neighbour's D/V come by __shfl_up_sync within a warp; only lane
-// 31's values cross to the next warp, through shared memory and a named
-// barrier between the two warps (bar.arrive / bar.sync, ids 1..15); the
-// warp maxima of the scan take the row's one CTA barrier and are reduced
-// by a five-step shuffle.
+// "staged" (w2 <= 8191: folds of <= 512 columns, one column a thread;
+// up to 8 folds, the portable cluster size, while w2 <= 4095, then 9-16
+// folds of 512 on a non-portable cluster).  A row is latency-bound, so
+// it keeps every operand on chip: at launch the fold's 30 score planes
+// are copied once into shared memory by TMA bulk copies (cp.async.bulk,
+// completion on an mbarrier; <= 120 KB of dynamic shared memory), and the
+// 13 other column factors of the thread's column stay in registers for
+// the whole launch.  The next step's block of row factors (blk x 77 i64)
+// is prefetched with cp.async into a double-buffered shared tile while the
+// current block computes, so passes A-C read no global memory.  Exchange
+// (WarpXch): the left neighbour's D/V come by __shfl_up_sync within a
+// warp; only lane 31's values cross to the next warp, through shared
+// memory and a named barrier between the two warps (bar.arrive /
+// bar.sync, ids 1..15); the warp maxima of the scan take the row's one
+// CTA barrier and are reduced by a five-step shuffle.
 //
-// dp_profile_wide_l2 (the first design, every width up to 32767): stripes of
-// 1-8 columns a thread, column and row factors read from global memory
-// (L2-resident) and two CTA barriers a row (BlockXch).
+// "stripes" (8192 <= w2 <= 32767: 16 folds, S = 2 or 4 columns a thread,
+// <= 512 threads).  The staged body already sits at the 128-register cap
+// at 512 threads, so S columns cannot keep 13 S factors in registers.
+// Instead the 13 non-score column planes (104 bytes a column) of all the
+// fold's columns (<= 2048) are copied by TMA into shared memory beside
+// the row tile, and the 30 score planes, of which a row reads only its
+// nonzero symbols (one for a sequence), are read from global memory (L1
+// and L2).  This split and the 512-thread cap were chosen by measurement
+// (PERF.md; scripts/torch_kernel_redesign.py --parts split,threads
+// builds the rejected ones from scripts/dp_wide_variants.patch).  The
+// row tile, WarpXch (carrying a stripe's last column) and the fold edges
+// are the staged body's.  This replaces the first design
+// (stripes of 1-8 columns on <= 8 folds, every factor read from L2 every
+// row, two CTA barriers a row).
+//
+// Both bodies come in two instantiations: BATCH false, one merge (K3's
+// entries, dp_profile_wide and dp_profile_wide_stripes), and BATCH true,
+// K2's variants on a batch of merges (dp_profile_batched_staged and
+// dp_profile_batched_stripes; the note above dp_staged_kernel).
 //
 // A chain chunk (ops/dp_chain.py) launches the DP inside a CUDA graph,
-// where a step's widths exist only on the card: it launches K2's staged
-// entry with B = 1 (capacity <= 4095) or dp_profile_wide_l2_meta, both
-// with the fold geometry of the chunk's capacity and w1, w2 read from the
-// step's meta.  A fold that holds no column of the merge does no row work
-// but takes every cluster barrier, and a step with w1 0 (K7 skipped it)
-// returns at once.
+// where a step's widths exist only on the card: it launches K2's batched
+// entry of the capacity's body with B = 1 (staged up to a capacity of
+// 8191, stripes past it), with the fold geometry of the capacity and w1,
+// w2 read from the step's meta.  A fold that holds no column of the merge
+// does no row work but takes every cluster barrier, and a step with w1 0
+// (K7 skipped it) returns at once.
 //
-// The staged kernel also serves K2: dp_profile_batched_staged launches it
-// on a batch of merges whose widest w2 is <= 4095, one cluster per merge
-// (ops/dp_torch.py:k2_variant; the note above dp_staged_kernel).
+// A cluster of more than 8 CTAs is non-portable: the launch sets
+// cudaFuncAttributeNonPortableClusterSizeAllowed, and a cluster the card
+// cannot place fails the launch (the wrapper raises); no other variant
+// takes its place.
 
 #include <cooperative_groups.h>
 
@@ -65,78 +84,21 @@ namespace {
 
 using namespace famsa_dp;
 
-constexpr int MAX_FOLDS = 8;
+// must match ops/dp_wide.py (MAX_FOLDS, BLK_MAX, STRIPES_SMEM_MAX, NPLANE)
+constexpr int MAX_FOLDS = 16;                   // the non-portable cluster
 constexpr int BLK_MAX = 32;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr int NSCORE = 30;                      // score planes C_S2..
 constexpr int NREG = C_CUMT - C_P2O + 1;        // column factors in registers
+constexpr int NPLANE = C_CUMT + 1;              // planes a row reads
+// the planes the stripes body keeps in shared memory: the 13 after the
+// score planes
+constexpr int NPLANE_CHIP = NPLANE - NSCORE;
 constexpr size_t STAGED_SMEM_MAX =
     (size_t)NSCORE * MAX_THREADS * 8 + 2 * (size_t)BLK_MAX * NROWF * 8;
-
-// ---------------------------------------------------------------- L2
-template <int S>
-__global__ void __launch_bounds__(MAX_THREADS)
-dp_wide_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
-               const i64* __restrict__ meta, i64 w1, i64 w2, int ldc,
-               int blk, uint8_t* __restrict__ dirs, i64* __restrict__ fin) {
-    __shared__ RowShared sh;
-    // edges of the fold to the left, per row of a block: D, V, run
-    __shared__ i64 edge[2][BLK_MAX][3];
-
-    if (meta != nullptr) {          // the widths of a chain step
-        w1 = meta[0];
-        w2 = meta[1];
-        if (w1 < 1) return;
-    }
-    cg::cluster_group cluster = cg::this_cluster();
-    const int f = (int)cluster.block_rank();
-    const i64 fw = (i64)blockDim.x * S;
-    // folds holding a column of the merge: all of them unless the launch
-    // was sized for a capacity wider than w2
-    const int F = (int)min((i64)cluster.num_blocks(), (w2 + fw) / fw);
-    const bool live = f < F;
-    const int t = threadIdx.x;
-    const i64 j0 = ((i64)f * blockDim.x + t) * S;
-    const i64 stride = w2 + 1;
-    const i64 nrb = (w1 + blk - 1) / blk;
-    // the thread owning the fold's last column feeds the next fold
-    i64* next = (f + 1 < F && t == (int)blockDim.x - 1)
-                    ? cluster.map_shared_rank(&edge[0][0][0], f + 1) : nullptr;
-
-    Stripe<S> st;
-    row0<S>(st, colf, ldc, w2, j0, S, dirs);
-    BlockXch xch{sh};
-    const GlobalCols cols{colf, ldc, j0};
-    cluster.sync();     // every fold runs before the first remote store
-    for (i64 s = 0; s < nrb + F - 1; ++s) {
-        const i64 b = s - f;
-        if (live && b >= 0 && b < nrb) {
-            const int in = (int)((s + 1) & 1), out = (int)(s & 1);
-            for (int r = 0; r < blk; ++r) {
-                const i64 i = b * blk + r + 1;
-                if (i > w1) break;
-                i64 eD = NEG, eV = NEG, seed = IMIN;
-                if (f > 0) {
-                    eD = edge[in][r][0];
-                    eV = edge[in][r][1];
-                    seed = edge[in][r][2];
-                }
-                const i64 run = dp_row<S>(st, xch, cols,
-                                          rowf + (size_t)i * NROWF, i, w1, w2,
-                                          j0, S, t, eD, eV, seed,
-                                          dirs + i * stride,
-                                          fin + (size_t)(i - 1) * 3);
-                if (next != nullptr) {
-                    i64* e = next + (out * BLK_MAX + r) * 3;
-                    e[0] = st.pD[S - 1];
-                    e[1] = st.pV[S - 1];
-                    e[2] = run;
-                }
-            }
-        }
-        cluster.sync();
-    }
-}
+// dynamic shared memory of the stripes body: the 227 KB a CTA may opt in
+// to, less 4 KB for its static buffers (edges, exchange, mbarrier)
+constexpr size_t STRIPES_SMEM_MAX = 232448 - 4096;
 
 // ------------------------------------------------------------ staged
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -221,7 +183,7 @@ __device__ __forceinline__ void load_rows(i64* tile, const i64* rowf, i64 i0,
 // The staged kernel: K3's staged variant (one merge) and K2's staged
 // variant (a batch of merges), one body.
 //
-// As K2's variant it replaces, for batches whose widest w2 is <= 4095,
+// As K2's variant it replaces, for batches whose widest w2 is <= 8191,
 // the Pallas kernel famsa_tpu/ops/dp_pallas.py:_make_kernel (launched by
 // _run_kernel; the B2 kernel).  What bounds it on the H100: the integer
 // issue rate, and rows are serial, so K2's global variant (csrc/dp.cu,
@@ -230,7 +192,7 @@ __device__ __forceinline__ void load_rows(i64* tile, const i64* rowf, i64 i0,
 // from L2 each row.
 // Design: the grid is (F, B) with cluster dimension (F, 1, 1), one
 // cluster per merge b = blockIdx.y and one CTA per fold, so one launch
-// spreads a batch of B merges over up to 8 B SMs; each fold runs K3's
+// spreads a batch of B merges over up to 16 B SMs; each fold runs K3's
 // staged row (one column a thread, factors on chip, one CTA barrier a
 // row).  F and the fold width fw come from the batch's widest w2
 // (ops/dp_wide.py:fold_geometry); merge b uses its first
@@ -369,6 +331,154 @@ dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
     }
 }
 
+// ----------------------------------------------------------- stripes
+// A stripe's column planes: score plane s of its column j0 + k at
+// sbase[s * sld + k] in global memory (colf, sld = ldc), plane p >= C_P2O
+// at fbase[(p - C_P2O) * fld + k] in shared memory (rows of the fold's
+// fw columns, fld = fw); CUME/CUMT of the column left of the stripe for
+// H's halo, read once.
+struct StripeCols {
+    const i64* sbase;
+    const i64* fbase;
+    int sld, fld;
+    i64 cumEl, cumTl;
+    static constexpr bool SHARED_SCORES = true;
+    __device__ __forceinline__ i64 operator()(int p, int k) const {
+        return fbase[(p - C_P2O) * fld + k];
+    }
+    __device__ __forceinline__ i64 score(i64 s, int k) const {
+        return sbase[(int)s * sld + k];
+    }
+    __device__ __forceinline__ i64 left(int p) const {
+        return p == C_CUME ? cumEl : cumTl;
+    }
+};
+
+// The stripes body: S columns a thread, the non-score planes of the
+// fold's columns in shared memory.  Arguments, batching and the step
+// loop as dp_staged_kernel's.
+template <int S, bool BATCH>
+__global__ void __launch_bounds__(MAX_THREADS)
+dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
+                  const i64* __restrict__ meta, i64 w1, i64 w2, int ldc,
+                  int ldr, int ldf, int blk, uint8_t* __restrict__ dirs,
+                  i64* __restrict__ fin) {
+    extern __shared__ __align__(16) i64 dsm[];
+    __shared__ i64 edge[2][BLK_MAX][3];
+    __shared__ i64 xD[MAX_WARPS], xV[MAX_WARPS], wmax[2][MAX_WARPS];
+    __shared__ __align__(8) uint64_t bar;
+
+    cg::cluster_group cluster = cg::this_cluster();
+    const int f = (int)cluster.block_rank();
+    const int t = threadIdx.x;
+    const int nt = blockDim.x;
+    const int fw = nt * S;                       // columns of a fold
+    if constexpr (BATCH) {
+        const int b = blockIdx.y;
+        w1 = meta[4 * b];
+        w2 = meta[4 * b + 1];
+        if (w1 < 1) return;         // a chain step K7 skipped
+        dirs += meta[4 * b + 2];
+        colf += (size_t)b * NCOLF * ldc;
+        rowf += (size_t)b * ldr * NROWF;
+        fin += (size_t)b * ldf * 3;
+    }
+    const int F = BATCH ? (int)((w2 + fw) / fw) : (int)cluster.num_blocks();
+    const bool live = !BATCH || f < F;
+    const i64 c0 = (i64)f * fw;
+    const i64 j0 = c0 + (i64)t * S;
+    const i64 stride = w2 + 1;
+    const i64 nrb = (w1 + blk - 1) / blk;
+    i64* planes = dsm;                           // [NPLANE_CHIP][fw]
+    i64* rtile = dsm + (size_t)NPLANE_CHIP * fw;   // [2][blk][NROWF]
+
+    // the fold's non-score planes: one bulk copy a plane (ldc even, colf
+    // 16-byte aligned and fw even; the count rounded up to an even number
+    // stays inside the plane's row)
+    if (t == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                     :: "r"(smem_addr(&bar)) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    const i64 ncopy = live ? min((i64)fw, ((w2 + 1 - c0) + 1) & ~1LL) : 0;
+    if (ncopy > 0 && t == 0) {
+        const uint32_t bytes = (uint32_t)(ncopy * 8);
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     :: "r"(smem_addr(&bar)), "r"(bytes * NPLANE_CHIP)
+                     : "memory");
+        for (int p = NSCORE; p < NPLANE; ++p)
+            asm volatile(
+                "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+                " [%0], [%1], %2, [%3];"
+                :: "r"(smem_addr(planes + (size_t)(p - NSCORE) * fw)),
+                   "l"(colf + (size_t)p * ldc + c0), "r"(bytes),
+                   "r"(smem_addr(&bar))
+                : "memory");
+    }
+    StripeCols cols;
+    cols.sbase = colf + j0;
+    cols.sld = ldc;
+    cols.fbase = planes + (size_t)(C_P2O - NSCORE) * fw + (j0 - c0);
+    cols.fld = fw;
+    cols.cumEl = cols.cumTl = 0;
+    if (j0 >= 1 && j0 - 1 <= w2) {
+        cols.cumEl = __ldg(colf + (size_t)C_CUME * ldc + j0 - 1);
+        cols.cumTl = __ldg(colf + (size_t)C_CUMT * ldc + j0 - 1);
+    }
+    if (live) load_rows(rtile, rowf, 1, (int)min((i64)blk, w1), t, nt);
+
+    i64* next = (f + 1 < F && t == nt - 1)
+                    ? cluster.map_shared_rank(&edge[0][0][0], f + 1) : nullptr;
+    Stripe<S> st;
+    row0<S>(st, colf, ldc, w2, j0, S, dirs);
+    WarpXch xch{xD, xV, &wmax[0][0], nt / 32};
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    if (ncopy > 0) {
+        uint32_t done = 0;
+        while (!done)
+            asm volatile(
+                "{ .reg .pred p;\n"
+                "  mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                "  selp.u32 %0, 1, 0, p; }"
+                : "=r"(done) : "r"(smem_addr(&bar)) : "memory");
+    }
+    cluster.sync();     // tiles visible; every fold runs before remote stores
+    for (i64 s = 0; s < nrb + F - 1; ++s) {
+        const i64 rb = s - f;
+        if (live && rb >= 0 && rb < nrb) {
+            const int in = (int)((s + 1) & 1), out = (int)(s & 1);
+            const i64* cur = rtile + (rb & 1) * blk * NROWF;
+            if (rb + 1 < nrb)
+                load_rows(rtile + ((rb + 1) & 1) * blk * NROWF, rowf,
+                          (rb + 1) * blk + 1,
+                          (int)min((i64)blk, w1 - (rb + 1) * blk), t, nt);
+            for (int r = 0; r < blk; ++r) {
+                const i64 i = rb * blk + r + 1;
+                if (i > w1) break;
+                i64 eD = NEG, eV = NEG, seed = IMIN;
+                if (f > 0) {
+                    eD = edge[in][r][0];
+                    eV = edge[in][r][1];
+                    seed = edge[in][r][2];
+                }
+                const i64 run = dp_row<S>(st, xch, cols, cur + r * NROWF, i,
+                                          w1, w2, j0, S, t, eD, eV, seed,
+                                          dirs + i * stride,
+                                          fin + (size_t)(i - 1) * 3);
+                if (next != nullptr) {
+                    i64* e = next + (out * BLK_MAX + r) * 3;
+                    e[0] = st.pD[S - 1];
+                    e[1] = st.pV[S - 1];
+                    e[2] = run;
+                }
+            }
+            asm volatile("cp.async.wait_all;" ::: "memory");
+        }
+        cluster.sync();
+    }
+}
+
 // grid (folds, batch), one cluster of the folds per batch index
 cudaLaunchConfig_t cluster_config(int folds, int batch, int threads,
                                   size_t smem, cudaStream_t stream,
@@ -387,42 +497,42 @@ cudaLaunchConfig_t cluster_config(int folds, int batch, int threads,
     return cfg;
 }
 
-template <int S>
-cudaError_t launch(const i64* colf, const i64* rowf, const i64* meta, i64 w1,
-                   i64 w2, int folds, int threads, int ldc, int blk,
-                   uint8_t* dirs, i64* fin, cudaStream_t stream) {
-    cudaLaunchAttribute attr[1];
-    cudaLaunchConfig_t cfg = cluster_config(folds, 1, threads, 0, stream, attr);
-    cudaError_t err = cudaLaunchKernelEx(&cfg, dp_wide_kernel<S>, colf, rowf,
-                                         meta, w1, w2, ldc, blk, dirs, fin);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
-}
-
-bool bad_geometry(long long w1, long long w2, int folds, int threads,
-                  int stripe, int ldc, int blk) {
-    const long long fw = (long long)threads * stripe;
-    return folds < 1 || folds > MAX_FOLDS || threads < 32 ||
-           threads > MAX_THREADS || threads % 32 != 0 || blk < 1 ||
-           blk > BLK_MAX || folds * fw < w2 + 1 ||
-           (folds - 1) * fw >= w2 + 1 || ldc < w2 + 1;
+// the kernel's dynamic shared memory limit and non-portable clusters, set
+// once a kernel
+template <class Kernel>
+cudaError_t kernel_ready(Kernel kernel, size_t smem_max, bool& done) {
+    if (!done) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem_max);
+        if (e != cudaSuccess) return e;
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return e;
+        done = true;
+    }
+    return cudaSuccess;
 }
 
 size_t staged_smem(int threads, int blk) {
     return (size_t)NSCORE * threads * 8 + 2 * (size_t)blk * NROWF * 8;
 }
 
+// the non-score planes of a fold of fw columns and the row tile
+size_t stripes_smem(int fw, int blk) {
+    return (size_t)NPLANE_CHIP * fw * 8 + 2 * (size_t)blk * NROWF * 8;
+}
+
 template <bool BATCH>
-cudaError_t staged_smem_ready() {
+cudaError_t staged_ready() {
     static bool done = false;
-    if (!done) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            dp_staged_kernel<BATCH>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)STAGED_SMEM_MAX);
-        if (e != cudaSuccess) return e;
-        done = true;
-    }
-    return cudaSuccess;
+    return kernel_ready(dp_staged_kernel<BATCH>, STAGED_SMEM_MAX, done);
+}
+
+template <int S, bool BATCH>
+cudaError_t stripes_ready() {
+    static bool done = false;
+    return kernel_ready(dp_stripes_kernel<S, BATCH>, STRIPES_SMEM_MAX, done);
 }
 
 template <bool BATCH>
@@ -430,7 +540,7 @@ cudaError_t launch_staged(const i64* colf, const i64* rowf, const i64* meta,
                           i64 w1, i64 w2, int batch, int folds, int threads,
                           int ldc, int ldr, int ldf, int blk, uint8_t* dirs,
                           i64* fin, cudaStream_t stream) {
-    cudaError_t err = staged_smem_ready<BATCH>();
+    cudaError_t err = staged_ready<BATCH>();
     if (err != cudaSuccess) return err;
     cudaLaunchAttribute attr[1];
     cudaLaunchConfig_t cfg = cluster_config(folds, batch, threads,
@@ -442,69 +552,83 @@ cudaError_t launch_staged(const i64* colf, const i64* rowf, const i64* meta,
     return cudaGetLastError();
 }
 
-cudaError_t launch_l2(const i64* c, const i64* r, const i64* meta, i64 w1,
-                      i64 w2, int folds, int threads, int stripe, int ldc,
-                      int blk, uint8_t* d, i64* f, cudaStream_t st) {
-    switch (stripe) {
-        case 1: return launch<1>(c, r, meta, w1, w2, folds, threads, ldc, blk, d, f, st);
-        case 2: return launch<2>(c, r, meta, w1, w2, folds, threads, ldc, blk, d, f, st);
-        case 4: return launch<4>(c, r, meta, w1, w2, folds, threads, ldc, blk, d, f, st);
-        case 8: return launch<8>(c, r, meta, w1, w2, folds, threads, ldc, blk, d, f, st);
-        default: return cudaErrorInvalidValue;
-    }
+template <int S, bool BATCH>
+cudaError_t launch_stripes_s(const i64* colf, const i64* rowf,
+                             const i64* meta, i64 w1, i64 w2, int batch,
+                             int folds, int threads, int ldc, int ldr,
+                             int ldf, int blk, uint8_t* dirs, i64* fin,
+                             cudaStream_t stream) {
+    cudaError_t err = stripes_ready<S, BATCH>();
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg = cluster_config(folds, batch, threads,
+                                            stripes_smem(threads * S, blk),
+                                            stream, attr);
+    err = cudaLaunchKernelEx(&cfg, dp_stripes_kernel<S, BATCH>, colf, rowf,
+                             meta, w1, w2, ldc, ldr, ldf, blk, dirs, fin);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+}
+
+template <bool BATCH>
+cudaError_t launch_stripes(const i64* colf, const i64* rowf, const i64* meta,
+                           i64 w1, i64 w2, int batch, int folds, int threads,
+                           int stripe, int ldc, int ldr, int ldf, int blk,
+                           uint8_t* dirs, i64* fin, cudaStream_t stream) {
+    if (stripe == 2)
+        return launch_stripes_s<2, BATCH>(colf, rowf, meta, w1, w2, batch,
+                                          folds, threads, ldc, ldr, ldf, blk,
+                                          dirs, fin, stream);
+    return launch_stripes_s<4, BATCH>(colf, rowf, meta, w1, w2, batch, folds,
+                                      threads, ldc, ldr, ldf, blk, dirs, fin,
+                                      stream);
+}
+
+// a fold geometry the bodies take: folds (1..16) CTAs of threads (32..512,
+// whole warps) threads, stripe columns a thread (1 staged; 2 or 4
+// stripes), covering w2 + 1 columns with every fold but the last full
+bool bad_geometry(long long w2, int folds, int threads, int stripe, int ldc,
+                  int blk) {
+    const long long fw = (long long)threads * stripe;
+    return folds < 1 || folds > MAX_FOLDS || threads < 32 ||
+           threads > MAX_THREADS || threads % 32 != 0 || blk < 1 ||
+           blk > BLK_MAX || folds * fw < w2 + 1 ||
+           (folds - 1) * fw >= w2 + 1 || ldc < w2 + 1 || ldc % 2 != 0;
+}
+
+// a stripe and rows a step the stripes body takes: 2 or 4 columns a
+// thread, the fold's planes and the row tile within its shared memory
+bool bad_stripes(int threads, int stripe, int blk) {
+    return (stripe != 2 && stripe != 4) ||
+           stripes_smem(threads * stripe, blk) > STRIPES_SMEM_MAX;
+}
+
+bool bad_batch(int B, long long max_w2, int folds, int threads, int stripe,
+               int ldc, int ldr, int ldf, int blk, const void* colf) {
+    return B > 65535 || folds < 1 || folds > MAX_FOLDS || threads < 32 ||
+           threads > MAX_THREADS || threads % 32 != 0 || blk < 1 ||
+           blk > BLK_MAX || max_w2 < 0 ||
+           (long long)folds * threads * stripe < max_w2 + 1 ||
+           ldc < max_w2 + 1 || ldc % 2 != 0 || ldr < 1 || ldf < ldr - 1 ||
+           reinterpret_cast<uintptr_t>(colf) % 16 != 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// One merge: colf [44][ldc] i64, rowf [w1+1][77] i64; dirs: (w1+1)*(w2+1)
-// u8; fin [w1][3] i64.  folds (1..8) CTAs of threads (32..512, whole
-// warps) threads, each thread a stripe of stripe in {1, 2, 4, 8} columns;
-// folds * threads * stripe must cover w2 + 1 and (folds - 1) * threads *
-// stripe must not (every fold but the last is full).  blk (1..32): rows
-// per wavefront step.  Returns the launch's cudaError_t (0 on success).
-int dp_profile_wide_l2(const void* colf, const void* rowf, long long w1,
-                       long long w2, int folds, int threads, int stripe,
-                       int ldc, int blk, void* dirs, void* fin, void* stream) {
-    if (w1 < 1 || w2 < 1) return 0;
-    if (bad_geometry(w1, w2, folds, threads, stripe, ldc, blk))
-        return (int)cudaErrorInvalidValue;
-    const i64* c = static_cast<const i64*>(colf);
-    const i64* r = static_cast<const i64*>(rowf);
-    uint8_t* d = static_cast<uint8_t*>(dirs);
-    i64* f = static_cast<i64*>(fin);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return (int)launch_l2(c, r, nullptr, w1, w2, folds, threads, stripe, ldc,
-                          blk, d, f, st);
-}
-
-// The L2 variant on a chain step: w1 and w2 read from meta [4] = (w1, w2,
-// 0, 0) on the card (w1 0: return at once), the geometry that of the
-// chunk's capacity cap >= w2 (as dp_profile_wide_l2 checks it for w2 =
-// cap); dirs: (w1p+1)*(cap+1) bytes, row stride w2 + 1.  Returns the
-// launch's cudaError_t.
-int dp_profile_wide_l2_meta(const void* colf, const void* rowf,
-                            const void* meta, long long cap, int folds,
-                            int threads, int stripe, int ldc, int blk,
-                            void* dirs, void* fin, void* stream) {
-    if (cap < 1 || bad_geometry(1, cap, folds, threads, stripe, ldc, blk))
-        return (int)cudaErrorInvalidValue;
-    return (int)launch_l2(
-        static_cast<const i64*>(colf), static_cast<const i64*>(rowf),
-        static_cast<const i64*>(meta), 0, 0, folds, threads, stripe, ldc, blk,
-        static_cast<uint8_t*>(dirs), static_cast<i64*>(fin),
-        static_cast<cudaStream_t>(stream));
-}
-
-// The staged variant, on the same arguments: stripe must be 1 (w2 <=
-// 4095), ldc even and colf 16-byte aligned (the bulk copies).
+// One merge: colf [44][ldc] i64 (ldc even, colf 16-byte aligned: the bulk
+// copies), rowf [w1+1][77] i64; dirs: (w1+1)*(w2+1) u8; fin [w1][3] i64.
+// The staged body: folds (1..16) CTAs of threads (32..512, whole warps)
+// threads, one column each (stripe must be 1); folds * threads must cover
+// w2 + 1 and (folds - 1) * threads must not (every fold but the last is
+// full).  blk (1..32): rows per wavefront step.  Returns the launch's
+// cudaError_t (0 on success).
 int dp_profile_wide(const void* colf, const void* rowf, long long w1,
                     long long w2, int folds, int threads, int stripe, int ldc,
                     int blk, void* dirs, void* fin, void* stream) {
     if (w1 < 1 || w2 < 1) return 0;
-    if (bad_geometry(w1, w2, folds, threads, stripe, ldc, blk) ||
-        stripe != 1 || ldc % 2 != 0 ||
+    if (bad_geometry(w2, folds, threads, stripe, ldc, blk) || stripe != 1 ||
         reinterpret_cast<uintptr_t>(colf) % 16 != 0)
         return (int)cudaErrorInvalidValue;
     return (int)launch_staged<false>(
@@ -514,24 +638,40 @@ int dp_profile_wide(const void* colf, const void* rowf, long long w1,
         static_cast<cudaStream_t>(stream));
 }
 
+// The stripes body on the same arguments, stripe 2 or 4 columns a thread
+// (blk at most 12 at 512 threads of 4: the fold's planes and the row tile
+// must fit its shared memory).
+int dp_profile_wide_stripes(const void* colf, const void* rowf, long long w1,
+                            long long w2, int folds, int threads, int stripe,
+                            int ldc, int blk, void* dirs, void* fin,
+                            void* stream) {
+    if (w1 < 1 || w2 < 1) return 0;
+    if (bad_geometry(w2, folds, threads, stripe, ldc, blk) ||
+        bad_stripes(threads, stripe, blk) ||
+        reinterpret_cast<uintptr_t>(colf) % 16 != 0)
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_stripes<false>(
+        static_cast<const i64*>(colf), static_cast<const i64*>(rowf), nullptr,
+        (i64)w1, (i64)w2, 1, folds, threads, stripe, ldc, 0, 0, blk,
+        static_cast<uint8_t*>(dirs), static_cast<i64*>(fin),
+        static_cast<cudaStream_t>(stream));
+}
+
 // K2's staged variant: a batch of B merges packed as csrc/dp.cu's
 // dp_profile_batched takes them (colf [B][44][ldc], rowf [B][ldr][77],
 // meta [B][4] = (w1, w2, dirs byte offset, unused), fin [B][ldf][3]),
-// max_w2 the widest w2 of the batch.  folds (1..8) CTAs of threads
-// (32..512, whole warps) columns each, one column a thread, must cover
-// max_w2 + 1; ldc even and colf 16-byte aligned.  blk (1..32): rows per
-// wavefront step.  Returns the launch's cudaError_t (0 on success).
+// max_w2 the widest w2 of the batch (w1 0: the merge returns at once, a
+// chain step K7 skipped).  folds (1..16) CTAs of threads (32..512, whole
+// warps) columns each, one column a thread, must cover max_w2 + 1; ldc
+// even and colf 16-byte aligned.  blk (1..32): rows per wavefront step.
+// Returns the launch's cudaError_t (0 on success).
 int dp_profile_batched_staged(const void* colf, const void* rowf,
                               const void* meta, int B, long long max_w2,
                               int folds, int threads, int ldc, int ldr,
                               int ldf, int blk, void* dirs, void* fin,
                               void* stream) {
     if (B <= 0) return 0;
-    if (B > 65535 || folds < 1 || folds > MAX_FOLDS || threads < 32 ||
-        threads > MAX_THREADS || threads % 32 != 0 || blk < 1 ||
-        blk > BLK_MAX || max_w2 < 0 || (long long)folds * threads < max_w2 + 1 ||
-        ldc < max_w2 + 1 || ldc % 2 != 0 || ldr < 1 || ldf < ldr - 1 ||
-        reinterpret_cast<uintptr_t>(colf) % 16 != 0)
+    if (bad_batch(B, max_w2, folds, threads, 1, ldc, ldr, ldf, blk, colf))
         return (int)cudaErrorInvalidValue;
     return (int)launch_staged<true>(
         static_cast<const i64*>(colf), static_cast<const i64*>(rowf),
@@ -540,17 +680,52 @@ int dp_profile_batched_staged(const void* colf, const void* rowf,
         static_cast<cudaStream_t>(stream));
 }
 
-// How many clusters of `folds` staged CTAs of `threads` threads (blk rows
-// a step) can be resident on the device at once
-// (cudaOccupancyMaxActiveClusters); a negative cudaError_t on failure.
-int dp_staged_max_clusters(int folds, int threads, int blk) {
-    cudaError_t err = staged_smem_ready<true>();
-    if (err != cudaSuccess) return -(int)err;
+// K2's stripes variant on the same arguments, stripe (2 or 4) columns a
+// thread: folds * threads * stripe must cover max_w2 + 1 (blk as for
+// dp_profile_wide_stripes).
+int dp_profile_batched_stripes(const void* colf, const void* rowf,
+                               const void* meta, int B, long long max_w2,
+                               int folds, int threads, int stripe, int ldc,
+                               int ldr, int ldf, int blk, void* dirs,
+                               void* fin, void* stream) {
+    if (B <= 0) return 0;
+    if (bad_batch(B, max_w2, folds, threads, stripe, ldc, ldr, ldf, blk,
+                  colf) || bad_stripes(threads, stripe, blk))
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_stripes<true>(
+        static_cast<const i64*>(colf), static_cast<const i64*>(rowf),
+        static_cast<const i64*>(meta), 0, 0, B, folds, threads, stripe, ldc,
+        ldr, ldf, blk, static_cast<uint8_t*>(dirs), static_cast<i64*>(fin),
+        static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of `folds` CTAs of `threads` threads (blk rows a
+// step) of the batched body of `stripe` (1: staged; 2, 4: stripes) can be
+// resident on the device at once (cudaOccupancyMaxActiveClusters); a
+// negative cudaError_t on failure.
+int dp_wide_max_clusters(int folds, int threads, int stripe, int blk) {
     cudaLaunchAttribute attr[1];
-    cudaLaunchConfig_t cfg = cluster_config(folds, 1, threads,
-                                            staged_smem(threads, blk), 0, attr);
     int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, dp_staged_kernel<true>, &cfg);
+    cudaError_t err;
+    if (stripe == 1) {
+        err = staged_ready<true>();
+        if (err != cudaSuccess) return -(int)err;
+        cudaLaunchConfig_t cfg = cluster_config(
+            folds, 1, threads, staged_smem(threads, blk), 0, attr);
+        err = cudaOccupancyMaxActiveClusters(&n, dp_staged_kernel<true>, &cfg);
+    } else if (stripe == 2 || stripe == 4) {
+        err = stripe == 2 ? stripes_ready<2, true>() : stripes_ready<4, true>();
+        if (err != cudaSuccess) return -(int)err;
+        cudaLaunchConfig_t cfg = cluster_config(
+            folds, 1, threads, stripes_smem(threads * stripe, blk), 0, attr);
+        err = stripe == 2
+                  ? cudaOccupancyMaxActiveClusters(
+                        &n, dp_stripes_kernel<2, true>, &cfg)
+                  : cudaOccupancyMaxActiveClusters(
+                        &n, dp_stripes_kernel<4, true>, &cfg);
+    } else {
+        return -(int)cudaErrorInvalidValue;
+    }
     return err != cudaSuccess ? -(int)err : n;
 }
 

@@ -29,13 +29,16 @@ _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 KERNELS = ("lcs", "dp", "dp_wide", "traceback", "stage0", "merged", "chain")
 
-# one count per hand-written kernel variant: K1 rows and wave, K2 global
-# (one CTA a merge) and staged (a cluster of folds a merge, w2 <= 4095),
-# K3 staged (w2 <= 4095) and K3 with its column factors in L2 (wider),
-# K4, the traceback, K5, stage 0, K6, the merged counters, and K7, the
-# chain's carry
-LAUNCHES = {"lcs": 0, "lcs_wave": 0, "dp": 0, "dp_staged": 0, "dp_wide": 0,
-            "dp_wide_l2": 0, "traceback": 0, "stage0": 0, "merged": 0,
+# one count per hand-written kernel variant: K1 rows and wave; K2 global
+# (one CTA a merge), staged (a cluster of folds a merge, one column a
+# thread: up to 8 folds, w2 <= 4095, and 9-16 folds, "dp_staged16", w2 <=
+# 8191) and stripes (16 folds of 2 or 4 columns a thread, w2 <= 32767);
+# K3 staged ("dp_wide", "dp_wide16") and stripes ("dp_wide_stripes") on
+# the same widths; K4, the traceback; K5, stage 0; K6, the merged
+# counters; and K7, the chain's carry
+LAUNCHES = {"lcs": 0, "lcs_wave": 0, "dp": 0, "dp_staged": 0,
+            "dp_staged16": 0, "dp_stripes": 0, "dp_wide": 0, "dp_wide16": 0,
+            "dp_wide_stripes": 0, "traceback": 0, "stage0": 0, "merged": 0,
             "chain": 0}
 # the device DP route's traffic (ops/dp_resident.py): bytes copied to and
 # from the device, and the launch sides that were resident on the device,
@@ -169,19 +172,18 @@ def _configure(name, lib):
                                            vp, vp, vp]
         lib.dp_profile_batched.restype = ci
     else:
-        for fn in (lib.dp_profile_wide, lib.dp_profile_wide_l2):
-            fn.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_longlong, ci,
-                           ci, ci, ci, ci, vp, vp, vp]
+        ll = ctypes.c_longlong
+        for fn in (lib.dp_profile_wide, lib.dp_profile_wide_stripes):
+            fn.argtypes = [vp, vp, ll, ll, ci, ci, ci, ci, ci, vp, vp, vp]
             fn.restype = ci
         lib.dp_profile_batched_staged.argtypes = [
-            vp, vp, vp, ci, ctypes.c_longlong, ci, ci, ci, ci, ci, ci, vp,
-            vp, vp]
+            vp, vp, vp, ci, ll, ci, ci, ci, ci, ci, ci, vp, vp, vp]
         lib.dp_profile_batched_staged.restype = ci
-        lib.dp_staged_max_clusters.argtypes = [ci, ci, ci]
-        lib.dp_staged_max_clusters.restype = ci
-        lib.dp_profile_wide_l2_meta.argtypes = [
-            vp, vp, vp, ctypes.c_longlong, ci, ci, ci, ci, ci, vp, vp, vp]
-        lib.dp_profile_wide_l2_meta.restype = ci
+        lib.dp_profile_batched_stripes.argtypes = [
+            vp, vp, vp, ci, ll, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp]
+        lib.dp_profile_batched_stripes.restype = ci
+        lib.dp_wide_max_clusters.argtypes = [ci, ci, ci, ci]
+        lib.dp_wide_max_clusters.restype = ci
 
 
 def get(name):

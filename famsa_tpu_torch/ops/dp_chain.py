@@ -9,8 +9,9 @@ one pinned upload of its leaves' symbol bytes and widths, one replay of
 a CUDA graph and one copy of its paths down.  The graph holds, for each
 step, K7 (csrc/chain.cu: the carry, writing the step's header and side
 descriptors), stage 0 (K5, csrc/stage0.cu), the DP (K2's staged variant
-with B = 1 up to a capacity of 4095 columns, else K3's L2 variant,
-csrc/dp_wide.cu), the traceback (K4) and the merged counters (K6), which
+with B = 1 up to a capacity of 8191 columns, else its stripes variant
+with B = 1, csrc/dp_wide.cu; both read the step's widths from its meta),
+the traceback (K4) and the merged counters (K6), which
 write the chain's counters into the other of two ping-pong carry
 buffers; a last K7 folds the last step.  The chain's counters, width and
 cardinality stay on the card from step to step and from chunk to chunk.
@@ -53,8 +54,8 @@ from .. import kernels
 from .dp_pack import NCOLF, NROWF
 from .dp_resident import MergedRef, PathResult, _leaf_symbols, _score_table
 from .dp_stage0 import TABLE_ROWS, stage0_plain
-from .dp_wide import (BLK, STAGED_MAX_W2, dp_staged_plain, dp_wide_plain,
-                      fold_geometry, staged_geometry)
+from .dp_wide import (BLK, dp_wide_plain, fold_geometry, k3_variant,
+                      launch_key)
 from .merged_torch import merged_from_paths_plain
 from .sides import (DESC_WORDS, SIDE_LEAF, SIDE_RESIDENT, LaunchSides,
                     read_sides_plain)
@@ -72,8 +73,9 @@ CHAIN_K = 32
 CHAIN_MIN_W2 = 1536
 CHAIN_MIN_LEN = 64
 CHAIN_MARGIN = 512
-# capacities a chunk is captured for: K2 staged up to STAGED_MAX_W2, K3
-# L2 past it; the last is the widest chain profile the route takes
+# capacities a chunk is captured for: K2 staged up to STAGED_MAX_W2 (8191:
+# 8 and 16 folds), K2 stripes past it; the last is the widest chain
+# profile the route takes
 CHAIN_CAPS = (2047, 4095, 8191, 16256)
 NOT_RUN = -2                # a step's recorded width when it did not run
 
@@ -91,8 +93,9 @@ def cap_for(w2):
 
 
 def dp_variant(cap):
-    """The chunk's DP kernel: "staged" (K2 staged, B = 1) or "l2" (K3 L2)."""
-    return "staged" if cap <= STAGED_MAX_W2 else "l2"
+    """The chunk's DP kernel: "staged" (K2 staged, B = 1) or "stripes" (K2
+    stripes, B = 1), the body K3 takes at a width of cap."""
+    return k3_variant(cap)
 
 
 def path_stride(w1p, cap):
@@ -231,18 +234,12 @@ def chunk_plain(params, bufs, cap):
     """Plain PyTorch version of a chunk's graph on the same buffers, any
     device: per step chain_carry_plain, then (when the step runs) the
     plain twins of K5 (stage0_plain on the descriptor reader), of the DP
-    (the fold walk of the capacity's variant: dp_staged_plain or
-    dp_wide_plain), of K4 (trace_paths_plain, written at the step's place
+    (dp_wide_plain over the capacity's folds), of K4 (trace_paths_plain,
+    written at the step's place
     in `out`) and of K6 (merged_from_paths_plain, into the other carry
     buffer); a last chain_carry_plain folds the last step."""
     ps = path_stride(bufs.w1p, cap)
-    if dp_variant(cap) == "staged":
-        fold_cols = staged_geometry([cap])[1]
-        dp = dp_staged_plain
-    else:
-        _, threads, stripe = fold_geometry(cap)
-        fold_cols = threads * stripe
-        dp = dp_wide_plain
+    _, threads, stripe = fold_geometry(cap)
     for s in range(bufs.k):
         chain_carry_plain(bufs, s, cap)
         w1, w2 = (int(x) for x in bufs.hdr[s, :2].tolist())
@@ -255,8 +252,8 @@ def chunk_plain(params, bufs, cap):
                             [bufs.inp, bufs.carry])
         colf, rowf, meta = stage0_plain(params, *read_sides_plain(sides),
                                         hdr, bufs.table)
-        dirs, fin = dp(colf, rowf, meta, (w1 + 1) * (w2 + 1),
-                       fold_cols=fold_cols)
+        dirs, fin = dp_wide_plain(colf, rowf, meta, (w1 + 1) * (w2 + 1),
+                                  fold_cols=threads * stripe)
         out = trace_paths_plain(dirs, fin, meta)
         bufs.out[s * ps:s * ps + out.numel()] = out
         merged = merged_from_paths_plain(sides, out, hdr, cap)
@@ -274,17 +271,13 @@ class ChainGraph:
         self.variant = dp_variant(cap)
         self.ldc = -(-(cap + 1) // 2) * 2
         self.ps = path_stride(bufs.w1p, cap)
-        if self.variant == "staged":
-            self.folds, self.threads, _ = staged_geometry([cap])
-            self.stripe = 1
-        else:
-            self.folds, self.threads, self.stripe = fold_geometry(cap)
+        self.folds, self.threads, self.stripe = fold_geometry(cap)
         self.graph = None
 
     def _count(self):
         """One launch a step of K5, the DP, K4 and K6 (K7: chain_carry
         counts its own, and a replay its K + 1)."""
-        dp = "dp_staged" if self.variant == "staged" else "dp_wide_l2"
+        dp = launch_key("K2", self.variant, self.folds)
         for key in ("stage0", dp, "traceback", "merged"):
             kernels.LAUNCHES[key] += self.bufs.k
 
@@ -313,9 +306,10 @@ class ChainGraph:
                     colf, rowf, meta, 1, cap, self.folds, self.threads,
                     self.ldc, b.w1p + 1, b.w1p, BLK, dirs, fin, stream)
             else:
-                err = dpw.dp_profile_wide_l2_meta(
-                    colf, rowf, meta, cap, self.folds, self.threads,
-                    self.stripe, self.ldc, BLK, dirs, fin, stream)
+                err = dpw.dp_profile_batched_stripes(
+                    colf, rowf, meta, 1, cap, self.folds, self.threads,
+                    self.stripe, self.ldc, b.w1p + 1, b.w1p, BLK, dirs, fin,
+                    stream)
             kernels.check(err, f"chain DP ({self.variant})")
             kernels.check(tb.trace_paths(dirs, fin, meta, 1, b.w1p, path,
                                          stream), "trace_paths")

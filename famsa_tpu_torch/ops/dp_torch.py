@@ -6,12 +6,14 @@ merged counters on the device, ops/dp_resident.py) and the host-prep
 route (dp_profile_torch_batched: ops/dp_pack.py), which the kernel checks
 and scripts/torch_dp_crossover.py use.
 
-K2 has two variants, chosen by the batch's widest w2 (k2_variant):
-"staged" (csrc/dp_wide.cu:dp_profile_batched_staged, w2 <= 4095) runs
-every merge of the batch as one thread-block cluster of K3's staged
-column folds (ops/dp_wide.py), all merges in one launch; "global" (the
-first design, csrc/dp.cu:dp_profile_batched, w2 up to MAX_W2) runs one merge a
-CTA with its column factors read from L2.
+K2 has three variants, chosen by the batch's widest w2 (k2_variant):
+"staged" (csrc/dp_wide.cu:dp_profile_batched_staged, w2 <= 8191) and
+"stripes" (dp_profile_batched_stripes, w2 <= 32767) run every merge of
+the batch as one thread-block cluster of K3's column folds, of the
+staged or the stripes body (ops/dp_wide.py), all merges in one launch;
+"global" (the first design, csrc/dp.cu:dp_profile_batched, wider batches
+up to MAX_W2) runs one merge a CTA with its column factors read from
+L2.
 
 One recurrence covers the profile-profile and sequence-profile DP of the
 reference (FAMSA src/core/profile_seq.cpp:165-892): for a
@@ -185,22 +187,28 @@ def launch_geometry(max_w2):
 
 def k2_variant(max_w2):
     """"staged" (max_w2 <= dp_wide.STAGED_MAX_W2: every merge a cluster of
-    K3's staged folds, one column a thread) or "global" (the first design:
-    one CTA a merge, stripes of columns, factors read from L2)."""
-    return "staged" if max_w2 <= dp_wide.STAGED_MAX_W2 else "global"
+    K3's staged folds, one column a thread), "stripes" (max_w2 <=
+    dp_wide.MAX_W2: a cluster of K3's stripes folds) or "global" (the
+    first design: one CTA a merge, stripes of columns, factors read from
+    L2)."""
+    if max_w2 <= dp_wide.STAGED_MAX_W2:
+        return "staged"
+    return "stripes" if max_w2 <= dp_wide.MAX_W2 else "global"
 
 
 def dp_dirs(colf, rowf, meta, total, variant=None, meta_host=None):
     """Packed direction bytes and per-row last-column finals of a batch of
     merges (see pack_batch for the inputs).  Returns (dirs [total] uint8,
-    fin [B, ldr-1, 3] int64).  variant: "staged" or "global" (default:
-    k2_variant of the batch's widest w2).  meta_host: meta as a host
-    array; the widths are then taken from it, and nothing here waits for
-    the device (without it they are read from meta, which does).
+    fin [B, ldr-1, 3] int64).  variant: "staged", "stripes" or "global"
+    (default: k2_variant of the batch's widest w2); "staged" and
+    "stripes" take only the batches k2_variant gives them.  meta_host:
+    meta as a host array; the widths are then taken from it, and nothing
+    here waits for the device (without it they are read from meta, which
+    does).
 
-    CUDA tensors launch that variant of kernel K2.  CPU tensors run
-    dp_plain, or with variant="staged" its fold walk,
-    dp_wide.dp_staged_plain."""
+    CUDA tensors launch that variant of kernel K2 (a cluster the card
+    cannot place raises).  CPU tensors run dp_plain, or with variant
+    "staged" or "stripes" its fold walk, dp_wide.dp_staged_plain."""
     if colf.dim() != 3 or colf.shape[1] != NCOLF:
         raise ValueError("colf must be [B, NCOLF, ldc]")
     if rowf.dim() != 3 or rowf.shape[2] != NROWF or rowf.shape[0] != colf.shape[0]:
@@ -211,7 +219,7 @@ def dp_dirs(colf, rowf, meta, total, variant=None, meta_host=None):
         raise TypeError("colf, rowf and meta must be int64")
     if not (colf.device == rowf.device == meta.device):
         raise ValueError("inputs must be on one device")
-    if variant not in (None, "staged", "global"):
+    if variant not in (None, "staged", "stripes", "global"):
         raise ValueError(f"unknown K2 variant {variant!r}")
     b, _, ldc = colf.shape
     ldr = rowf.shape[1]
@@ -219,9 +227,11 @@ def dp_dirs(colf, rowf, meta, total, variant=None, meta_host=None):
     w2s = meta_h[:, 1].tolist()
     if variant == "staged":
         dp_wide.staged_geometry(w2s)        # raises past STAGED_MAX_W2
+    elif variant == "stripes":
+        dp_wide.stripes_geometry(w2s)       # raises outside its widths
     dev = colf.device
     if dev.type == "cpu":
-        if variant == "staged":
+        if variant in ("staged", "stripes"):
             return dp_wide.dp_staged_plain(colf, rowf, meta, total,
                                            meta_host=meta_h)
         return dp_plain(colf, rowf, meta, total, meta_host=meta_h)
@@ -235,18 +245,25 @@ def dp_dirs(colf, rowf, meta, total, variant=None, meta_host=None):
     if b == 0:
         return dirs, fin
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if (variant or k2_variant(max(w2s))) == "staged":
+    variant = variant or k2_variant(max(w2s))
+    if variant in ("staged", "stripes"):
         if ldc % 2 or colf.data_ptr() % 16:
-            raise ValueError("K2 staged takes an even ldc and 16-byte "
+            raise ValueError(f"K2 {variant} takes an even ldc and 16-byte "
                              "aligned colf (pack_batch)")
-        folds, threads, _ = dp_wide.staged_geometry(w2s)
+        folds, threads, stripe, _ = dp_wide.batch_geometry(w2s)
         lib = kernels.get("dp_wide")
-        kernels.LAUNCHES["dp_staged"] += 1
-        err = lib.dp_profile_batched_staged(
-            colf.data_ptr(), rowf.data_ptr(), meta.data_ptr(), b, max(w2s),
-            folds, threads, ldc, ldr, ldr - 1, dp_wide.BLK, dirs.data_ptr(),
-            fin.data_ptr(), stream)
-        kernels.check(err, "dp_profile_batched_staged")
+        kernels.LAUNCHES[dp_wide.launch_key("K2", variant, folds)] += 1
+        if variant == "staged":
+            err = lib.dp_profile_batched_staged(
+                colf.data_ptr(), rowf.data_ptr(), meta.data_ptr(), b,
+                max(w2s), folds, threads, ldc, ldr, ldr - 1, dp_wide.BLK,
+                dirs.data_ptr(), fin.data_ptr(), stream)
+        else:
+            err = lib.dp_profile_batched_stripes(
+                colf.data_ptr(), rowf.data_ptr(), meta.data_ptr(), b,
+                max(w2s), folds, threads, stripe, ldc, ldr, ldr - 1,
+                dp_wide.BLK, dirs.data_ptr(), fin.data_ptr(), stream)
+        kernels.check(err, f"dp_profile_batched_{variant}")
         return dirs, fin
     threads, stripe = launch_geometry(ldc - 1)
     lib = kernels.get("dp")

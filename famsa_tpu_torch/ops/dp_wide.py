@@ -1,9 +1,9 @@
 """Profile DP over column folds: the fold geometry, the wrapper of the
-CUDA kernel K3 (one wide merge; csrc/dp_wide.cu: a staged variant up to
-w2 = 4095 and the L2 variant past it), its plain PyTorch version, the
-plain version of K2's staged variant (a batch of merges, each walked over
-the launch's folds; its wrapper is ops/dp_torch.py:dp_dirs) and the
-single-merge entry points: the device-resident path route of the
+CUDA kernel K3 (one wide merge; csrc/dp_wide.cu: the staged body up to
+w2 = 8191 and the stripes body past it), its plain PyTorch version, the
+plain version of K2's fold-walking variants (a batch of merges, each
+walked over the launch's folds; their wrapper is ops/dp_torch.py:dp_dirs)
+and the single-merge entry points: the device-resident path route of the
 scheduler and the aligner (dp_profile_torch_wide_paths_async) and the
 host-prep route (dp_profile_torch_wide).
 
@@ -12,12 +12,13 @@ same packed inputs (prepare_merge / pack_batch, or stage 0 on the device,
 with B = 1) and with the same output (native (w1+1) x (w2+1) direction
 bytes and the per-row last-column finals), so the traceback K4
 (ops/traceback_torch.py) and core/dp_native.finish_path serve both.  It
-splits columns 0..w2 into F folds of `threads * stripe` columns, one CTA
-each, run as a staggered wavefront: at step s fold f computes row block
-s - f.  Per row, fold f takes from fold f-1 its last-column D and V and
-the running max of m - bc through that column (the seed of its H scan).
-dp_wide_plain walks the same folds, steps and edges, so the
-decomposition itself is tested on the CPU against dp_plain.
+splits columns 0..w2 into F <= 16 folds of `threads * stripe` columns,
+one CTA each, all in one thread-block cluster, run as a staggered
+wavefront: at step s fold f computes row block s - f.  Per row, fold f
+takes from fold f-1 its last-column D and V and the running max of m - bc
+through that column (the seed of its H scan).  dp_wide_plain walks the
+same folds, steps and edges, so the decomposition itself is tested on
+the CPU against dp_plain.
 """
 
 import torch
@@ -32,27 +33,52 @@ from .dp_pack import (C_CUME, C_CUMT, C_G2CE, C_G2CHG, C_G2CTE, C_G2SE,
                       host_meta, run_batch)
 from .dp_resident import dispatch_paths
 
-MAX_FOLDS = 8                      # the portable thread-block cluster size
-STRIPES = (1, 2, 4, 8)
-MAX_W2 = MAX_FOLDS * MAX_THREADS * STRIPES[-1] - 1   # widest profile2 K3 takes
-# widest profile2 of K3's staged variant: stripe-1 folds, whose score
-# planes fit in shared memory; wider merges take the L2 variant
-STAGED_MAX_W2 = MAX_FOLDS * MAX_THREADS - 1
+# mirrored in csrc/dp_wide.cu (MAX_FOLDS, BLK_MAX, STRIPES_SMEM_MAX,
+# NPLANE)
+MAX_FOLDS = 16                     # Hopper's non-portable cluster size
+PORTABLE_FOLDS = 8                 # the portable one: the folds to w2 4095
+BLK_MAX = 32
+STRIPES_SMEM_MAX = 232448 - 4096   # the stripes body's dynamic shared memory
+NPLANE = C_CUMT + 1                # column planes a DP row reads
+# threads of a fold (one CTA) at most: one column each in the staged body
+FOLD_THREADS = MAX_THREADS
+STRIPES = (2, 4)                   # columns a thread of the stripes body
+# widest profile2 K3 takes; core/aligner.py:wide_dp_ok reads it, so it is
+# pinned (MAX_FOLDS * FOLD_THREADS * STRIPES[-1] - 1, the stripes body's
+# reach, equals it)
+MAX_W2 = 32767
+# widest profile2 of the staged body: one column a thread on up to
+# MAX_FOLDS folds, the score planes in shared memory; wider merges take
+# the stripes body
+STAGED_MAX_W2 = MAX_FOLDS * FOLD_THREADS - 1
 MIN_FOLD_COLS = 256                # narrower folds add wavefront steps, not speed
 BLK = 8                            # rows per wavefront step
 
 
 def fold_geometry(w2):
-    """(folds, threads, stripe) of K3 for a merge of w2 + 1 DP columns:
-    up to MAX_FOLDS folds of at least MIN_FOLD_COLS columns, each one CTA
-    of `threads` threads (whole warps) owning `stripe` columns apiece.
-    Every fold but the last is full.  Raises past MAX_W2."""
+    """(folds, threads, stripe) of K3 for a merge of w2 + 1 DP columns,
+    each fold one CTA of `threads` threads (whole warps) owning `stripe`
+    columns apiece, every fold but the last full.  Up to STAGED_MAX_W2
+    one column a thread: at most PORTABLE_FOLDS folds of at least
+    MIN_FOLD_COLS columns, and past PORTABLE_FOLDS * FOLD_THREADS columns
+    as many folds of FOLD_THREADS as cover them.  Wider: MAX_FOLDS folds
+    of the smallest stripe in STRIPES that covers them.  Raises past
+    MAX_W2."""
     if w2 > MAX_W2:
         raise ValueError(f"profile width {w2} exceeds the K3 limit {MAX_W2}")
     cols = w2 + 1
-    folds = min(MAX_FOLDS, -(-cols // MIN_FOLD_COLS))
+    if w2 <= STAGED_MAX_W2:
+        folds = max(min(PORTABLE_FOLDS, -(-cols // MIN_FOLD_COLS)),
+                    -(-cols // FOLD_THREADS))
+        stripe = 1
+    else:
+        folds = MAX_FOLDS
+        per = -(-cols // folds)
+        stripe = next((s for s in STRIPES if s * FOLD_THREADS >= per), None)
+        if stripe is None:
+            raise ValueError(f"profile width {w2} exceeds the K3 limit "
+                             f"{MAX_FOLDS * FOLD_THREADS * STRIPES[-1] - 1}")
     per = -(-cols // folds)
-    stripe = next(s for s in STRIPES if s * MAX_THREADS >= per)
     threads = -(-per // stripe)
     threads = -(-threads // 32) * 32
     return -(-cols // (threads * stripe)), threads, stripe
@@ -60,22 +86,42 @@ def fold_geometry(w2):
 
 def k3_variant(w2):
     """"staged" (w2 <= STAGED_MAX_W2: one column a thread, the fold's
-    column factors in shared memory and registers) or "l2" (the first
-    design: stripes of 2-8 columns, factors read from L2)."""
-    return "staged" if w2 <= STAGED_MAX_W2 else "l2"
+    score planes in shared memory and its other column factors in
+    registers) or "stripes" (2 or 4 columns a thread on MAX_FOLDS folds,
+    the 13 non-score planes of the fold's columns in shared memory)."""
+    return "staged" if w2 <= STAGED_MAX_W2 else "stripes"
+
+
+def batch_geometry(w2s):
+    """(folds, threads, stripe, merge_folds) of K2's fold-walking launch on
+    a batch of merges of widths w2s: the folds of the widest merge
+    (fold_geometry), and for each merge the folds that hold one of its
+    columns, ceil((w2 + 1) / (threads * stripe))."""
+    folds, threads, stripe = fold_geometry(max(w2s))
+    fw = threads * stripe
+    return folds, threads, stripe, [-(-(w2 + 1) // fw) for w2 in w2s]
 
 
 def staged_geometry(w2s):
     """(folds, fold_cols, merge_folds) of K2's staged launch on a batch of
-    merges of widths w2s: the folds of the widest merge (fold_geometry,
-    one column a thread), and for each merge the folds that hold one of
-    its columns, ceil((w2 + 1) / fold_cols).  Raises past STAGED_MAX_W2."""
+    merges of widths w2s (batch_geometry, one column a thread).  Raises
+    past STAGED_MAX_W2."""
     widest = max(w2s)
     if widest > STAGED_MAX_W2:
         raise ValueError(f"K2 staged takes batches of w2 <= {STAGED_MAX_W2}, "
                          f"not {widest}")
-    folds, threads, _ = fold_geometry(widest)
-    return folds, threads, [-(-(w2 + 1) // threads) for w2 in w2s]
+    folds, threads, _, merge_folds = batch_geometry(w2s)
+    return folds, threads, merge_folds
+
+
+def stripes_geometry(w2s):
+    """batch_geometry of K2's stripes launch: raises unless the widest w2
+    lies past STAGED_MAX_W2 (and within MAX_W2)."""
+    widest = max(w2s)
+    if not STAGED_MAX_W2 < widest <= MAX_W2:
+        raise ValueError(f"K2 stripes takes batches of {STAGED_MAX_W2} < w2 "
+                         f"<= {MAX_W2}, not {widest}")
+    return batch_geometry(w2s)
 
 
 def _check_inputs(colf, rowf, meta):
@@ -247,16 +293,18 @@ def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
 
 def dp_staged_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
                     meta_host=None):
-    """Plain PyTorch version of K2's staged variant on a packed batch (see
-    ops/dp_pack.py:pack_batch): every merge walked by dp_wide_plain over
-    the launch's folds of fold_cols columns (default: staged_geometry's),
-    so merge k crosses ceil((w2_k + 1) / fold_cols) of them, blk rows a
-    step.  meta_host: meta as a host array (default: read from meta).
-    Returns (dirs [total] uint8, fin [B, ldr-1, 3] int64: the last-column
-    D, H, V of every row)."""
+    """Plain PyTorch version of K2's fold-walking variants (staged and
+    stripes) on a packed batch (see ops/dp_pack.py:pack_batch): every
+    merge walked by dp_wide_plain over the launch's folds of fold_cols
+    columns (default: batch_geometry's threads * stripe), so merge k
+    crosses ceil((w2_k + 1) / fold_cols) of them, blk rows a step.
+    meta_host: meta as a host array (default: read from meta).  Returns
+    (dirs [total] uint8, fin [B, ldr-1, 3] int64: the last-column D, H, V
+    of every row)."""
     meta_h = host_meta(meta, meta_host).tolist()
     if fold_cols is None:
-        fold_cols = staged_geometry([m[1] for m in meta_h])[1]
+        _, threads, stripe, _ = batch_geometry([m[1] for m in meta_h])
+        fold_cols = threads * stripe
     dirs = torch.zeros(total, dtype=torch.uint8, device=colf.device)
     fin = torch.zeros((colf.shape[0], rowf.shape[1] - 1, 3),
                       dtype=torch.int64, device=colf.device)
@@ -271,19 +319,37 @@ def dp_staged_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
     return dirs, fin
 
 
+def launch_key(kernel, variant, folds):
+    """The kernels.LAUNCHES key of a launch of `folds` folds of K3 (kernel
+    "K3") or of K2's fold-walking variants ("K2"): the staged body on a
+    portable cluster, on a non-portable one (more than PORTABLE_FOLDS
+    folds, key suffix 16), or the stripes body."""
+    if variant == "stripes":
+        return "dp_wide_stripes" if kernel == "K3" else "dp_stripes"
+    key = "dp_wide" if kernel == "K3" else "dp_staged"
+    return key if folds <= PORTABLE_FOLDS else key + "16"
+
+
 def dp_dirs_wide(colf, rowf, meta, total, variant=None, meta_host=None):
     """Packed direction bytes and per-row last-column finals of ONE merge
     (pack_batch of one prepared merge).  Returns (dirs [total] uint8,
-    fin [1, ldr-1, 3] int64).  variant: "staged" or "l2" (default:
-    k3_variant(w2)); both walk fold_geometry's folds.  meta_host: meta as
-    a host array; w1, w2 and the offset are then taken from it, and
-    nothing here waits for the device (without it they are read from
-    meta, which does).
+    fin [1, ldr-1, 3] int64).  variant: "staged" (w2 <= STAGED_MAX_W2)
+    or "stripes" (wider; default: k3_variant(w2)); both walk
+    fold_geometry's folds.  meta_host: meta as a host array; w1, w2 and
+    the offset are then taken from it, and nothing here waits for the
+    device (without it they are read from meta, which does).
 
-    CUDA tensors launch that variant of kernel K3; CPU tensors run
-    dp_wide_plain."""
+    CUDA tensors launch that body of kernel K3 (a cluster the card cannot
+    place raises); CPU tensors run dp_wide_plain."""
     _check_inputs(colf, rowf, meta)
     meta_h = host_meta(meta, meta_host)
+    w1, w2, off = (int(v) for v in meta_h[0, :3])
+    variant = variant or k3_variant(w2)
+    if variant not in ("staged", "stripes"):
+        raise ValueError(f"unknown K3 variant {variant!r}")
+    if variant != k3_variant(w2):
+        raise ValueError(f"K3 {variant} does not take w2 = {w2} (staged: "
+                         f"w2 <= {STAGED_MAX_W2}, stripes: wider)")
     dev = colf.device
     if dev.type == "cpu":
         return dp_wide_plain(colf, rowf, meta, total, meta_host=meta_h)
@@ -291,22 +357,16 @@ def dp_dirs_wide(colf, rowf, meta, total, variant=None, meta_host=None):
         raise ValueError(f"unsupported device {dev}")
     if not (colf.is_contiguous() and rowf.is_contiguous()):
         raise ValueError("inputs must be contiguous")
-    w1, w2, off = (int(v) for v in meta_h[0, :3])
     ldc, ldr = colf.shape[2], rowf.shape[1]
     if off != 0 or total != (w1 + 1) * (w2 + 1) or ldc < w2 + 1 \
             or ldr < w1 + 1:
         raise ValueError("meta does not match the packed merge")
+    if ldc % 2 or colf.data_ptr() % 16:
+        raise ValueError("K3 takes an even ldc and 16-byte aligned colf "
+                         "(pack_batch)")
     folds, threads, stripe = fold_geometry(w2)
-    variant = variant or k3_variant(w2)
-    if variant == "staged":
-        if stripe != 1 or ldc % 2 or colf.data_ptr() % 16:
-            raise ValueError("K3 staged takes w2 <= STAGED_MAX_W2, an even "
-                             "ldc and 16-byte aligned colf (pack_batch)")
-        key, name = "dp_wide", "dp_profile_wide"
-    elif variant == "l2":
-        key, name = "dp_wide_l2", "dp_profile_wide_l2"
-    else:
-        raise ValueError(f"unknown K3 variant {variant!r}")
+    key = launch_key("K3", variant, folds)
+    name = "dp_profile_wide" + ("_stripes" if variant == "stripes" else "")
     dirs = torch.empty(total, dtype=torch.uint8, device=dev)
     fin = torch.empty((1, ldr - 1, 3), dtype=torch.int64, device=dev)
     lib = kernels.get("dp_wide")

@@ -3,17 +3,17 @@
 alternating order.
 
     python3 scripts/torch_kernel_redesign.py [--reps 200] [--rounds 2]
-        [--parts k1,k2,k3,k4,k6,e2e] [--parent .parent]
+        [--parts k1,k2,k3,k4,k6,wide,split,threads,e2e] [--parent .parent]
 
-The old designs of K1, K2 and K3 are still in the port: K1's rows
-variant (one thread a query, ops/lcs_torch.py variant="rows"), K2's
-global variant (one CTA a merge, ops/dp_torch.py variant="global") and
-K3's L2 variant (its first design, ops/dp_wide.py variant="l2"); the new
-ones are K1's wave variant and K2's and K3's staged variants.  K4's and
-K6's old designs live only in an earlier tree: parts k4 and k6 build that
-tree's csrc/traceback.cu and csrc/merged.cu (--parent: a directory with
-the tree unpacked, e.g. `git archive <commit> | tar -x -C .parent`) into
-libraries of their own under DIR/_build.
+The old designs of K1 and K2 are still in the port: K1's rows variant
+(one thread a query, ops/lcs_torch.py variant="rows") and K2's global
+variant (one CTA a merge, ops/dp_torch.py variant="global"); the new ones
+are K1's wave variant and K2's staged and stripes variants.  K3's first
+design (the L2 variant) and K4's and K6's old designs live only in an
+earlier tree: parts k3, k4, k6 and wide build that tree's csrc/dp_wide.cu,
+csrc/traceback.cu and csrc/merged.cu (--parent: a directory with the tree
+unpacked, e.g. `git archive <commit> | tar -x -C .parent`) into libraries
+of their own under DIR/_build.
 
 k1   Kernel-only CUDA-event times of one MST-Prim round, the first
      reference of chip_smoke.py's 1000- and 10,000-sequence families
@@ -31,9 +31,39 @@ k2   Kernel-only times of K2, global, staged, staged, global: a lone
      CTAs a cluster), and split into one launch per merge fold count;
      with the clusters that fit on the card at once.
 k3   Kernel-only times of one merge at the main path's shapes (random
-     profiles of 50 sequences, 20 % gaps), l2, staged, staged, l2; then
-     the staged variant at rows-per-step BLK 8, 16 and 32 and minimum
-     fold widths of 128 and 256 columns.
+     profiles of 50 sequences, 20 % gaps), the parent's L2 variant (its
+     8-fold geometry) against this tree's staged variant, old, new, new,
+     old; then the staged variant at rows-per-step BLK 8, 16 and 32 and
+     minimum fold widths of 128 and 256 columns.
+wide The redesigns past 4095 columns, old, new, new, old in --rounds
+     rounds (CUDA events; both designs' direction bytes and finals must
+     be equal), each with its bound (chip_smoke.py:dp_bound_ms): K3 on
+     lone seq-prof merges of 600 x 4500, 600 x 5906, 300 x 8000,
+     300 x 12,000 and 300 x 16,256 and a 2000 x 6000 prof-prof merge
+     (the parent's L2 variant against this tree's staged body on 9-16
+     folds or its stripes body); the DP of one chain step at capacities
+     8191 and 16256 (the parent's dp_profile_wide_l2_meta against this
+     tree's batched entry with B = 1, as a chunk launches them, on the
+     step's K5 output); and the largest K2 batch whose widest w2 is past
+     4095 in a default run of chip_smoke.py's WIDE_FAMILY (this tree's K2
+     global, the design that took such batches before, against staged or
+     stripes), or a line saying the run launched none.
+split The stripes body's split between shared memory and global memory,
+     in turns: csrc/dp_wide.cu with scripts/dp_wide_variants.patch
+     applied, built with -DSTRIPES_SCORES_ON_CHIP=1 (every plane of a
+     fold's first ~634 columns in shared memory, the rest read from
+     global memory) against this tree's build (only the 13 non-score
+     planes on chip, for all of a fold's <= 2048 columns; the score
+     planes read from global memory), on lone seq-prof merges of
+     300 x 9000,
+     300 x 12,000, 300 x 16,256 and 300 x 30,000 and prof-prof merges of
+     1000 x 12,000 and 1000 x 16,256; both builds' bytes must be equal.
+threads The stripes body's thread cap, in turns: this tree's build (512
+     threads a fold at most, 128 registers a thread: stripes of 2 and 4
+     columns) against the patched source of part split built with
+     -DSTRIPES_MAX_THREADS=256 (255 registers: stripes of 4 and 8), each
+     at its own fold geometry, on the merges of part split; both builds'
+     bytes must be equal.
 k4   Kernel-only device times of K4 (launches captured in a CUDA graph,
      chip_smoke.py:graph_ms), old, new, new, old, in at least three
      rounds, on the inputs of three launches: the 10,000-sequence default
@@ -46,11 +76,10 @@ k4   Kernel-only device times of K4 (launches captured in a CUDA graph,
 k6   The same for K6 on those launches' merged counters (the chain step
      at smax = its capacity); both designs' int32 must be equal.
 e2e  The 1000-sequence default run (refinement on) and the 10,000-
-     sequence run (the wide route) through the CLI entry point, old
-     designs forced (WAVE_MAX_GRID 0, STAGED_MAX_W2 -1, which sends K2 to
-     its global variant and K3 to its L2 one) and new, in
-     --rounds rounds of old, new, new, old: stage seconds and launches
-     per kernel variant.
+     sequence run (the wide route) through the CLI entry point, K1's and
+     K2's old designs forced (WAVE_MAX_GRID 0, K2 on its global variant)
+     and not, in --rounds rounds of old, new, new, old: stage seconds
+     and launches per kernel variant.
 
 Needs a CUDA device; every block of lines carries the card's name and
 power limit."""
@@ -225,35 +254,91 @@ def staged_alternatives(args, reps, smi, what):
     dp_wide.MIN_FOLD_COLS = old
     print(f"k2 staged co-residency, {what}: {len(w2s)} merges, port "
           f"geometry ({folds} folds of {fw}, merge folds {merge_folds}; "
-          f"{lib.dp_staged_max_clusters(folds, fw, dp_wide.BLK)} clusters "
+          f"{lib.dp_wide_max_clusters(folds, fw, 1, dp_wide.BLK)} clusters "
           f"fit) {t['port']} ms; folds of 512 ({wide_geo[0]} folds; "
-          f"{lib.dp_staged_max_clusters(wide_geo[0], wide_geo[1], dp_wide.BLK)}"
+          f"{lib.dp_wide_max_clusters(wide_geo[0], wide_geo[1], 1, dp_wide.BLK)}"
           f" fit) {t['wide']} ms; one launch per fold count "
           f"({len(parts)} launches) {t['split']} ms; {smi}", flush=True)
 
 
-def part_k3(reps, smi):
+def old_fold_geometry(w2):
+    """(folds, threads, stripe) of K3's first design (the parent's L2
+    variant): up to 8 folds of >= 256 columns, stripes of 1-8 columns."""
+    cols = w2 + 1
+    folds = min(8, -(-cols // 256))
+    per = -(-cols // folds)
+    stripe = next(s for s in (1, 2, 4, 8) if s * 512 >= per)
+    threads = -(-(-(-per // stripe)) // 32) * 32
+    return -(-cols // (threads * stripe)), threads, stripe
+
+
+def old_k3(lib, args, total):
+    """The parent's L2 variant on one packed merge (its 8-fold geometry);
+    returns (dirs, fin)."""
     import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops import dp_wide
+    colf, rowf, meta = args
+    w1, w2 = (int(x) for x in meta[0, :2].tolist())
+    folds, threads, stripe = old_fold_geometry(w2)
+    dirs = torch.empty(total, dtype=torch.uint8, device="cuda")
+    fin = torch.empty((1, rowf.shape[1] - 1, 3), dtype=torch.int64,
+                      device="cuda")
+    kernels.check(lib.dp_profile_wide_l2(
+        colf.data_ptr(), rowf.data_ptr(), w1, w2, folds, threads, stripe,
+        colf.shape[2], dp_wide.BLK, dirs.data_ptr(), fin.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "dp_profile_wide_l2")
+    return dirs, fin
+
+
+def k3_pair(old_lib, args, total, rounds, reps):
+    """Old (the parent's L2) and new (this tree's K3) on one merge: equal
+    dirs and finals, then CUDA-event ms in old, new, new, old rounds."""
+    import torch
+    from famsa_tpu_torch.ops import dp_wide
+    w1 = int(args[2][0, 0])
+    got = {"old": old_k3(old_lib, args, total),
+           "new": dp_wide.dp_dirs_wide(*args, total)}
+    if not (torch.equal(got["old"][0], got["new"][0]) and torch.equal(
+            got["old"][1][0, :w1], got["new"][1][0, :w1])):
+        raise AssertionError("k3: the designs differ")
+    fns = {"old": lambda: old_k3(old_lib, args, total),
+           "new": lambda: dp_wide.dp_dirs_wide(*args, total)}
+    t = {"old": [], "new": []}
+    for _ in range(rounds):
+        for v in ("old", "new", "new", "old"):
+            t[v].append(chip_smoke.cuda_ms(fns[v], reps))
+    return t
+
+
+def packed_merge(params, rng, n1, w1, n2, w2):
+    import torch
+    from famsa_tpu_torch.ops.dp_torch import pack_batch, prepare_merge
+    p1 = chip_smoke.random_profile(rng, params, n1, w1,
+                                   0.0 if n1 == 1 else 0.2)
+    p2 = chip_smoke.random_profile(rng, params, n2, w2)
+    colf, rowf, meta, total = pack_batch([prepare_merge(params, p1, p2)])
+    return [torch.from_numpy(x).cuda() for x in (colf, rowf, meta)], total
+
+
+def part_k3(parent, reps, smi):
     from famsa_tpu_torch.core.params import Params
     from famsa_tpu_torch.ops import dp_wide
-    from famsa_tpu_torch.ops.dp_torch import pack_batch, prepare_merge
+    if not parent:
+        raise SystemExit("part k3 needs --parent DIR")
+    old_lib = parent_lib(parent, "dp_wide")
     rng = np.random.default_rng(31)
     params = Params(device="cuda")
     params.adjust(1000)
     reps = max(3, reps // 20)
     for w1, w2 in K3_SHAPES:
-        p1 = chip_smoke.random_profile(rng, params, 50, w1)
-        p2 = chip_smoke.random_profile(rng, params, 50, w2)
-        colf, rowf, meta, total = pack_batch([prepare_merge(params, p1, p2)])
-        args = [torch.from_numpy(x).cuda() for x in (colf, rowf, meta)]
-        t = {v: [] for v in ("l2", "staged")}
-        for v in ("l2", "staged", "staged", "l2"):
-            t[v].append(chip_smoke.cuda_ms(
-                lambda: dp_wide.dp_dirs_wide(*args, total, variant=v), reps))
+        args, total = packed_merge(params, rng, 50, w1, 50, w2)
+        t = k3_pair(old_lib, args, total, 1, reps)
         per_row = {v: [x / w1 * 1e3 for x in t[v]] for v in t}
-        print(f"k3 {w1}x{w2} {dp_wide.fold_geometry(w2)}: l2 {t['l2']} ms, "
-              f"staged {t['staged']} ms; us per row l2 {per_row['l2']} "
-              f"staged {per_row['staged']}; {smi}", flush=True)
+        print(f"k3 {w1}x{w2} old {old_fold_geometry(w2)} new "
+              f"{dp_wide.fold_geometry(w2)}: l2 {t['old']} ms, staged "
+              f"{t['new']} ms; us per row l2 {per_row['old']} staged "
+              f"{per_row['new']}; {smi}", flush=True)
         if (w1, w2) in ((328, 1227), (454, 1065), (307, 3844)):
             old = dp_wide.BLK, dp_wide.MIN_FOLD_COLS
             try:
@@ -267,6 +352,150 @@ def part_k3(reps, smi):
                               "ms", flush=True)
             finally:
                 dp_wide.BLK, dp_wide.MIN_FOLD_COLS = old
+
+
+# the redesign past 4095 columns: lone seq-prof merges (w1, w2), and a
+# prof-prof one
+WIDE_LONE = ((600, 4500), (600, 5906), (300, 8000), (300, 12000),
+             (300, 16256))
+WIDE_PROF = (2000, 6000)
+
+
+def chain_dp_pair(old_lib, cap, rounds, reps, smi):
+    """The DP of one chain step at capacity cap, on the step's K5 output
+    in the chunk's buffers: the parent's dp_profile_wide_l2_meta (8 folds)
+    against this tree's batched entry with B = 1 (as ChainGraph.launch
+    calls it), equal dirs and finals, old, new, new, old."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops import dp_wide
+    b = chain_step(cap, leaf_len=300, width=cap - 700)
+    g = b.graph(cap)
+    w1, w2 = (int(x) for x in b.meta[0, :2].tolist())
+    stream = torch.cuda.current_stream().cuda_stream
+    ofolds, othreads, ostripe = old_fold_geometry(cap)
+    outs = {v: (torch.zeros_like(b.dirs), torch.zeros_like(b.fin))
+            for v in ("old", "new")}
+    new_lib = kernels.get("dp_wide")
+
+    def old(o=outs["old"]):
+        kernels.check(old_lib.dp_profile_wide_l2_meta(
+            b.colf.data_ptr(), b.rowf.data_ptr(), b.meta.data_ptr(), cap,
+            ofolds, othreads, ostripe, g.ldc, dp_wide.BLK, o[0].data_ptr(),
+            o[1].data_ptr(), stream), "l2_meta")
+
+    def new(o=outs["new"]):
+        if g.variant == "staged":
+            err = new_lib.dp_profile_batched_staged(
+                b.colf.data_ptr(), b.rowf.data_ptr(), b.meta.data_ptr(), 1,
+                cap, g.folds, g.threads, g.ldc, b.w1p + 1, b.w1p,
+                dp_wide.BLK, o[0].data_ptr(), o[1].data_ptr(), stream)
+        else:
+            err = new_lib.dp_profile_batched_stripes(
+                b.colf.data_ptr(), b.rowf.data_ptr(), b.meta.data_ptr(), 1,
+                cap, g.folds, g.threads, g.stripe, g.ldc, b.w1p + 1, b.w1p,
+                dp_wide.BLK, o[0].data_ptr(), o[1].data_ptr(), stream)
+        kernels.check(err, f"chain DP {g.variant}")
+    old()
+    new()
+    torch.cuda.synchronize()
+    n = (w1 + 1) * (w2 + 1)
+    if not (torch.equal(outs["old"][0][:n], outs["new"][0][:n])
+            and torch.equal(outs["old"][1][0, :w1], outs["new"][1][0, :w1])):
+        raise AssertionError(f"chain DP at {cap}: the designs differ")
+    t = {"old": [], "new": []}
+    fns = {"old": old, "new": new}
+    for _ in range(rounds):
+        for v in ("old", "new", "new", "old"):
+            t[v].append(chip_smoke.cuda_ms(fns[v], reps))
+    meta = torch.tensor([[w1, w2, 0, 0]], device="cuda")
+    bms, by = chip_smoke.dp_bound_ms(
+        b.colf.view(1, -1, g.ldc)[:, :, :w2 + 1], b.rowf[:, :w1 + 1], meta,
+        n)
+    print(f"wide chain step DP at capacity {cap} ({w1}x{w2}; old "
+          f"{(ofolds, othreads, ostripe)} l2_meta, new {g.variant} "
+          f"{(g.folds, g.threads, g.stripe)}): old {t['old']} ms, new "
+          f"{t['new']} ms; bound {bms:.5f} ms ({by}); {smi}", flush=True)
+
+
+def wide_k2_batch(work):
+    """(colf, rowf, meta, total) of the largest K2 launch (by direction
+    bytes) whose widest w2 is past 4095 in a default run of
+    chip_smoke.WIDE_FAMILY, and the run's count of such launches."""
+    from famsa_tpu_torch.ops import dp_torch
+    n, mean_len, seed = chip_smoke.WIDE_FAMILY
+    fa = os.path.join(work, "wide.fa")
+    with open(fa, "w") as f:
+        f.write(chip_smoke.make_family(n, mean_len, seed))
+    best, count = {}, [0]
+    orig = dp_torch.dp_dirs
+
+    def keep(colf, rowf, meta, total, variant=None, meta_host=None):
+        w2s = (meta.cpu().numpy() if meta_host is None else meta_host)[:, 1]
+        if max(w2s) > 4095:
+            count[0] += 1
+            if total > best.get("total", -1):
+                best.update(total=total, args=(colf, rowf, meta, total))
+        return orig(colf, rowf, meta, total, variant=variant,
+                    meta_host=meta_host)
+    dp_torch.dp_dirs = keep
+    try:
+        rc, _ = chip_smoke.run_cli(["-backend", "torch", "-device", "cuda",
+                                    fa, os.path.join(work, "out.fa")], {})
+    finally:
+        dp_torch.dp_dirs = orig
+    if rc != 0:
+        raise AssertionError(f"wide: the {n}-sequence run failed, rc={rc}")
+    return best.get("args"), count[0]
+
+
+def part_wide(parent, rounds, reps, smi):
+    import torch
+    from famsa_tpu_torch.core.params import Params
+    from famsa_tpu_torch.ops import dp_wide
+    from famsa_tpu_torch.ops.dp_torch import dp_dirs, k2_variant
+    if not parent:
+        raise SystemExit("part wide needs --parent DIR")
+    old_lib = parent_lib(parent, "dp_wide")
+    rng = np.random.default_rng(37)
+    params = Params(device="cuda")
+    params.adjust(1000)
+    reps = max(3, reps // 20)
+    cases = [(1, w1, 300, w2) for w1, w2 in WIDE_LONE]
+    cases.append((400, WIDE_PROF[0], 300, WIDE_PROF[1]))
+    for n1, w1, n2, w2 in cases:
+        args, total = packed_merge(params, rng, n1, w1, n2, w2)
+        t = k3_pair(old_lib, args, total, rounds, reps)
+        bms, by = chip_smoke.dp_bound_ms(*args, total)
+        print(f"wide k3 {'seq-prof' if n1 == 1 else 'prof-prof'} {w1}x{w2} "
+              f"(old l2 {old_fold_geometry(w2)}, new "
+              f"{dp_wide.k3_variant(w2)} {dp_wide.fold_geometry(w2)}): old "
+              f"{t['old']} ms, new {t['new']} ms; bound {bms:.5f} ms ({by}); "
+              f"{smi}", flush=True)
+    for cap in (8191, 16256):
+        chain_dp_pair(old_lib, cap, rounds, reps, smi)
+    with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as work:
+        args, count = wide_k2_batch(work)
+    if args is None:
+        print(f"wide k2: the {chip_smoke.WIDE_FAMILY} run launched no K2 "
+              f"batch past 4095 columns; {smi}", flush=True)
+        return
+    w2s = args[2][:, 1].tolist()
+    new_v = k2_variant(max(w2s))
+    got = {v: dp_dirs(*args, variant=v) for v in ("global", new_v)}
+    if not torch.equal(got["global"][0], got[new_v][0]):
+        raise AssertionError("wide k2: the designs differ")
+    t = {"global": [], new_v: []}
+    for _ in range(rounds):
+        for v in ("global", new_v, new_v, "global"):
+            t[v].append(chip_smoke.cuda_ms(
+                lambda: dp_dirs(*args, variant=v), reps))
+    bms, by = chip_smoke.dp_bound_ms(*args)
+    print(f"wide k2 largest batch past 4095 of the {chip_smoke.WIDE_FAMILY} "
+          f"run ({count} such launches): merges (w1, w2) "
+          f"{args[2][:, :2].tolist()}, new geometry "
+          f"{dp_wide.batch_geometry(w2s)}: global {t['global']} ms, {new_v} "
+          f"{t[new_v]} ms; bound {bms:.5f} ms ({by}); {smi}", flush=True)
 
 
 def parent_lib(parent, name):
@@ -283,7 +512,17 @@ def parent_lib(parent, name):
                     "-Xcompiler", "-fPIC", "-o", str(so), str(src)],
                    check=True)
     lib = ctypes.CDLL(str(so))
-    kernels._configure(name, lib)
+    if name != "dp_wide":
+        kernels._configure(name, lib)
+        return lib
+    # the parent's K3 L2 entries (the first design)
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dp_profile_wide_l2.argtypes = [vp, vp, ll, ll, ci, ci, ci, ci, ci,
+                                       vp, vp, vp]
+    lib.dp_profile_wide_l2_meta.argtypes = [vp, vp, vp, ll, ci, ci, ci, ci,
+                                            ci, vp, vp, vp]
+    for fn in (lib.dp_profile_wide_l2, lib.dp_profile_wide_l2_meta):
+        fn.restype = ci
     return lib
 
 
@@ -435,45 +674,205 @@ def part_k46(parts, parent, rounds, reps, smi):
                   f"new {t['new']}; {smi}", flush=True)
 
 
+SPLIT_SHAPES = ((1, 300, 9000), (1, 300, 12000), (1, 300, 16256),
+                (1, 300, 30000), (400, 1000, 12000), (400, 1000, 16256))
+
+
+def apply_patch(text, patch):
+    """`text` with the hunks of the unified diff `patch` applied: each
+    hunk's old lines (context and removals) must occur exactly once and
+    become its new lines (context and additions)."""
+    hunks, cur = [], None
+    for line in patch.splitlines(keepends=True):
+        if line.startswith("@@"):
+            cur = ([], [])
+            hunks.append(cur)
+        elif cur is not None and line[:1] in (" ", "-", "+"):
+            if line[0] != "+":
+                cur[0].append(line[1:])
+            if line[0] != "-":
+                cur[1].append(line[1:])
+    for old, new in hunks:
+        old, new = "".join(old), "".join(new)
+        if text.count(old) != 1:
+            raise SystemExit("scripts/dp_wide_variants.patch does not apply "
+                             "to csrc/dp_wide.cu: bring it up to date")
+        text = text.replace(old, new)
+    return text
+
+
+def variant_lib(define, name):
+    """ctypes library of csrc/dp_wide.cu with scripts/dp_wide_variants.patch
+    applied, built with -D`define` into the port's build directory as
+    lib<name>.so (the rejected designs of the stripes body)."""
+    import ctypes
+    import subprocess
+    from famsa_tpu_torch import kernels
+    src = kernels.BUILD_DIR / f"{name}.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(apply_patch(
+        (kernels._CSRC / "dp_wide.cu").read_text(),
+        (ROOT / "scripts" / "dp_wide_variants.patch").read_text()))
+    so = kernels.BUILD_DIR / f"lib{name}.so"
+    subprocess.run([kernels._nvcc(), "-gencode", "arch=compute_90a,"
+                    "code=sm_90a", "-std=c++17", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", f"-D{define}",
+                    f"-I{kernels._CSRC}", "-o", str(so), str(src)],
+                   check=True)
+    lib = ctypes.CDLL(str(so))
+    kernels._configure("dp_wide", lib)
+    lib.dp_stripes_shared_cols.argtypes = [ctypes.c_int] * 3
+    lib.dp_stripes_shared_cols.restype = ctypes.c_int
+    return lib
+
+
+def part_split(rounds, reps, smi):
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.core.params import Params
+    from famsa_tpu_torch.ops import dp_wide
+    libs = {"all": variant_lib("STRIPES_SCORES_ON_CHIP=1",
+                               "famsa_dp_wide_scores_on_chip"),
+            "factors": kernels.get("dp_wide")}
+    rng = np.random.default_rng(41)
+    params = Params(device="cuda")
+    params.adjust(1000)
+    reps = max(3, reps // 20)
+    for n1, w1, w2 in SPLIT_SHAPES:
+        args, total = packed_merge(params, rng, n1, w1, 300, w2)
+        colf, rowf, meta = args
+        folds, threads, stripe = dp_wide.fold_geometry(w2)
+        outs = {v: (torch.empty(total, dtype=torch.uint8, device="cuda"),
+                    torch.empty((1, rowf.shape[1] - 1, 3), dtype=torch.int64,
+                                device="cuda")) for v in libs}
+
+        def call(v):
+            kernels.check(libs[v].dp_profile_wide_stripes(
+                colf.data_ptr(), rowf.data_ptr(), w1, w2, folds, threads,
+                stripe, colf.shape[2], dp_wide.BLK, outs[v][0].data_ptr(),
+                outs[v][1].data_ptr(),
+                torch.cuda.current_stream().cuda_stream), f"split {v}")
+        for v in libs:
+            call(v)
+        torch.cuda.synchronize()
+        if not (torch.equal(outs["all"][0], outs["factors"][0]) and
+                torch.equal(outs["all"][1][0, :w1],
+                            outs["factors"][1][0, :w1])):
+            raise AssertionError(f"split {w1}x{w2}: the builds differ")
+        t = {v: [] for v in libs}
+        for _ in range(rounds):
+            for v in ("all", "factors", "factors", "all"):
+                t[v].append(chip_smoke.cuda_ms(lambda: call(v), reps))
+        bms, by = chip_smoke.dp_bound_ms(colf, rowf, meta, total)
+        nsh = {"all": libs["all"].dp_stripes_shared_cols(threads, stripe,
+                                                          dp_wide.BLK),
+               "factors": threads * stripe}
+        print(f"split {'seq-prof' if n1 == 1 else 'prof-prof'} {w1}x{w2} "
+              f"{(folds, threads, stripe)}: every plane on chip ({nsh['all']}"
+              f" columns a fold) {t['all']} ms, factors only "
+              f"({nsh['factors']} columns) {t['factors']} ms; bound "
+              f"{bms:.5f} ms ({by}); {smi}", flush=True)
+
+
+def stripes_geometry_256(w2):
+    """(folds, threads, stripe) of the stripes body built for at most 256
+    threads a fold: 16 folds of the smallest stripe in (2, 4, 8) that 256
+    threads cover (fold_geometry's rule at another thread cap)."""
+    cols = w2 + 1
+    per = -(-cols // 16)
+    stripe = next(s for s in (2, 4, 8) if s * 256 >= per)
+    threads = -(-(-(-per // stripe)) // 32) * 32
+    return -(-cols // (threads * stripe)), threads, stripe
+
+
+def part_threads(rounds, reps, smi):
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.core.params import Params
+    from famsa_tpu_torch.ops import dp_wide
+    libs = {"512": kernels.get("dp_wide"),
+            "256": variant_lib("STRIPES_MAX_THREADS=256",
+                               "famsa_dp_wide_256")}
+    geos = {"512": dp_wide.fold_geometry, "256": stripes_geometry_256}
+    rng = np.random.default_rng(41)
+    params = Params(device="cuda")
+    params.adjust(1000)
+    reps = max(3, reps // 20)
+    for n1, w1, w2 in SPLIT_SHAPES:
+        args, total = packed_merge(params, rng, n1, w1, 300, w2)
+        colf, rowf, meta = args
+        outs = {v: (torch.empty(total, dtype=torch.uint8, device="cuda"),
+                    torch.empty((1, rowf.shape[1] - 1, 3), dtype=torch.int64,
+                                device="cuda")) for v in libs}
+
+        def call(v):
+            folds, threads, stripe = geos[v](w2)
+            kernels.check(libs[v].dp_profile_wide_stripes(
+                colf.data_ptr(), rowf.data_ptr(), w1, w2, folds, threads,
+                stripe, colf.shape[2], dp_wide.BLK, outs[v][0].data_ptr(),
+                outs[v][1].data_ptr(),
+                torch.cuda.current_stream().cuda_stream), f"threads {v}")
+        for v in libs:
+            call(v)
+        torch.cuda.synchronize()
+        if not (torch.equal(outs["512"][0], outs["256"][0]) and
+                torch.equal(outs["512"][1][0, :w1],
+                            outs["256"][1][0, :w1])):
+            raise AssertionError(f"threads {w1}x{w2}: the builds differ")
+        t = {v: [] for v in libs}
+        for _ in range(rounds):
+            for v in ("512", "256", "256", "512"):
+                t[v].append(chip_smoke.cuda_ms(lambda: call(v), reps))
+        print(f"threads {'seq-prof' if n1 == 1 else 'prof-prof'} {w1}x{w2}: "
+              f"512 threads {geos['512'](w2)} {t['512']} ms, 256 threads "
+              f"{geos['256'](w2)} {t['256']} ms; {smi}", flush=True)
+
+
 def part_e2e(rounds, smi):
     from famsa_tpu_torch import kernels
-    from famsa_tpu_torch.ops import dp_wide, lcs_torch
-    designs = {"old": (0, -1),
-               "new": (lcs_torch.WAVE_MAX_GRID, dp_wide.STAGED_MAX_W2)}
+    from famsa_tpu_torch.ops import dp_torch, lcs_torch
+    wave, k2v = lcs_torch.WAVE_MAX_GRID, dp_torch.k2_variant
+    designs = {"old": (0, lambda w: "global"), "new": (wave, k2v)}
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as work:
         fams = {}
         for n in (1000, 10000):
             fams[n] = os.path.join(work, f"fam{n}.fa")
             with open(fams[n], "w") as f:
                 f.write(chip_smoke.make_family(n, 300, 7))
-        for rnd in range(rounds):
-            for design in ("old", "new", "new", "old"):
-                for n in (1000, 10000):
-                    lcs_torch.WAVE_MAX_GRID, dp_wide.STAGED_MAX_W2 = \
-                        designs[design]
-                    stats = os.path.join(work, "stats.txt")
-                    kernels.reset_launches()
-                    rc, secs = chip_smoke.run_cli(
-                        ["-backend", "torch", "-device", "cuda", "-stats",
-                         stats, fams[n], os.path.join(work, "out.fa")], {})
-                    if rc != 0:
-                        raise AssertionError(f"e2e {design} n={n}: rc={rc}")
-                    st = chip_smoke.read_stats(stats)
-                    print(f"e2e round {rnd} {design} n={n}: {secs:.3f} s "
-                          f"(tree {float(st['time.tree_build']):.3f}, "
-                          f"alignment {float(st['time.alignment']):.3f}, "
-                          f"refinement {float(st['time.refinement']):.3f}); "
-                          f"launches {dict(kernels.LAUNCHES)}; {smi}",
-                          flush=True)
-        lcs_torch.WAVE_MAX_GRID, dp_wide.STAGED_MAX_W2 = designs["new"]
+        try:
+            for rnd in range(rounds):
+                for design in ("old", "new", "new", "old"):
+                    for n in (1000, 10000):
+                        lcs_torch.WAVE_MAX_GRID, dp_torch.k2_variant = \
+                            designs[design]
+                        stats = os.path.join(work, "stats.txt")
+                        kernels.reset_launches()
+                        rc, secs = chip_smoke.run_cli(
+                            ["-backend", "torch", "-device", "cuda",
+                             "-stats", stats, fams[n],
+                             os.path.join(work, "out.fa")], {})
+                        if rc != 0:
+                            raise AssertionError(f"e2e {design} n={n}: "
+                                                 f"rc={rc}")
+                        st = chip_smoke.read_stats(stats)
+                        print(f"e2e round {rnd} {design} n={n}: {secs:.3f} "
+                              f"s (tree {float(st['time.tree_build']):.3f}, "
+                              f"alignment {float(st['time.alignment']):.3f},"
+                              f" refinement "
+                              f"{float(st['time.refinement']):.3f}); "
+                              f"launches {dict(kernels.LAUNCHES)}; {smi}",
+                              flush=True)
+        finally:
+            lcs_torch.WAVE_MAX_GRID, dp_torch.k2_variant = wave, k2v
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--parts", default="k1,k2,k3,k4,k6,e2e")
-    ap.add_argument("--parent", help="a tree with the old K4 and K6")
+    ap.add_argument("--parts",
+                    default="k1,k2,k3,k4,k6,wide,split,threads,e2e")
+    ap.add_argument("--parent", help="a tree with the old K3, K4 and K6")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -488,7 +887,13 @@ def main():
     if "k2" in parts:
         part_k2(args.reps, smi)
     if "k3" in parts:
-        part_k3(args.reps, smi)
+        part_k3(args.parent, args.reps, smi)
+    if "wide" in parts:
+        part_wide(args.parent, max(2, args.rounds), args.reps, smi)
+    if "split" in parts:
+        part_split(max(2, args.rounds), args.reps, smi)
+    if "threads" in parts:
+        part_threads(max(2, args.rounds), args.reps, smi)
     if "k4" in parts or "k6" in parts:
         part_k46(parts, args.parent, max(3, args.rounds),
                  max(10, args.reps // 10), smi)

@@ -151,7 +151,9 @@ def run_child(tree, n, mode, work):
 def split_line(name, n, rec):
     """Per device merge: the host seconds of each step."""
     la = rec["launches"]
-    merges = sum(la.get(k, 0) for k in ("dp_wide", "dp_wide_l2"))
+    # K3 calls; a parent tree may count its first design as dp_wide_l2
+    merges = sum(la.get(k, 0) for k in ("dp_wide", "dp_wide16",
+                                        "dp_wide_stripes", "dp_wide_l2"))
     calls = rec["calls"]
     parts = []
     for label, t in sorted(rec["times"].items(), key=lambda x: -x[1]):

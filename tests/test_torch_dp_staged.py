@@ -183,18 +183,22 @@ def test_staged_matches_host_guided(small_folds):
                                 STAGED_MAX_W2 + 1, MAX_W2])
 def test_k2_variant_by_width(w2):
     """The staged variant takes exactly the batches whose widest w2 fits
-    K3's staged folds (one column a thread, <= 512 columns a fold)."""
-    assert STAGED_MAX_W2 == 4095
-    assert k2_variant(w2) == ("staged" if w2 <= 4095 else "global")
+    K3's staged folds (one column a thread, <= 512 columns a fold, <= 16
+    folds), the stripes variant the rest up to K3's MAX_W2."""
+    assert STAGED_MAX_W2 == 8191
+    assert k2_variant(w2) == ("staged" if w2 <= 8191 else "stripes")
     assert (k2_variant(w2) == "staged") == (fold_geometry(w2)[2] == 1)
+    assert k2_variant(MAX_W2 + 1) == "global"
 
 
 @pytest.mark.parametrize("w2s,want", [
     ([1235], (5, 256, [5])),
     ([300, 1235, 40], (5, 256, [2, 5, 1])),
     ([3850, 300, 511, 512], (8, 512, [8, 1, 1, 2])),
-    ([STAGED_MAX_W2, 0], (8, 512, [8, 1])),
+    ([STAGED_MAX_W2, 0], (16, 512, [16, 1])),
     ([255, 256], (2, 160, [2, 2])),
+    ([4095, 0], (8, 512, [8, 1])),
+    ([4096, 3850], (9, 480, [9, 9])),
 ])
 def test_staged_geometry_mixed_batches(w2s, want):
     """The launch's folds and fold width are fold_geometry's for the

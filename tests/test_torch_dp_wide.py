@@ -178,17 +178,18 @@ def test_wide_matches_giant_interpret_more(n1, n2, w1, w2, banded,
 
 
 def test_fold_geometry_edges():
-    for w2 in (0, 1, 31, 255, 256, 1000, 4095, 4096, 8191, 16256, 16383,
-               16384, MAX_W2):
+    for w2 in (0, 1, 31, 255, 256, 1000, 4095, 4096, 8191, 8192, 16256,
+               16383, 16384, MAX_W2):
         folds, threads, stripe = fold_geometry(w2)
         fw = threads * stripe
-        assert 1 <= folds <= 8 and threads % 32 == 0 and threads <= 512
-        assert stripe in (1, 2, 4, 8)
+        assert 1 <= folds <= 16 and threads % 32 == 0 and threads <= 512
+        assert stripe in (1, 2, 4)
         assert (folds - 1) * fw < w2 + 1 <= folds * fw, w2
     assert fold_geometry(255)[0] == 1 and fold_geometry(256)[0] == 2
     assert fold_geometry(4095) == (8, 512, 1)
-    assert fold_geometry(16256) == (8, 512, 4)      # the JAX kernel's limit
-    assert fold_geometry(MAX_W2) == (8, 512, 8)
+    assert fold_geometry(8191) == (16, 512, 1)
+    assert fold_geometry(16256) == (16, 512, 2)     # the JAX kernel's limit
+    assert fold_geometry(MAX_W2) == (16, 512, 4)
     with pytest.raises(ValueError, match="K3 limit"):
         fold_geometry(MAX_W2 + 1)
 
@@ -198,9 +199,9 @@ def test_fold_geometry_edges():
 def test_k3_variant_by_width(w2):
     """The staged variant takes exactly the widths whose folds are one
     column a thread (at most 512 columns, the score planes' shared-memory
-    tile); the L2 variant the rest, up to MAX_W2."""
+    tile); the stripes variant the rest, up to MAX_W2."""
     folds, threads, stripe = fold_geometry(w2)
-    assert k3_variant(w2) == ("staged" if stripe == 1 else "l2")
+    assert k3_variant(w2) == ("staged" if stripe == 1 else "stripes")
     assert (k3_variant(w2) == "staged") == (w2 <= STAGED_MAX_W2)
     if stripe == 1:
         assert threads <= 512 and folds * threads >= w2 + 1
@@ -361,4 +362,5 @@ def test_cpu_runs_plain_without_launch():
     b = _port(tp, _make_profile(rng, jp, 3, 40))
     dp_profile_torch_wide(tp, a, b)
     assert kernels.LAUNCHES["dp_wide"] == 0
-    assert kernels.LAUNCHES["dp_wide_l2"] == 0
+    assert kernels.LAUNCHES["dp_wide16"] == 0
+    assert kernels.LAUNCHES["dp_wide_stripes"] == 0
