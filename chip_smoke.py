@@ -12,7 +12,20 @@ Phases (one line each; any mismatch or exception exits non-zero):
     and W > 64; wave on 1 ref x 1000 and x 10,000 queries, W = 1, 11,
     16, 17, 32, 33, 64 and 70 (2 refs x 257 queries: a partial last
     segment; no-op symbols throughout) and a triangular n_queries of 333
-    that ends inside a warp;
+    that ends inside a warp.  K8 (csrc/prim.cu, a Prim round after its
+    LCS) against prim_round_plain, bit-exact on every state tensor (cur,
+    dist, tieb, active, the next reference row) and edge, 64 consecutive
+    rounds a case, each round's K1 wave row feeding both: the trees of
+    phase 4's, 6's and 6b's families as the CLI builds them (1000 x 300,
+    10,000 x 300, 10,000 x 600), from round 0 and from round n/2, and 257
+    sequences, 100 sequences three times each (the tie keys decide) and
+    two groups on disjoint alphabets (lcs == 0).  At each family's round
+    shape: K8's ms from a launch loop and a launch's device ms in a CUDA
+    graph, its bound and plain ms, and K1 wave's ms and bound; one chunk
+    of 64 rounds of the 1000 and the 10,000 families under torch.profiler
+    and set_sync_debug_mode("error"): exactly K1 wave then K8 a round,
+    their device ms a round, and unprofiled the host's ms a round to
+    enqueue the chunk against its ms a round to the device's end;
  3. K2 against its plain PyTorch versions on the card, bit-exact in
     direction bytes, finals, last, path and total, and path/total against
     the native host DP.  Staged variant (csrc/dp_wide.cu:
@@ -67,9 +80,10 @@ Phases (one line each; any mismatch or exception exits non-zero):
     at the default knobs, with every profile merge and guided
     re-alignment forced on K2, then on K3, and with -backend numpy; every
     torch output must equal the numpy one byte for byte, and each run
-    must launch the kernel variants it is meant to exercise (every Prim
-    round on K1 wave, every K2 launch whose widest w2 is <= 4095 on K2
-    staged, every K3 call at w2 <= 4095 on K3 staged).  The device DP
+    must launch the kernel variants it is meant to exercise (n - 1 Prim
+    rounds for its n sequences, each one K1 wave and one K8 launch, every
+    K2 launch whose widest w2 is <= 4095 on K2 staged, every K3 call at
+    w2 <= 4095 on K3 staged).  The device DP
     route (ops/dp_resident.py) is held to ResidencyWatch in every torch
     run: one K5 and one K4 launch per K2 launch and K3 call, one K6
     launch per dispatch that asks for merged counters, at most
@@ -85,11 +99,12 @@ Phases (one line each; any mismatch or exception exits non-zero):
     names;
  5. the guide tree: -gt_export on a seeded 2000-sequence family, torch
     against numpy, with a Prim chunk small enough to cross chunk
-    boundaries, and under -dist indel_div_lcs (K1's rows variant);
+    boundaries (n - 1 K1 wave and K8 launches), and under -dist
+    indel_div_lcs (K1's rows variant);
  6. the wide path: a seeded 10,000-sequence family of mean length 300
     (refinement AUTO = off) with -backend torch at the default knobs,
     against -backend numpy on the guide tree the torch -gt_export wrote;
-    byte-identical, and K1 wave, K2 staged, K3 staged, K4, K5 and K6
+    byte-identical, and K1 wave, K8, K2 staged, K3 staged, K4, K5 and K6
     launched as in phase 4, the route held to ResidencyWatch as there (the
     numpy run in a child process beside phase 8's torch runs, so that no
     phase-7 time shares the host with it).  Prints the stage seconds and
@@ -196,7 +211,14 @@ launches captured in one CUDA graph (a launch loop from Python, its
 "graph" holds the chain's chunks: replays, their CUDA-event total and
 mean in the all-chain run, one chunk's replay and launch-loop ms and
 bound (the DP's work on its steps), and the checked chunks' replay
-against plain ms.  No kernel has a single PyTorch call computing the
+against plain ms.  K8's entry comes from phase 2: "ms" is a launch's
+device time from 20 launches captured in one CUDA graph at round n/2
+of the 10,000 x 600 family ("launch_loop_ms" from a Python loop, beside
+K1 wave's ms and bound there, and the profiled chunks); its bound
+counts bytes (an active vertex's lcs, length, dist and tieb, the pow
+entry of one with lcs > 0, the writes of the vertices it updates, the
+reference row read and written); its launches and totals are the
+recorded runs'.  No kernel has a single PyTorch call computing the
 same function, so library_ms is null.
 """
 
@@ -452,6 +474,261 @@ def phase_k1(device="cuda", big=(256, 4096, 300), wide=(16, 512, 1300),
                 f"({pairs / ms * 1e3:.4g} pairs/s), plain {pms:.1f} ms, "
                 f"bound {bms:.4f} ms")
     log(msg)
+
+
+# ----------------------------------------------------------------------
+# K8
+K8_ROUNDS = 64              # consecutive rounds each check holds
+STATE = ("cur", "dist", "tieb", "active", "ref")
+
+
+def fasta_strings(text):
+    """The residue strings of FASTA text."""
+    return ["".join(block.splitlines()[1:]) for block in text.split(">")[1:]]
+
+
+def prim_case(strings, device, dedup=True):
+    """The device Prim's inputs (ops/prim_torch.py:prim_inputs) for the
+    sequences `strings` as the CLI builds its tree: sorted, padded, and
+    (dedup) without duplicates."""
+    from famsa_tpu_torch.core.sequence import Sequence
+    from famsa_tpu_torch.ops.lcs_torch import BV32, pad_sequences
+    from famsa_tpu_torch.ops.prim_torch import prim_inputs
+    from famsa_tpu_torch.pipeline import remove_duplicates, sort_and_extend
+    seqs = sort_and_extend([Sequence(f">s{k}", s, k)
+                            for k, s in enumerate(strings)])
+    if dedup:
+        seqs = remove_duplicates(seqs, list(range(len(seqs))))
+    lengths = np.array([s.length for s in seqs], dtype=np.int64)
+    return prim_inputs(pad_sequences(seqs, align=BV32), lengths, device)
+
+
+def k8_small_families(seed=31):
+    """Kernel-level cases of K8 besides the main path's families: 257
+    sequences (a partial last warp of the CTA's stride); 100 distinct
+    sequences three times each, kept (every distance from a vertex ties
+    with its copies', so the tie keys decide); and two groups on disjoint
+    alphabets, whose rows have lcs == 0."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n, lo, hi, letters=20, shift=0):
+        return ["".join(AA[shift + c] for c in rng.integers(
+            0, letters, size=int(rng.integers(lo, hi)))) for _ in range(n)]
+    distinct = rand(100, 60, 200)
+    return {"257": (fasta_strings(make_family(257, 150, seed)), True),
+            "tie": ([s for s in distinct for _ in range(3)], False),
+            "lcs0": ([s for pair in zip(rand(100, 40, 120, 10),
+                                        rand(100, 40, 120, 10, 10))
+                      for s in pair], True)}
+
+
+def _bits(t):
+    """A float64 tensor's bits (so that equal means bit for bit)."""
+    import torch
+    return t.view(torch.int64) if t.is_floating_point() else t
+
+
+def clone_state(state):
+    from famsa_tpu_torch.ops.prim_torch import PrimState
+    out = object.__new__(PrimState)
+    for name in STATE:
+        setattr(out, name, getattr(state, name).clone())
+    return out
+
+
+def k8_check(inputs, what, start=0, rounds=K8_ROUNDS):
+    """K8 against prim_round_plain, bit for bit on every state tensor and
+    output, for `rounds` consecutive rounds from the state after `start`
+    rounds (reached on K1 wave and K8): both sides start from one state,
+    and each round's K1 wave row (held in K1's part of this phase) feeds
+    both.  Returns (max abs error, the kernel side's state before its
+    last round, that round's LCS row)."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.lcs_torch import lcs_rows
+    from famsa_tpu_torch.ops.prim_torch import (PrimState, prim_chunk,
+                                                prim_round, prim_round_plain)
+    table, queries, lengths, pow_tab = inputs
+    ks = PrimState(queries)
+    if start:
+        prim_chunk(table, queries, lengths, pow_tab, ks, start)
+    ps = clone_state(ks)
+    ek = torch.zeros((3, rounds), dtype=torch.int64, device=queries.device)
+    ep = ek.clone()
+    err = 0.0
+    for r in range(rounds):
+        lcs = lcs_rows(table, ks.ref)
+        before = clone_state(ks)
+        launched = kernels.LAUNCHES["prim_round"]
+        prim_round(lcs, lengths, pow_tab, queries, *(getattr(ks, a) for a
+                                                     in STATE), ek, r)
+        if queries.is_cuda and kernels.LAUNCHES["prim_round"] != launched + 1:
+            raise AssertionError(f"K8 {what}: the kernel was not launched")
+        prim_round_plain(lcs, lengths, pow_tab, queries,
+                         *(getattr(ps, a) for a in STATE), ep, r)
+        err = max(err, float((ks.dist - ps.dist).abs().max()),
+                  int_err(ks.tieb, ps.tieb), int_err(ek, ep))
+        bad = [a for a in STATE if not torch.equal(
+            _bits(getattr(ks, a)), _bits(getattr(ps, a)))]
+        if bad or not torch.equal(ek, ep):
+            raise AssertionError(f"K8 {what}: round {start + r} differs "
+                                 f"from prim_round_plain in {bad} or the "
+                                 f"edges {ek[:, r].tolist()} against "
+                                 f"{ep[:, r].tolist()}")
+    return err, before, lcs
+
+
+def k8_bound_ms(state, after, lcs):
+    """K8's bound by bytes on one round: every vertex's active flag; an
+    active vertex's lcs, length, dist and tieb; the pow table entry of one
+    with lcs > 0; dist and tieb written where they change; the reference
+    row read and written, cur, the reference's length and the edge."""
+    n_act = int(state.active.sum())
+    n_pow = int((state.active & (lcs[0] > 0)).sum())
+    n_upd = int(((after.dist != state.dist) | (after.tieb != state.tieb))
+                .sum())
+    length = state.ref.shape[1]
+    nbytes = (state.active.numel() + 28 * n_act + 8 * n_pow + 16 * n_upd
+              + 8 * length + 8 + 8 + 1 + 24)
+    return bound(nbytes, 12 * n_act)
+
+
+def k8_times(inputs, state, lcs):
+    """K8 on one round at `state`: (launch-loop ms, device ms a launch
+    from 20 in one CUDA graph, plain ms, bound ms, bound by); each on a
+    clone of the state (200 launches leave the tree a few vertices
+    shorter)."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.prim_torch import prim_round, prim_round_plain
+    table, queries, lengths, pow_tab = inputs
+    edges = torch.zeros((3, 1), dtype=torch.int64, device=queries.device)
+    after = clone_state(state)
+    plain_ms = wall_ms(lambda: prim_round_plain(
+        lcs, lengths, pow_tab, queries, *(getattr(after, a) for a in STATE),
+        edges, 0))
+    bms, by = k8_bound_ms(state, after, lcs)
+    st = clone_state(state)
+    ms = cuda_ms(lambda: prim_round(lcs, lengths, pow_tab, queries,
+                                    *(getattr(st, a) for a in STATE), edges,
+                                    0), 50)
+    st = clone_state(state)
+    lib = kernels.get("prim")
+    gms = graph_ms(lambda: kernels.check(lib.prim_round(
+        lcs.data_ptr(), lengths.data_ptr(), pow_tab.data_ptr(),
+        queries.data_ptr(), queries.shape[0], queries.shape[1],
+        *(getattr(st, a).data_ptr() for a in STATE), edges.data_ptr(), 1,
+        0, torch.cuda.current_stream().cuda_stream), "prim_round"))
+    return ms, gms, plain_ms, bms, by
+
+
+def k8_profile(inputs, state, k=K8_ROUNDS):
+    """One chunk of k rounds (prim_chunk) from `state` under torch.profiler
+    and set_sync_debug_mode("error"): its device operations (2 a round, K1
+    wave then K8, or the smoke fails) and their device ms a round; then
+    the same chunk on another clone, unprofiled: the host's ms a round to
+    enqueue it and its ms a round to the end of the device's work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from famsa_tpu_torch.ops.prim_torch import prim_chunk
+    st = clone_state(state)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prim_chunk(*inputs, st, k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and "spin_kernel" not in e.name]
+    want = ["lcs_wave_kernel", "prim_round_kernel"] * k
+    if len(ops) != len(want) or any(w not in e.name
+                                    for w, e in zip(want, ops)):
+        raise AssertionError(f"K8: a chunk of {k} rounds ran {len(ops)} "
+                             f"device operations, not K1 wave then K8 a "
+                             f"round: {[short_name(e.name) for e in ops]}")
+    dev_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3 / k
+    st = clone_state(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prim_chunk(*inputs, st, k)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"rounds": k, "device_ops_a_round": len(ops) / k,
+            "device_ms_a_round": dev_ms,
+            "host_ms_a_round": (t1 - t0) * 1e3 / k,
+            "round_ms": (t2 - t0) * 1e3 / k}
+
+
+def phase_k8(device="cuda", fams=None):
+    """K8 (csrc/prim.cu) against prim_round_plain on the card, bit for
+    bit, K8_ROUNDS consecutive rounds each: the trees of the main path's
+    families (phase 4's 1000, phase 6's 10,000 and phase 6b's 10,000 of
+    mean length 600; from round 0 and from round n/2) and
+    k8_small_families.  Times K8 and K1 wave at the families' round
+    shapes (K1 wave's bound at 6b's too), and profiles one chunk of the
+    1000 and the 10,000 families.  Returns K8's entry of the kernel
+    report (measured on 6b's family, at round n/2)."""
+    from famsa_tpu_torch.ops.lcs_torch import lcs_rows
+    fams = fams or {"1000": (1000, 300, 7), "10000": WIDE_300,
+                    "wide600": WIDE_FAMILY}
+    held, parts, err, entry, profiles = [], [], 0.0, None, {}
+    for name, (strings, dedup) in k8_small_families().items():
+        inputs = prim_case(strings, device, dedup)
+        e, _, _ = k8_check(inputs, name)
+        err = max(err, e)
+        held.append(f"{name} (n={inputs[1].shape[0]})")
+    for name, fam in fams.items():
+        inputs = prim_case(fasta_strings(make_family(*fam)), device)
+        table, queries = inputs[:2]
+        n = queries.shape[0]
+        e, _, _ = k8_check(inputs, name)
+        e2, state, lcs = k8_check(inputs, f"{name} from round {n // 2}",
+                                  start=n // 2)
+        err = max(err, e, e2)
+        held.append(f"{name} (n={n}, L={queries.shape[1]}) from rounds 0 "
+                    f"and {n // 2}")
+        if device != "cuda":
+            continue
+        ms, gms, plain_ms, bms, by = k8_times(inputs, state, lcs)
+        k1_ms = cuda_ms(lambda: lcs_rows(table, state.ref), 50)
+        k1_bms, k1_by = lcs_bound_ms(table, state.ref, n)
+        if name != "wide600":
+            profiles[name] = k8_profile(inputs, state)
+        parts.append(
+            f"{name} (n={n}, L={queries.shape[1]}, W={table.shape[1]}): K8 "
+            f"{ms:.5f} ms from a launch loop, {gms:.5f} ms a launch in a "
+            f"CUDA graph, bound {bms:.7f} ms ({by}), plain {plain_ms:.3f} "
+            f"ms; K1 wave {k1_ms:.5f} ms, bound {k1_bms:.5f} ms ({k1_by}); "
+            f"K8 / K1 wave {gms / k1_ms:.3f}")
+        entry = {"name": "prim_round", "route": "cuda",
+                 "source": "famsa_tpu_torch/csrc/prim.cu",
+                 "replaces": "famsa_tpu/ops/prim_device.py:67",
+                 "ms": gms, "plain_ms": plain_ms, "bound_ms": bms,
+                 "bound_by": by, "library_ms": None, "launch_loop_ms": ms,
+                 "at": f"phase 2: round {n // 2} of the {name} family "
+                       f"(n={n}, L={queries.shape[1]})",
+                 "k1_wave_ms": k1_ms, "k1_wave_bound_ms": k1_bms,
+                 "profile": profiles}
+    msg = (f"phase 2 K8: bit-exact vs prim_round_plain ({K8_ROUNDS} rounds "
+           f"each, every state tensor and edge) on {', '.join(held)}")
+    if device == "cuda":
+        msg += ("; " + "; ".join(parts) + "; a profiled chunk (device ms, "
+                "host ms to enqueue, ms to the device's end, a round): "
+                + "; ".join(f"{k} {v['device_ops_a_round']:g} device "
+                            f"operations a round, {v['device_ms_a_round']:.5f}"
+                            f", {v['host_ms_a_round']:.5f}, "
+                            f"{v['round_ms']:.5f}"
+                            for k, v in profiles.items()))
+        entry["max_abs_err"] = err
+    log(msg)
+    return entry
 
 
 # ----------------------------------------------------------------------
@@ -1397,14 +1674,16 @@ def stage_report(name, secs, stats, counts):
             f"{counts['dp_stripes']} global {counts['dp']} K3 staged "
             f"{counts['dp_wide']} staged16 {counts['dp_wide16']} stripes "
             f"{counts['dp_wide_stripes']} K4 {counts['traceback']} K5 "
-            f"{counts['stage0']} K6 {counts['merged']}")
+            f"{counts['stage0']} K6 {counts['merged']} K8 "
+            f"{counts['prim_round']}")
 
 
-def check_launches(what, counts, needed, rec, prim=True):
-    """Each run must launch the kernels it is meant to exercise.  Every
-    Prim round's LCS (a single reference) goes to K1's wave variant, so a
-    run that builds the default guide tree (prim) launches no rows
-    variant; every K2 launch and K3 call must have gone to the variant
+def check_launches(what, counts, needed, rec):
+    """Each run must launch the kernels it is meant to exercise.  A run
+    that builds the default guide tree ("prim_round" in needed) runs n-1
+    Prim rounds for the n sequences of its one device Prim (rec.prim_n),
+    each one launch of K1's wave variant and one of K8, and nothing else
+    of K1; every K2 launch and K3 call must have gone to the variant
     its widest w2 selects (dp_key: staged on up to 8 folds to 4095,
     on 9-16 folds to 8191, stripes to 32767, K2 global past it; rec holds
     the widths of the run's K2 and K3 calls)."""
@@ -1412,9 +1691,14 @@ def check_launches(what, counts, needed, rec, prim=True):
     if missing:
         raise AssertionError(f"{what}: kernels {missing} were never "
                              f"launched: {counts}")
-    if prim and "lcs_wave" in needed and counts["lcs"]:
-        raise AssertionError(f"{what}: Prim rounds launched K1's rows "
-                             f"variant: {counts}")
+    if "prim_round" in needed:
+        rounds = [n - 1 for n in rec.prim_n]
+        if len(rounds) != 1 or counts["lcs"] or not (
+                counts["lcs_wave"] == counts["prim_round"] == rounds[0]):
+            raise AssertionError(f"{what}: device Prim rounds {rounds}, "
+                                 f"launches of K1 rows {counts['lcs']}, K1 "
+                                 f"wave {counts['lcs_wave']}, K8 "
+                                 f"{counts['prim_round']}")
     for name, calls, keys in (("K2", rec.k2_calls, K2_KEYS),
                               ("K3", rec.wide_calls, K3_KEYS)):
         want = dict.fromkeys(keys, 0)
@@ -1573,7 +1857,7 @@ class ResidencyWatch:
 # (the guide tree's Prim rounds), K2's staged variant (merges ready
 # together) and K3's staged variant (lone merges and refinement's guided
 # re-alignments, at the default FAMSA_TORCH_WIDE_MIN_CELLS)
-DEFAULT_KERNELS = ("lcs_wave", "dp_staged", "dp_wide")
+DEFAULT_KERNELS = ("lcs_wave", "prim_round", "dp_staged", "dp_wide")
 
 
 def run_torch(name, flags, env, recorder, watch, run, check, device):
@@ -1628,11 +1912,11 @@ def phase_main(work, recorder, watch, device="cuda", n=1000, mean_len=300):
     runs = [("torch", torch_flags, {}, DEFAULT_KERNELS),
             ("torch_k2", torch_flags, {"FAMSA_TORCH_DP_MIN_CELLS": "0",
                                        "FAMSA_TORCH_WIDE_MIN_CELLS": "1e30"},
-             ("lcs_wave", "dp_staged")),
+             ("lcs_wave", "prim_round", "dp_staged")),
             ("torch_k3", torch_flags, {"FAMSA_TORCH_DP_MIN_CELLS": "0",
                                        "FAMSA_TORCH_WIDE_MIN_CELLS": "0",
                                        "FAMSA_TORCH_MAX_BATCH": "1"},
-             ("lcs_wave", "dp_wide")),
+             ("lcs_wave", "prim_round", "dp_wide")),
             ("numpy", ["-backend", "numpy"], {}, ())]
     outs, report = {}, []
     for name, flags, env, needed in runs:
@@ -1678,7 +1962,7 @@ def phase_tree(work, recorder, device="cuda", n=2000, mean_len=300,
         f.write(make_family(n, mean_len, 11))
     cases = (("tree", [], {"FAMSA_TORCH_PRIM_CHUNK": str(chunk)}),
              ("dist", ["-dist", "indel_div_lcs"], {}))
-    msg = []
+    msg, extra_msg = [], ""
     for what, extra, env in cases:
         outs, secs = {}, {}
         for name, flags in (("torch", ["-backend", "torch", "-device",
@@ -1694,16 +1978,23 @@ def phase_tree(work, recorder, device="cuda", n=2000, mean_len=300,
             recorder.stop(counts)
             if rc != 0:
                 raise AssertionError(f"gt_export {what} {name}: rc={rc}")
-            if active and device == "cuda":
-                check_launches("gt_export -dist indel_div_lcs", counts,
-                               ("lcs",), recorder)
+            if device == "cuda" and name == "torch":
+                if what == "dist":
+                    check_launches("gt_export -dist indel_div_lcs", counts,
+                                   ("lcs",), recorder)
+                else:
+                    check_launches(f"gt_export Prim chunk {chunk}", counts,
+                                   ("lcs_wave", "prim_round"), recorder)
+                    extra_msg = (f" (launches: K1 wave {counts['lcs_wave']}"
+                                 f", K8 {counts['prim_round']})")
             with open(out, "rb") as f:
                 outs[name] = f.read()
         if outs["torch"] != outs["numpy"]:
             raise AssertionError(f"gt_export {what}: torch tree differs "
                                  "from numpy")
         msg.append(f"{n} seqs {' '.join(extra) or f'Prim chunk {chunk}'}:"
-                   f" torch {secs['torch']:.2f} s, numpy {secs['numpy']:.2f} s")
+                   f" torch {secs['torch']:.2f} s, numpy {secs['numpy']:.2f} s"
+                   + ("" if extra else extra_msg))
     log("phase 5 guide tree (-gt_export), torch byte-identical to numpy: "
         + "; ".join(msg) + f"; K1 launches of the -dist run: rows "
         f"{recorder.counts['dist']['lcs']} wave "
@@ -2622,12 +2913,11 @@ def phase_trees(work, recorder, watch, device="cuda", wide=()):
                                      f"{launched} launched, {k1} expected: "
                                      f"{counts}")
             if cuda and align:
-                check_launches(f"phase 8 {name}", counts, dp, recorder,
-                               prim=False)
+                check_launches(f"phase 8 {name}", counts, dp, recorder)
             elif any(counts[k] for k in VARIANTS if k not in ("lcs",
                                                                "lcs_wave")):
                 raise AssertionError(f"phase 8 {name}: a tree run launched "
-                                     f"DP kernels: {counts}")
+                                     f"DP kernels or K8: {counts}")
             # the recorder's hold on the largest launches' inputs (in the
             # peak: it keeps their mask tables alive past their backends)
             kept = {id(t): t.numel() * t.element_size()
@@ -2734,6 +3024,8 @@ VARIANTS = {
                "famsa_tpu/ops/dp_pallas.py:1919"),
     "chain": ("chain", "chain_carry", "famsa_tpu_torch/csrc/chain.cu",
               "famsa_tpu/ops/dp_chain.py:74"),
+    "prim_round": ("prim", "prim_round", "famsa_tpu_torch/csrc/prim.cu",
+                   "famsa_tpu/ops/prim_device.py:67"),
 }
 # the entry points that two variants share, told apart by the launch's
 # fold count (its argument at this index): up to PORTABLE_FOLDS folds the
@@ -2746,14 +3038,15 @@ REPORT_NAME = {"dp_staged16": "dp_profile_batched_staged[9-16 folds]",
                "dp_wide16": "dp_profile_wide[9-16 folds]"}
 # the run whose launch count a variant's entry reports: the main path's
 # default run, for K1's rows variant the -dist tree run, for the DP past
-# 4095 columns the wide family's run (phase 6b), and for K7 the variant
-# family's all-chain run
+# 4095 columns the wide family's run (phase 6b), for K7 the variant
+# family's all-chain run, and for K8 (measured in phase 2) the main path's
+# default run
 LAUNCH_RUN = {"lcs": "dist", "lcs_wave": "1000", "dp": "1000",
               "dp_staged": "1000", "dp_staged16": "wide600",
               "dp_stripes": "wide600", "dp_wide": "1000",
               "dp_wide16": "wide600", "dp_wide_stripes": "wide600",
               "traceback": "1000", "stage0": "1000", "merged": "1000",
-              "chain": "chain"}
+              "chain": "chain", "prim_round": "1000"}
 # the recorded runs whose per-variant totals the report gives
 RECORDED_RUNS = ("1000", "10000", "wide600", "dist")
 
@@ -2790,6 +3083,7 @@ class LaunchRecorder:
         self.wide_calls = []        # w2 of each K3 call of the run
         self.slowest = {}           # variant -> (launch ms, args)
         self.pending = []           # (variant, (start, end), args)
+        self.prim_n = []            # sequences of each device Prim tree
 
         from famsa_tpu_torch.ops.dp_wide import PORTABLE_FOLDS
         entries = {}
@@ -2896,8 +3190,15 @@ class LaunchRecorder:
                 self.track("traceback", args)
             return out
 
+        orig_prim = pt.prim_rounds
+
+        def prim_rounds(table, queries, *a, **kw):
+            self.prim_n.append(queries.shape[0])
+            return orig_prim(table, queries, *a, **kw)
+
         dpt.dp_dirs, dpw.dp_dirs_wide = dp_dirs, dp_dirs_wide
         lct.lcs_rows = pt.lcs_rows = lcs_rows
+        pt.prim_rounds = prim_rounds
         dpr.trace_paths = trace_paths
         dpr.stage0, dpr.merged_from_paths = stage0, merged_from_paths
 
@@ -2906,6 +3207,7 @@ class LaunchRecorder:
         widths of the K2 and K3 calls)."""
         self.run = run
         self.k2_calls, self.k2_merges, self.wide_calls = [], [], []
+        self.prim_n = []
         if run is not None:
             self.events[run] = {}
             self.staged_shapes[run] = []
@@ -3049,7 +3351,18 @@ def k6_measure(args):
         f"smax {smax}: {ms:.5f} ms, in a graph {gms:.5f} ms")
 
 
-def kernel_report(rec, stand_ins, k7):
+def run_totals(rec, key):
+    """{run: launches, CUDA-event total and mean ms} of one variant over
+    the recorded runs that launched it."""
+    runs = {}
+    for r in RECORDED_RUNS + tuple(t[0] for t in TREE_RUNS):
+        n, tot, mean = rec.totals(r, key)
+        if n:
+            runs[r] = {"launches": n, "total_ms": tot, "mean_ms": mean}
+    return runs
+
+
+def kernel_report(rec, stand_ins, k7, k8):
     """One entry per kernel variant: held against its plain version at
     the largest input the main-path runs gave it (bit-exact, or the smoke
     fails), its CUDA-event time there, the bound, and the per-run totals
@@ -3059,7 +3372,9 @@ def kernel_report(rec, stand_ins, k7):
     (colf, rowf, meta, total))}: phase 3's and 3b's inputs).
     K7's entry (k7) comes from phase 7, which holds and times it; its
     launches in the all-chain run are graph replays' in the main, so its
-    totals are the replays' ("graph")."""
+    totals are the replays' ("graph").  K8's entry (k8) comes from phase
+    2, which holds it on the main path's families and times it there; its
+    launches and totals are the recorded runs'."""
     from famsa_tpu_torch.ops.dp_stage0 import stage0, stage0_plain
     from famsa_tpu_torch.ops.dp_torch import dp_dirs, dp_plain
     from famsa_tpu_torch.ops.dp_wide import dp_dirs_wide
@@ -3084,6 +3399,10 @@ def kernel_report(rec, stand_ins, k7):
     for key, (_, entry, source, replaces) in VARIANTS.items():
         if key == "chain":
             out.append(k7)
+            continue
+        if key == "prim_round":
+            out.append({**k8, "launches": rec.counts["1000"][key],
+                        "launches_run": "1000", "runs": run_totals(rec, key)})
             continue
         # its count in its own run, else in the first run that launched it
         run = next((r for r in (LAUNCH_RUN[key],) + RECORDED_RUNS
@@ -3150,11 +3469,7 @@ def kernel_report(rec, stand_ins, k7):
         if err:
             raise AssertionError(f"{entry} at the main path's shape: max abs "
                                  f"error {err} against the plain version")
-        runs = {}
-        for r in RECORDED_RUNS + tuple(t[0] for t in TREE_RUNS):
-            n, tot, mean = rec.totals(r, key)
-            if n:
-                runs[r] = {"launches": n, "total_ms": tot, "mean_ms": mean}
+        runs = run_totals(rec, key)
         out.append({"name": REPORT_NAME.get(key, entry), "route": "cuda",
                     "source": source,
                     "replaces": replaces, "launches": launches,
@@ -3187,6 +3502,7 @@ def main():
     log(f"phase 1 build: {secs:.1f} s for {len(kernels.KERNELS)} kernel "
         f"sources; {smi}")
     phase_k1()
+    k8 = phase_k8()
     stand_ins = phase_k2()
     stand_ins.update(phase_k3())
     phase_edges()
@@ -3200,7 +3516,7 @@ def main():
                            run="wide600", label="6b wide family")]
         k7 = phase_chain(work, rec)
         phase_trees(work, rec, watch, wide=wide)
-    kern = kernel_report(rec, stand_ins, k7)
+    kern = kernel_report(rec, stand_ins, k7, k8)
     log(f"smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kern}))
     print(smi)

@@ -27,7 +27,8 @@ import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("lcs", "dp", "dp_wide", "traceback", "stage0", "merged", "chain")
+KERNELS = ("lcs", "dp", "dp_wide", "traceback", "stage0", "merged", "chain",
+           "prim")
 
 # one count per hand-written kernel variant: K1 rows and wave; K2 global
 # (one CTA a merge), staged (a cluster of folds a merge, one column a
@@ -35,11 +36,11 @@ KERNELS = ("lcs", "dp", "dp_wide", "traceback", "stage0", "merged", "chain")
 # 8191) and stripes (16 folds of 2 or 4 columns a thread, w2 <= 32767);
 # K3 staged ("dp_wide", "dp_wide16") and stripes ("dp_wide_stripes") on
 # the same widths; K4, the traceback; K5, stage 0; K6, the merged
-# counters; and K7, the chain's carry
+# counters; K7, the chain's carry; and K8, a Prim round after its LCS
 LAUNCHES = {"lcs": 0, "lcs_wave": 0, "dp": 0, "dp_staged": 0,
             "dp_staged16": 0, "dp_stripes": 0, "dp_wide": 0, "dp_wide16": 0,
             "dp_wide_stripes": 0, "traceback": 0, "stage0": 0, "merged": 0,
-            "chain": 0}
+            "chain": 0, "prim_round": 0}
 # the device DP route's traffic (ops/dp_resident.py): bytes copied to and
 # from the device, and the launch sides that were resident on the device,
 # ungapped leaves (their symbol bytes uploaded) or uploaded counters
@@ -164,6 +165,10 @@ def _configure(name, lib):
         lib.chain_carry.argtypes = [vp, vp, vp, vp, ll, vp, vp, vp, vp, vp,
                                     ll, ci, ci, ci, vp]
         lib.chain_carry.restype = ci
+    elif name == "prim":
+        lib.prim_round.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp,
+                                   vp, ci, ci, vp]
+        lib.prim_round.restype = ci
     elif name == "merged":
         lib.merged_counters.argtypes = [vp, vp, vp, ci, ci, vp, vp]
         lib.merged_counters.restype = ci

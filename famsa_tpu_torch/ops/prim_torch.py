@@ -3,21 +3,25 @@
 The counterpart of the JAX package's ops/prim_device.py: the default
 guide tree (FAMSA src/tree/MSTPrim.cpp:330-538) is n-1 rounds, each
 computing the LCS of the newly added vertex against all sequences (one
-launch of kernel K1 through ops/lcs_torch.lcs_rows), folding the distances
-into the per-vertex best (distance, tie-break key) pair, and taking the
-lexicographic argmin.  `cur/dist/tieb/active` stay on the device; the
-rounds run in chunks of FAMSA_TORCH_PRIM_CHUNK, and only each chunk's edge
-lists come back to the host, where tree/mst_prim.py builds the dendrogram.
+launch of kernel K1's wave variant through ops/lcs_torch.lcs_rows), then
+folding the distances into the per-vertex best (distance, tie-break key)
+pair and taking the lexicographic argmin (one launch of kernel K8,
+csrc/prim.cu, through prim_round; its plain twin prim_round_plain on CPU
+tensors).  `cur/dist/tieb/active` and the next round's reference row stay
+on the device and are updated in place; the rounds run in chunks of
+FAMSA_TORCH_PRIM_CHUNK, and only each chunk's edge buffer comes back to
+the host, in one copy, where tree/mst_prim.py builds the dendrogram.
 
 Two spots differ from a literal port, so that results equal the host
 route (tree/mst_prim.py with ops/distance.py):
- - tie-break keys: the host keys are uint64 ~((lo << 32) + hi) compared
-   unsigned; here they are int64 with the sign bit flipped, which keeps
-   the order;
  - distance: indel ** 0.75 / lcs reads the host's float64
    pow(i, 0.75) table (ops/distance.py:_pow075_table), uploaded once,
    instead of a device pow that is not correctly rounded; lcs == 0 gives
-   the host's nextafter(DBL_MAX, 0).
+   the host's nextafter(DBL_MAX, 0);
+ - the round updates its state in place (the JAX round is pure).
+The tie-break keys are the host's uint64 ~((lo << 32) + hi), held as
+their bits in an int64 tensor and compared unsigned (K8 natively; the
+plain twin with the sign bit flipped, which keeps the unsigned order).
 """
 
 import os
@@ -25,18 +29,136 @@ import os
 import numpy as np
 import torch
 
+from .. import kernels
 from ..tree.mst_prim import _mst_to_dendrogram
 from .distance import _pow075_table
 from .lcs_torch import BV32, build_query_mask_table, lcs_rows, pad_sequences
 
 SIGN = -(1 << 63)                 # int64 sign bit
 DMAX = np.finfo(np.float64).max
+BIG = np.nextafter(DMAX, 0.0)     # the host transform's distance at lcs 0
 
 
-def _flip(u):
+def _unsigned(u):
     """int64 view of uint64 bits with the sign bit flipped: signed order of
     the result equals unsigned order of the input bits."""
     return u ^ SIGN
+
+
+def prim_round_plain(lcs, lengths, pow_tab, queries, cur, dist, tieb,
+                     active, ref, edges, slot):
+    """Plain PyTorch twin of K8 (csrc/prim.cu), on prim_round's arguments
+    and with its in-place effects: one Prim round after its LCS.
+
+    lcs: [1, n] int32, the LCS row of reference cur; lengths [n] int64;
+    pow_tab: float64 pow(i, 0.75) covering every indel count; queries
+    [n, L] int32.  Updated in place: cur [1] int64, dist [n] float64,
+    tieb [n] int64 (uint64 key bits), active [n] bool, ref [1, L] int32
+    (set to queries[best]) and slot `slot` of edges [3, k] int64 (the
+    edge's min and max id, and -dist[best] as float64 bits)."""
+    n = lengths.shape[0]
+    dev = lengths.device
+    x = lcs.reshape(-1)[:n].to(torch.int64)
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    indel = lengths.index_select(0, cur) + lengths - 2 * x
+    d_new = torch.where(x > 0, pow_tab[indel] / x.to(torch.float64),
+                        torch.tensor(BIG, dtype=torch.float64, device=dev))
+    lo = torch.minimum(ids, cur)
+    hi = torch.maximum(ids, cur)
+    packed = ~((lo << 32) + hi)
+    upd = active & ((d_new < dist)
+                    | ((d_new == dist)
+                       & (_unsigned(packed) < _unsigned(tieb))))
+    dist.copy_(torch.where(upd, d_new, dist))
+    tieb.copy_(torch.where(upd, packed, tieb))
+
+    # lexicographic argmin over active vertices (keys are unique among
+    # them; argmin takes the first index of a tie, as K8 the lowest v)
+    d_m = torch.where(active, dist, float("inf"))
+    t_m = torch.where(d_m == d_m.min(), _unsigned(tieb), -SIGN - 1)
+    best = torch.argmin(t_m).view(1)
+    bp = ~tieb.index_select(0, best)         # the host's packed ids
+    p1 = (bp >> 32) & 0xFFFFFFFF
+    p2 = bp & 0xFFFFFFFF
+    edges[0, slot:slot + 1] = torch.minimum(p1, p2)
+    edges[1, slot:slot + 1] = torch.maximum(p1, p2)
+    edges[2, slot:slot + 1] = (-dist.index_select(0, best)).view(torch.int64)
+    active.index_fill_(0, best, False)
+    cur.copy_(best)
+    ref.copy_(queries.index_select(0, best))
+
+
+def prim_round(lcs, lengths, pow_tab, queries, cur, dist, tieb, active, ref,
+               edges, slot):
+    """One Prim round after its LCS (see prim_round_plain for the
+    arguments and the in-place effects).  CUDA tensors launch kernel K8
+    on the current stream; CPU tensors run prim_round_plain."""
+    n = lengths.shape[0]
+    args = {"lcs": (lcs, torch.int32), "lengths": (lengths, torch.int64),
+            "pow_tab": (pow_tab, torch.float64),
+            "queries": (queries, torch.int32), "cur": (cur, torch.int64),
+            "dist": (dist, torch.float64), "tieb": (tieb, torch.int64),
+            "active": (active, torch.bool), "ref": (ref, torch.int32),
+            "edges": (edges, torch.int64)}
+    for name, (t, dtype) in args.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
+        if t.device != lengths.device:
+            raise ValueError("every tensor must be on one device")
+    length = queries.shape[1]
+    if (lcs.shape != (1, n) or queries.shape[0] != n or cur.shape != (1,)
+            or dist.shape != (n,) or tieb.shape != (n,)
+            or active.shape != (n,) or ref.shape != (1, length)
+            or edges.dim() != 2 or edges.shape[0] != 3
+            or not 0 <= slot < edges.shape[1]):
+        raise ValueError("prim_round: shapes do not fit one round")
+    dev = lengths.device
+    if dev.type == "cpu":
+        return prim_round_plain(lcs, lengths, pow_tab, queries, cur, dist,
+                                tieb, active, ref, edges, slot)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not all(t.is_contiguous() for t, _ in args.values()):
+        raise ValueError("every tensor must be contiguous")
+    lib = kernels.get("prim")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernels.LAUNCHES["prim_round"] += 1
+    err = lib.prim_round(lcs.data_ptr(), lengths.data_ptr(),
+                         pow_tab.data_ptr(), queries.data_ptr(), n, length,
+                         cur.data_ptr(), dist.data_ptr(), tieb.data_ptr(),
+                         active.data_ptr(), ref.data_ptr(), edges.data_ptr(),
+                         edges.shape[1], slot, stream)
+    kernels.check(err, "prim_round")
+
+
+class PrimState:
+    """The round state of one tree on the device: cur [1] int64, dist [n]
+    float64, tieb [n] int64 (uint64 key bits), active [n] bool, and ref
+    [1, L] int32, the reference row of the next round (queries[cur]);
+    initialised as famsa_tpu/ops/prim_device.py:prim_device does, with
+    vertex 0 in the tree."""
+
+    def __init__(self, queries):
+        n = queries.shape[0]
+        dev = queries.device
+        self.cur = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.dist = torch.full((n,), DMAX, dtype=torch.float64, device=dev)
+        self.tieb = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.active = torch.ones(n, dtype=torch.bool, device=dev)
+        self.active[0] = False
+        self.ref = queries[:1].clone()
+
+
+def prim_chunk(table, queries, lengths, pow_tab, state, k):
+    """k Prim rounds on `state` (a PrimState, updated in place): per
+    round K1 wave, then K8, and nothing else.  Returns the chunk's edge
+    buffer, [3, k] int64 on the device (prim_round's `edges`)."""
+    edges = torch.empty((3, k), dtype=torch.int64, device=queries.device)
+    for slot in range(k):
+        lcs = lcs_rows(table, state.ref)
+        prim_round(lcs, lengths, pow_tab, queries, state.cur, state.dist,
+                   state.tieb, state.active, state.ref, edges, slot)
+    return edges
 
 
 def prim_rounds(table, queries, lengths, pow_tab, chunk=None):
@@ -44,58 +166,35 @@ def prim_rounds(table, queries, lengths, pow_tab, chunk=None):
 
     table: [32, W, N] int32 query masks; queries: [N, L] int32 symbols;
     lengths: [N] int64; pow_tab: float64 pow(i, 0.75) covering every indel
-    count (all on one device).  Returns numpy arrays (edge_p1, edge_p2,
-    edge_dist_neg), each of length n-1."""
+    count (all on one device, the CPU or a CUDA card).  Returns numpy
+    arrays (edge_p1, edge_p2, edge_dist_neg), each of length n-1."""
     n = queries.shape[0]
-    dev = queries.device
     if chunk is None:
         chunk = int(os.environ.get("FAMSA_TORCH_PRIM_CHUNK", "2048"))
-    big = torch.tensor(np.nextafter(DMAX, 0.0), dtype=torch.float64,
-                       device=dev)
-    ids = torch.arange(n, dtype=torch.int64, device=dev)
-    cur = torch.zeros(1, dtype=torch.int64, device=dev)
-    dist = torch.full((n,), DMAX, dtype=torch.float64, device=dev)
-    tieb = torch.full((n,), _flip(0), dtype=torch.int64, device=dev)
-    active = torch.ones(n, dtype=torch.bool, device=dev)
-    active[0] = False
-    inf = torch.tensor(float("inf"), dtype=torch.float64, device=dev)
-    key_max = torch.tensor(_flip(-1), dtype=torch.int64, device=dev)
-
+    state = PrimState(queries)
     outs = []
     done = 0
     while done < n - 1:
         k = min(chunk, n - 1 - done)
-        e1s, e2s, dns = [], [], []
-        for _ in range(k):
-            lcs = lcs_rows(table, queries.index_select(0, cur))[0]
-            lcs = lcs.to(torch.int64)
-            indel = lengths.index_select(0, cur) + lengths - 2 * lcs
-            d_new = torch.where(lcs > 0,
-                                pow_tab[indel] / lcs.to(torch.float64), big)
-            lo = torch.minimum(ids, cur)
-            hi = torch.maximum(ids, cur)
-            packed = _flip(~((lo << 32) + hi))
-            upd = active & ((d_new < dist)
-                            | ((d_new == dist) & (packed < tieb)))
-            dist = torch.where(upd, d_new, dist)
-            tieb = torch.where(upd, packed, tieb)
-
-            # lexicographic argmin over active vertices (keys are unique)
-            d_m = torch.where(active, dist, inf)
-            t_m = torch.where(d_m == d_m.min(), tieb, key_max)
-            best = torch.argmin(t_m).view(1)
-            bp = ~_flip(tieb.index_select(0, best))   # the host's packed id
-            p1 = (bp >> 32) & 0xFFFFFFFF
-            p2 = bp & 0xFFFFFFFF
-            e1s.append(torch.minimum(p1, p2))
-            e2s.append(torch.maximum(p1, p2))
-            dns.append(-dist.index_select(0, best))
-            active = active.index_fill(0, best, False)
-            cur = best
-        outs.append(tuple(torch.cat(x).cpu().numpy()
-                          for x in (e1s, e2s, dns)))
+        outs.append(prim_chunk(table, queries, lengths, pow_tab, state,
+                               k).cpu().numpy())
         done += k
-    return tuple(np.concatenate([o[i] for o in outs]) for i in range(3))
+    e = (np.concatenate(outs, axis=1) if outs
+         else np.zeros((3, 0), dtype=np.int64))
+    return e[0], e[1], e[2].view(np.float64)
+
+
+def prim_inputs(padded, lengths, device):
+    """(table, queries, lengths, pow_tab) of prim_rounds on `device` from
+    padded ([N, L] int8 symbols, L a multiple of 32) and lengths ([N]
+    int64)."""
+    dev = torch.device(device)
+    table = torch.from_numpy(
+        build_query_mask_table(padded).view(np.int32)).to(dev)
+    queries = torch.from_numpy(padded.astype(np.int32)).to(dev)
+    pow_tab = torch.from_numpy(
+        _pow075_table(2 * int(lengths.max()), np.float64)).to(dev)
+    return table, queries, torch.from_numpy(lengths).to(dev), pow_tab
 
 
 def mst_prim_tree_torch(sequences, tree, device="cuda", chunk=None):
@@ -104,17 +203,9 @@ def mst_prim_tree_torch(sequences, tree, device="cuda", chunk=None):
     n = len(sequences)
     if n == 1:
         return
-    dev = torch.device(device)
     padded = pad_sequences(sequences, align=BV32)
     lengths = np.array([s.length for s in sequences], dtype=np.int64)
-    max_indel = 2 * int(lengths.max())
-    table = torch.from_numpy(
-        build_query_mask_table(padded).view(np.int32)).to(dev)
-    queries = torch.from_numpy(padded.astype(np.int32)).to(dev)
-    pow_tab = torch.from_numpy(
-        _pow075_table(max_indel, np.float64)).to(dev)
-    e1, e2, dneg = prim_rounds(table, queries,
-                               torch.from_numpy(lengths).to(dev), pow_tab,
+    e1, e2, dneg = prim_rounds(*prim_inputs(padded, lengths, device),
                                chunk=chunk)
 
     prim_orders = np.full(n, n, dtype=np.int64)

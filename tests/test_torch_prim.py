@@ -1,8 +1,10 @@
-"""famsa_tpu_torch whole-tree MST-Prim (ops/prim_torch.py, plain LCS on
-the CPU) against the famsa_tpu package: its device Prim on the XLA path
-(mst_prim_tree_device(use_pallas=False)) and its host Prim
-(tree/mst_prim.py on the host distance rows).  A chunk of 7 rounds makes
-the runs cross chunk boundaries.  Tolerance: exact (equal tree lists).
+"""famsa_tpu_torch whole-tree MST-Prim (ops/prim_torch.py: the plain
+twins of K1 wave and K8 on the CPU) against the famsa_tpu package: its
+device Prim on the XLA path (mst_prim_tree_device(use_pallas=False)) and
+its host Prim (tree/mst_prim.py on the host distance rows).  A chunk of 7
+rounds makes the runs cross chunk boundaries; others divide the rounds
+exactly, exceed them, or hold one round.  Tolerance: exact (equal tree
+lists).  Round by round: tests/test_torch_prim_round.py.
 """
 
 import numpy as np
@@ -90,3 +92,20 @@ def test_prim_torch_chunk_env_and_tiny(monkeypatch):
     two = []
     mst_prim_tree_torch(_padded(TSequence, strings[:2]), two, device="cpu")
     assert two == [(0, 1)]
+
+
+@pytest.mark.parametrize("chunk", [8, 40, 1])
+def test_prim_torch_chunk_boundaries(chunk):
+    """25 sequences, 24 rounds: chunks that divide the rounds exactly (8),
+    one chunk larger than them (40), and a chunk a round (1); the tree
+    equals the host Prim's."""
+    rng = np.random.default_rng(33)
+    strings = _family_strings(rng, 25, 40)
+    jseqs = _padded(JSequence, strings)
+    be = DistanceBackend(jseqs, DIST_INDEL075_DIV_LCS, np.float64)
+    tree_host = []
+    mst_prim_tree(len(jseqs), lambda r, ids: be.row(r, ids), tree_host)
+    tree_port = []
+    mst_prim_tree_torch(_padded(TSequence, strings), tree_port,
+                        device="cpu", chunk=chunk)
+    assert tree_port == tree_host
