@@ -8,20 +8,29 @@ Phases (one line each; any mismatch or exception exits non-zero):
     print the build seconds and the card's name and power limit;
  2. K1 (csrc/lcs.cu) against its plain PyTorch version on the card,
     bit-exact, each variant: rows on 256 refs x 4096 queries of mean
-    length 300 (W=10), a case with W >= 40, a triangular n_queries case
-    and W > 64; wave on 1 ref x 1000 and x 10,000 queries, W = 1, 11,
-    16, 17, 32, 33, 64 and 70 (2 refs x 257 queries: a partial last
-    segment; no-op symbols throughout) and a triangular n_queries of 333
-    that ends inside a warp.  K8 (csrc/prim.cu, a Prim round after its
+    length 300 (W=10) and 256 x 10,000 of mean length 346 (the -dist
+    and heuristics' blocks), a case with W >= 40, a triangular n_queries
+    case, W > 64 and 37 refs x 300 queries at W = 16, 17, 64 and 65 (the
+    edges of the rows variant's P template); wave on 1 ref x 1000 and x
+    10,000 queries, W = 1, 11, 16, 17, 32, 33, 64 and 70 (2 refs x 257
+    queries: a partial last segment; no-op symbols throughout) and a
+    triangular n_queries of 333 that ends inside a warp; both variants
+    on 40 queries with runs of 33-130 equal residues (the exact carry).
+    K8 (csrc/prim.cu, a Prim round after its
     LCS) against prim_round_plain, bit-exact on every state tensor (cur,
     dist, tieb, active, the next reference row) and edge, 64 consecutive
     rounds a case, each round's K1 wave row feeding both: the trees of
     phase 4's, 6's and 6b's families as the CLI builds them (1000 x 300,
-    10,000 x 300, 10,000 x 600), from round 0 and from round n/2, and 257
+    10,000 x 300, 10,000 x 600), from round 0 and from round n/2, the
+    10,000 x 300 tree from round 0 on every cluster size forced (1, 2, 4,
+    8, 16 CTAs), families of n on each side of the shape rule's threshold
+    (2048 and 2049 sequences; the rule's cluster size read from the
+    library too), and 257
     sequences, 100 sequences three times each (the tie keys decide) and
     two groups on disjoint alphabets (lcs == 0).  At each family's round
     shape: K8's ms from a launch loop and a launch's device ms in a CUDA
-    graph, its bound and plain ms, and K1 wave's ms and bound; one chunk
+    graph (at its rule's cluster size and at each size forced), its bound
+    and plain ms, and K1 wave's ms and bound; one chunk
     of 64 rounds of the 1000 and the 10,000 families under torch.profiler
     and set_sync_debug_mode("error"): exactly K1 wave then K8 a round,
     their device ms a round, and unprofiled the host's ms a round to
@@ -127,8 +136,8 @@ Phases (one line each; any mismatch or exception exits non-zero):
     8191 (16 staged folds) and 16256 (the stripes body; 2 leaves) with DP
     folds past the chain's width left dead: state, recorded widths, both
     carry buffers and every path of a step that ran, its launches counted, no host read; then a
-    family of 2500 variants of one 800-residue protein (make_variants,
-    seed 5: its guide tree is one caterpillar of 2498 merges) through the
+    family of 2300 variants of one 800-residue protein (make_variants,
+    seed 5: its guide tree is one caterpillar) through the
     CLI entry point with -backend torch at the default knobs (host merges
     below 1536 columns, then chunks), with FAMSA_TORCH_CHAIN_MIN_W2=0
     (every merge on chunks) and with FAMSA_TORCH_CHAIN=0 (one resident
@@ -152,9 +161,10 @@ Phases (one line each; any mismatch or exception exits non-zero):
     with -gt_export on phase 6's 10,000 at the default medoid parameters
     (threshold 2000, subtree 100, sample 2000), and -medoidtree aligned on
     3000 sequences (seed 13).  Each torch run launches exactly the K1
-    variants listed (a prefix sweep over 2000 sequences stays on the wave
-    variant; the square export's blocks of 256 x 2000, and the heuristics'
-    first row of 256 x 10,000 and CLARANS sample blocks, go to rows), its
+    variants listed (every block of the prefix sweeps and of the square
+    export, 256 references against 257 to 2000 queries, and the
+    heuristics' first row of 256 x 10,000 and CLARANS sample blocks go to
+    rows; the heuristics' small subgroup sets to wave), its
     largest launch of each variant is held bit-exact against lcs_plain
     and timed, and a tree run leaves no device memory allocated; the two
     alignments are held to ResidencyWatch and their K2/K3 calls to the
@@ -421,16 +431,41 @@ def lcs_check(table, syms, q, variant, what):
         raise AssertionError(f"K1 {variant} {what}: mismatch at {bad}")
 
 
+def lcs_runs_case(device):
+    """(table, syms) whose queries hold runs of 33-130 equal residues from
+    a word's start: the words where the exact carry and the test V2 < V
+    differ (a word of V all ones, covered by the mask, a carry in)."""
+    import torch
+    from famsa_tpu_torch.ops.lcs_torch import PAD_SYMBOL, build_query_mask_table
+    rng = np.random.default_rng(3)
+    padded = np.full((40, 192), PAD_SYMBOL, dtype=np.int8)
+    for k in range(40):
+        ln = int(rng.integers(100, 193))
+        padded[k, :ln] = rng.integers(0, 20, size=ln)
+        run = int(rng.integers(33, min(131, ln + 1)))
+        start = 32 * int(rng.integers(0, (ln - run) // 32 + 1))
+        padded[k, start:start + run] = k % 3
+    table = torch.from_numpy(build_query_mask_table(padded).view(np.int32))
+    syms = torch.from_numpy(padded.astype(np.int32))
+    return table.to(device), syms.to(device)
+
+
+# the rows variant's P-by-W template edges (ops/lcs_torch.py:rows_geometry)
+ROWS_EDGE_WS = (16, 17, 64, 65)
+
+
 def phase_k1(device="cuda", big=(256, 4096, 300), wide=(16, 512, 1300),
-             tri=(64, 1000, 120), local=(4, 256, 2600)):
+             tri=(64, 1000, 120), local=(4, 256, 2600),
+             huge=(256, 10000, 346)):
     import torch
     from famsa_tpu_torch.ops.lcs_torch import (lcs_plain, lcs_rows,
-                                               wave_geometry)
+                                               rows_geometry, wave_geometry)
     out = {}
     # the rows variant (many references)
     for name, (r, n, ln), nq in (("main", big, None), ("wide", wide, None),
                                  ("tri", tri, tri[1] // 3),
-                                 ("local", local, None)):
+                                 ("local", local, None),
+                                 ("huge", huge, None)):
         table, syms = lcs_case(r, n, ln, 100 + ln, device)
         if name == "local":
             # W > 64 (the local-memory state); short refs keep the plain
@@ -439,11 +474,25 @@ def phase_k1(device="cuda", big=(256, 4096, 300), wide=(16, 512, 1300),
         q = n if nq is None else nq
         lcs_check(table, syms, q, "rows", name)
         out[name] = (table, syms, q)
+    edges = []
+    for w in ROWS_EDGE_WS:
+        # 37 references: CTAs of 16 or 32 references, the last partial
+        table, syms = lcs_case_w(37, 300, w, 60 + w, device, ref_len=150)
+        lcs_check(table, syms, 300, "rows", f"W={w}")
+        edges.append(f"W={w} {rows_geometry(w)}")
+    table, syms = lcs_runs_case(device)
+    for variant in ("rows", "wave"):
+        lcs_check(table, syms, 40, variant, "runs of equal residues")
     msg = (f"phase 2 K1 rows: bit-exact vs plain on {big[0]}x{big[1]} "
-           f"(W={out['main'][0].shape[1]}), {wide[0]}x{wide[1]} "
+           f"(W={out['main'][0].shape[1]}), {huge[0]}x{huge[1]} "
+           f"(W={out['huge'][0].shape[1]}, L={out['huge'][1].shape[1]}), "
+           f"{wide[0]}x{wide[1]} "
            f"(W={out['wide'][0].shape[1]}), triangular n_queries="
            f"{out['tri'][2]}, {local[0]}x{local[1]} "
-           f"(W={out['local'][0].shape[1]})")
+           f"(W={out['local'][0].shape[1]}), the P template's edges "
+           f"{', '.join(edges)} (cap, P, refs a CTA, staged; 37 refs x 300 "
+           f"queries each), and (rows and wave) 40 queries with runs of "
+           f"33-130 equal residues")
     # the wave variant (few references): the Prim round's shapes, every
     # lane layout, a partial last segment (257 queries), no-op symbols,
     # and a triangular n_queries ending inside a warp
@@ -463,16 +512,17 @@ def phase_k1(device="cuda", big=(256, 4096, 300), wide=(16, 512, 1300),
             f"(wseg, wpl, lanes), 2 refs x 257 queries each, triangular "
             f"n_queries=333 of 1000 at W=11")
     if device == "cuda":
-        table, syms, q = out["main"]
-        ms = cuda_ms(lambda: lcs_rows(table, syms, n_queries=q,
-                                      out_dtype=torch.uint16,
-                                      variant="rows"), 10)
-        pms = wall_ms(lambda: lcs_plain(table, syms, q))
-        bms, _ = lcs_bound_ms(table, syms, q)
-        pairs = syms.shape[0] * q
-        msg += (f"; rows {big[0]}x{big[1]}: kernel {ms:.3f} ms "
-                f"({pairs / ms * 1e3:.4g} pairs/s), plain {pms:.1f} ms, "
-                f"bound {bms:.4f} ms")
+        for name in ("main", "huge"):
+            table, syms, q = out[name]
+            ms = cuda_ms(lambda: lcs_rows(table, syms, n_queries=q,
+                                          out_dtype=torch.uint16,
+                                          variant="rows"), 10)
+            pms = wall_ms(lambda: lcs_plain(table, syms, q))
+            bms, _ = lcs_bound_ms(table, syms, q)
+            pairs = syms.shape[0] * q
+            msg += (f"; rows {syms.shape[0]}x{q} (L={syms.shape[1]}): "
+                    f"kernel {ms:.3f} ms ({pairs / ms * 1e3:.4g} pairs/s), "
+                    f"plain {pms:.1f} ms, bound {bms:.4f} ms")
     log(msg)
 
 
@@ -536,13 +586,14 @@ def clone_state(state):
     return out
 
 
-def k8_check(inputs, what, start=0, rounds=K8_ROUNDS):
+def k8_check(inputs, what, start=0, rounds=K8_ROUNDS, cluster=None):
     """K8 against prim_round_plain, bit for bit on every state tensor and
     output, for `rounds` consecutive rounds from the state after `start`
     rounds (reached on K1 wave and K8): both sides start from one state,
     and each round's K1 wave row (held in K1's part of this phase) feeds
-    both.  Returns (max abs error, the kernel side's state before its
-    last round, that round's LCS row)."""
+    both; K8 on a cluster of `cluster` CTAs (default: its shape rule's).
+    Returns (max abs error, the kernel side's state before its last
+    round, that round's LCS row)."""
     import torch
     from famsa_tpu_torch import kernels
     from famsa_tpu_torch.ops.lcs_torch import lcs_rows
@@ -561,7 +612,8 @@ def k8_check(inputs, what, start=0, rounds=K8_ROUNDS):
         before = clone_state(ks)
         launched = kernels.LAUNCHES["prim_round"]
         prim_round(lcs, lengths, pow_tab, queries, *(getattr(ks, a) for a
-                                                     in STATE), ek, r)
+                                                     in STATE), ek, r,
+                   cluster=cluster)
         if queries.is_cuda and kernels.LAUNCHES["prim_round"] != launched + 1:
             raise AssertionError(f"K8 {what}: the kernel was not launched")
         prim_round_plain(lcs, lengths, pow_tab, queries,
@@ -593,14 +645,30 @@ def k8_bound_ms(state, after, lcs):
     return bound(nbytes, 12 * n_act)
 
 
-def k8_times(inputs, state, lcs):
-    """K8 on one round at `state`: (launch-loop ms, device ms a launch
-    from 20 in one CUDA graph, plain ms, bound ms, bound by); each on a
-    clone of the state (200 launches leave the tree a few vertices
-    shorter)."""
+def k8_graph_ms(inputs, state, lcs, cluster=0):
+    """K8's device ms a launch from 20 in one CUDA graph at `state` (on a
+    clone), on a cluster of `cluster` CTAs (0: the shape rule's)."""
     import torch
     from famsa_tpu_torch import kernels
-    from famsa_tpu_torch.ops.prim_torch import prim_round, prim_round_plain
+    table, queries, lengths, pow_tab = inputs
+    edges = torch.zeros((3, 1), dtype=torch.int64, device=queries.device)
+    st = clone_state(state)
+    lib = kernels.get("prim")
+    return graph_ms(lambda: kernels.check(lib.prim_round(
+        lcs.data_ptr(), lengths.data_ptr(), pow_tab.data_ptr(),
+        queries.data_ptr(), queries.shape[0], queries.shape[1],
+        *(getattr(st, a).data_ptr() for a in STATE), edges.data_ptr(), 1,
+        0, cluster, torch.cuda.current_stream().cuda_stream), "prim_round"))
+
+
+def k8_times(inputs, state, lcs):
+    """K8 on one round at `state`: (launch-loop ms, device ms a launch
+    from 20 in one CUDA graph, plain ms, bound ms, bound by, {cluster
+    size: device ms a launch in a graph}); each on a clone of the state
+    (200 launches leave the tree a few vertices shorter)."""
+    import torch
+    from famsa_tpu_torch.ops.prim_torch import (CLUSTERS, prim_round,
+                                                prim_round_plain)
     table, queries, lengths, pow_tab = inputs
     edges = torch.zeros((3, 1), dtype=torch.int64, device=queries.device)
     after = clone_state(state)
@@ -612,14 +680,9 @@ def k8_times(inputs, state, lcs):
     ms = cuda_ms(lambda: prim_round(lcs, lengths, pow_tab, queries,
                                     *(getattr(st, a) for a in STATE), edges,
                                     0), 50)
-    st = clone_state(state)
-    lib = kernels.get("prim")
-    gms = graph_ms(lambda: kernels.check(lib.prim_round(
-        lcs.data_ptr(), lengths.data_ptr(), pow_tab.data_ptr(),
-        queries.data_ptr(), queries.shape[0], queries.shape[1],
-        *(getattr(st, a).data_ptr() for a in STATE), edges.data_ptr(), 1,
-        0, torch.cuda.current_stream().cuda_stream), "prim_round"))
-    return ms, gms, plain_ms, bms, by
+    gms = k8_graph_ms(inputs, state, lcs)
+    by_c = {c: k8_graph_ms(inputs, state, lcs, c) for c in CLUSTERS}
+    return ms, gms, plain_ms, bms, by, by_c
 
 
 def k8_profile(inputs, state, k=K8_ROUNDS):
@@ -675,7 +738,10 @@ def phase_k8(device="cuda", fams=None):
     shapes (K1 wave's bound at 6b's too), and profiles one chunk of the
     1000 and the 10,000 families.  Returns K8's entry of the kernel
     report (measured on 6b's family, at round n/2)."""
+    from famsa_tpu_torch import kernels
     from famsa_tpu_torch.ops.lcs_torch import lcs_rows
+    from famsa_tpu_torch.ops.prim_torch import (CLUSTERS, CTA_VERTICES,
+                                                cluster_size)
     fams = fams or {"1000": (1000, 300, 7), "10000": WIDE_300,
                     "wide600": WIDE_FAMILY}
     held, parts, err, entry, profiles = [], [], 0.0, None, {}
@@ -684,6 +750,20 @@ def phase_k8(device="cuda", fams=None):
         e, _, _ = k8_check(inputs, name)
         err = max(err, e)
         held.append(f"{name} (n={inputs[1].shape[0]})")
+    # an n on each side of the shape rule's threshold
+    rule = []
+    for n in (CTA_VERTICES, CTA_VERTICES + 1):
+        inputs = prim_case(fasta_strings(make_family(n, 60, n)), device,
+                           dedup=False)
+        if device == "cuda" and kernels.get("prim").prim_cluster_size(
+                n) != cluster_size(n):
+            raise AssertionError(f"K8: the shape rule at n={n} differs "
+                                 "between csrc/prim.cu and prim_torch")
+        e, _, _ = k8_check(inputs, f"n={n}")
+        err = max(err, e)
+        rule.append(f"{n}: {cluster_size(n)}")
+    held.append(f"n on each side of the shape rule's threshold (n: CTAs) "
+                f"{', '.join(rule)}")
     for name, fam in fams.items():
         inputs = prim_case(fasta_strings(make_family(*fam)), device)
         table, queries = inputs[:2]
@@ -694,9 +774,17 @@ def phase_k8(device="cuda", fams=None):
         err = max(err, e, e2)
         held.append(f"{name} (n={n}, L={queries.shape[1]}) from rounds 0 "
                     f"and {n // 2}")
+        if name == "10000":
+            # every cluster size forced
+            for c in CLUSTERS:
+                e, _, _ = k8_check(inputs, f"{name} on {c} CTAs",
+                                   cluster=c)
+                err = max(err, e)
+            held.append(f"{name} from round 0 on clusters of "
+                        f"{', '.join(map(str, CLUSTERS))} CTAs forced")
         if device != "cuda":
             continue
-        ms, gms, plain_ms, bms, by = k8_times(inputs, state, lcs)
+        ms, gms, plain_ms, bms, by, by_c = k8_times(inputs, state, lcs)
         k1_ms = cuda_ms(lambda: lcs_rows(table, state.ref), 50)
         k1_bms, k1_by = lcs_bound_ms(table, state.ref, n)
         if name != "wide600":
@@ -704,7 +792,9 @@ def phase_k8(device="cuda", fams=None):
         parts.append(
             f"{name} (n={n}, L={queries.shape[1]}, W={table.shape[1]}): K8 "
             f"{ms:.5f} ms from a launch loop, {gms:.5f} ms a launch in a "
-            f"CUDA graph, bound {bms:.7f} ms ({by}), plain {plain_ms:.3f} "
+            f"CUDA graph on {cluster_size(n)} CTAs (forced: "
+            + ", ".join(f"{c}: {v:.5f}" for c, v in by_c.items())
+            + f"), bound {bms:.7f} ms ({by}), plain {plain_ms:.3f} "
             f"ms; K1 wave {k1_ms:.5f} ms, bound {k1_bms:.5f} ms ({k1_by}); "
             f"K8 / K1 wave {gms / k1_ms:.3f}")
         entry = {"name": "prim_round", "route": "cuda",
@@ -715,6 +805,7 @@ def phase_k8(device="cuda", fams=None):
                  "at": f"phase 2: round {n // 2} of the {name} family "
                        f"(n={n}, L={queries.shape[1]})",
                  "k1_wave_ms": k1_ms, "k1_wave_bound_ms": k1_bms,
+                 "cluster": cluster_size(n), "graph_ms_by_cluster": by_c,
                  "profile": profiles}
     msg = (f"phase 2 K8: bit-exact vs prim_round_plain ({K8_ROUNDS} rounds "
            f"each, every state tensor and edge) on {', '.join(held)}")
@@ -2130,7 +2221,7 @@ def phase_wide(work, recorder, watch, device="cuda", family=WIDE_300,
 # ----------------------------------------------------------------------
 # the chain route
 # the variant family of phase 7: variants, root length, seed, indel rate
-CHAIN_FAMILY = (2500, 800, 5, 0.6)
+CHAIN_FAMILY = (2300, 800, 5, 0.6)
 CHAIN_WIDTHS = 256          # width bucket of the per-merge times
 
 
@@ -2733,26 +2824,26 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
 # the guide-tree methods and the distance export
 # phase 8's runs (names apart from the other phases' recorded runs):
 # name, family, flags, the K1 variants the run launches
-# (exactly those: lcs_variant's rule on its blocks; a prefix sweep over
-# 2000 sequences keeps every block of R rows x n_queries below
-# WAVE_MAX_GRID, a square export or a 10,000-sequence first row does not)
-# and the DP kernels an alignment must launch
+# (exactly those: lcs_variant's rule on its blocks; every block of a
+# prefix sweep or a square export, 256 rows against at least 257 queries,
+# reaches WAVE_MAX_GRID, and only the heuristics' small subgroup sets
+# stay below it) and the DP kernels an alignment must launch
 TREE_RUNS = (
-    ("slink", "2000", ["-gt", "slink", "-gt_export"], ("lcs_wave",), ()),
-    ("upgma", "2000", ["-gt", "upgma", "-gt_export"], ("lcs_wave",), ()),
+    ("slink", "2000", ["-gt", "slink", "-gt_export"], ("lcs",), ()),
+    ("upgma", "2000", ["-gt", "upgma", "-gt_export"], ("lcs",), ()),
     ("upgma_modified", "2000", ["-gt", "upgma_modified", "-gt_export"],
-     ("lcs_wave",), ()),
-    ("nj", "1000", ["-gt", "nj", "-gt_export"], ("lcs_wave",), ()),
-    ("dist_export", "2000", ["-dist_export"], ("lcs_wave",), ()),
-    ("dist_export_pid", "2000", ["-dist_export", "-pid"], ("lcs_wave",),
+     ("lcs",), ()),
+    ("nj", "1000", ["-gt", "nj", "-gt_export"], ("lcs",), ()),
+    ("dist_export", "2000", ["-dist_export"], ("lcs",), ()),
+    ("dist_export_pid", "2000", ["-dist_export", "-pid"], ("lcs",),
      ()),
     ("dist_export_square", "2000", ["-dist_export", "-square_matrix"],
-     ("lcs", "lcs_wave"), ()),
+     ("lcs",), ()),
     ("medoid", "10000", ["-medoidtree", "-gt_export"], ("lcs", "lcs_wave"),
      ()),
     ("parttree", "10000", ["-parttree", "-gt_export"], ("lcs", "lcs_wave"),
      ()),
-    ("upgma_align", "1000", ["-gt", "upgma"], ("lcs_wave",),
+    ("upgma_align", "1000", ["-gt", "upgma"], ("lcs",),
      ("dp_staged", "dp_wide")),
     ("medoid_align", "3000", ["-medoidtree"], ("lcs", "lcs_wave"),
      ("dp_staged",)),

@@ -7,14 +7,17 @@
 // once and the reference's symbols are streamed, so each reference
 // position needs only masks[sym] (no per-query gather).  For each 32-bit
 // word of a query's state V:  V2 = V + (V & M) + carry,
-// carry = (V2 < V) unsigned,  V = V2 | (V - (V & M));  LCS = sum popc(~V).
+// carry = bit 32 of that sum,  V = V2 | (V - (V & M));  LCS = sum popc(~V).
 // Symbols >= 20 (pad 22) have all-zero mask rows and are no-ops: V stays
 // and the carry out is 0.
 //
 // Layout: masks [32][W][N] u32 (query fastest), syms [R][L] i32, out
 // [R][N] (u16 or i32).  Only queries q < n_queries are computed (the
 // triangular-sweep half-work saving of the Pallas kernel's dynamic grid);
-// other columns are left untouched.
+// other columns are left untouched.  The carry out of a word is exact
+// (the 33rd bit of V + (V & M) + carry), as the plain versions compute
+// it: the test V2 < V misses the carry where a word of V is all ones, M
+// covers it and a carry comes in (a run of 64 or more equal residues).
 //
 // What bounds it on the H100: the integer-op issue rate in the ideal,
 // ~6 dependent 32-bit ops per (reference position, query, word), against
@@ -22,12 +25,20 @@
 // built to keep enough independent chains in flight:
 //
 // lcs_bitpar ("rows", many references: TorchDistanceBackend's 256-row
-// blocks).  One thread per query keeps its W words in registers (template
-// caps 2..64, fully unrolled; past 64 words a local-memory array);
-// REFS_PER_CTA references share a CTA so the mask slab of its 128 queries
-// is reused from L1; every thread reads the same reference symbol (a
-// broadcast, a warp-uniform skip of no-op symbols).  A thread runs L x W
-// dependent word updates, which is fine when R x N threads fill the card.
+// blocks).  A warp takes 32 consecutive queries, one a lane, and P
+// references at once (refs_in_flight: 4 up to 16 words, 2 past), each
+// thread carrying the P references' W-word states in registers (template
+// caps 2..64, fully unrolled; past 64 words a local-memory array): the P
+// add-carry chains are independent and interleave word by word, so they
+// hide each other's latency.  A CTA of ROWS_WARPS warps takes ROWS_WARPS
+// x P references against its 32 queries; up to STAGED_MAX_W words it
+// stages the queries' 20 valid-symbol mask rows and one all-zero row in
+// shared memory once ([symbol][word][lane]: a lane reads its own bank),
+// and every reference reuses them; past that the masks are read through
+// L1.  The references' symbols are staged as bytes, ROWS_TILE positions
+// at a time, [position][reference]: every lane of a warp reads the same
+// byte (a broadcast), no-op symbols point at the zero row, and a
+// position where all P are no-ops is skipped (warp-uniform).
 //
 // lcs_wave ("wave", few references: one per MST-Prim round).  With R = 1
 // the rows grid holds ceil(N/128) CTAs, a few of the 132 SMs, each thread
@@ -47,84 +58,166 @@
 // part in the shuffles with all-zero masks; only the stores are masked.
 //
 // Dispatch (ops/lcs_torch.py:lcs_variant): the wave variant while
-// R x ceil(n_queries / 128) < 4096, the rows variant from there on.  On
-// an H100 the wave variant won up to 32 references x 10,000 queries and
-// every R <= 256 at 1000 queries; the rows variant from 64 x 10,000,
-// where its R x N threads fill the card and each re-reads no masks.
+// R x ceil(n_queries / 128) < WAVE_MAX_GRID, the rows variant from there
+// on (the crossover measured on an H100: PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int REFS_PER_CTA = 8;
 constexpr int NO_VALID_AMINOACIDS = 20;
+constexpr int ROWS_WARPS = 8;        // warps of a rows CTA
+constexpr int ROWS_THREADS = ROWS_WARPS * 32;
+constexpr int ROWS_TILE = 512;       // positions a staged window of symbols
+constexpr int STAGED_MAX_W = 64;     // masks staged in shared memory to here
+constexpr int P_NARROW_MAX_W = 16;   // refs_in_flight: P_NARROW to here,
+constexpr int P_NARROW = 4;          // P_WIDE past it
+constexpr int P_WIDE = 2;
+constexpr uint8_t ZERO_ROW = NO_VALID_AMINOACIDS;   // the staged zero row
 constexpr int W_LOCAL_MAX = 2048;   // 65536 positions: the u16 output range
 constexpr int WAVE_TILE = 1024;     // steps per staged window of symbols
 constexpr int WAVE_LAG = 31;        // the most a lane lags lane 0
 constexpr uint8_t NOOP = 0xFF;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
+// references a thread carries at once, for the W template cap WMAX
+__host__ __device__ constexpr int refs_in_flight(int wmax) {
+    return wmax <= P_NARROW_MAX_W ? P_NARROW : P_WIDE;
+}
+
+// the exact add of one word: V2 = v + tb + carry, carry = its 33rd bit
+__device__ __forceinline__ uint32_t add_carry(uint32_t v, uint32_t tb,
+                                              uint32_t& carry) {
+    const unsigned long long s = (unsigned long long)v + tb + carry;
+    carry = (uint32_t)(s >> 32);
+    return (uint32_t)s;
+}
+
+// one word of one reference: V = V2 | (V - (V & M)); V & M is a subset of
+// V's bits, so V - (V & M) = V & ~M
+__device__ __forceinline__ void word(uint32_t& V, uint32_t m,
+                                    uint32_t& carry) {
+    const uint32_t v = V;
+    V = add_carry(v, v & m, carry) | (v & ~m);
+}
+
+size_t rows_smem(int wmax, int W) {
+    const int rpc = ROWS_WARPS * refs_in_flight(wmax);
+    const size_t tile = wmax <= STAGED_MAX_W
+        ? (size_t)(NO_VALID_AMINOACIDS + 1) * W * 32 * sizeof(uint32_t) : 0;
+    return tile + (size_t)ROWS_TILE * rpc;
+}
+
 template <int WMAX>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(ROWS_THREADS)
 lcs_kernel(const uint32_t* __restrict__ masks, const int32_t* __restrict__ syms,
            int R, int L, int W, int N, int n_queries,
            uint16_t* __restrict__ out16, int32_t* __restrict__ out32) {
-    const int r0 = blockIdx.x * REFS_PER_CTA;    // refs fastest: CTAs of one
-    const int nr = min(REFS_PER_CTA, R - r0);    // query block run together
-    const int q = blockIdx.y * THREADS + threadIdx.x;
-    if (q >= n_queries) return;
-    const size_t wstride = (size_t)N;
-    const size_t sstride = (size_t)W * N;
-    const uint32_t* mq = masks + q;
+    constexpr int P = refs_in_flight(WMAX);
+    constexpr int RPC = ROWS_WARPS * P;          // references a CTA
+    constexpr bool STAGED = WMAX <= STAGED_MAX_W;
+    extern __shared__ uint32_t smem[];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int q0 = blockIdx.x * 32;
+    const int q = q0 + lane;
+    const int r0 = blockIdx.y * RPC;
+    const int nr = min(RPC, R - r0);
+    const int tile_words = STAGED ? (NO_VALID_AMINOACIDS + 1) * W * 32 : 0;
+    uint32_t* tile = smem;                       // [21][W][32]
+    uint8_t* win = reinterpret_cast<uint8_t*>(smem + tile_words);
 
-    for (int r = 0; r < nr; ++r) {
-        uint32_t V[WMAX];
-        if constexpr (WMAX <= 64) {
-#pragma unroll
-            for (int k = 0; k < WMAX; ++k) V[k] = 0xFFFFFFFFu;
-        } else {
-            for (int k = 0; k < W; ++k) V[k] = 0xFFFFFFFFu;
+    if constexpr (STAGED) {
+        for (int idx = threadIdx.x; idx < tile_words; idx += ROWS_THREADS) {
+            const int row = idx >> 5;            // symbol * W + word
+            const int qq = q0 + (idx & 31);
+            uint32_t v = 0;
+            if (row < NO_VALID_AMINOACIDS * W && qq < n_queries)
+                v = __ldg(masks + (size_t)row * N + qq);
+            tile[idx] = v;
         }
-        const int32_t* sr = syms + (size_t)(r0 + r) * L;
-        for (int t = 0; t < L; ++t) {
-            const int s = __ldg(sr + t);       // warp-uniform broadcast
-            if ((unsigned)s >= (unsigned)NO_VALID_AMINOACIDS) continue;
-            const uint32_t* ms = mq + (size_t)s * sstride;
-            uint32_t carry = 0;
-            if constexpr (WMAX <= 64) {
+    }
+    const uint32_t* mq = masks + min(q, N - 1);  // the unstaged reads
+
+    uint32_t V[P][WMAX];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+        if constexpr (STAGED) {
+#pragma unroll
+            for (int k = 0; k < WMAX; ++k) V[p][k] = 0xFFFFFFFFu;
+        } else {
+            for (int k = 0; k < W; ++k) V[p][k] = 0xFFFFFFFFu;
+        }
+    }
+    for (int base = 0; base < L; base += ROWS_TILE) {
+        const int nt = min(ROWS_TILE, L - base);
+        __syncthreads();         // the mask tile staged, the last window read
+        for (int idx = threadIdx.x; idx < nt * RPC; idx += ROWS_THREADS) {
+            const int i = idx / nt, t = idx - i * nt;   // coalesced reads
+            uint8_t c = ZERO_ROW;
+            if (i < nr) {
+                const int sy = __ldg(syms + (size_t)(r0 + i) * L + base + t);
+                if ((unsigned)sy < (unsigned)NO_VALID_AMINOACIDS)
+                    c = (uint8_t)sy;
+            }
+            win[t * RPC + i] = c;
+        }
+        __syncthreads();
+        const uint8_t* mine = win + warp * P;
+        for (int t = 0; t < nt; ++t) {
+            int c[P];
+            bool any = false;
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+                c[p] = mine[t * RPC + p];        // a broadcast
+                any |= c[p] != ZERO_ROW;
+            }
+            if (!any) continue;                  // warp-uniform
+            uint32_t carry[P];
+#pragma unroll
+            for (int p = 0; p < P; ++p) carry[p] = 0;
+            if constexpr (STAGED) {
+                const uint32_t* m[P];
+#pragma unroll
+                for (int p = 0; p < P; ++p) m[p] = tile + c[p] * W * 32 + lane;
 #pragma unroll
                 for (int k = 0; k < WMAX; ++k) {
                     if (k < W) {
-                        const uint32_t v = V[k];
-                        const uint32_t tb = v & __ldg(ms + k * wstride);
-                        const uint32_t v2 = v + tb + carry;
-                        carry = v2 < v;
-                        V[k] = v2 | (v - tb);
+#pragma unroll
+                        for (int p = 0; p < P; ++p)
+                            word(V[p][k], m[p][k * 32], carry[p]);
                     }
                 }
             } else {
+                const size_t sstride = (size_t)W * N;
                 for (int k = 0; k < W; ++k) {
-                    const uint32_t v = V[k];
-                    const uint32_t tb = v & __ldg(ms + k * wstride);
-                    const uint32_t v2 = v + tb + carry;
-                    carry = v2 < v;
-                    V[k] = v2 | (v - tb);
+#pragma unroll
+                    for (int p = 0; p < P; ++p) {
+                        const uint32_t m = c[p] == ZERO_ROW ? 0u
+                            : __ldg(mq + c[p] * sstride + (size_t)k * N);
+                        word(V[p][k], m, carry[p]);
+                    }
                 }
             }
         }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
         int cnt = 0;
-        if constexpr (WMAX <= 64) {
+        if constexpr (STAGED) {
 #pragma unroll
             for (int k = 0; k < WMAX; ++k)
-                if (k < W) cnt += __popc(~V[k]);
+                if (k < W) cnt += __popc(~V[p][k]);
         } else {
-            for (int k = 0; k < W; ++k) cnt += __popc(~V[k]);
+            for (int k = 0; k < W; ++k) cnt += __popc(~V[p][k]);
         }
-        const size_t o = (size_t)(r0 + r) * N + q;
-        if (out16) out16[o] = (uint16_t)cnt;
-        else out32[o] = cnt;
+        const int r = warp * P + p;
+        if (r < nr && q < n_queries) {
+            const size_t o = (size_t)(r0 + r) * N + q;
+            if (out16) out16[o] = (uint16_t)cnt;
+            else out32[o] = cnt;
+        }
     }
 }
 
@@ -132,9 +225,17 @@ template <int WMAX>
 cudaError_t launch(const uint32_t* masks, const int32_t* syms, int R, int L,
                    int W, int N, int n_queries, uint16_t* out16,
                    int32_t* out32, cudaStream_t stream) {
-    dim3 grid((R + REFS_PER_CTA - 1) / REFS_PER_CTA,
-              (n_queries + THREADS - 1) / THREADS);
-    lcs_kernel<WMAX><<<grid, THREADS, 0, stream>>>(
+    constexpr int RPC = ROWS_WARPS * refs_in_flight(WMAX);
+    const size_t smem = rows_smem(WMAX, W);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            lcs_kernel<WMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return e;
+    }
+    dim3 grid((n_queries + 31) / 32, (R + RPC - 1) / RPC);
+    if (grid.y > 65535) return cudaErrorInvalidValue;
+    lcs_kernel<WMAX><<<grid, ROWS_THREADS, smem, stream>>>(
         masks, syms, R, L, W, N, n_queries, out16, out32);
     return cudaGetLastError();
 }
@@ -228,11 +329,7 @@ lcs_wave_kernel(const uint32_t* __restrict__ masks,
 #pragma unroll
                 for (int j = 0; j < WPL; ++j) {
                     if (j < nw) {
-                        const uint32_t v = V[j];
-                        const uint32_t tb = v & m[j * wseg];
-                        const uint32_t v2 = v + tb + cy;
-                        cy = v2 < v;
-                        V[j] = v2 | (v - tb);
+                        word(V[j], m[j * wseg], cy);
                     }
                 }
                 carry = cy;
@@ -280,7 +377,7 @@ extern "C" {
 int lcs_bitpar(const void* masks, const void* syms, int R, int L, int W,
                int N, int n_queries, void* out, int out_u16, void* stream) {
     if (R <= 0 || n_queries <= 0) return 0;
-    if (W < 1 || W > W_LOCAL_MAX || n_queries > N || (n_queries + THREADS - 1) / THREADS > 65535)
+    if (W < 1 || W > W_LOCAL_MAX || n_queries > N)
         return (int)cudaErrorInvalidValue;
     const uint32_t* m = static_cast<const uint32_t*>(masks);
     const int32_t* s = static_cast<const int32_t*>(syms);

@@ -167,8 +167,10 @@ def _configure(name, lib):
         lib.chain_carry.restype = ci
     elif name == "prim":
         lib.prim_round.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp,
-                                   vp, ci, ci, vp]
+                                   vp, ci, ci, ci, vp]
         lib.prim_round.restype = ci
+        lib.prim_cluster_size.argtypes = [ci]
+        lib.prim_cluster_size.restype = ci
     elif name == "merged":
         lib.merged_counters.argtypes = [vp, vp, vp, ci, ci, vp, vp]
         lib.merged_counters.restype = ci

@@ -79,6 +79,25 @@ def _counts(x, n, n_queries):
     return out
 
 
+# K1 rows' P-by-W template (csrc/lcs.cu:refs_in_flight): a thread
+# carries ROWS_P_NARROW references' states at once up to
+# ROWS_P_NARROW_MAX_W words, ROWS_P_WIDE past it; a CTA of ROWS_WARPS
+# warps takes 32 queries and ROWS_WARPS x P references, its masks staged
+# in shared memory up to ROWS_STAGED_MAX_W words
+ROWS_WARPS = 8
+ROWS_P_NARROW, ROWS_P_NARROW_MAX_W, ROWS_P_WIDE = 4, 16, 2
+ROWS_STAGED_MAX_W = 64
+ROWS_CAPS = (2, 4, 8, 16, 32, 64, 2048)     # the W template's caps
+
+
+def rows_geometry(w):
+    """(template cap, references a thread carries, references a CTA,
+    masks staged) of K1's rows variant for W words a query."""
+    cap = next(c for c in ROWS_CAPS if w <= c)
+    p = ROWS_P_NARROW if cap <= ROWS_P_NARROW_MAX_W else ROWS_P_WIDE
+    return cap, p, ROWS_WARPS * p, cap <= ROWS_STAGED_MAX_W
+
+
 def wave_geometry(w):
     """(wseg, wpl, nl) of K1's wave variant for W words a query: wseg
     lanes a query (the power of two >= W, capped at 32), wpl consecutive
@@ -122,10 +141,10 @@ def lcs_wave_plain(table, syms, n_queries):
         for j in range(wpl):
             v = x[:, :, j].clone()
             tb = v & m[:, :, j]
-            v2 = (v + tb + cy) & 0xFFFFFFFF
+            v2 = v + tb + cy
             upd = (live & owned[None, :, j])[..., None]
-            x[:, :, j] = torch.where(upd, v2 | (v - tb), v)
-            cy = torch.where(upd, (v2 < v).to(torch.int64), cy)
+            x[:, :, j] = torch.where(upd, (v2 & 0xFFFFFFFF) | (v - tb), v)
+            cy = torch.where(upd, v2 >> 32, cy)
         carry = torch.where(live[..., None], cy, 0)
     x = torch.where(owned[None, :, :, None], x, 0xFFFFFFFF)
     return _counts(x, n, n_queries)
@@ -133,10 +152,12 @@ def lcs_wave_plain(table, syms, n_queries):
 
 # K1's dispatch: the wave variant while R x ceil(n_queries / 128), the
 # rows variant's grid counted per reference, stays below this.  Measured
-# on an H100 by scripts/torch_kernel_redesign.py (PERF.md): the wave
-# variant won up to 2528 (32 references x 10,000 queries), the rows
-# variant from 5056 (64 x 10,000).
-WAVE_MAX_GRID = 4096
+# on an H100 by scripts/torch_kernel_redesign.py (PERF.md; the rows
+# variant with P chains a thread): the wave variant won up to 316 (4
+# references x 10,000 queries; 16 x 2000, 32 x 1000), the rows variant
+# from 512 (64 x 1000, 32 x 2000; 8 x 10,000 at 632).  A Prim round asks
+# for the wave variant itself (ops/prim_torch.py:prim_chunk).
+WAVE_MAX_GRID = 512
 PLAIN = {"rows": lcs_plain, "wave": lcs_wave_plain}
 
 

@@ -6,9 +6,10 @@ computing the LCS of the newly added vertex against all sequences (one
 launch of kernel K1's wave variant through ops/lcs_torch.lcs_rows), then
 folding the distances into the per-vertex best (distance, tie-break key)
 pair and taking the lexicographic argmin (one launch of kernel K8,
-csrc/prim.cu, through prim_round; its plain twin prim_round_plain on CPU
-tensors).  `cur/dist/tieb/active` and the next round's reference row stay
-on the device and are updated in place; the rounds run in chunks of
+csrc/prim.cu, a cluster of cluster_size(n) CTAs, through prim_round; its
+plain twin prim_round_plain on CPU tensors).  `cur/dist/tieb/active` and
+the next round's reference row stay on the device and are updated in
+place; the rounds run in chunks of
 FAMSA_TORCH_PRIM_CHUNK, and only each chunk's edge buffer comes back to
 the host, in one copy, where tree/mst_prim.py builds the dendrogram.
 
@@ -37,6 +38,19 @@ from .lcs_torch import BV32, build_query_mask_table, lcs_rows, pad_sequences
 SIGN = -(1 << 63)                 # int64 sign bit
 DMAX = np.finfo(np.float64).max
 BIG = np.nextafter(DMAX, 0.0)     # the host transform's distance at lcs 0
+
+
+# K8's shape rule (csrc/prim.cu:cluster_size): one CTA up to
+# CTA_VERTICES vertices, a (non-portable) cluster of MAX_CLUSTER past
+# them; CLUSTERS are the sizes a caller may force
+CTA_VERTICES = 2048
+MAX_CLUSTER = 16
+CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def cluster_size(n):
+    """The CTAs of the cluster K8 runs a round of n vertices on."""
+    return 1 if n <= CTA_VERTICES else MAX_CLUSTER
 
 
 def _unsigned(u):
@@ -89,11 +103,15 @@ def prim_round_plain(lcs, lengths, pow_tab, queries, cur, dist, tieb,
 
 
 def prim_round(lcs, lengths, pow_tab, queries, cur, dist, tieb, active, ref,
-               edges, slot):
+               edges, slot, cluster=None):
     """One Prim round after its LCS (see prim_round_plain for the
     arguments and the in-place effects).  CUDA tensors launch kernel K8
-    on the current stream; CPU tensors run prim_round_plain."""
+    on the current stream, on a cluster of `cluster` CTAs (one of
+    CLUSTERS; default cluster_size(n)); CPU tensors run prim_round_plain,
+    whose result no cluster size changes."""
     n = lengths.shape[0]
+    if cluster is not None and cluster not in CLUSTERS:
+        raise ValueError(f"cluster must be one of {CLUSTERS}, not {cluster}")
     args = {"lcs": (lcs, torch.int32), "lengths": (lengths, torch.int64),
             "pow_tab": (pow_tab, torch.float64),
             "queries": (queries, torch.int32), "cur": (cur, torch.int64),
@@ -127,7 +145,7 @@ def prim_round(lcs, lengths, pow_tab, queries, cur, dist, tieb, active, ref,
                          pow_tab.data_ptr(), queries.data_ptr(), n, length,
                          cur.data_ptr(), dist.data_ptr(), tieb.data_ptr(),
                          active.data_ptr(), ref.data_ptr(), edges.data_ptr(),
-                         edges.shape[1], slot, stream)
+                         edges.shape[1], slot, cluster or 0, stream)
     kernels.check(err, "prim_round")
 
 
@@ -155,7 +173,7 @@ def prim_chunk(table, queries, lengths, pow_tab, state, k):
     buffer, [3, k] int64 on the device (prim_round's `edges`)."""
     edges = torch.empty((3, k), dtype=torch.int64, device=queries.device)
     for slot in range(k):
-        lcs = lcs_rows(table, state.ref)
+        lcs = lcs_rows(table, state.ref, variant="wave")
         prim_round(lcs, lengths, pow_tab, queries, state.cur, state.dist,
                    state.tieb, state.active, state.ref, edges, slot)
     return edges

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Old against new designs of K1, K2, K3, K4 and K6 on one card, in
+"""Old against new designs of K1, K2, K3, K4, K6 and K8 on one card, in
 alternating order.
 
     python3 scripts/torch_kernel_redesign.py [--reps 200] [--rounds 2]
-        [--parts k1,k2,k3,k4,k6,wide,split,threads,e2e] [--parent .parent]
+        [--parts k1,k2,k3,k4,k6,k8,k1rows,wide,split,threads,e2e]
+        [--parent .parent]
 
 The old designs of K1 and K2 are still in the port: K1's rows variant
 (one thread a query, ops/lcs_torch.py variant="rows") and K2's global
@@ -16,11 +17,25 @@ unpacked, e.g. `git archive <commit> | tar -x -C .parent`) into libraries
 of their own under DIR/_build.
 
 k1   Kernel-only CUDA-event times of one MST-Prim round, the first
-     reference of chip_smoke.py's 1000- and 10,000-sequence families
-     (seed 7, mean length 300, padded to 32 as ops/prim_torch.py pads)
-     against all sequences, rows, wave, wave, rows; then the dispatch
-     crossover: both variants for R = 1..256 references against each
-     family, with the rows grid R x ceil(n / 128) beside them.
+     reference of chip_smoke.py's 1000-, 2000- and 10,000-sequence
+     families (seed 7, mean length 300, padded to 32 as ops/prim_torch.py
+     pads) against all sequences, rows, wave, wave, rows; then the
+     dispatch crossover: both variants for R = 1..256 references against
+     each family, with the rows grid R x ceil(n / 128) beside them.
+k8   K8 (csrc/prim.cu), the parent's design against this tree's, old,
+     new, new, old in at least three rounds, at round n/2 of
+     chip_smoke.py's 1000, 10,000 and 10,000 x 600 families: a launch's
+     device ms in a CUDA graph (chip_smoke.py:graph_ms) and its ms from a
+     launch loop; this tree's at its shape rule's cluster and at every
+     cluster size forced.  Both designs' states and edges after one round
+     must be equal.
+k1rows K1's rows variant (csrc/lcs.cu:lcs_bitpar), the parent's design
+     against this tree's, old, new, new, old in at least three rounds
+     (CUDA events around the C entry): 256 references against the
+     2000-sequence family of phase 5 (seed 11; the -dist run's blocks)
+     and the 10,000 of phase 6, a case of W >= 40 (256 x 2000 of mean
+     length 1300) and one past 64 words (64 x 1000 of mean length 2600);
+     both designs' outputs must be equal.
 k2   Kernel-only times of K2, global, staged, staged, global: a lone
      2048x2048 merge (random profiles of 12 and 9 sequences, as
      chip_smoke.py phase 3), and the largest batch of 16 merges (by
@@ -128,7 +143,7 @@ def part_k1(reps, smi):
         return chip_smoke.cuda_ms(
             lambda: lcs_rows(table, syms, variant=variant), r)
 
-    for n in (1000, 10000):
+    for n in (1000, 2000, 10000):
         table, queries = prim_round_inputs(n)
         syms = queries[:1].contiguous()
         t = {v: [] for v in ("rows", "wave")}
@@ -145,6 +160,138 @@ def part_k1(reps, smi):
             print(f"k1 crossover n={n} R={r} grid={grid}: rows {rows:.5f} "
                   f"wave {wave:.5f} ms ({'wave' if wave < rows else 'rows'} "
                   "faster)", flush=True)
+
+
+def k8_inputs(fam):
+    """(inputs, state, lcs) of chip_smoke.py's family `fam` at round n/2:
+    the device Prim's inputs, the state after n/2 rounds (K1 wave and K8)
+    and the next round's LCS row."""
+    from famsa_tpu_torch.ops.lcs_torch import lcs_rows
+    from famsa_tpu_torch.ops.prim_torch import PrimState, prim_chunk
+    inputs = chip_smoke.prim_case(
+        chip_smoke.fasta_strings(chip_smoke.make_family(*fam)), "cuda")
+    state = PrimState(inputs[1])
+    prim_chunk(*inputs, state, inputs[1].shape[0] // 2)
+    return inputs, state, lcs_rows(inputs[0], state.ref)
+
+
+def part_k8(parent, rounds, reps, smi):
+    """The parent's K8 against this tree's, old, new, new, old."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.prim_torch import CLUSTERS, cluster_size
+    if not parent:
+        raise SystemExit("part k8 needs --parent DIR")
+    old_lib, new_lib = parent_lib(parent, "prim"), kernels.get("prim")
+    for name, fam in (("1000", (1000, 300, 7)), ("10000", (10000, 300, 7)),
+                      ("wide600", (10000, 600, 7))):
+        inputs, state, lcs = k8_inputs(fam)
+        _, queries, lengths, pow_tab = inputs
+        n, length = queries.shape
+
+        def call(v, st, edges, cluster=0):
+            head = (lcs.data_ptr(), lengths.data_ptr(), pow_tab.data_ptr(),
+                    queries.data_ptr(), n, length,
+                    *(getattr(st, a).data_ptr() for a in chip_smoke.STATE),
+                    edges.data_ptr(), 1, 0)
+            stream = torch.cuda.current_stream().cuda_stream
+            if v == "old":
+                return kernels.check(old_lib.prim_round(*head, stream), v)
+            return kernels.check(new_lib.prim_round(*head, cluster, stream),
+                                 v)
+
+        def fresh():
+            return (chip_smoke.clone_state(state),
+                    torch.zeros((3, 1), dtype=torch.int64, device="cuda"))
+        outs = {}
+        for v in ("old", "new"):
+            st, edges = fresh()
+            call(v, st, edges)
+            outs[v] = [chip_smoke._bits(getattr(st, a))
+                       for a in chip_smoke.STATE] + [edges]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(outs["old"],
+                                                     outs["new"])):
+            raise AssertionError(f"k8 {name}: the designs differ")
+        t = {k: [] for k in ("old", "new", "old_loop", "new_loop")}
+        by_c = {c: [] for c in CLUSTERS}
+        for _ in range(rounds):
+            for v in ("old", "new", "new", "old"):
+                st, edges = fresh()
+                t[v].append(chip_smoke.graph_ms(
+                    lambda: call(v, st, edges), n=20, reps=reps // 10))
+                t[v + "_loop"].append(chip_smoke.cuda_ms(
+                    lambda: call(v, st, edges), reps // 4))
+            for c in CLUSTERS:
+                st, edges = fresh()
+                by_c[c].append(chip_smoke.graph_ms(
+                    lambda: call("new", st, edges, c), n=20,
+                    reps=reps // 10))
+        after, _ = fresh()
+        call("new", after, torch.zeros((3, 1), dtype=torch.int64,
+                                       device="cuda"))
+        bms, by = chip_smoke.k8_bound_ms(state, after, lcs)
+        print(f"k8 {name} (n={n}, L={length}) round {n // 2}: device ms a "
+              f"launch in a CUDA graph old {t['old']}, new (cluster of "
+              f"{cluster_size(n)}) {t['new']}; from a launch loop old "
+              f"{t['old_loop']}, new {t['new_loop']}; new by cluster size "
+              f"forced {by_c}; bound {bms:.7f} ms ({by}); {smi}", flush=True)
+
+
+def k1rows_cases():
+    """{name: (table, syms)} of part k1rows."""
+    import torch
+    from famsa_tpu_torch.core.sequence import Sequence
+    from famsa_tpu_torch.ops.lcs_torch import (build_query_mask_table,
+                                               pad_sequences)
+    out = {}
+    for name, fam in (("256x2000", (2000, 300, 11)),
+                      ("256x10000", (10000, 300, 7))):
+        seqs = [Sequence(f">s{k}", s, k) for k, s in enumerate(
+            chip_smoke.fasta_strings(chip_smoke.make_family(*fam)))]
+        padded = pad_sequences(seqs)         # TorchDistanceBackend's rows
+        table = torch.from_numpy(build_query_mask_table(padded).view(np.int32))
+        out[name] = (table.cuda(),
+                     torch.from_numpy(padded[:256].astype(np.int32)).cuda())
+    out["256x2000 W>=40"] = chip_smoke.lcs_case(256, 2000, 1300, 41, "cuda")
+    out["64x1000 W>64"] = chip_smoke.lcs_case(64, 1000, 2600, 82, "cuda")
+    return out
+
+
+def part_k1rows(parent, rounds, reps, smi):
+    """The parent's K1 rows against this tree's, old, new, new, old."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.lcs_torch import rows_geometry
+    if not parent:
+        raise SystemExit("part k1rows needs --parent DIR")
+    libs = {"old": parent_lib(parent, "lcs"), "new": kernels.get("lcs")}
+    for name, (table, syms) in k1rows_cases().items():
+        _, w, n = table.shape
+        r, length = syms.shape
+        outs = {v: torch.empty((r, n), dtype=torch.uint16, device="cuda")
+                for v in libs}
+
+        def call(v):
+            kernels.check(libs[v].lcs_bitpar(
+                table.data_ptr(), syms.data_ptr(), r, length, w, n, n,
+                outs[v].data_ptr(), 1,
+                torch.cuda.current_stream().cuda_stream), v)
+        for v in libs:
+            call(v)
+        torch.cuda.synchronize()
+        if not torch.equal(outs["old"], outs["new"]):
+            raise AssertionError(f"k1rows {name}: the designs differ")
+        t = {v: [] for v in libs}
+        k = max(3, reps // 20)
+        for _ in range(rounds):
+            for v in ("old", "new", "new", "old"):
+                t[v].append(chip_smoke.cuda_ms(lambda: call(v), k))
+        bms, by = chip_smoke.lcs_bound_ms(table, syms, n)
+        print(f"k1rows {name} (L={length}, W={w}, new geometry (cap, P, "
+              f"refs a CTA, staged) {rows_geometry(w)}): ms old {t['old']}, "
+              f"new {t['new']}; bound {bms:.5f} ms ({by}); {smi}",
+              flush=True)
 
 
 def largest_k2_batch(work, n, max_batch=16):
@@ -512,6 +659,13 @@ def parent_lib(parent, name):
                     "-Xcompiler", "-fPIC", "-o", str(so), str(src)],
                    check=True)
     lib = ctypes.CDLL(str(so))
+    if name == "prim" and not hasattr(lib, "prim_cluster_size"):
+        # the parent's K8 (one CTA a round) takes no cluster argument
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.prim_round.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp,
+                                   vp, vp, ci, ci, vp]
+        lib.prim_round.restype = ci
+        return lib
     if name != "dp_wide":
         kernels._configure(name, lib)
         return lib
@@ -871,8 +1025,10 @@ def main():
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--parts",
-                    default="k1,k2,k3,k4,k6,wide,split,threads,e2e")
-    ap.add_argument("--parent", help="a tree with the old K3, K4 and K6")
+                    default="k1,k2,k3,k4,k6,k8,k1rows,wide,split,threads,"
+                            "e2e")
+    ap.add_argument("--parent",
+                    help="a tree with the old K1 rows, K3, K4, K6 and K8")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -897,6 +1053,10 @@ def main():
     if "k4" in parts or "k6" in parts:
         part_k46(parts, args.parent, max(3, args.rounds),
                  max(10, args.reps // 10), smi)
+    if "k8" in parts:
+        part_k8(args.parent, max(3, args.rounds), args.reps, smi)
+    if "k1rows" in parts:
+        part_k1rows(args.parent, max(3, args.rounds), args.reps, smi)
     if "e2e" in parts:
         part_e2e(args.rounds, smi)
     return 0

@@ -10,6 +10,9 @@ choice of variant against its rule.
 Tolerance: exact (integer LCS, correctly-rounded host float transforms).
 """
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -219,16 +222,22 @@ def test_wave_plain_matches_pallas_interpret(w):
 
 
 def test_lcs_variant_rule(monkeypatch):
-    """The wave variant while R x ceil(n_queries / 128) < WAVE_MAX_GRID
-    (every Prim round: R = 1), the rows variant from there on; lcs_rows
+    """The wave variant while R x ceil(n_queries / 128) < WAVE_MAX_GRID,
+    the rows variant from there on, at the crossover measured on an H100
+    (wave up to 32 x 1000, 16 x 2000 and 4 x 10,000 references x
+    queries, rows from 64 x 1000, 32 x 2000 and 8 x 10,000); lcs_rows
     runs the chosen variant's plain twin on CPU tensors."""
     grid = lcs_torch.WAVE_MAX_GRID
+    assert grid == 512
     assert lcs_variant(1, 1000) == "wave"
     assert lcs_variant(1, 128 * (grid - 1)) == "wave"
     assert lcs_variant(1, 128 * grid) == "rows"
     assert lcs_variant(grid, 1) == "rows"
     assert lcs_variant(grid - 1, 128) == "wave"
-    assert lcs_variant(256, 1000) == "wave"      # distance row blocks
+    for r, n in ((32, 1000), (16, 2000), (4, 10000)):
+        assert lcs_variant(r, n) == "wave"
+        assert lcs_variant(2 * r, n) == "rows"
+    assert lcs_variant(256, 257) == "rows"       # distance row blocks
     assert lcs_variant(256, 2000) == "rows"
     calls = []
     for name in ("rows", "wave"):
@@ -248,3 +257,79 @@ def test_lcs_variant_rule(monkeypatch):
     np.testing.assert_array_equal(out[-1].numpy(), _host_lcs(padded, lens, 0))
     with pytest.raises(ValueError, match="variant"):
         lcs_rows(table, one, variant="diagonal")
+
+
+CSRC = pathlib.Path(lcs_torch.__file__).resolve().parent.parent / "csrc"
+
+
+def _cu_int(name):
+    m = re.search(rf"constexpr int {name} = (\d+);",
+                  (CSRC / "lcs.cu").read_text())
+    assert m, f"{name} not in csrc/lcs.cu"
+    return int(m.group(1))
+
+
+def test_rows_template_mirrors_the_cuda_source():
+    """lcs_torch.rows_geometry is csrc/lcs.cu's rows variant: the W
+    template's caps (lcs_bitpar's dispatch), refs_in_flight's P by cap,
+    the CTA's warps and the staged range, at each edge of the template."""
+    src = (CSRC / "lcs.cu").read_text()
+    caps = [int(c) for c in re.findall(r"e = launch<(\d+)>", src)]
+    assert caps == list(lcs_torch.ROWS_CAPS[:-1])
+    assert "else e = launch<W_LOCAL_MAX>" in src
+    assert _cu_int("W_LOCAL_MAX") == lcs_torch.ROWS_CAPS[-1]
+    assert _cu_int("ROWS_WARPS") == lcs_torch.ROWS_WARPS
+    assert _cu_int("STAGED_MAX_W") == lcs_torch.ROWS_STAGED_MAX_W
+    assert _cu_int("P_NARROW_MAX_W") == lcs_torch.ROWS_P_NARROW_MAX_W
+    assert _cu_int("P_NARROW") == lcs_torch.ROWS_P_NARROW
+    assert _cu_int("P_WIDE") == lcs_torch.ROWS_P_WIDE
+    assert "return wmax <= P_NARROW_MAX_W ? P_NARROW : P_WIDE;" in src
+    rpc = lcs_torch.ROWS_WARPS
+    assert lcs_torch.rows_geometry(1) == (2, 4, 4 * rpc, True)
+    assert lcs_torch.rows_geometry(16) == (16, 4, 4 * rpc, True)
+    assert lcs_torch.rows_geometry(17) == (32, 2, 2 * rpc, True)
+    assert lcs_torch.rows_geometry(64) == (64, 2, 2 * rpc, True)
+    assert lcs_torch.rows_geometry(65) == (2048, 2, 2 * rpc, False)
+    assert lcs_torch.rows_geometry(2048) == (2048, 2, 2 * rpc, False)
+
+
+def _dp_lcs(a, b):
+    """The LCS length of two symbol rows by the textbook dynamic program;
+    symbols >= 20 match nothing."""
+    prev = [0] * (len(b) + 1)
+    for x in a:
+        cur = [0]
+        for j, y in enumerate(b):
+            cur.append(prev[j] + 1 if x == y and x < 20
+                       else max(prev[j + 1], cur[j]))
+        prev = cur
+    return prev[-1]
+
+
+@pytest.mark.parametrize("run", [33, 64, 70, 100])
+def test_plain_lcs_exact_on_runs_of_equal_residues(run):
+    """Queries with a run of `run` equal residues from a word's start: a
+    word of V all ones, covered by the mask, takes a carry in, where the
+    test V2 < V misses the carry.  Both plain versions (the CPU paths of
+    K1's variants, whose exact carry the kernels compute) equal the
+    dynamic program."""
+    rng = np.random.default_rng(run)
+    n = 6
+    padded = np.full((n, 160), 22, dtype=np.int8)
+    for i in range(n):
+        ln = int(rng.integers(run + 10, 161))
+        padded[i, :ln] = rng.integers(0, 20, size=ln)
+        start = 32 * (i % 2)
+        padded[i, start:start + run] = i % 3
+    table = torch.from_numpy(build_query_mask_table(padded).view(np.int32))
+    refs = np.concatenate([padded[:3, :90], np.full((2, 90), 22, np.int8)])
+    refs[3, :5] = [0, 1, 1, 2, 0]
+    refs[4, :40] = 1
+    syms = torch.from_numpy(refs.astype(np.int32))
+    got = lcs_plain(table, syms, n).numpy()
+    np.testing.assert_array_equal(lcs_wave_plain(table, syms, n).numpy(),
+                                  got)
+    for k in range(len(refs)):
+        for q in range(n):
+            assert got[k, q] == _dp_lcs(refs[k].tolist(),
+                                        padded[q].tolist())

@@ -19,6 +19,9 @@ pow on the other (equal wherever the two pows agree), and dneg to
 gives DBL_MAX there and the host nextafter(DBL_MAX, 0) (ROADMAP C2).
 """
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -249,3 +252,123 @@ def test_prim_cpu_path_builds_no_kernel(monkeypatch):
                            device="cpu", chunk=6)
     assert tree_port == tree_host
     assert kernels.LAUNCHES == before
+
+
+CSRC = pathlib.Path(pt.__file__).resolve().parent.parent / "csrc"
+
+
+def _before(a, b):
+    """K8's lexicographic order on (dist, tieb as uint64, vertex)."""
+    return a < b
+
+
+def _sliced_best(dist, tieb, active, c):
+    """K8's sliced reduction on the round's updated state: CTA r of c owns
+    vertices [r S, (r + 1) S), S = ceil(n / c), and folds the active ones
+    into one partial (dist, tieb, vertex); the partials are folded in rank
+    order.  Returns the best vertex, or n when none is active."""
+    n = len(dist)
+    per = -(-n // c)
+    none = (np.inf, np.uint64(0xFFFFFFFFFFFFFFFF), 0x7FFFFFFF)
+    best = none
+    for r in range(c):
+        part = none
+        for v in range(r * per, min(n, (r + 1) * per)):
+            if active[v]:
+                part = min(part, (dist[v], tieb[v], v))
+        if _before(part, best):
+            best = part
+    return best[2] if best[2] < n else n
+
+
+@pytest.mark.parametrize("kind,seed", [("tie", 4), ("disjoint", 6)])
+def test_sliced_reduction_matches_plain_and_famsa_tpu(kind, seed,
+                                                      monkeypatch):
+    """A plain emulation of K8's cluster reduction (per-slice partials for
+    each cluster size, folded in rank order) picks prim_round_plain's best
+    in every round, on ties (every sequence three times: the tie keys
+    decide) and with lcs == 0 pairs (two disjoint alphabets).  On ties the
+    JAX round (_prim_device_chunk, k_rounds=1, its own state) picks the
+    same vertex; with lcs == 0 the JAX round gives DBL_MAX where the host
+    gives nextafter(DBL_MAX, 0) (ROADMAP C2), so there the vertex is held
+    to the host Prim's (famsa_tpu.tree.mst_prim) order of addition."""
+    rng = np.random.default_rng(seed)
+    if kind == "tie":
+        base = _strings("random", rng)[:31]
+        strings = [s for s in base for _ in range(3)]
+    else:
+        strings = _strings("disjoint", rng)
+        jseqs = _sequences(JSequence, strings)
+        be = DistanceBackend(jseqs, DIST_INDEL075_DIV_LCS, np.float64)
+        host_edges = _capture(monkeypatch, host_mst)
+        host_mst.mst_prim_tree(len(jseqs), lambda r, ids: be.row(r, ids),
+                               [])
+        host_order = np.argsort(host_edges[0][3])
+    padded, lengths = _inputs(strings)
+    table, queries, lens, pow_tab = pt.prim_inputs(padded, lengths, "cpu")
+    st = pt.PrimState(queries)
+    jtab = jnp.asarray(jax_table(padded))
+    jq = jnp.asarray(padded.astype(np.int32))
+    jl = jnp.asarray(lengths)
+    j_state = (jnp.int64(0), jnp.asarray(st.dist.numpy()),
+               jnp.asarray(st.tieb.numpy().view(np.uint64)),
+               jnp.asarray(st.active.numpy()))
+    edges = torch.empty((3, ROUNDS), dtype=torch.int64)
+    for r in range(ROUNDS):
+        out = _prim_device_chunk(jtab, jq, jl, *j_state, k_rounds=1)
+        j_state = out[:4]
+        lcs = lcs_rows(table, st.ref)
+        active = st.active.clone()
+        pt.prim_round_plain(lcs, lens, pow_tab, queries, st.cur, st.dist,
+                            st.tieb, st.active, st.ref, edges, r)
+        best = int(st.cur[0])
+        dist = st.dist.numpy()
+        tieb = st.tieb.numpy().view(np.uint64)
+        for c in pt.CLUSTERS:
+            assert _sliced_best(dist, tieb, active.numpy(), c) == best
+        if kind == "tie":
+            assert int(np.asarray(out[7])[0]) == best
+        else:
+            assert host_order[r + 1] == best
+    if kind == "disjoint":
+        assert (edges[2].view(torch.float64) == -pt.BIG).any()
+
+
+def _cu_constant(name):
+    m = re.search(rf"constexpr int {name} = ([^;]+);",
+                  (CSRC / "prim.cu").read_text())
+    assert m, f"{name} not in csrc/prim.cu"
+    return int(m.group(1))
+
+
+def test_cluster_rule_mirrors_the_cuda_source():
+    """prim_torch.cluster_size is csrc/prim.cu's cluster_size: one CTA up
+    to CTA_VERTICES vertices, MAX_CLUSTER CTAs past them, and every size
+    a caller may force is a power of two up to MAX_CLUSTER."""
+    src = (CSRC / "prim.cu").read_text()
+    assert "return n <= CTA_VERTICES ? 1 : MAX_CLUSTER;" in src
+    assert _cu_constant("CTA_VERTICES") == pt.CTA_VERTICES
+    assert _cu_constant("MAX_CLUSTER") == pt.MAX_CLUSTER == max(pt.CLUSTERS)
+    assert all(c & (c - 1) == 0 for c in pt.CLUSTERS)
+    for n, c in ((1, 1), (1000, 1), (pt.CTA_VERTICES, 1),
+                 (pt.CTA_VERTICES + 1, pt.MAX_CLUSTER),
+                 (10000, pt.MAX_CLUSTER)):
+        assert pt.cluster_size(n) == c
+
+
+def test_prim_round_cluster_argument():
+    """A forced cluster size is one of CLUSTERS; on the CPU every size gives
+    the plain twin's round."""
+    with pytest.raises(ValueError, match="cluster"):
+        pt.prim_round(**_round_args(), cluster=3)
+    results = []
+    for c in (None,) + pt.CLUSTERS:
+        args = _round_args()
+        args["lcs"] = torch.arange(1, 41, dtype=torch.int32).view(1, 40)
+        args["lengths"] = torch.arange(30, 70, dtype=torch.int64)
+        args["pow_tab"] = torch.arange(256, dtype=torch.float64) ** 0.75
+        pt.prim_round(**args, cluster=c)
+        results.append([args[a].clone() for a in ("cur", "dist", "tieb",
+                                                  "active", "edges")])
+    for res in results[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(res, results[0]))
