@@ -16,6 +16,15 @@ Phases (one line each; any mismatch or exception exits non-zero):
     queries: a partial last segment; no-op symbols throughout) and a
     triangular n_queries of 333 that ends inside a warp; both variants
     on 40 queries with runs of 33-130 equal residues (the exact carry).
+    K9 (csrc/lcs.cu:lcs_refmask, FAMSA's layout and carry for flagged
+    references) against lcs_refmask_plain, bit-exact: the flagged
+    references of phase 5b's poly-Q family against all its sequences
+    (int32 and uint16 out, a triangular n_queries), an unflagged short
+    reference, references past 32 words (the local-memory state), and
+    inside Prim rounds from round 0 (after K1 wave: the row equals the
+    plain version's for a flagged reference and K1 wave's for an
+    unflagged one, which K9 leaves); a profiled chunk of the poly-Q
+    family's rounds (exactly K1 wave, K9, K8 a round) and K9's times.
     K8 (csrc/prim.cu, a Prim round after its
     LCS) against prim_round_plain, bit-exact on every state tensor (cur,
     dist, tieb, active, the next reference row) and edge, 64 consecutive
@@ -27,7 +36,9 @@ Phases (one line each; any mismatch or exception exits non-zero):
     (2048 and 2049 sequences; the rule's cluster size read from the
     library too), and 257
     sequences, 100 sequences three times each (the tie keys decide) and
-    two groups on disjoint alphabets (lcs == 0).  At each family's round
+    two groups on disjoint alphabets (lcs == 0).  The main path's
+    families hold no flagged sequence (so their rounds launch no K9).
+    At each family's round
     shape: K8's ms from a launch loop and a launch's device ms in a CUDA
     graph (at its rule's cluster size and at each size forced), its bound
     and plain ms, and K1 wave's ms and bound; one chunk
@@ -46,11 +57,16 @@ Phases (one line each; any mismatch or exception exits non-zero):
     2048x2048 prof-prof; on 9-16 folds a batch whose widest merge is
     5906.  Stripes variant (dp_profile_batched_stripes, held as staged): a
     batch with one merge past 4095 and one past 8191, a banded batch
-    (60 x 9000 split), 2^22-scaled at w2 8500.  Global variant
-    (csrc/dp.cu, one CTA a merge): 60x5000, and forced on the mixed
-    batch, 60x700, 60x1500, 2048^2 (every column stripe it has) and both
-    batches past 4095.  Prints both variants' ms at 2048^2, on the
-    16-merge batch and on the batches past 4095, how many clusters of F =
+    (60 x 9000 split), 2^22-scaled at w2 8500.  Spans variant
+    (dp_profile_batched_spans, w2 32768-131071, up to 4 clusters of 16
+    folds a merge; phase_k2_spans): against its fold walk and dp_plain
+    at w1 6 x w2 32768, 65536 and 131071, plain and banded, and a mixed
+    batch of three, with the host DP, K5, K4 and K6; against dp_plain at
+    SPANS_LONE (1000 x 40,000, 1000 x 100,000, 300 x 131,071) and
+    SPANS_BATCH (400 x 33,000 / 70,000 / 131,071), each plain and banded
+    along the diagonal, with its ms and bound.  Prints the staged ms at
+    2048^2, on the 16-merge batch and on the batches past 4095, how many
+    clusters of F =
     1..16 staged folds and of 16 stripes folds fit on the card at once
     (cudaOccupancyMaxActiveClusters; fails if one fits nowhere) and the
     columns a stripes fold keeps in shared memory.  On every batch: K5
@@ -71,7 +87,7 @@ Phases (one line each; any mismatch or exception exits non-zero):
     stripes variant: lone merges at 8192 (seq-prof), 14,000 and 16,256, a
     banded 60 x 9000 split (against K2's plain version), 2^22-scaled and
     cardinality > 2^16 at 9000; the limits (w1 16384 x w2 16256, w2
-    32767) against K2's global variant and the host DP; a 3564x1334
+    32767) against K2 and the host DP; a 3564x1334
     prof-prof and a lone 300x3850 (the 10,000-sequence family's wide
     merges) against K2; K5, K4 and K6 on every merge, as in phase 3;
  3c. K4 and K6 at their kernels' edges (phase_edges): at each of
@@ -110,6 +126,15 @@ Phases (one line each; any mismatch or exception exits non-zero):
     against numpy, with a Prim chunk small enough to cross chunk
     boundaries (n - 1 K1 wave and K8 launches), and under -dist
     indel_div_lcs (K1's rows variant);
+ 5b. the poly-Q family (POLYQ_FAMILY: 500 sequences of mean length 300,
+    every 10th with a poly-Q tract of 64-200 residues) with -backend
+    torch, refinement off: aligned (K1 wave, K9 and K8 once a Prim
+    round), -gt_export and -dist_export (K1 for unflagged references, K9
+    for flagged ones), each byte-identical to a -backend numpy child;
+ 5c. profile-profile mode on a 1500 x 40,000-column merge (PROFPROF,
+    make_profiles), refinement off: one K2 launch on its spans variant
+    (B = 1; K3 refuses the width), byte-identical to a -backend numpy
+    child;
  6. the wide path: a seeded 10,000-sequence family of mean length 300
     (refinement AUTO = off) with -backend torch at the default knobs,
     against -backend numpy on the guide tree the torch -gt_export wrote;
@@ -122,7 +147,7 @@ Phases (one line each; any mismatch or exception exits non-zero):
     mean length 600, seed 7, an alignment of 5906 columns) the same way,
     its numpy reference (-gt import of the torch tree) in a child process
     beside phase 8's; every DP launch on the variant its width selects, the
-    staged body on 9-16 folds launched at least once and K2's global
+    staged body on 9-16 folds launched at least once and K2's spans
     variant never.  Prints the stage seconds, the merges per route, the
     device merges past 4095 columns on K3 and in K2 batches, and the DP
     launches per variant with their CUDA-event totals and means;
@@ -136,7 +161,7 @@ Phases (one line each; any mismatch or exception exits non-zero):
     8191 (16 staged folds) and 16256 (the stripes body; 2 leaves) with DP
     folds past the chain's width left dead: state, recorded widths, both
     carry buffers and every path of a step that ran, its launches counted, no host read; then a
-    family of 2300 variants of one 800-residue protein (make_variants,
+    family of 1700 variants of one 800-residue protein (make_variants,
     seed 5: its guide tree is one caterpillar) through the
     CLI entry point with -backend torch at the default knobs (host merges
     below 1536 columns, then chunks), with FAMSA_TORCH_CHAIN_MIN_W2=0
@@ -187,10 +212,12 @@ there (the DP variants against dp_plain, the row-serial plain version of
 the same function; phases 3 and 3b hold them against their fold walks
 too), and "plain_ms" that plain version's time; "launches" counts its launches in the run named by
 "launches_run" (the 1000-sequence default run; K1 rows: the -dist run;
-the DP variants past 4095 columns: phase 6b's run).  A variant that no
+K9: phase 5b's alignment, whose Prim rounds launch it once each, most
+returning at once, and it is held and timed on the largest call of
+phase 5b's -dist_export run; the DP variants past 4095 columns: phase
+6b's run; K2 spans: phase 5c's profile-profile run).  A variant that no
 main-path run launched has launches 0 and is measured where "at" says:
-K2 global (every batch of these runs is at most 32767 wide) on the
-largest K2 batch of the runs; K3's and K2's stripes bodies (no family
+K3's and K2's stripes bodies (no family
 that fits the smoke reaches 8192 columns) on phase 3b's lone 100 x
 14,000 merge and phase 3's batch with merges past 4095 and 8191; K2's
 staged body on 9-16 folds, if phase 6b launched none, on phase 3's batch
@@ -210,6 +237,8 @@ entry's device time a launch from 20 launches captured in one CUDA graph
 (a launch loop from Python floors a short kernel at the host's launch
 rate), and "slowest": the same numbers on the inputs of the launch that
 took longest in the 10,000-sequence run ("launch_ms", its time there).
+K9's bound counts a 64-bit word update (~12 int32 instructions) per
+reference word and live query position, against the rows read once.
 K5's and K6's bound is the larger of their bytes
 (each side's counter rows or symbol bytes read once, the path bytes, the
 outputs written once) and the int64 multiply-adds and adds their rows
@@ -411,6 +440,18 @@ def lcs_bound_ms(table, syms, n_queries):
     return bound(4 * table.numel() + 4 * syms.numel() + 2 * r * n, ops)
 
 
+def refmask_bound_ms(refs, queries, n_queries):
+    """K9's bound: a 64-bit word update (and, two adds, compare, subtract,
+    or; ~12 int32 instructions) per reference word and live query
+    position, against the rows read once and the output written once."""
+    r, lr = refs.shape
+    live = int(((queries[:n_queries] >= 0) & (queries[:n_queries] < 20))
+               .sum())
+    ops = 12 * live * r * -(-lr // 64)
+    return bound(4 * refs.numel() + 4 * n_queries * queries.shape[1]
+                 + 4 * r * n_queries, ops)
+
+
 def lcs_check(table, syms, q, variant, what):
     """K1's `variant` against lcs_plain, bit for bit, on the first q
     queries; the launch must have gone to that variant."""
@@ -583,6 +624,7 @@ def clone_state(state):
     out = object.__new__(PrimState)
     for name in STATE:
         setattr(out, name, getattr(state, name).clone())
+    out.flags = state.flags
     return out
 
 
@@ -688,9 +730,10 @@ def k8_times(inputs, state, lcs):
 def k8_profile(inputs, state, k=K8_ROUNDS):
     """One chunk of k rounds (prim_chunk) from `state` under torch.profiler
     and set_sync_debug_mode("error"): its device operations (2 a round, K1
-    wave then K8, or the smoke fails) and their device ms a round; then
-    the same chunk on another clone, unprofiled: the host's ms a round to
-    enqueue it and its ms a round to the end of the device's work."""
+    wave then K8, or with state.flags 3, K1 wave, K9, K8, or the smoke
+    fails) and their device ms a round; then the same chunk on another
+    clone, unprofiled: the host's ms a round to enqueue it and its ms a
+    round to the end of the device's work."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -709,12 +752,14 @@ def k8_profile(inputs, state, k=K8_ROUNDS):
         torch.cuda.synchronize()
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
            and "spin_kernel" not in e.name]
-    want = ["lcs_wave_kernel", "prim_round_kernel"] * k
+    want = (["lcs_wave_kernel"]
+            + (["lcs_refmask_kernel"] if state.flags is not None else [])
+            + ["prim_round_kernel"]) * k
     if len(ops) != len(want) or any(w not in e.name
                                     for w, e in zip(want, ops)):
         raise AssertionError(f"K8: a chunk of {k} rounds ran {len(ops)} "
-                             f"device operations, not K1 wave then K8 a "
-                             f"round: {[short_name(e.name) for e in ops]}")
+                             f"device operations, not {want[:len(want) // k]}"
+                             f" a round: {[short_name(e.name) for e in ops]}")
     dev_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3 / k
     st = clone_state(state)
     torch.cuda.synchronize()
@@ -768,6 +813,9 @@ def phase_k8(device="cuda", fams=None):
         inputs = prim_case(fasta_strings(make_family(*fam)), device)
         table, queries = inputs[:2]
         n = queries.shape[0]
+        if cli_flags(queries) is not None:
+            raise AssertionError(f"K8: the {name} family has a flagged "
+                                 "sequence: its rounds would launch K9")
         e, _, _ = k8_check(inputs, name)
         e2, state, lcs = k8_check(inputs, f"{name} from round {n // 2}",
                                   start=n // 2)
@@ -823,6 +871,162 @@ def phase_k8(device="cuda", fams=None):
 
 
 # ----------------------------------------------------------------------
+# K9
+# phase 5b's family: sequences, mean length, seed (every 10th sequence
+# with a poly-Q tract, make_polyq)
+POLYQ_FAMILY = (500, 300, 13)
+
+
+def make_polyq(n, mean_len, seed, every=10):
+    """FASTA text of make_family(n, mean_len, seed) in which every
+    `every`-th sequence carries a poly-Q tract of 64-200 residues at an
+    offset of 0-63: FAMSA's LCS departs from the exact one where such a
+    sequence is the reference (ops/lcs_torch.py:famsa_flags)."""
+    rng = np.random.default_rng(seed + 1)
+    out = []
+    for k, seq in enumerate(fasta_strings(make_family(n, mean_len, seed))):
+        if k % every == 0:
+            off = int(rng.integers(0, 64))
+            seq = seq[:off] + "Q" * int(rng.integers(64, 201)) + seq[off:]
+        out.append(f">polyq_{k}\n{seq}\n")
+    return "".join(out)
+
+
+def cli_flags(queries):
+    """The flags a CLI run's device Prim takes for these query rows
+    (ops/prim_torch.py:device_flags; None: no sequence flagged)."""
+    from famsa_tpu_torch.ops.lcs_torch import famsa_flags
+    from famsa_tpu_torch.ops.prim_torch import device_flags
+    return device_flags(famsa_flags(queries.cpu().numpy().astype(np.int8)),
+                        queries.device)
+
+
+def refmask_check(refs, queries, q, what, out_dtype=None):
+    """K9 against lcs_refmask_plain, bit for bit on the first q queries;
+    the launch must have happened."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.lcs_torch import lcs_refmask, lcs_refmask_plain
+    before = kernels.LAUNCHES["lcs_refmask"]
+    got = lcs_refmask(refs, queries, n_queries=q,
+                      out_dtype=out_dtype or torch.int32)
+    want = lcs_refmask_plain(refs, queries, q)
+    if refs.is_cuda:
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["lcs_refmask"] != before + 1:
+            raise AssertionError(f"K9 {what}: not launched")
+    if not torch.equal(got[:, :q].to(torch.int32), want[:, :q]):
+        bad = (got[:, :q].to(torch.int32) != want[:, :q]).nonzero()[:5]
+        raise AssertionError(f"K9 {what}: mismatch at {bad.tolist()}")
+
+
+def k9_prim_check(inputs, flags, min_rounds=K8_ROUNDS, max_rounds=512):
+    """K9 inside Prim rounds from round 0, as prim_chunk runs it (K1 wave,
+    K9, K8): each round's row after K9 against lcs_refmask_plain when the
+    round's reference is flagged and against K1 wave's row when it is
+    not, until both kinds were held (at least min_rounds rounds).
+    Returns ({flagged: rounds held}, a flagged and an unflagged state)."""
+    import torch
+    from famsa_tpu_torch.ops.lcs_torch import (lcs_refmask, lcs_refmask_plain,
+                                               lcs_rows)
+    from famsa_tpu_torch.ops.prim_torch import PrimState, prim_round
+    table, queries, lengths, pow_tab = inputs
+    n = queries.shape[0]
+    ks = PrimState(queries, flags)
+    edges = torch.zeros((3, max_rounds), dtype=torch.int64,
+                        device=queries.device)
+    seen, states = {True: 0, False: 0}, {}
+    for r in range(max_rounds):
+        if r >= min_rounds and seen[True] and seen[False]:
+            break
+        cur = int(ks.cur[0])
+        flagged = bool(flags[cur])
+        states.setdefault(flagged, clone_state(ks))
+        lcs = lcs_rows(table, ks.ref, variant="wave")
+        k1 = lcs.clone()
+        lcs_refmask(ks.ref, queries, out=lcs, cur=ks.cur, flags=flags)
+        want = lcs_refmask_plain(ks.ref, queries, n) if flagged else k1
+        if not torch.equal(lcs, want):
+            raise AssertionError(f"K9 in Prim round {r} (reference {cur}, "
+                                 f"flagged {flagged}): the row differs")
+        seen[flagged] += 1
+        prim_round(lcs, lengths, pow_tab, queries,
+                   *(getattr(ks, a) for a in STATE), edges, r)
+    if not (seen[True] and seen[False]):
+        raise AssertionError(f"K9 in Prim rounds: references held {seen}")
+    return seen, states
+
+
+def phase_k9(device="cuda"):
+    """K9 (csrc/lcs.cu:lcs_refmask, FAMSA's layout and carry) against
+    lcs_refmask_plain on the card, bit for bit: on the rows path (the
+    flagged references of the poly-Q family against all its sequences,
+    uint16 and int32 out, a triangular n_queries, an unflagged short
+    reference, and references of ~3000 residues: past 32 words, the
+    local-memory state) and inside Prim rounds (a flagged and an
+    unflagged reference).  Then a profiled chunk of the poly-Q family's
+    rounds (3 device operations a round) and K9's times."""
+    import torch
+    from famsa_tpu_torch.ops.lcs_torch import (famsa_flags, lcs_refmask,
+                                               lcs_refmask_plain)
+    from famsa_tpu_torch.ops.prim_torch import PrimState
+    n, mean_len, seed = POLYQ_FAMILY
+    inputs = prim_case(fasta_strings(make_polyq(n, mean_len, seed)), device)
+    queries = inputs[1]
+    flags = cli_flags(queries)
+    if flags is None:
+        raise AssertionError("K9: the poly-Q family has no flagged sequence")
+    fl = flags.cpu().numpy()
+    ids = torch.from_numpy(np.nonzero(fl)[0][:8]).to(device)
+    refs = queries.index_select(0, ids).contiguous()
+    nq = queries.shape[0]
+    refmask_check(refs, queries, nq, f"{len(ids)} flagged x {nq}")
+    refmask_check(refs, queries, nq, "uint16 out", torch.uint16)
+    refmask_check(refs[:3].contiguous(), queries, nq // 3, "triangular")
+    short = queries[~flags][:1, :40].contiguous()
+    refmask_check(short, queries, nq, "an unflagged 40-residue reference")
+    # references past 32 words (the local-memory state) against short
+    # queries (the plain version's loop runs over query positions)
+    long_strings = [s[:2000] + "N" * 130 + s[2000:] for s in fasta_strings(
+        make_family(4, 3000, 5))]
+    long_r = prim_case(long_strings, device, dedup=False)[1]
+    if not famsa_flags(long_r.cpu().numpy().astype(np.int8)).all():
+        raise AssertionError("K9: the long references are not flagged")
+    short_q = prim_case(fasta_strings(make_family(64, 150, 6)), device,
+                        dedup=False)[1]
+    refmask_check(long_r, short_q, short_q.shape[0],
+                  f"4 refs of L={long_r.shape[1]} (W64="
+                  f"{-(-long_r.shape[1] // 64)}) x 64 queries")
+    seen, states = k9_prim_check(inputs, flags)
+    msg = (f"phase 2 K9: bit-exact vs lcs_refmask_plain on the poly-Q "
+           f"family (n={nq}, L={queries.shape[1]}, {int(fl.sum())} flagged): "
+           f"{len(ids)} flagged refs x {nq} (int32 and uint16), triangular "
+           f"{nq // 3}, an unflagged 40-residue ref, 4 refs of "
+           f"L={long_r.shape[1]} x 64; in Prim rounds from round 0 "
+           f"{seen[True]} flagged and {seen[False]} unflagged references "
+           f"(row after K9 = plain / = K1 wave's)")
+    if device == "cuda":
+        prof = k8_profile(inputs, PrimState(queries, flags))
+        ms = cuda_ms(lambda: lcs_refmask(refs, queries), 20)
+        pms = wall_ms(lambda: lcs_refmask_plain(refs, queries, nq))
+        bms, by = refmask_bound_ms(refs, queries, nq)
+        row = torch.empty((1, nq), dtype=torch.int32, device=device)
+        st_f, st_u = states[True], states[False]
+        f_ms = cuda_ms(lambda: lcs_refmask(st_f.ref, queries, out=row,
+                                           cur=st_f.cur, flags=flags), 50)
+        u_ms = graph_ms(lambda: lcs_refmask(st_u.ref, queries, out=row,
+                                            cur=st_u.cur, flags=flags))
+        msg += (f"; {len(ids)} x {nq}: K9 {ms:.4f} ms, plain {pms:.1f} ms, "
+                f"bound {bms:.5f} ms ({by}); in a round, flagged reference "
+                f"{f_ms:.5f} ms, unflagged (returns at once) {u_ms:.5f} ms a "
+                f"launch in a CUDA graph; a profiled chunk of the poly-Q "
+                f"rounds: {prof['device_ops_a_round']:g} device operations "
+                f"a round (K1 wave, K9, K8), {prof['device_ms_a_round']:.5f} "
+                f"device ms, {prof['host_ms_a_round']:.5f} host ms a round")
+    log(msg)
+
+
+# ----------------------------------------------------------------------
 # K2
 def random_profile(rng, params, n_seqs, width, gap_frac=0.2):
     """A Profile of n_seqs random gapped rows of one width (gap_frac 0:
@@ -872,22 +1076,26 @@ def banded_case(rng, params, w1=300, w2=320, split=None):
 
 
 def dp_check(params, pairs, bands, device, what, mappings=None,
-             variants=(None,)):
+             variants=(None,), walk=True, trace=True):
     """K2 against its plain versions on one batch, once per variant in
     `variants` (None: the one k2_variant picks): dp_plain, and for the
-    staged and stripes variants their fold walk dp_staged_plain too; full
-    direction
+    staged and stripes variants their fold walk dp_staged_plain too (for
+    the spans variant with walk: its fold walk, dp_staged_plain with span
+    MAX_FOLDS; it takes seconds a DP row at its widths); full direction
     bytes (so D everywhere and H/V on [1:, 1:]), per-row finals, last,
     path and total; and path/total vs the native host DP (guided by
     `mappings`, the column mappings the bands came from).  Each launch
-    must go to its variant.  Returns the packed inputs on the device and
-    dp_plain's wall ms."""
+    must go to its variant.  K4 and K6 run on the first variant's output
+    (k4_check, k6_check; trace "native": K4 against the native walk
+    alone, no K6: their plain twins step through a path of w1 + w2 steps
+    from Python).  Returns the packed inputs on the device and dp_plain's
+    wall ms."""
     import torch
     from famsa_tpu_torch import kernels
     from famsa_tpu_torch.core.dp_native import dp_profile, finish_path
     from famsa_tpu_torch.ops.dp_torch import (dp_dirs, dp_plain, k2_variant,
                                               pack_batch, prepare_merge)
-    from famsa_tpu_torch.ops.dp_wide import dp_staged_plain
+    from famsa_tpu_torch.ops.dp_wide import MAX_FOLDS, dp_staged_plain
     merges = [prepare_merge(params, p1, p2, bd)
               for (p1, p2), bd in zip(pairs, bands)]
     colf, rowf, meta, total = pack_batch(merges)
@@ -900,6 +1108,9 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
     if {"staged", "stripes"} & set(variants):
         plains["dp_staged_plain"] = [x.cpu().numpy() for x in
                                      dp_staged_plain(*args, total)]
+    if "spans" in variants and walk:
+        plains["spans fold walk"] = [x.cpu().numpy() for x in dp_staged_plain(
+            *args, total, span=MAX_FOLDS)]
     hosts = [dp_profile(params, p1, p2, *(mappings[k] if mappings else ()))
              for k, (p1, p2) in enumerate(pairs)]
     sides, hdr = stage0_check(params, pairs, bands, (colf, rowf, meta),
@@ -921,8 +1132,6 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
             rk = finish_path(dk, w1, w2, fin_k[k, w1 - 1])
             natives.append(rk)
             for name, (dirs_p, fin_p) in plains.items():
-                if name == "dp_staged_plain" and variant == "global":
-                    continue
                 dp_ = dirs_p[off:off + n].reshape(w1 + 1, w2 + 1)
                 if not np.array_equal(dk, dp_):
                     i, j = np.argwhere(dk != dp_)[0]
@@ -941,18 +1150,19 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
             if rh.total != rk.total or not np.array_equal(rh.path, rk.path):
                 raise AssertionError(f"K2 {variant} {what} merge {k}: "
                                      "differs from the native host DP")
-        if variant == variants[0]:
+        if variant == variants[0] and trace:
             paths = k4_check(dirs_d, fin_d, args[2], f"K2 {variant} {what}",
-                             natives)
-            k6_check(sides, hdr, paths, f"K2 {variant} {what}")
+                             natives, plain=trace is True)
+            if trace is True:
+                k6_check(sides, hdr, paths, f"K2 {variant} {what}")
     return args, total, plain_ms
 
 
-def k4_check(dirs, fin, meta, what, natives):
+def k4_check(dirs, fin, meta, what, natives, plain=True):
     """K4 (csrc/traceback.cu) on a DP kernel's output where it lies,
     against its plain version (every byte of the output buffer: paths,
-    totals, lengths) and the native trace_path of each merge (natives:
-    finish_path results on the same bytes)."""
+    totals, lengths; skipped when not plain) and the native trace_path of
+    each merge (natives: finish_path results on the same bytes)."""
     import torch
     from famsa_tpu_torch import kernels
     from famsa_tpu_torch.ops.traceback_torch import (read_paths,
@@ -961,7 +1171,7 @@ def k4_check(dirs, fin, meta, what, natives):
     meta_h = meta.cpu().numpy()
     before = kernels.LAUNCHES["traceback"]
     got = trace_paths(dirs, fin, meta, meta_host=meta_h)
-    want = trace_paths_plain(dirs, fin, meta)
+    want = trace_paths_plain(dirs, fin, meta) if plain else got
     if dirs.is_cuda:
         torch.cuda.synchronize()
         if kernels.LAUNCHES["traceback"] != before + 1:
@@ -1144,9 +1354,9 @@ def staged_cluster_fit(shapes, stripe=1):
 
 
 # the DP variants' kernels.LAUNCHES keys: K2 staged on up to 8 folds and
-# on 9-16, stripes and global; K3 staged on up to 8 folds and on 9-16,
+# on 9-16, stripes and spans; K3 staged on up to 8 folds and on 9-16,
 # and stripes
-K2_KEYS = ("dp_staged", "dp_staged16", "dp_stripes", "dp")
+K2_KEYS = ("dp_staged", "dp_staged16", "dp_stripes", "dp_spans")
 K3_KEYS = ("dp_wide", "dp_wide16", "dp_wide_stripes")
 DP_KEYS = K2_KEYS + K3_KEYS
 
@@ -1159,8 +1369,8 @@ def dp_key(kernel, w2s, variant=None):
     widest = int(max(w2s))
     pick = dp_torch.k2_variant if kernel == "K2" else dp_wide.k3_variant
     variant = variant or pick(widest)
-    if variant == "global":
-        return "dp"
+    if variant == "spans":
+        return "dp_spans"
     return dp_wide.launch_key(kernel, variant,
                               dp_wide.fold_geometry(widest)[0])
 
@@ -1180,20 +1390,17 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
         mixed.append((random_profile(rng, params, n1, w1,
                                      0.0 if n1 == 1 else 0.2),
                       random_profile(rng, params, 3 + k, 500 - 40 * k)))
-    dp_check(params, mixed, [None] * 8, device, "mixed",
-             variants=(None, "global"))
+    dp_check(params, mixed, [None] * 8, device, "mixed")
     a, b, cms, band = banded_case(rng, params)
     dp_check(params, [(a, b)], [band], device, "banded", [cms])
     card = [(random_profile(rng, params, card_big, 24, 0.1),
              random_profile(rng, params, 4, 30))]
     dp_check(params, card, [None], device, "card>2^16")
-    # staged at 3 and 6 folds of 256 columns; the global variant at every
-    # column stripe: 2, 4 and the local-memory stripe here, 1 on the mixed
-    # batch and 8 at big^2
+    # staged at 3 and 6 folds of 256 columns, and on 10 of 512
     for w2 in (700, 1500, 5000):
         dp_check(params, [(random_profile(rng, params, 5, 60),
                            random_profile(rng, params, 4, w2))], [None],
-                 device, f"60x{w2}", variants=(None, "global"))
+                 device, f"60x{w2}")
     # 16 merges crossing 1 to 8 folds of 512 columns, two of each count
     w2s = [200, 511, 600, 1023, 1100, 1535, 1600, 2047, 2100, 2559, 2600,
            3071, 3100, 3583, 3700, widest8]
@@ -1216,8 +1423,7 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
              [None] * 3, device, "2^22-scaled")
     bigp = [(random_profile(rng, params, 12, big),
              random_profile(rng, params, 9, big))]
-    args, total, pms = dp_check(params, bigp, [None], device, f"{big}^2",
-                                variants=(None, "global"))
+    args, total, pms = dp_check(params, bigp, [None], device, f"{big}^2")
     # past 4095 columns: the staged body on 9-16 folds (a batch whose
     # widest merge is 5906 wide), the stripes body (one merge past 4095
     # and one past 8191), banded and 2^22-scaled
@@ -1231,8 +1437,7 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
                   random_profile(rng, params, n2, w2))
                  for n1, w1, n2, w2 in shapes]
         wide_batches[what] = dp_check(params, pairs, [None] * len(pairs),
-                                      device, f"{what} batch {shapes}",
-                                      variants=(None, "global"))
+                                      device, f"{what} batch {shapes}")
     a, b, cms, band = banded_case(rng, params, 60, 9000, split=6)
     dp_check(params, [(a, b), (random_profile(rng, params, 3, 40),
                                random_profile(rng, params, 2, 200))],
@@ -1246,19 +1451,14 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
            f"DP on 8 mixed merges <= 512^2 (1 seq-prof), 1 banded, 1 of card "
            f"{card_big}, 60x700, 60x1500, 16 merges of folds 1-8 (w2 up to "
            f"{widest8}), w2={on_edge}/{past_edge} (fold edge), "
-           f"2^22-scaled, 1 of {big}x{big}; past 4095 columns (staged on 9-16 "
-           f"folds, stripes; both also vs global) on a batch widest 5906, one "
-           f"with merges past 4095 and 8191, a banded batch of "
-           f"{a.width}x{b.width}, 2^22-scaled w2 8500; global bit-exact vs "
-           f"dp_plain on 60x700, 60x1500, 60x5000, the mixed batch and "
-           f"{big}x{big}")
+           f"2^22-scaled, 1 of {big}x{big}, 60x5000; past 4095 columns (staged "
+           f"on 9-16 folds, stripes) on a batch widest 5906, one with merges "
+           f"past 4095 and 8191, a banded batch of {a.width}x{b.width}, "
+           f"2^22-scaled w2 8500")
     if device == "cuda":
         st = cuda_ms(lambda: dp_dirs(*args, total, variant="staged"), 5)
-        gl = cuda_ms(lambda: dp_dirs(*args, total, variant="global"), 3)
         bms, _ = dp_bound_ms(*args, total)
         st16 = cuda_ms(lambda: dp_dirs(*args16, total16, variant="staged"),
-                       5)
-        gl16 = cuda_ms(lambda: dp_dirs(*args16, total16, variant="global"),
                        5)
         bms16, _ = dp_bound_ms(*args16, total16)
         fit = staged_cluster_fit([(f, t) for t in (512, 256)
@@ -1266,9 +1466,9 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
         sfit = {s: staged_cluster_fit([(16, 512)], s)[16, 512]
                 for s in (2, 4)}
         msg += (f"; {big}x{big}: staged {st:.3f} ms "
-                f"({big * big / st * 1e3:.4g} cells/s), global {gl:.3f} ms, "
+                f"({big * big / st * 1e3:.4g} cells/s), "
                 f"plain {pms:.1f} ms, bound {bms:.4f} ms; 16 merges of 1-8 "
-                f"folds: staged {st16:.3f} ms, global {gl16:.3f} ms, bound "
+                f"folds: staged {st16:.3f} ms, bound "
                 f"{bms16:.4f} ms; staged clusters resident at once by folds "
                 f"1..16: 512 threads "
                 f"{[fit[f, 512] for f in range(1, 17)]}, 256 threads "
@@ -1280,10 +1480,8 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
     for what, (wargs, wtotal, _) in wide_batches.items():
         if device == "cuda":
             k = cuda_ms(lambda: dp_dirs(*wargs, wtotal), 5)
-            g = cuda_ms(lambda: dp_dirs(*wargs, wtotal, variant="global"), 5)
             bms_w, _ = dp_bound_ms(*wargs, wtotal)
-            msg += (f"; {what} batch: {k:.3f} ms, global {g:.3f} ms, bound "
-                    f"{bms_w:.4f} ms")
+            msg += f"; {what} batch: {k:.3f} ms, bound {bms_w:.4f} ms"
     log(msg)
     return {"dp_staged16": ("phase 3's batch of widest w2 5906",
                             (*wide_batches["staged16"][0],
@@ -1293,6 +1491,156 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
                             wide_batches["stripes"][1]))}
 
 
+# K2 past 32767 columns (the spans variant): (w1, w2) of the lone merges
+# and of the batch of three, each plain and banded, held against
+# dp_plain; and the widths at which its fold walk is held (w1 6)
+SPANS_LONE = ((1000, 40000), (1000, 100000), (300, 131071))
+SPANS_BATCH = ((400, 33000), (400, 70000), (400, 131071))
+SPANS_WALK = (32768, 65536, 131071)
+
+
+def guided_case(rng, params, w1, w2, n1=6, n2=5):
+    """banded_case with each side one of the two profiles: random
+    profiles of n1 and n2 sequences of widths w1 and w2 (profile2
+    ungapped, so that b is exactly w2 wide) aligned on the host, split
+    back by their members (told apart by residue count),
+    condensed and re-aligned with the find_row_ranges band.  Returns
+    (a, b, (cm1, cm2), band)."""
+    from famsa_tpu_torch.core.aligner import align_into
+    from famsa_tpu_torch.core.dp_native import row_ranges
+    from famsa_tpu_torch.core.profile import Profile
+    p1 = random_profile(rng, params, n1, w1)
+    p2 = random_profile(rng, params, n2, w2, 0.0)
+    dest = Profile(params)
+    align_into(dest, p1, p2, backend="numpy")
+    a, b = Profile(params), Profile(params)
+    for gs in dest.data:
+        (a if len(gs.symbols) < (w1 + w2) // 2 else b).append_raw_sequence(gs)
+    _, cm1 = a.condense()
+    _, cm2 = b.condense()
+    for prof in (a, b):
+        prof.optimize_gaps()
+        prof.calculate_counters_scores()
+    return a, b, (cm1, cm2), row_ranges(params, cm1, cm2)
+
+
+def spans_pairs(rng, params, shapes, banded, n1=4, n2=3):
+    """(pairs, bands, mappings) of merges of `shapes` [(w1, w2)]: random
+    profiles (profile2 ungapped, so exactly w2 wide), or guided_case's
+    banded merges."""
+    pairs, bands, maps = [], [], []
+    for w1, w2 in shapes:
+        if banded:
+            a, b, cms, band = guided_case(rng, params, w1, w2)
+            pairs.append((a, b))
+            bands.append(band)
+            maps.append(cms)
+        else:
+            pairs.append((random_profile(rng, params, n1, w1),
+                          random_profile(rng, params, n2, w2, 0.0)))
+            bands.append(None)
+            maps.append(())
+    return pairs, bands, maps
+
+
+def diagonal_band(params, w1, w2):
+    """Band rows [w1 + 2, 2] (lo, hi) of a guided merge of w1 x w2 along
+    its diagonal, guided_alignment_radius columns to each side."""
+    rad = params.guided_alignment_radius
+    mid = np.arange(w1 + 2, dtype=np.int64) * w2 // max(w1, 1)
+    return np.stack([np.clip(mid - rad, 0, w2),
+                     np.clip(mid + rad, 0, w2)], axis=1)
+
+
+def spans_full_check(params, rng, shapes, banded, device):
+    """K2's spans variant on merges of `shapes` [(w1, w2)] (random
+    profiles of 4 and 3 sequences; banded: along diagonal_band) against
+    dp_plain on the card, every direction byte and per-row final, and the
+    launch counted; returns (what, kernel ms, bound ms, bound by,
+    dp_plain ms)."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.dp_torch import (dp_dirs, dp_plain, pack_batch,
+                                              prepare_merge)
+    pairs, _, _ = spans_pairs(rng, params, shapes, False)
+    bands = [diagonal_band(params, w1, w2) if banded else None
+             for w1, w2 in shapes]
+    colf, rowf, meta, total = pack_batch(
+        [prepare_merge(params, a, b, bd) for (a, b), bd in zip(pairs, bands)])
+    args = [torch.from_numpy(x).to(device) for x in (colf, rowf, meta)]
+    what = ("banded " if banded else "") + " + ".join(
+        f"{w1}x{w2}" for w1, w2 in shapes)
+    before = kernels.LAUNCHES["dp_spans"]
+    got = dp_dirs(*args, total, variant="spans")
+    res, pms = {}, None
+    if device == "cuda":
+        pms = wall_ms(lambda: res.setdefault("plain",
+                                             dp_plain(*args, total)))
+    else:
+        res["plain"] = dp_plain(*args, total)
+    if device == "cuda" and kernels.LAUNCHES["dp_spans"] != before + 1:
+        raise AssertionError(f"K2 spans {what}: not launched")
+    if dp_max_err(got, res["plain"], meta):
+        raise AssertionError(f"K2 spans {what}: differs from dp_plain")
+    if device != "cuda":
+        return what, None, None, None, pms
+    ms = cuda_ms(lambda: dp_dirs(*args, total), 3)
+    bms, by = dp_bound_ms(*args, total)
+    return what, ms, bms, by, pms
+
+
+def phase_k2_spans(device="cuda"):
+    """K2's spans variant (csrc/dp_wide.cu:dp_profile_batched_spans, w2
+    32768-131071: a merge over up to 4 clusters of 16 folds of 2048
+    columns) on the card: against its fold walk (dp_staged_plain with
+    span 16), dp_plain, the native host DP and K5, K4 and K6 (dp_check)
+    at w2 32768, 65536 and 131071 (w1 6, plain and guided) and on a
+    mixed batch of three; against dp_plain at SPANS_LONE and SPANS_BATCH,
+    each plain and banded along the diagonal (spans_full_check); and its
+    CUDA-event ms there beside the bound."""
+    from famsa_tpu_torch.core.params import Params
+    from famsa_tpu_torch.ops.dp_torch import dp_dirs
+    from famsa_tpu_torch.ops.dp_wide import spans_geometry
+    rng = np.random.default_rng(23)
+    params = Params(device=device)
+    params.adjust(1000)
+    walked = []
+    for banded in (False, True):
+        pairs, bands, maps = spans_pairs(rng, params,
+                                         [(6, w2) for w2 in SPANS_WALK],
+                                         banded)
+        for pair, band, cms in zip(pairs, bands, maps):
+            what = (f"{'banded ' if banded else ''}"
+                    f"{pair[0].width}x{pair[1].width}")
+            dp_check(params, [pair], [band], device, what, [cms],
+                     variants=("spans",),
+                     trace=True if pair[1].width <= 32768 else "native")
+            walked.append(what)
+    pairs, bands, maps = spans_pairs(rng, params, [(4, 33000), (6, 70000),
+                                                   (8, 131071)], False)
+    dp_check(params, pairs, bands, device, "mixed batch", maps,
+             variants=("spans",), trace="native")
+    walked.append("a batch of 4x33000, 6x70000, 8x131071")
+    timed = []
+    for banded in (False, True):
+        for shapes in [[sh] for sh in SPANS_LONE] + [list(SPANS_BATCH)]:
+            what, ms, bms, by, pms = spans_full_check(params, rng, shapes,
+                                                      banded, device)
+            if ms is None:
+                timed.append(what)
+                continue
+            _, merge_spans = spans_geometry([w2 for _, w2 in shapes])
+            timed.append(f"{what}: {ms:.3f} ms, bound {bms:.4f} ms ({by}), "
+                         f"dp_plain {pms:.0f} ms, clusters a merge "
+                         f"{merge_spans} ({[16 * c for c in merge_spans]} "
+                         f"CTAs)")
+    log(f"phase 3 K2 spans: bit-exact vs its fold walk and dp_plain (dirs, "
+        f"finals, last, path, total) and path/total = native host DP on "
+        f"{', '.join(walked)} (K5 on each, K4 and K6 vs their plain twins at "
+        f"32768, K4 vs the native walk past it); vs dp_plain (every "
+        f"byte and final) on " + "; ".join(timed))
+
+
 # ----------------------------------------------------------------------
 # K3
 def wide_check(params, p1, p2, band, device, what, mapping=None,
@@ -1300,8 +1648,7 @@ def wide_check(params, p1, p2, band, device, what, mapping=None,
     """K3 (its `variant`, default the one k3_variant picks) on one merge
     against each of refs on the same inputs ("plain": its plain version,
     the fold wavefront; "dp_plain": K2's plain version; "K2": kernel K2,
-    "K2 global": its global variant, each held against its plain version
-    in phase 3): every direction byte, the
+    held against its plain version in phase 3): every direction byte, the
     per-row finals, last, path and total; and path/total against the
     native host DP (guided by `mapping`).  Returns the packed inputs on
     the device and K3's and each ref's wall ms."""
@@ -1315,7 +1662,6 @@ def wide_check(params, p1, p2, band, device, what, mapping=None,
     variant = variant or k3_variant(p2.width)
     key = dp_key("K3", [p2.width], variant)
     fns = {"plain": dp_wide_plain, "dp_plain": dp_plain, "K2": dp_dirs,
-           "K2 global": lambda *a: dp_dirs(*a, variant="global"),
            "K3": lambda *a: dp_dirs_wide(*a, variant=variant)}
     colf, rowf, meta, total = pack_batch([prepare_merge(params, p1, p2, band)])
     args = [torch.from_numpy(x).to(device) for x in (colf, rowf, meta)]
@@ -1441,7 +1787,7 @@ def phase_k3(device="cuda", lone=(400, 4000), limit=(16384, 16256),
     # past 4095 columns: lone merges on 9-16 staged folds and on the
     # stripes body against the fold walk, K2's plain version and the host
     # DP; banded, 2^22-scaled and cardinality > 2^16 there; the limits
-    # against K2's global variant and the host DP
+    # against K2 (its batched stripes entry) and the host DP
     wide = []
     for n1, w1, n2, w2 in ((1, 120, 30, 4096), (20, 80, 10, STAGED_MAX_W2),
                            (1, 100, 10, STAGED_MAX_W2 + 1),
@@ -1470,10 +1816,9 @@ def phase_k3(device="cuda", lone=(400, 4000), limit=(16384, 16256),
     for w1, w2 in [limit, (64, MAX_W2)]:
         _, _, t = wide_check(params, random_profile(rng, params, 4, w1),
                              random_profile(rng, params, 3, w2), None, device,
-                             f"{w1}x{w2}", refs=("K2 global",))
-        msg += (f"; {w1}x{w2} (geometry {fold_geometry(w2)}) = K2 global and "
-                f"host DP, call ms K3 {t['K3']:.1f} K2 global "
-                f"{t['K2 global']:.1f}")
+                             f"{w1}x{w2}", refs=("K2",))
+        msg += (f"; {w1}x{w2} (geometry {fold_geometry(w2)}) = K2 and "
+                f"host DP, call ms K3 {t['K3']:.1f} K2 {t['K2']:.1f}")
     if device == "cuda":
         args, total = lone_args
         k3 = cuda_ms(lambda: dp_dirs_wide(*args, total), 5)
@@ -1762,11 +2107,11 @@ def stage_report(name, secs, stats, counts):
             f"{float(st['time.refinement']):.2f}), launches K1 rows "
             f"{counts['lcs']} wave {counts['lcs_wave']} K2 staged "
             f"{counts['dp_staged']} staged16 {counts['dp_staged16']} stripes "
-            f"{counts['dp_stripes']} global {counts['dp']} K3 staged "
+            f"{counts['dp_stripes']} spans {counts['dp_spans']} K3 staged "
             f"{counts['dp_wide']} staged16 {counts['dp_wide16']} stripes "
             f"{counts['dp_wide_stripes']} K4 {counts['traceback']} K5 "
             f"{counts['stage0']} K6 {counts['merged']} K8 "
-            f"{counts['prim_round']}")
+            f"{counts['prim_round']} K9 {counts['lcs_refmask']}")
 
 
 def check_launches(what, counts, needed, rec):
@@ -1776,20 +2121,26 @@ def check_launches(what, counts, needed, rec):
     each one launch of K1's wave variant and one of K8, and nothing else
     of K1; every K2 launch and K3 call must have gone to the variant
     its widest w2 selects (dp_key: staged on up to 8 folds to 4095,
-    on 9-16 folds to 8191, stripes to 32767, K2 global past it; rec holds
-    the widths of the run's K2 and K3 calls)."""
+    on 9-16 folds to 8191, stripes to 32767, K2 spans past it; rec holds
+    the widths of the run's K2 and K3 calls).  A Prim tree of a family
+    with a flagged sequence (rec.prim_flagged) launches K9 once a round
+    too, one of none launches no K9 in its rounds."""
     missing = [k for k in needed if counts[k] == 0]
     if missing:
         raise AssertionError(f"{what}: kernels {missing} were never "
                              f"launched: {counts}")
     if "prim_round" in needed:
         rounds = [n - 1 for n in rec.prim_n]
+        k9 = rounds[0] if rec.prim_flagged == [True] else 0
         if len(rounds) != 1 or counts["lcs"] or not (
-                counts["lcs_wave"] == counts["prim_round"] == rounds[0]):
+                counts["lcs_wave"] == counts["prim_round"] == rounds[0]) \
+                or counts["lcs_refmask"] != k9:
             raise AssertionError(f"{what}: device Prim rounds {rounds}, "
                                  f"launches of K1 rows {counts['lcs']}, K1 "
                                  f"wave {counts['lcs_wave']}, K8 "
-                                 f"{counts['prim_round']}")
+                                 f"{counts['prim_round']}, K9 "
+                                 f"{counts['lcs_refmask']} (flagged "
+                                 f"{rec.prim_flagged})")
     for name, calls, keys in (("K2", rec.k2_calls, K2_KEYS),
                               ("K3", rec.wide_calls, K3_KEYS)):
         want = dict.fromkeys(keys, 0)
@@ -2092,6 +2443,149 @@ def phase_tree(work, recorder, device="cuda", n=2000, mean_len=300,
         f"{recorder.counts['dist']['lcs_wave']}")
 
 
+def phase_polyq(work, recorder, watch, device="cuda"):
+    """Phase 5b: the poly-Q family (POLYQ_FAMILY, make_polyq: every 10th
+    sequence with a poly-Q tract of 64-200 residues) through the CLI
+    entry point with -backend torch, refinement off: aligned (its
+    launches recorded as "polyq": K1 wave, K9 and K8 once a Prim round;
+    the device DP route held to ResidencyWatch), -gt_export and
+    -dist_export (recorded as "polyq_dist": K1 for unflagged references,
+    K9 for flagged ones); each byte-identical to a -backend numpy child
+    process's output."""
+    import torch
+    from famsa_tpu_torch import kernels
+    n, mean_len, seed = POLYQ_FAMILY
+    fa = os.path.join(work, "polyq.fa")
+    with open(fa, "w") as f:
+        f.write(make_polyq(n, mean_len, seed))
+    runs = (("polyq", ["-refine_mode", "off"], ".fa"),
+            ("polyq_tree", ["-gt_export"], ".dnd"),
+            ("polyq_dist", ["-dist_export"], ".csv"))
+
+    def argv(name, flags, ext, side):
+        return flags + [fa, os.path.join(work, f"{name}_{side}{ext}")]
+
+    refs = NumpyRefs(work, [(name, argv(name, flags, ext, "numpy"))
+                            for name, flags, ext in runs])
+    torch_flags = ["-backend", "torch", "-device", device]
+    report = []
+    try:
+        for name, flags, ext in runs:
+            args = torch_flags + argv(name, flags, ext, "torch")
+            if name == "polyq":
+                rc, secs, counts, _ = run_torch(
+                    "5b poly-Q alignment", args, {}, recorder, watch, name,
+                    False, device)
+            else:
+                recorder.start(name if name == "polyq_dist" else None)
+                kernels.reset_launches()
+                rc, secs = run_cli(args, {})
+                counts = dict(kernels.LAUNCHES)
+                recorder.stop(counts)
+            if rc != 0:
+                raise AssertionError(f"5b {name}: rc={rc}")
+            if device == "cuda":
+                if name == "polyq_dist":
+                    if not counts["lcs_refmask"] or not (
+                            counts["lcs"] + counts["lcs_wave"]):
+                        raise AssertionError(f"5b {name}: launches {counts}")
+                else:
+                    check_launches(f"5b {name}", counts,
+                                   ("lcs_wave", "prim_round", "lcs_refmask"),
+                                   recorder)
+            report.append(f"{name} {secs:.2f} s (K1 rows {counts['lcs']}, "
+                          f"wave {counts['lcs_wave']}, K9 "
+                          f"{counts['lcs_refmask']}, K8 "
+                          f"{counts['prim_round']})")
+        refs.wait_all()
+    finally:
+        refs.close()
+    for name, flags, ext in runs:
+        with open(os.path.join(work, f"{name}_torch{ext}"), "rb") as f:
+            got = f.read()
+        with open(os.path.join(work, f"{name}_numpy{ext}"), "rb") as f:
+            if got != f.read():
+                raise AssertionError(f"5b {name}: torch output differs from "
+                                     "the numpy child's")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    log(f"phase 5b poly-Q family ({n} seqs, mean len {mean_len}, every 10th "
+        f"with a poly-Q tract of 64-200), torch byte-identical to a numpy "
+        f"child: " + "; ".join(report))
+
+
+# phase 5c's profile-profile run: profile1 of PROFPROF_1 sequences of
+# the first width, profile2 of PROFPROF_2 of the second
+PROFPROF = (1500, 40000)
+PROFPROF_1, PROFPROF_2 = 4, 12
+
+
+def make_profiles(seed=41):
+    """FASTA texts of two aligned profiles of PROFPROF's widths:
+    profile1 four close variants of one sequence (few symbols a column),
+    profile2 twelve unrelated sequences with 5 % gaps (many symbols a
+    column), so that align_into keeps profile2 as the DP's columns."""
+    rng = np.random.default_rng(seed)
+    aa = np.array(list(AA))
+    w1, w2 = PROFPROF
+    base = rng.integers(0, 20, size=w1)
+    out1 = []
+    for k in range(PROFPROF_1):
+        seq = base.copy()
+        mut = rng.random(w1) < 0.05
+        seq[mut] = rng.integers(0, 20, size=int(mut.sum()))
+        out1.append(f">pa{k}\n{''.join(aa[seq])}\n")
+    out2 = []
+    for k in range(PROFPROF_2):
+        row = aa[rng.integers(0, 20, size=w2)]
+        row[rng.random(w2) < 0.05] = "-"
+        out2.append(f">pb{k}\n{''.join(row)}\n")
+    return "".join(out1), "".join(out2)
+
+
+def phase_profprof(work, recorder, watch, device="cuda"):
+    """Phase 5c: profile-profile mode (pipeline.align_profiles) on a
+    PROFPROF[0] x PROFPROF[1] merge through the CLI entry point, refinement
+    off: -backend torch (recorded as "profprof": one K2 launch on its
+    spans variant, B = 1, K3 refusing the width) byte-identical to a
+    -backend numpy child."""
+    p1, p2 = (os.path.join(work, f"prof{k}.fa") for k in (1, 2))
+    for path, text in zip((p1, p2), make_profiles()):
+        with open(path, "w") as f:
+            f.write(text)
+
+    def argv(side):
+        return ["-refine_mode", "off", p1, p2,
+                os.path.join(work, f"profprof_{side}.fa")]
+
+    refs = NumpyRefs(work, [("profprof", argv("numpy"))], width=1)
+    try:
+        rc, secs, counts, route = run_torch(
+            "5c profile-profile", ["-backend", "torch", "-device", device]
+            + argv("torch"), {}, recorder, watch, "profprof", False, device)
+        if rc != 0:
+            raise AssertionError(f"5c profile-profile: rc={rc}")
+        t0 = time.perf_counter()
+        refs.wait_all()
+        np_wait = time.perf_counter() - t0
+    finally:
+        refs.close()
+    if device == "cuda" and not (counts["dp_spans"] == counts["stage0"] ==
+                                 counts["traceback"] == 1):
+        raise AssertionError(f"5c profile-profile: launches {counts}")
+    with open(os.path.join(work, "profprof_torch.fa"), "rb") as f:
+        got = f.read()
+    with open(os.path.join(work, "profprof_numpy.fa"), "rb") as f:
+        if got != f.read():
+            raise AssertionError("5c profile-profile: torch output differs "
+                                 "from the numpy child's")
+    log(f"phase 5c profile-profile {PROFPROF[0]}x{PROFPROF[1]} columns "
+        f"({PROFPROF_1} and {PROFPROF_2} sequences, refinement off): torch "
+        f"{secs:.2f} s, byte-identical to a numpy child (waited "
+        f"{np_wait:.2f} s more for it); K2 spans {counts['dp_spans']}, K5 "
+        f"{counts['stage0']}, K4 {counts['traceback']}{route}")
+
+
 class RouteCounter:
     """Counts the alignment stage's profile merges per route while
     active: host (the native DP), K2 (batched) and K3 (wide)."""
@@ -2135,7 +2629,7 @@ def phase_wide(work, recorder, watch, device="cuda", family=WIDE_300,
     seconds it takes again alone, so that they contend with no timed
     run of phase 7).  The
     run past 4095 columns ("wide600") must launch the staged body on
-    9-16 folds and never K2's global variant."""
+    9-16 folds and never K2's spans variant."""
     n, mean_len, seed = family
     fa = os.path.join(work, f"fam_{run}.fa")
     with open(fa, "w") as f:
@@ -2162,11 +2656,11 @@ def phase_wide(work, recorder, watch, device="cuda", family=WIDE_300,
         check_launches(f"{label} torch", counts, DEFAULT_KERNELS, recorder)
         if run == "wide600" and (
                 counts["dp_wide16"] + counts["dp_staged16"] == 0
-                or counts["dp"]):
+                or counts["dp_spans"]):
             raise AssertionError(f"{label} torch: the 9-16-fold staged "
                                  f"body launched {counts['dp_wide16']} + "
-                                 f"{counts['dp_staged16']} times, K2 global "
-                                 f"{counts['dp']}")
+                                 f"{counts['dp_staged16']} times, K2 spans "
+                                 f"{counts['dp_spans']}")
     report = stage_report("torch", secs, stats, counts) + route
     np_out = os.path.join(work, f"{run}_numpy.fa")
     np_stats = os.path.join(work, f"{run}_stats_numpy.txt")
@@ -2221,7 +2715,7 @@ def phase_wide(work, recorder, watch, device="cuda", family=WIDE_300,
 # ----------------------------------------------------------------------
 # the chain route
 # the variant family of phase 7: variants, root length, seed, indel rate
-CHAIN_FAMILY = (2300, 800, 5, 0.6)
+CHAIN_FAMILY = (1700, 800, 5, 0.6)
 CHAIN_WIDTHS = 256          # width bucket of the per-merge times
 
 
@@ -3087,8 +3581,8 @@ VARIANTS = {
             "famsa_tpu/ops/lcs_pallas.py:102"),
     "lcs_wave": ("lcs", "lcs_wave", "famsa_tpu_torch/csrc/lcs.cu",
                  "famsa_tpu/ops/lcs_pallas.py:102"),
-    "dp": ("dp", "dp_profile_batched", "famsa_tpu_torch/csrc/dp.cu",
-           "famsa_tpu/ops/dp_pallas.py:186"),
+    "lcs_refmask": ("lcs", "lcs_refmask", "famsa_tpu_torch/csrc/lcs.cu",
+                    "famsa_tpu/ops/lcs_pallas.py:102"),
     "dp_staged": ("dp_wide", "dp_profile_batched_staged",
                   "famsa_tpu_torch/csrc/dp_wide.cu",
                   "famsa_tpu/ops/dp_pallas.py:186"),
@@ -3098,6 +3592,9 @@ VARIANTS = {
     "dp_stripes": ("dp_wide", "dp_profile_batched_stripes",
                    "famsa_tpu_torch/csrc/dp_wide.cu",
                    "famsa_tpu/ops/dp_pallas.py:186"),
+    "dp_spans": ("dp_wide", "dp_profile_batched_spans",
+                 "famsa_tpu_torch/csrc/dp_wide.cu",
+                 "famsa_tpu/ops/dp_pallas.py:186"),
     "dp_wide": ("dp_wide", "dp_profile_wide", "famsa_tpu_torch/csrc/dp_wide.cu",
                 "famsa_tpu/ops/dp_giant.py:90"),
     "dp_wide16": ("dp_wide", "dp_profile_wide",
@@ -3128,18 +3625,21 @@ SPLIT_BY_FOLDS = {"dp_profile_batched_staged": (5, "dp_staged",
 REPORT_NAME = {"dp_staged16": "dp_profile_batched_staged[9-16 folds]",
                "dp_wide16": "dp_profile_wide[9-16 folds]"}
 # the run whose launch count a variant's entry reports: the main path's
-# default run, for K1's rows variant the -dist tree run, for the DP past
-# 4095 columns the wide family's run (phase 6b), for K7 the variant
-# family's all-chain run, and for K8 (measured in phase 2) the main path's
-# default run
-LAUNCH_RUN = {"lcs": "dist", "lcs_wave": "1000", "dp": "1000",
+# default run, for K1's rows variant the -dist tree run, for K9 the
+# poly-Q family's alignment (phase 5b), for the DP past 4095 columns the
+# wide family's run (phase 6b), for K2 past 32767 the profile-profile run
+# (phase 5c), for K7 the variant family's all-chain run, and for K8
+# (measured in phase 2) the main path's default run
+LAUNCH_RUN = {"lcs": "dist", "lcs_wave": "1000", "lcs_refmask": "polyq",
+              "dp_spans": "profprof",
               "dp_staged": "1000", "dp_staged16": "wide600",
               "dp_stripes": "wide600", "dp_wide": "1000",
               "dp_wide16": "wide600", "dp_wide_stripes": "wide600",
               "traceback": "1000", "stage0": "1000", "merged": "1000",
               "chain": "chain", "prim_round": "1000"}
 # the recorded runs whose per-variant totals the report gives
-RECORDED_RUNS = ("1000", "10000", "wide600", "dist")
+RECORDED_RUNS = ("1000", "10000", "wide600", "dist", "polyq",
+                 "polyq_dist", "profprof")
 
 
 class LaunchRecorder:
@@ -3175,6 +3675,7 @@ class LaunchRecorder:
         self.slowest = {}           # variant -> (launch ms, args)
         self.pending = []           # (variant, (start, end), args)
         self.prim_n = []            # sequences of each device Prim tree
+        self.prim_flagged = []      # ... and whether it had a flagged one
 
         from famsa_tpu_torch.ops.dp_wide import PORTABLE_FOLDS
         entries = {}
@@ -3282,13 +3783,28 @@ class LaunchRecorder:
             return out
 
         orig_prim = pt.prim_rounds
+        orig_refmask = lct.lcs_refmask
 
         def prim_rounds(table, queries, *a, **kw):
             self.prim_n.append(queries.shape[0])
+            self.prim_flagged.append(kw.get("flags") is not None)
             return orig_prim(table, queries, *a, **kw)
+
+        def lcs_refmask(refs, queries, n_queries=None, out_dtype=torch.int32,
+                        out=None, cur=None, flags=None):
+            # the largest call outside the Prim rounds (those return at
+            # once unless their reference is flagged), by its work
+            nq = queries.shape[0] if n_queries is None else n_queries
+            if cur is None:
+                keep("lcs_refmask", refs.shape[0] * refs.shape[1] * nq,
+                     (refs.clone(), queries, nq))
+            return orig_refmask(refs, queries, n_queries=n_queries,
+                                out_dtype=out_dtype, out=out, cur=cur,
+                                flags=flags)
 
         dpt.dp_dirs, dpw.dp_dirs_wide = dp_dirs, dp_dirs_wide
         lct.lcs_rows = pt.lcs_rows = lcs_rows
+        lct.lcs_refmask = pt.lcs_refmask = lcs_refmask
         pt.prim_rounds = prim_rounds
         dpr.trace_paths = trace_paths
         dpr.stage0, dpr.merged_from_paths = stage0, merged_from_paths
@@ -3298,7 +3814,7 @@ class LaunchRecorder:
         widths of the K2 and K3 calls)."""
         self.run = run
         self.k2_calls, self.k2_merges, self.wide_calls = [], [], []
-        self.prim_n = []
+        self.prim_n, self.prim_flagged = [], []
         if run is not None:
             self.events[run] = {}
             self.staged_shapes[run] = []
@@ -3458,9 +3974,12 @@ def kernel_report(rec, stand_ins, k7, k8):
     the largest input the main-path runs gave it (bit-exact, or the smoke
     fails), its CUDA-event time there, the bound, and the per-run totals
     of every launch the recorder timed.  A variant those runs never
-    launched is measured on other inputs (its entry's "at"): K2 global on
-    the runs' largest K2 batch, the others on stand_ins ({variant: (at,
-    (colf, rowf, meta, total))}: phase 3's and 3b's inputs).
+    launched is measured on other inputs (its entry's "at"): on stand_ins
+    ({variant: (at, (colf, rowf, meta, total))}: phase 3's and 3b's
+    inputs).  K9's launches are the poly-Q alignment's Prim rounds' (most
+    return at once, their reference unflagged); it is held and timed on
+    the largest call of the recorded runs outside the rounds (a block of
+    flagged references of the poly-Q -dist_export run).
     K7's entry (k7) comes from phase 7, which holds and times it; its
     launches in the all-chain run are graph replays' in the main, so its
     totals are the replays' ("graph").  K8's entry (k8) comes from phase
@@ -3469,12 +3988,13 @@ def kernel_report(rec, stand_ins, k7, k8):
     from famsa_tpu_torch.ops.dp_stage0 import stage0, stage0_plain
     from famsa_tpu_torch.ops.dp_torch import dp_dirs, dp_plain
     from famsa_tpu_torch.ops.dp_wide import dp_dirs_wide
-    from famsa_tpu_torch.ops.lcs_torch import lcs_plain, lcs_rows
+    from famsa_tpu_torch.ops.lcs_torch import (lcs_plain, lcs_refmask,
+                                               lcs_refmask_plain, lcs_rows)
     from famsa_tpu_torch.ops.sides import read_sides_plain
     # every DP variant against dp_plain, the row-serial plain version of
     # the same function (phases 3 and 3b hold each against its fold walk
     # too, which takes minutes a call at these shapes)
-    dp_fns = {"dp": lambda *a: dp_dirs(*a, variant="global"),
+    dp_fns = {"dp_spans": lambda *a: dp_dirs(*a, variant="spans"),
               "dp_staged": lambda *a: dp_dirs(*a, variant="staged"),
               "dp_staged16": lambda *a: dp_dirs(*a, variant="staged"),
               "dp_stripes": lambda *a: dp_dirs(*a, variant="stripes"),
@@ -3482,8 +4002,7 @@ def kernel_report(rec, stand_ins, k7, k8):
               "dp_wide16": lambda *a: dp_dirs_wide(*a, variant="staged"),
               "dp_wide_stripes": lambda *a: dp_dirs_wide(*a,
                                                          variant="stripes")}
-    stand_in = {"dp": ("the main-path runs' largest K2 batch",
-                       lambda: rec.inputs["dp_staged"][1])}
+    stand_in = {}
     for key, (at, args) in stand_ins.items():
         stand_in[key] = (at, lambda a=args: a)
     out, shapes, extra = [], [], {}
@@ -3507,7 +4026,20 @@ def kernel_report(rec, stand_ins, k7, k8):
         else:
             raise AssertionError(f"{entry}: not launched by the main-path "
                                  "runs")
-        if key in ("lcs", "lcs_wave"):
+        if key == "lcs_refmask":
+            args = rec.inputs[key][1]
+            refs, queries, q = args
+            got = lcs_refmask(refs, queries, n_queries=q)
+            want = lcs_refmask_plain(refs, queries, q)
+            err = int((got[:, :q].long() - want[:, :q].long()).abs().max())
+            ms = cuda_ms(lambda: lcs_refmask(refs, queries, n_queries=q), 20)
+            plain_ms = wall_ms(lambda: lcs_refmask_plain(refs, queries, q))
+            bms, by = refmask_bound_ms(refs, queries, q)
+            at = "largest call outside the Prim rounds (polyq_dist)"
+            shapes.append(f"{entry} {refs.shape[0]} flagged ref(s) x {q} "
+                          f"queries (Lr={refs.shape[1]}, "
+                          f"Lq={queries.shape[1]})")
+        elif key in ("lcs", "lcs_wave"):
             table, syms, q = args
             variant = "wave" if key == "lcs_wave" else "rows"
             got = lcs_rows(table, syms, n_queries=q, variant=variant)
@@ -3593,8 +4125,10 @@ def main():
     log(f"phase 1 build: {secs:.1f} s for {len(kernels.KERNELS)} kernel "
         f"sources; {smi}")
     phase_k1()
+    phase_k9()
     k8 = phase_k8()
     stand_ins = phase_k2()
+    phase_k2_spans()
     stand_ins.update(phase_k3())
     phase_edges()
     rec = LaunchRecorder()
@@ -3602,6 +4136,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as work:
         phase_main(work, rec, watch)
         phase_tree(work, rec)
+        phase_polyq(work, rec, watch)
+        phase_profprof(work, rec, watch)
         wide = [phase_wide(work, rec, watch),
                 phase_wide(work, rec, watch, family=WIDE_FAMILY,
                            run="wide600", label="6b wide family")]

@@ -5,7 +5,7 @@ famsa_tpu package's default path (MST-Prim guide tree on the
 indel075_div_lcs distance, progressive profile alignment, iterative
 refinement, FAMSA-compatible CLI and outputs), with hand-written CUDA
 kernels for the bit-parallel LCS (csrc/lcs.cu) and the batched profile DP
-(csrc/dp.cu).  Imports torch, never jax or the famsa_tpu package.
+(csrc/dp_wide.cu).  Imports torch, never jax or the famsa_tpu package.
 """
 
 __version__ = "0.1.0"

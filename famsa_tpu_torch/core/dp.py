@@ -11,7 +11,7 @@ asymmetric tie-breaks, e.g. profile_seq.cpp:387,788) are recomputed
 elementwise from the stored channel rows.
 
 The same decomposition (per-row cost terms + a max-plus scan) is what the
-CUDA profile-DP kernel runs per row; see ops/dp_torch.py and csrc/dp.cu.
+CUDA profile-DP kernels run per row; see ops/dp_torch.py and csrc/dp_wide.cu.
 """
 
 import numpy as np

@@ -1,13 +1,13 @@
-// The profile DP row shared by K2 (batched merges: csrc/dp.cu, one CTA
-// per merge, and the staged and stripes variants in csrc/dp_wide.cu, one
-// cluster of column folds per merge) and K3 (csrc/dp_wide.cu, one merge over a
-// cluster of column folds): plane layouts, wrapped int64 arithmetic and
-// the per-thread body of one DP row.
+// The profile DP row shared by K2 (batched merges: the staged, stripes
+// and spans variants in csrc/dp_wide.cu, one cluster or a span of
+// clusters of column folds per merge) and K3 (csrc/dp_wide.cu, one merge
+// over a cluster of column folds): plane layouts, wrapped int64
+// arithmetic and the per-thread body of one DP row.
 //
 // A CTA walks the columns [c0, c0 + threads * S) of a merge, each thread a
 // contiguous stripe of S columns whose previous-row D/H/V stay in
-// registers (S = 1..8 unrolled; S = 0 is a local-memory stripe of s_dyn
-// columns).  The row recurrence is that of ops/dp_torch.py:dp_plain:
+// registers (S = 1, 2 or 4, unrolled).  The row recurrence is that of
+// ops/dp_torch.py:dp_plain:
 //  - match term t[i,j] = sum_s c1[i,s] * s2[j,s] over the nonzero counts of
 //    row i (compacted on the host);
 //  - D from the previous row at j-1, V from the previous row at j, with the
@@ -23,22 +23,19 @@
 // and are cast back, so overflow wraps in two's complement exactly like
 // the NumPy, native and XLA paths.
 //
-// What enters from the left of the CTA's first column (a fold edge in K3,
-// nothing in K2): the current row's D and V there, read by thread 0, and
-// the running max of m - bc over every column left of the CTA (the seed
-// of the block max-scan), read by every thread.  H at a stripe's left
-// halo is rebuilt from the scan prefix, so it need not be exchanged.
+// What enters from the left of the CTA's first column (a fold edge):
+// the current row's D and V there, read by thread 0, and the running max
+// of m - bc over every column left of the CTA (the seed of the block
+// max-scan), read by every thread.  H at a stripe's left halo is rebuilt
+// from the scan prefix, so it need not be exchanged.
 //
-// dp_row is one body for both kernels, templated on where its column
-// factors come from (Cols: GlobalCols reads the planes from global memory,
-// K2's global variant; the staged body keeps its column's factors in
+// dp_row is one body for every fold body, templated on where its column
+// factors come from (Cols: the staged body keeps its column's factors in
 // registers and the score planes in shared memory, the stripes body
-// reads every plane through one pointer, shared or global,
+// reads its planes through two pointers, shared and global,
 // csrc/dp_wide.cu) and on how threads exchange the stripe-end D/V and the
-// warp maxima of the scan (Xch: BlockXch, two CTA barriers a row; the
-// fold bodies pass them by shuffles and one CTA barrier).  The row factors
-// are read through a pointer, global (K2 global) or shared (the fold
-// bodies).
+// warp maxima of the scan (Xch: shuffles and one CTA barrier a row).
+// The row factors are read through a pointer to shared memory.
 
 #pragma once
 
@@ -53,7 +50,6 @@ typedef unsigned long long u64;
 constexpr i64 NEG = -(1LL << 62);
 constexpr i64 IMIN = (i64)0x8000000000000000ULL;
 constexpr int MAX_THREADS = 512;
-constexpr int S_LOCAL_MAX = 256;
 
 // column-factor planes: colf [B][NCOLF][ldc]; must match ops/dp_torch.py
 enum {
@@ -82,61 +78,14 @@ __device__ __forceinline__ i64 imax(i64 a, i64 b) { return a > b ? a : b; }
 // left halo (column j0 - 1).
 template <int S>
 struct Stripe {
-    static constexpr int SA = S > 0 ? S : S_LOCAL_MAX;   // array size
+    static_assert(S > 0, "a stripe holds registers");
+    static constexpr int SA = S;                         // array size
     i64 pD[SA], pH[SA], pV[SA], mDa[SA], mVa[SA], loc[SA];
     uint8_t pk[SA];
     i64 hD, hH, hV;
 };
 
-// The CTA's exchange buffers: stripe-end D/V (double-buffered by row
-// parity) and the per-warp maxima of the block scan.
-struct RowShared {
-    i64 xD[2][MAX_THREADS], xV[2][MAX_THREADS];
-    i64 wmax[MAX_THREADS / 32];
-};
-
 #define CF(p, j) __ldg(cf + (size_t)(p) * ldc + (j))
-
-// Column factors read from global memory: plane p at column j0 + k.
-struct GlobalCols {
-    const i64* __restrict__ cf;
-    int ldc;
-    i64 j0;
-    static constexpr bool SHARED_SCORES = false;
-    __device__ __forceinline__ i64 operator()(int p, int k) const {
-        return CF(p, j0 + k);
-    }
-    __device__ __forceinline__ i64 score(i64 s, int k) const {
-        return CF(s, j0 + k);
-    }
-    // plane p (C_CUME or C_CUMT) at column j0 - 1
-    __device__ __forceinline__ i64 left(int p) const { return CF(p, j0 - 1); }
-};
-
-// Two CTA barriers a row: every thread stores its stripe-end D/V, and
-// lane 31 of every warp its warp maximum, in shared memory.
-struct BlockXch {
-    RowShared& sh;
-    __device__ __forceinline__ void edge(i64 i, int t, i64 dl, i64 vl,
-                                         i64 eD, i64 eV, i64& lD, i64& lV) {
-        const int buf = (int)(i & 1);
-        sh.xD[buf][t] = dl;
-        sh.xV[buf][t] = vl;
-        __syncthreads();
-        lD = t > 0 ? sh.xD[buf][t - 1] : eD;
-        lV = t > 0 ? sh.xV[buf][t - 1] : eV;
-    }
-    // max of the warp maxima left of thread t's warp (IMIN if none);
-    // inc: the warp-inclusive scan (lane 31 holds the warp maximum)
-    __device__ __forceinline__ i64 warps_left(i64 i, int t, i64 inc) {
-        const int lane = t & 31, warp = t >> 5;
-        if (lane == 31) sh.wmax[warp] = inc;
-        __syncthreads();
-        i64 P = IMIN;
-        for (int w = 0; w < warp; ++w) P = imax(P, sh.wmax[w]);
-        return P;
-    }
-};
 
 // DP row 0 of the stripe starting at global column j0 (profile_seq.cpp:
 // 555-579 boundary; h0 carries -inf at columns 0 and w2).  dr: the
@@ -145,7 +94,7 @@ template <int S>
 __device__ __forceinline__ void row0(Stripe<S>& st, const i64* __restrict__ cf,
                                      int ldc, i64 w2, i64 j0, int SS,
                                      uint8_t* __restrict__ dr) {
-    constexpr int SU = S > 0 ? S : 1;             // unroll factor
+    constexpr int SU = S;                         // unroll factor
 #pragma unroll SU
     for (int k = 0; k < Stripe<S>::SA; ++k) {
         if (k >= SS) break;
@@ -178,7 +127,7 @@ __device__ __forceinline__ i64 dp_row(Stripe<S>& st, Xch& xch,
                                       uint8_t* __restrict__ drow,
                                       i64* __restrict__ frow) {
     constexpr int SA = Stripe<S>::SA;
-    constexpr int SU = S > 0 ? S : 1;
+    constexpr int SU = S;
     const int lane = t & 31;
     const int nnz = (int)rr[R_NNZ];
     const i64 nng = rr[R_NNG], n1c = rr[R_N1C], n1tc = rr[R_N1TC];
@@ -196,7 +145,7 @@ __device__ __forceinline__ i64 dp_row(Stripe<S>& st, Xch& xch,
     // ---- pass A: D and V, right to left so that pD/pV[k-1] still
     // hold the previous row when column k reads them
 #pragma unroll SU
-    for (int k = (S > 0 ? SA : SS) - 1; k >= 0; --k) {
+    for (int k = SA - 1; k >= 0; --k) {
         const i64 j = j0 + k;
         if (j > w2) { pD[k] = NEG; pV[k] = NEG; st.pk[k] = 0; continue; }
         if (j == 0) {

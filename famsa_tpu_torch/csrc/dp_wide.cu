@@ -61,6 +61,26 @@
 // K2's variants on a batch of merges (dp_profile_batched_staged and
 // dp_profile_batched_stripes; the note above dp_staged_kernel).
 //
+// "spans" (K2 past 32767 columns, dp_profile_batched_spans: w2 32768 -
+// 131071).  The stripes body at S = 4 on 512 threads, 2048 columns a
+// fold, continued past one cluster: a merge takes ceil((w2 + 1) / 2048)
+// folds (up to MAX_SPAN * 16 = 64), as a span of up to MAX_SPAN 16-CTA
+// clusters, so one merge runs on up to 64 SMs.  Inside a cluster the
+// folds run the staggered wavefront above.  Between clusters the edge
+// (D, V and the running max of every row) goes through global memory:
+// the last fold of cluster c writes a row block's edges, then releases a
+// count of published row blocks (st.release.gpu); the first fold of
+// cluster c + 1 spins on it with ld.acquire.gpu before the block and
+// copies the block's edges into its shared edge buffer (loads through
+// L2).  Every row is kept, so the
+// producer never waits for the consumer.  No spin can deadlock, whatever
+// the card holds: cluster c of a merge is not bound to a grid position
+// but taken as a ticket (an atomic count a merge) when the cluster
+// starts, so a cluster only ever waits on one that started before it and
+// is resident; a batch whose clusters do not fit the card at once runs
+// in waves as clusters finish.  A cluster whose ticket lies past its
+// merge's span returns at once.
+//
 // A chain chunk (ops/dp_chain.py) launches the DP inside a CUDA graph,
 // where a step's widths exist only on the card: it launches K2's batched
 // entry of the capacity's body with B = 1 (staged up to a capacity of
@@ -99,6 +119,8 @@ constexpr size_t STAGED_SMEM_MAX =
 // dynamic shared memory of the stripes body: the 227 KB a CTA may opt in
 // to, less 4 KB for its static buffers (edges, exchange, mbarrier)
 constexpr size_t STRIPES_SMEM_MAX = 232448 - 4096;
+// the spans variant: clusters a merge at most (64 folds of 2048 columns)
+constexpr int MAX_SPAN = 4;
 
 // ------------------------------------------------------------ staged
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -186,10 +208,10 @@ __device__ __forceinline__ void load_rows(i64* tile, const i64* rowf, i64 i0,
 // As K2's variant it replaces, for batches whose widest w2 is <= 8191,
 // the Pallas kernel famsa_tpu/ops/dp_pallas.py:_make_kernel (launched by
 // _run_kernel; the B2 kernel).  What bounds it on the H100: the integer
-// issue rate, and rows are serial, so K2's global variant (csrc/dp.cu,
-// one CTA a merge) keeps at most one SM a merge busy and walks 2-8
-// columns a thread one after another, re-reading every column factor
-// from L2 each row.
+// issue rate, and rows are serial, so K2's first design (one CTA a
+// merge) kept at most one SM a merge busy and walked 2-8 columns a
+// thread one after another, re-reading every column factor from L2 each
+// row.
 // Design: the grid is (F, B) with cluster dimension (F, 1, 1), one
 // cluster per merge b = blockIdx.y and one CTA per fold, so one launch
 // spreads a batch of B merges over up to 16 B SMs; each fold runs K3's
@@ -354,27 +376,44 @@ struct StripeCols {
     }
 };
 
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+    unsigned v;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+    asm volatile("st.release.gpu.global.u32 [%0], %1;"
+                 :: "l"(p), "r"(v) : "memory");
+}
+
 // The stripes body: S columns a thread, the non-score planes of the
 // fold's columns in shared memory.  Arguments, batching and the step
-// loop as dp_staged_kernel's.
-template <int S, bool BATCH>
+// loop as dp_staged_kernel's.  SPAN (K2's spans variant, BATCH): a merge
+// over up to MAX_SPAN clusters (the header); sync [B][1 + MAX_SPAN]
+// u32, zeroed before the launch: per merge its ticket count, then the
+// row blocks published across each cluster boundary; gedge
+// [B][MAX_SPAN - 1][ldf][3] i64, the rows' edges at each boundary.
+template <int S, bool BATCH, bool SPAN>
 __global__ void __launch_bounds__(MAX_THREADS)
 dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                   const i64* __restrict__ meta, i64 w1, i64 w2, int ldc,
                   int ldr, int ldf, int blk, uint8_t* __restrict__ dirs,
-                  i64* __restrict__ fin) {
+                  i64* __restrict__ fin, unsigned* sync, i64* gedge) {
     extern __shared__ __align__(16) i64 dsm[];
     __shared__ i64 edge[2][BLK_MAX][3];
     __shared__ i64 xD[MAX_WARPS], xV[MAX_WARPS], wmax[2][MAX_WARPS];
     __shared__ __align__(8) uint64_t bar;
+    __shared__ unsigned ticket;
 
     cg::cluster_group cluster = cg::this_cluster();
     const int f = (int)cluster.block_rank();
     const int t = threadIdx.x;
     const int nt = blockDim.x;
     const int fw = nt * S;                       // columns of a fold
+    const int b = BATCH ? (int)blockIdx.y : 0;
     if constexpr (BATCH) {
-        const int b = blockIdx.y;
         w1 = meta[4 * b];
         w2 = meta[4 * b + 1];
         if (w1 < 1) return;         // a chain step K7 skipped
@@ -383,9 +422,30 @@ dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
         rowf += (size_t)b * ldr * NROWF;
         fin += (size_t)b * ldf * 3;
     }
-    const int F = BATCH ? (int)((w2 + fw) / fw) : (int)cluster.num_blocks();
+    // the cluster's place in its merge's span: c, of C clusters
+    int c = 0, C = 1;
+    unsigned* ready = nullptr;      // [MAX_SPAN]: row blocks published
+    if constexpr (SPAN) {
+        if (f == 0 && t == 0)
+            ticket = atomicAdd(sync + b * (1 + MAX_SPAN), 1u);
+        cluster.sync();
+        c = (int)*cluster.map_shared_rank(&ticket, 0);
+        cluster.sync();             // rank 0's ticket is read before any exit
+        C = (int)(((w2 + fw) / fw + MAX_FOLDS - 1) / MAX_FOLDS);
+        if (c >= C) return;         // the span is taken
+        ready = sync + b * (1 + MAX_SPAN) + 1;
+        gedge += (size_t)b * (MAX_SPAN - 1) * ldf * 3;
+    }
+    const int F = BATCH ? (int)min((i64)MAX_FOLDS,
+                                   (w2 + fw) / fw - (i64)c * MAX_FOLDS)
+                        : (int)cluster.num_blocks();
     const bool live = !BATCH || f < F;
-    const i64 c0 = (i64)f * fw;
+    const i64 c0 = ((i64)c * MAX_FOLDS + f) * fw;
+    // edges in from the previous cluster (fold 0 of c > 0), out to the
+    // next (the last fold of c < C - 1, thread nt - 1)
+    const bool span_in = SPAN && f == 0 && c > 0;
+    i64* gout = (SPAN && f == MAX_FOLDS - 1 && c + 1 < C && t == nt - 1)
+                    ? gedge + (size_t)c * ldf * 3 : nullptr;
     const i64 j0 = c0 + (i64)t * S;
     const i64 stride = w2 + 1;
     const i64 nrb = (w1 + blk - 1) / blk;
@@ -453,11 +513,22 @@ dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                 load_rows(rtile + ((rb + 1) & 1) * blk * NROWF, rowf,
                           (rb + 1) * blk + 1,
                           (int)min((i64)blk, w1 - (rb + 1) * blk), t, nt);
+            if (span_in) {          // the previous cluster's edges of block rb
+                if (t == 0)
+                    while (ld_acquire(ready + c - 1) < (unsigned)(rb + 1))
+                        __nanosleep(32);
+                __syncthreads();
+                const int nr = (int)min((i64)blk, w1 - rb * blk);
+                const i64* e = gedge + ((size_t)(c - 1) * ldf + rb * blk) * 3;
+                for (int k = t; k < nr * 3; k += nt)
+                    edge[in][k / 3][k % 3] = __ldcg(e + k);
+                __syncthreads();
+            }
             for (int r = 0; r < blk; ++r) {
                 const i64 i = rb * blk + r + 1;
                 if (i > w1) break;
                 i64 eD = NEG, eV = NEG, seed = IMIN;
-                if (f > 0) {
+                if (f > 0 || span_in) {
                     eD = edge[in][r][0];
                     eV = edge[in][r][1];
                     seed = edge[in][r][2];
@@ -472,6 +543,16 @@ dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                     e[1] = st.pV[S - 1];
                     e[2] = run;
                 }
+                if (gout != nullptr) {
+                    i64* e = gout + (size_t)(i - 1) * 3;
+                    e[0] = st.pD[S - 1];
+                    e[1] = st.pV[S - 1];
+                    e[2] = run;
+                }
+            }
+            if (gout != nullptr) {  // publish block rb to the next cluster
+                __threadfence();
+                st_release(ready + c, (unsigned)(rb + 1));
             }
             asm volatile("cp.async.wait_all;" ::: "memory");
         }
@@ -529,10 +610,11 @@ cudaError_t staged_ready() {
     return kernel_ready(dp_staged_kernel<BATCH>, STAGED_SMEM_MAX, done);
 }
 
-template <int S, bool BATCH>
+template <int S, bool BATCH, bool SPAN = false>
 cudaError_t stripes_ready() {
     static bool done = false;
-    return kernel_ready(dp_stripes_kernel<S, BATCH>, STRIPES_SMEM_MAX, done);
+    return kernel_ready(dp_stripes_kernel<S, BATCH, SPAN>, STRIPES_SMEM_MAX,
+                        done);
 }
 
 template <bool BATCH>
@@ -564,8 +646,9 @@ cudaError_t launch_stripes_s(const i64* colf, const i64* rowf,
     cudaLaunchConfig_t cfg = cluster_config(folds, batch, threads,
                                             stripes_smem(threads * S, blk),
                                             stream, attr);
-    err = cudaLaunchKernelEx(&cfg, dp_stripes_kernel<S, BATCH>, colf, rowf,
-                             meta, w1, w2, ldc, ldr, ldf, blk, dirs, fin);
+    err = cudaLaunchKernelEx(&cfg, dp_stripes_kernel<S, BATCH, false>, colf,
+                             rowf, meta, w1, w2, ldc, ldr, ldf, blk, dirs, fin,
+                             (unsigned*)nullptr, (i64*)nullptr);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -657,8 +740,8 @@ int dp_profile_wide_stripes(const void* colf, const void* rowf, long long w1,
         static_cast<cudaStream_t>(stream));
 }
 
-// K2's staged variant: a batch of B merges packed as csrc/dp.cu's
-// dp_profile_batched takes them (colf [B][44][ldc], rowf [B][ldr][77],
+// K2's staged variant: a batch of B merges packed by
+// ops/dp_pack.py:pack_batch (colf [B][44][ldc], rowf [B][ldr][77],
 // meta [B][4] = (w1, w2, dirs byte offset, unused), fin [B][ldf][3]),
 // max_w2 the widest w2 of the batch (w1 0: the merge returns at once, a
 // chain step K7 skipped).  folds (1..16) CTAs of threads (32..512, whole
@@ -699,6 +782,45 @@ int dp_profile_batched_stripes(const void* colf, const void* rowf,
         static_cast<cudaStream_t>(stream));
 }
 
+// K2's spans variant (the header): a batch of B merges packed as for
+// dp_profile_batched_stripes, max_w2 its widest w2 (32768..131071), each
+// merge over ceil(ceil((w2 + 1) / 2048) / 16) clusters of 16 folds of 512
+// threads of 4 columns (blk rows a step, at most 12).  sync: [B][5] u32
+// zeroed, gedge: [B][3][ldf][3] i64 scratch.  The grid holds B x
+// ceil(max folds / 16) clusters.
+int dp_profile_batched_spans(const void* colf, const void* rowf,
+                             const void* meta, int B, long long max_w2,
+                             int ldc, int ldr, int ldf, int blk, void* dirs,
+                             void* fin, void* sync, void* gedge,
+                             void* stream) {
+    if (B <= 0) return 0;
+    constexpr int threads = MAX_THREADS, stripe = 4;
+    constexpr long long fw = (long long)threads * stripe;
+    const long long folds = (max_w2 + fw) / fw;
+    const int span = (int)((folds + MAX_FOLDS - 1) / MAX_FOLDS);
+    if (max_w2 < 0 || span > MAX_SPAN || B > 65535 || blk < 1 ||
+        blk > BLK_MAX || ldc < max_w2 + 1 || ldc % 2 != 0 || ldr < 1 ||
+        ldf < ldr - 1 || reinterpret_cast<uintptr_t>(colf) % 16 != 0 ||
+        bad_stripes(threads, stripe, blk) || sync == nullptr ||
+        gedge == nullptr)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = stripes_ready<stripe, true, true>();
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg = cluster_config(
+        MAX_FOLDS, B, threads, stripes_smem(threads * stripe, blk),
+        static_cast<cudaStream_t>(stream), attr);
+    cfg.gridDim.x = MAX_FOLDS * span;
+    err = cudaLaunchKernelEx(
+        &cfg, dp_stripes_kernel<stripe, true, true>,
+        static_cast<const i64*>(colf), static_cast<const i64*>(rowf),
+        static_cast<const i64*>(meta), (i64)0, (i64)0, ldc, ldr, ldf, blk,
+        static_cast<uint8_t*>(dirs), static_cast<i64*>(fin),
+        static_cast<unsigned*>(sync), static_cast<i64*>(gedge));
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
 // How many clusters of `folds` CTAs of `threads` threads (blk rows a
 // step) of the batched body of `stripe` (1: staged; 2, 4: stripes) can be
 // resident on the device at once (cudaOccupancyMaxActiveClusters); a
@@ -720,9 +842,9 @@ int dp_wide_max_clusters(int folds, int threads, int stripe, int blk) {
             folds, 1, threads, stripes_smem(threads * stripe, blk), 0, attr);
         err = stripe == 2
                   ? cudaOccupancyMaxActiveClusters(
-                        &n, dp_stripes_kernel<2, true>, &cfg)
+                        &n, dp_stripes_kernel<2, true, false>, &cfg)
                   : cudaOccupancyMaxActiveClusters(
-                        &n, dp_stripes_kernel<4, true>, &cfg);
+                        &n, dp_stripes_kernel<4, true, false>, &cfg);
     } else {
         return -(int)cudaErrorInvalidValue;
     }

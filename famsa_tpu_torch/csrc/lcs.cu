@@ -60,6 +60,28 @@
 // Dispatch (ops/lcs_torch.py:lcs_variant): the wave variant while
 // R x ceil(n_queries / 128) < WAVE_MAX_GRID, the rows variant from there
 // on (the crossover measured on an H100: PERF.md).
+//
+// K9, lcs_refmask: FAMSA's own layout and carry, for the references whose
+// value differs from the exact LCS.  FAMSA (src/lcs/lcsbp_classic.h, the
+// host LCS of the reference package famsa_tpu/ops/lcs.py:45 and the
+// native library) builds 64-bit masks of the REFERENCE, streams the query
+// and takes a word's carry out as V2 < V.  That test drops the carry
+// where V & M is all ones and a carry comes in, which can only happen in
+// a word k >= 1 whose 64 positions are one valid symbol (a "flagged"
+// reference, ops/lcs_torch.py:famsa_flags); for every other reference
+// FAMSA's value is the exact LCS that K1 computes.  One CTA a reference
+// and 128 queries: the reference's 20 symbol masks (uint64, W64 words)
+// are built in shared memory from its symbols (shared atomicOr), then
+// each thread streams one query's symbols and updates its W64 words
+// (registers up to 32 words, a local-memory array past them, as K1 rows'
+// W > 64 path).  Replaces no Pallas kernel: it computes the host
+// reference's value where the Pallas kernel (famsa_tpu/ops/
+// lcs_pallas.py:_make_kernel, 32-bit words) and K1 compute the exact
+// LCS.  Bound: the same ~6 dependent 64-bit operations an update as K1,
+// one chain a thread; flagged references are rare, so it is kept
+// simple.  In a Prim round (cur != null) it reads the round's reference
+// id and the flag vector on the card and returns at once unless the
+// reference is flagged, so the host never waits to choose.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -368,6 +390,99 @@ cudaError_t launch_wave(const WaveGeom& g, const uint32_t* masks,
     return cudaGetLastError();
 }
 
+// ---- K9, FAMSA's layout (see the header)
+constexpr int REFMASK_THREADS = 128;
+constexpr int REFMASK_W_LOCAL_MAX = 1024;   // 65536 positions, as K1
+
+template <int WMAX>
+__global__ void __launch_bounds__(REFMASK_THREADS)
+lcs_refmask_kernel(const int32_t* __restrict__ refs,
+                   const int32_t* __restrict__ queries, int Lr, int W64,
+                   int N, int Lq, int n_queries,
+                   const long long* __restrict__ cur,
+                   const uint8_t* __restrict__ flags,
+                   uint16_t* __restrict__ out16, int32_t* __restrict__ out32) {
+    if (cur != nullptr && flags[*cur] == 0) return;     // CTA-uniform
+    extern __shared__ unsigned long long M[];           // [20][W64]
+    const int r = blockIdx.y;
+    for (int idx = threadIdx.x; idx < NO_VALID_AMINOACIDS * W64;
+         idx += REFMASK_THREADS)
+        M[idx] = 0ull;
+    __syncthreads();
+    const int32_t* ref = refs + (size_t)r * Lr;
+    for (int p = threadIdx.x; p < Lr; p += REFMASK_THREADS) {
+        const int s = __ldg(ref + p);
+        if ((unsigned)s < (unsigned)NO_VALID_AMINOACIDS)
+            atomicOr(M + s * W64 + (p >> 6), 1ull << (p & 63));
+    }
+    __syncthreads();
+    const int q = blockIdx.x * REFMASK_THREADS + threadIdx.x;
+    if (q >= n_queries) return;
+    constexpr bool REG = WMAX <= 32;
+    unsigned long long X[WMAX];
+    if constexpr (REG) {
+#pragma unroll
+        for (int k = 0; k < WMAX; ++k) X[k] = ~0ull;
+    } else {
+        for (int k = 0; k < W64; ++k) X[k] = ~0ull;
+    }
+    const int32_t* qs = queries + (size_t)q * Lq;
+    for (int t = 0; t < Lq; ++t) {
+        const int c = __ldg(qs + t);
+        if ((unsigned)c >= (unsigned)NO_VALID_AMINOACIDS) continue;  // no-op
+        const unsigned long long* m = M + c * W64;
+        unsigned long long carry = 0ull;
+        if constexpr (REG) {
+#pragma unroll
+            for (int k = 0; k < WMAX; ++k) {
+                if (k < W64) {
+                    const unsigned long long v = X[k], tb = v & m[k];
+                    const unsigned long long v2 = v + tb + carry;
+                    carry = v2 < v;     // FAMSA's test, not the exact one
+                    X[k] = v2 | (v - tb);
+                }
+            }
+        } else {
+            for (int k = 0; k < W64; ++k) {
+                const unsigned long long v = X[k], tb = v & m[k];
+                const unsigned long long v2 = v + tb + carry;
+                carry = v2 < v;
+                X[k] = v2 | (v - tb);
+            }
+        }
+    }
+    int cnt = 0;
+    if constexpr (REG) {
+#pragma unroll
+        for (int k = 0; k < WMAX; ++k)
+            if (k < W64) cnt += __popcll(~X[k]);
+    } else {
+        for (int k = 0; k < W64; ++k) cnt += __popcll(~X[k]);
+    }
+    const size_t o = (size_t)r * N + q;
+    if (out16) out16[o] = (uint16_t)cnt;
+    else out32[o] = cnt;
+}
+
+template <int WMAX>
+cudaError_t launch_refmask(const int32_t* refs, const int32_t* queries, int R,
+                           int Lr, int W64, int N, int Lq, int n_queries,
+                           const long long* cur, const uint8_t* flags,
+                           uint16_t* out16, int32_t* out32,
+                           cudaStream_t stream) {
+    const size_t smem = (size_t)NO_VALID_AMINOACIDS * W64 * 8;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            lcs_refmask_kernel<WMAX>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+    }
+    dim3 grid((n_queries + REFMASK_THREADS - 1) / REFMASK_THREADS, R);
+    lcs_refmask_kernel<WMAX><<<grid, REFMASK_THREADS, smem, stream>>>(
+        refs, queries, Lr, W64, N, Lq, n_queries, cur, flags, out16, out32);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -419,6 +534,40 @@ int lcs_wave(const void* masks, const void* syms, int R, int L, int W, int N,
             if (g.wpl <= 32) return (int)launch_wave<32>(g, m, s, R, L, W, N, n_queries, o16, o32, st);
             return (int)launch_wave<64>(g, m, s, R, L, W, N, n_queries, o16, o32, st);
     }
+}
+
+// K9: refs [R][Lr] i32 reference rows, queries [N][Lq] i32 query rows,
+// out [R][N] u16 (out_u16 != 0) or i32; only queries q < n_queries are
+// written.  cur: null, or (R = 1, a Prim round) the device int64 id of
+// the round's reference, with flags [N] u8: the kernel returns at once
+// unless flags[*cur] != 0.  Returns the launch's cudaError_t.
+int lcs_refmask(const void* refs, const void* queries, int R, int Lr, int N,
+                int Lq, int n_queries, void* out, int out_u16,
+                const void* cur, const void* flags, void* stream) {
+    if (R <= 0 || n_queries <= 0) return 0;
+    const int W64 = (Lr + 63) / 64;
+    if (Lr < 1 || W64 > REFMASK_W_LOCAL_MAX || n_queries > N || R > 65535 ||
+        (cur != nullptr && (flags == nullptr || R != 1)))
+        return (int)cudaErrorInvalidValue;
+    const int32_t* rf = static_cast<const int32_t*>(refs);
+    const int32_t* qs = static_cast<const int32_t*>(queries);
+    const long long* cp = static_cast<const long long*>(cur);
+    const uint8_t* fp = static_cast<const uint8_t*>(flags);
+    uint16_t* o16 = out_u16 ? static_cast<uint16_t*>(out) : nullptr;
+    int32_t* o32 = out_u16 ? nullptr : static_cast<int32_t*>(out);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define K9(WM) launch_refmask<WM>(rf, qs, R, Lr, W64, N, Lq, n_queries, cp, \
+                                  fp, o16, o32, st)
+    cudaError_t e;
+    if (W64 <= 1) e = K9(1);
+    else if (W64 <= 2) e = K9(2);
+    else if (W64 <= 4) e = K9(4);
+    else if (W64 <= 8) e = K9(8);
+    else if (W64 <= 16) e = K9(16);
+    else if (W64 <= 32) e = K9(32);
+    else e = K9(REFMASK_W_LOCAL_MAX);
+#undef K9
+    return (int)e;
 }
 
 }  // extern "C"

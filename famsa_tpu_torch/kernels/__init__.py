@@ -27,20 +27,22 @@ import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("lcs", "dp", "dp_wide", "traceback", "stage0", "merged", "chain",
+KERNELS = ("lcs", "dp_wide", "traceback", "stage0", "merged", "chain",
            "prim")
 
-# one count per hand-written kernel variant: K1 rows and wave; K2 global
-# (one CTA a merge), staged (a cluster of folds a merge, one column a
-# thread: up to 8 folds, w2 <= 4095, and 9-16 folds, "dp_staged16", w2 <=
-# 8191) and stripes (16 folds of 2 or 4 columns a thread, w2 <= 32767);
-# K3 staged ("dp_wide", "dp_wide16") and stripes ("dp_wide_stripes") on
-# the same widths; K4, the traceback; K5, stage 0; K6, the merged
-# counters; K7, the chain's carry; and K8, a Prim round after its LCS
-LAUNCHES = {"lcs": 0, "lcs_wave": 0, "dp": 0, "dp_staged": 0,
-            "dp_staged16": 0, "dp_stripes": 0, "dp_wide": 0, "dp_wide16": 0,
-            "dp_wide_stripes": 0, "traceback": 0, "stage0": 0, "merged": 0,
-            "chain": 0, "prim_round": 0}
+# one count per hand-written kernel variant: K1 rows and wave; K2 staged
+# (a cluster of folds a merge, one column a thread: up to 8 folds, w2 <=
+# 4095, and 9-16 folds, "dp_staged16", w2 <= 8191), stripes (16 folds of
+# 2 or 4 columns a thread, w2 <= 32767) and spans (up to 4 clusters of 16
+# folds of 4 columns a thread a merge, w2 <= 131071); K3 staged
+# ("dp_wide", "dp_wide16") and stripes ("dp_wide_stripes") on the same
+# widths; K4, the traceback; K5, stage 0; K6, the merged counters; K7,
+# the chain's carry; K8, a Prim round after its LCS; and K9, FAMSA's LCS
+# layout for flagged references ("lcs_refmask")
+LAUNCHES = {"lcs": 0, "lcs_wave": 0, "lcs_refmask": 0, "dp_staged": 0,
+            "dp_staged16": 0, "dp_stripes": 0, "dp_spans": 0, "dp_wide": 0,
+            "dp_wide16": 0, "dp_wide_stripes": 0, "traceback": 0,
+            "stage0": 0, "merged": 0, "chain": 0, "prim_round": 0}
 # the device DP route's traffic (ops/dp_resident.py): bytes copied to and
 # from the device, and the launch sides that were resident on the device,
 # ungapped leaves (their symbol bytes uploaded) or uploaded counters
@@ -152,6 +154,9 @@ def _configure(name, lib):
         for fn in (lib.lcs_bitpar, lib.lcs_wave):
             fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, ci, vp]
             fn.restype = ci
+        lib.lcs_refmask.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, ci, vp,
+                                    vp, vp]
+        lib.lcs_refmask.restype = ci
     elif name == "traceback":
         lib.trace_paths.argtypes = [vp, vp, vp, ci, ci, vp, vp]
         lib.trace_paths.restype = ci
@@ -174,10 +179,6 @@ def _configure(name, lib):
     elif name == "merged":
         lib.merged_counters.argtypes = [vp, vp, vp, ci, ci, vp, vp]
         lib.merged_counters.restype = ci
-    elif name == "dp":
-        lib.dp_profile_batched.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                           vp, vp, vp]
-        lib.dp_profile_batched.restype = ci
     else:
         ll = ctypes.c_longlong
         for fn in (lib.dp_profile_wide, lib.dp_profile_wide_stripes):
@@ -189,6 +190,9 @@ def _configure(name, lib):
         lib.dp_profile_batched_stripes.argtypes = [
             vp, vp, vp, ci, ll, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp]
         lib.dp_profile_batched_stripes.restype = ci
+        lib.dp_profile_batched_spans.argtypes = [
+            vp, vp, vp, ci, ll, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+        lib.dp_profile_batched_spans.restype = ci
         lib.dp_wide_max_clusters.argtypes = [ci, ci, ci, ci]
         lib.dp_wide_max_clusters.restype = ci
 

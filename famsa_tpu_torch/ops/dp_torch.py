@@ -11,9 +11,9 @@ K2 has three variants, chosen by the batch's widest w2 (k2_variant):
 "stripes" (dp_profile_batched_stripes, w2 <= 32767) run every merge of
 the batch as one thread-block cluster of K3's column folds, of the
 staged or the stripes body (ops/dp_wide.py), all merges in one launch;
-"global" (the first design, csrc/dp.cu:dp_profile_batched, wider batches
-up to MAX_W2) runs one merge a CTA with its column factors read from
-L2.
+"spans" (dp_profile_batched_spans, wider batches up to MAX_W2) runs
+every merge on up to four clusters of the stripes body's folds, the edge
+between clusters through global memory.
 
 One recurrence covers the profile-profile and sequence-profile DP of the
 reference (FAMSA src/core/profile_seq.cpp:165-892): for a
@@ -44,8 +44,7 @@ from .dp_pack import (  # noqa: F401  (prepare_merge, pack_batch: public here)
     R_S1GTE, R_S1GTO, R_SYM, R_V0COST, ROW0_PACK, host_meta, pack_batch,
     prepare_merge, run_batch)
 
-MAX_STRIPE = 256
-MAX_W2 = MAX_THREADS * MAX_STRIPE - 1      # widest profile2 K2 takes
+MAX_W2 = dp_wide.SPANS_MAX_W2             # widest profile2 K2 takes
 
 
 def _shift(x, fill):
@@ -168,47 +167,35 @@ def dp_plain(colf, rowf, meta, total, meta_host=None):
     return dirs, fin
 
 
-def launch_geometry(max_w2):
-    """(threads, stripe) for K2: the smallest register stripe (1, 2, 4, 8)
-    whose 512 threads cover max_w2 + 1 columns, else a local-memory
-    stripe; threads rounded up to whole warps."""
-    cols = max_w2 + 1
-    for s in (1, 2, 4, 8):
-        if s * MAX_THREADS >= cols:
-            break
-    else:
-        s = -(-cols // MAX_THREADS)
-    if s > MAX_STRIPE:
-        raise ValueError(f"profile width {max_w2} exceeds the K2 limit "
-                         f"{MAX_W2}")
-    threads = -(-cols // s)
-    return ((threads + 31) // 32) * 32, s
-
-
 def k2_variant(max_w2):
     """"staged" (max_w2 <= dp_wide.STAGED_MAX_W2: every merge a cluster of
     K3's staged folds, one column a thread), "stripes" (max_w2 <=
-    dp_wide.MAX_W2: a cluster of K3's stripes folds) or "global" (the
-    first design: one CTA a merge, stripes of columns, factors read from
-    L2)."""
+    dp_wide.MAX_W2: a cluster of K3's stripes folds) or "spans" (max_w2
+    <= MAX_W2: up to four clusters of the stripes body's folds a merge).
+    Raises past MAX_W2."""
     if max_w2 <= dp_wide.STAGED_MAX_W2:
         return "staged"
-    return "stripes" if max_w2 <= dp_wide.MAX_W2 else "global"
+    if max_w2 <= dp_wide.MAX_W2:
+        return "stripes"
+    if max_w2 <= MAX_W2:
+        return "spans"
+    raise ValueError(f"profile width {max_w2} exceeds the K2 limit {MAX_W2}")
 
 
 def dp_dirs(colf, rowf, meta, total, variant=None, meta_host=None):
     """Packed direction bytes and per-row last-column finals of a batch of
     merges (see pack_batch for the inputs).  Returns (dirs [total] uint8,
-    fin [B, ldr-1, 3] int64).  variant: "staged", "stripes" or "global"
-    (default: k2_variant of the batch's widest w2); "staged" and
-    "stripes" take only the batches k2_variant gives them.  meta_host:
+    fin [B, ldr-1, 3] int64).  variant: "staged", "stripes" or "spans"
+    (default: k2_variant of the batch's widest w2); each takes only the
+    batches k2_variant gives it.  meta_host:
     meta as a host array; the widths are then taken from it, and nothing
     here waits for the device (without it they are read from meta, which
     does).
 
     CUDA tensors launch that variant of kernel K2 (a cluster the card
-    cannot place raises).  CPU tensors run dp_plain, or with variant
-    "staged" or "stripes" its fold walk, dp_wide.dp_staged_plain."""
+    cannot place raises).  CPU tensors run dp_plain, or with a variant
+    named its fold walk, dp_wide.dp_staged_plain (with span MAX_FOLDS for
+    "spans")."""
     if colf.dim() != 3 or colf.shape[1] != NCOLF:
         raise ValueError("colf must be [B, NCOLF, ldc]")
     if rowf.dim() != 3 or rowf.shape[2] != NROWF or rowf.shape[0] != colf.shape[0]:
@@ -219,7 +206,7 @@ def dp_dirs(colf, rowf, meta, total, variant=None, meta_host=None):
         raise TypeError("colf, rowf and meta must be int64")
     if not (colf.device == rowf.device == meta.device):
         raise ValueError("inputs must be on one device")
-    if variant not in (None, "staged", "stripes", "global"):
+    if variant not in (None, "staged", "stripes", "spans"):
         raise ValueError(f"unknown K2 variant {variant!r}")
     b, _, ldc = colf.shape
     ldr = rowf.shape[1]
@@ -229,11 +216,16 @@ def dp_dirs(colf, rowf, meta, total, variant=None, meta_host=None):
         dp_wide.staged_geometry(w2s)        # raises past STAGED_MAX_W2
     elif variant == "stripes":
         dp_wide.stripes_geometry(w2s)       # raises outside its widths
+    elif variant == "spans":
+        dp_wide.spans_geometry(w2s)         # raises outside its widths
+    elif w2s:
+        k2_variant(max(w2s))                # raises past MAX_W2
     dev = colf.device
     if dev.type == "cpu":
-        if variant in ("staged", "stripes"):
-            return dp_wide.dp_staged_plain(colf, rowf, meta, total,
-                                           meta_host=meta_h)
+        if variant is not None:
+            return dp_wide.dp_staged_plain(
+                colf, rowf, meta, total, meta_host=meta_h,
+                span=dp_wide.MAX_FOLDS if variant == "spans" else None)
         return dp_plain(colf, rowf, meta, total, meta_host=meta_h)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -246,12 +238,12 @@ def dp_dirs(colf, rowf, meta, total, variant=None, meta_host=None):
         return dirs, fin
     stream = torch.cuda.current_stream(dev).cuda_stream
     variant = variant or k2_variant(max(w2s))
+    if ldc % 2 or colf.data_ptr() % 16:
+        raise ValueError(f"K2 {variant} takes an even ldc and 16-byte "
+                         "aligned colf (pack_batch)")
+    lib = kernels.get("dp_wide")
     if variant in ("staged", "stripes"):
-        if ldc % 2 or colf.data_ptr() % 16:
-            raise ValueError(f"K2 {variant} takes an even ldc and 16-byte "
-                             "aligned colf (pack_batch)")
         folds, threads, stripe, _ = dp_wide.batch_geometry(w2s)
-        lib = kernels.get("dp_wide")
         kernels.LAUNCHES[dp_wide.launch_key("K2", variant, folds)] += 1
         if variant == "staged":
             err = lib.dp_profile_batched_staged(
@@ -265,14 +257,18 @@ def dp_dirs(colf, rowf, meta, total, variant=None, meta_host=None):
                 dp_wide.BLK, dirs.data_ptr(), fin.data_ptr(), stream)
         kernels.check(err, f"dp_profile_batched_{variant}")
         return dirs, fin
-    threads, stripe = launch_geometry(ldc - 1)
-    lib = kernels.get("dp")
-    kernels.LAUNCHES["dp"] += 1
-    err = lib.dp_profile_batched(colf.data_ptr(), rowf.data_ptr(),
-                                 meta.data_ptr(), b, threads, stripe, ldc,
-                                 ldr, ldr - 1, dirs.data_ptr(),
-                                 fin.data_ptr(), stream)
-    kernels.check(err, "dp_profile_batched")
+    # spans: per merge its ticket count and the row blocks published
+    # across each cluster boundary (zeroed), and the boundaries' edges
+    sync = torch.zeros((b, 1 + dp_wide.MAX_SPAN), dtype=torch.int32,
+                       device=dev)
+    gedge = torch.empty((b, dp_wide.MAX_SPAN - 1, ldr - 1, 3),
+                        dtype=torch.int64, device=dev)
+    kernels.LAUNCHES["dp_spans"] += 1
+    err = lib.dp_profile_batched_spans(
+        colf.data_ptr(), rowf.data_ptr(), meta.data_ptr(), b, max(w2s), ldc,
+        ldr, ldr - 1, dp_wide.BLK, dirs.data_ptr(), fin.data_ptr(),
+        sync.data_ptr(), gedge.data_ptr(), stream)
+    kernels.check(err, "dp_profile_batched_spans")
     return dirs, fin
 
 

@@ -53,6 +53,14 @@ MAX_W2 = 32767
 STAGED_MAX_W2 = MAX_FOLDS * FOLD_THREADS - 1
 MIN_FOLD_COLS = 256                # narrower folds add wavefront steps, not speed
 BLK = 8                            # rows per wavefront step
+# K2's spans variant (csrc/dp_wide.cu:dp_profile_batched_spans): the
+# stripes body's folds of SPAN_FOLD_COLS columns (512 threads of 4), a
+# merge over up to MAX_SPAN clusters of MAX_FOLDS folds, edges between
+# clusters through global memory; it takes batches whose widest w2 lies
+# past MAX_W2, up to SPANS_MAX_W2
+MAX_SPAN = 4
+SPAN_FOLD_COLS = FOLD_THREADS * STRIPES[-1]
+SPANS_MAX_W2 = MAX_SPAN * MAX_FOLDS * SPAN_FOLD_COLS - 1
 
 
 def fold_geometry(w2):
@@ -124,6 +132,21 @@ def stripes_geometry(w2s):
     return batch_geometry(w2s)
 
 
+def spans_geometry(w2s):
+    """(span, merge_spans) of K2's spans launch on a batch of merges of
+    widths w2s: clusters a merge at most (the grid holds span clusters a
+    merge) and each merge's clusters, ceil(ceil((w2 + 1) / SPAN_FOLD_COLS)
+    / MAX_FOLDS).  Raises unless the widest w2 lies past MAX_W2 (and
+    within SPANS_MAX_W2)."""
+    widest = max(w2s)
+    if not MAX_W2 < widest <= SPANS_MAX_W2:
+        raise ValueError(f"K2 spans takes batches of {MAX_W2} < w2 <= "
+                         f"{SPANS_MAX_W2}, not {widest}")
+    folds = [-(-(w2 + 1) // SPAN_FOLD_COLS) for w2 in w2s]
+    spans = [-(-f // MAX_FOLDS) for f in folds]
+    return max(spans), spans
+
+
 def _check_inputs(colf, rowf, meta):
     if colf.dim() != 3 or colf.shape[:2] != (1, NCOLF):
         raise ValueError("colf must be [1, NCOLF, ldc]")
@@ -143,14 +166,17 @@ def _cat1(head, x):
 
 
 def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
-                  meta_host=None):
+                  meta_host=None, span=None):
     """Plain PyTorch version of K3 on the same inputs (B = 1): the
     recurrence of dp_plain walked fold by fold in K3's wavefront order,
     fold_cols columns a fold (default: fold_geometry's), blk rows a
     step, with the fold edges passed through a buffer double-buffered by
-    step parity as K3 does.  meta_host: meta as a host array (default:
-    read from meta).  Returns (dirs [total] uint8, fin [1, ldr-1, 3]
-    int64: the last-column D, H, V of every row)."""
+    step parity as K3 does.  span: folds a cluster (K2's spans variant,
+    MAX_FOLDS): the edge into the first fold of a cluster then comes
+    through a buffer of every row, as the kernel's global edges do.
+    meta_host: meta as a host array (default: read from meta).  Returns
+    (dirs [total] uint8, fin [1, ldr-1, 3] int64: the last-column D, H,
+    V of every row)."""
     dev = colf.device
     w1, w2, off = (int(v) for v in host_meta(meta, meta_host)[0, :3])
     cols = w2 + 1
@@ -189,6 +215,9 @@ def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
     # of the block fold f-1 computed at a step of that parity
     edge = [torch.empty((2, blk, 3), dtype=torch.int64, device=dev)
             for _ in range(folds)]
+    # gedge[f][i - 1]: the edge into fold f (first of a cluster) at row i
+    gedge = {f: torch.empty((w1, 3), dtype=torch.int64, device=dev)
+             for f in range(span or folds, folds, span or folds)}
 
     for s in range(nrb + folds - 1):
         for f in range(folds):
@@ -207,7 +236,9 @@ def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
                 if i > w1:
                     break
                 pD, pH, pV, (hD, hH, hV) = st[3], st[4], st[5], st[6]
-                if f > 0:
+                if f in gedge:
+                    eD, eV, seed = gedge[f][i - 1].clone()
+                elif f > 0:
                     eD, eV, seed = edge[f][(s + 1) % 2, r].clone()
                 else:
                     eD, eV, seed = neg, neg, imin
@@ -281,7 +312,10 @@ def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
                 rows[i, c0:c1] = packed
                 if c1 == cols:
                     fin[0, i - 1] = torch.stack([D[-1], H[-1], V[-1]])
-                if f + 1 < folds:
+                if f + 1 in gedge:
+                    gedge[f + 1][i - 1] = torch.stack([D[-1], V[-1],
+                                                       run[-1]])
+                elif f + 1 < folds:
                     edge[f + 1][s % 2, r] = torch.stack([D[-1], V[-1],
                                                          run[-1]])
                 st[3:7] = [D, H, V, (eD, Hl, eV)]
@@ -292,17 +326,20 @@ def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
 
 
 def dp_staged_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
-                    meta_host=None):
-    """Plain PyTorch version of K2's fold-walking variants (staged and
-    stripes) on a packed batch (see ops/dp_pack.py:pack_batch): every
-    merge walked by dp_wide_plain over the launch's folds of fold_cols
-    columns (default: batch_geometry's threads * stripe), so merge k
-    crosses ceil((w2_k + 1) / fold_cols) of them, blk rows a step.
-    meta_host: meta as a host array (default: read from meta).  Returns
-    (dirs [total] uint8, fin [B, ldr-1, 3] int64: the last-column D, H, V
-    of every row)."""
+                    meta_host=None, span=None):
+    """Plain PyTorch version of K2's fold-walking variants (staged,
+    stripes and, with span = MAX_FOLDS, spans) on a packed batch (see
+    ops/dp_pack.py:pack_batch): every merge walked by dp_wide_plain over
+    the launch's folds of fold_cols columns (default: batch_geometry's
+    threads * stripe; SPAN_FOLD_COLS with span), so merge k crosses
+    ceil((w2_k + 1) / fold_cols) of them, blk rows a step, span folds a
+    cluster.  meta_host: meta as a host array (default: read from meta).
+    Returns (dirs [total] uint8, fin [B, ldr-1, 3] int64: the
+    last-column D, H, V of every row)."""
     meta_h = host_meta(meta, meta_host).tolist()
-    if fold_cols is None:
+    if fold_cols is None and span is not None:
+        fold_cols = SPAN_FOLD_COLS
+    elif fold_cols is None:
         _, threads, stripe, _ = batch_geometry([m[1] for m in meta_h])
         fold_cols = threads * stripe
     dirs = torch.zeros(total, dtype=torch.uint8, device=colf.device)
@@ -313,7 +350,8 @@ def dp_staged_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
         one = [[w1, w2, 0, 0]]
         d, f = dp_wide_plain(colf[k:k + 1], rowf[k:k + 1],
                              torch.tensor(one, device=colf.device), n,
-                             fold_cols=fold_cols, blk=blk, meta_host=one)
+                             fold_cols=fold_cols, blk=blk, meta_host=one,
+                             span=span)
         dirs[off:off + n] = d
         fin[k] = f[0]
     return dirs, fin
@@ -323,9 +361,10 @@ def launch_key(kernel, variant, folds):
     """The kernels.LAUNCHES key of a launch of `folds` folds of K3 (kernel
     "K3") or of K2's fold-walking variants ("K2"): the staged body on a
     portable cluster, on a non-portable one (more than PORTABLE_FOLDS
-    folds, key suffix 16), or the stripes body."""
-    if variant == "stripes":
-        return "dp_wide_stripes" if kernel == "K3" else "dp_stripes"
+    folds, key suffix 16), the stripes body, or K2's spans variant."""
+    if variant in ("stripes", "spans"):
+        return ("dp_wide_stripes" if kernel == "K3"
+                else "dp_" + variant)
     key = "dp_wide" if kernel == "K3" else "dp_staged"
     return key if folds <= PORTABLE_FOLDS else key + "16"
 

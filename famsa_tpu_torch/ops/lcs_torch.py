@@ -6,9 +6,16 @@ built on them.
 Symmetric-LCS layout (as the JAX package's ops/lcs_jax.py): the
 per-symbol occupancy masks of ALL queries are built once, and each
 reference's symbols are streamed, so a reference position needs only
-masks[sym].  LCS is symmetric and symbols >= 20 are no-ops on either side,
-so results equal the host reference (ops/lcs.py).  Semantics: FAMSA
-src/lcs/lcsbp_classic.h:49-221.
+masks[sym].  K1 computes the exact LCS, which is symmetric.
+
+FAMSA's own LCS (src/lcs/lcsbp_classic.h:49-221; the host reference
+ops/lcs.py) builds 64-bit masks of the REFERENCE and takes a word's carry
+out as V2 < V, which drops the carry where V & M is all ones and a carry
+comes in.  That happens only for a reference with a word k >= 1 of 64
+positions holding one valid symbol (famsa_flags): for every other
+reference FAMSA's value is the exact LCS.  A flagged reference's row goes
+to kernel K9 (csrc/lcs.cu:lcs_refmask, plain twin lcs_refmask_plain),
+which computes FAMSA's layout and carry.
 """
 
 import numpy as np
@@ -35,6 +42,23 @@ def build_query_mask_table(padded: np.ndarray) -> np.ndarray:
     rows, cols = np.nonzero((sym >= 0) & (sym < NO_VALID_AMINOACIDS))
     np.bitwise_or.at(table, (sym[rows, cols], words[cols], rows), bits[cols])
     return table
+
+
+def famsa_flags(padded: np.ndarray) -> np.ndarray:
+    """[N] bool: row k of `padded` ([N, L] int8 symbols) is flagged when
+    some word k >= 1 of it, positions 64k .. 64k+63, is a single symbol
+    < 20: as a reference, FAMSA's carry test then departs from the exact
+    LCS (word 0 never has a carry in; a partial word is never all
+    ones)."""
+    n, lmax = padded.shape
+    nw = lmax // 64
+    if nw < 2:
+        return np.zeros(n, dtype=bool)
+    words = padded[:, 64:nw * 64].reshape(n, nw - 1, 64)
+    first = words[:, :, :1]
+    one = ((words == first).all(axis=2) & (first[:, :, 0] >= 0)
+           & (first[:, :, 0] < NO_VALID_AMINOACIDS))
+    return one.any(axis=1)
 
 
 def lcs_plain(table, syms, n_queries):
@@ -76,6 +100,119 @@ def _counts(x, n, n_queries):
         cnt += (ones >> b & 1).sum(dim=1)
     out = torch.zeros((x.shape[0], n), dtype=torch.int32, device=x.device)
     out[:, :n_queries] = cnt.to(torch.int32)
+    return out
+
+
+SIGN = -(1 << 63)                # int64 sign bit
+
+
+def _popcount64(x):
+    """[...] int64 popcount of int64 words x, summed over the last axis."""
+    cnt = torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
+    for b in range(64):
+        cnt += (x >> b & 1).sum(dim=-1)
+    return cnt
+
+
+def lcs_refmask_plain(refs, queries, n_queries):
+    """Plain PyTorch version of K9 (csrc/lcs.cu:lcs_refmask), a torch port
+    of the host reference famsa_tpu/ops/lcs.py:lcs_ref_vs_queries: LCS of
+    each reference row `refs` ([R, Lr] int32) against the first n_queries
+    rows of `queries` ([N, Lq] int32) in FAMSA's layout: the reference's
+    64-bit masks, the query streamed, a word's carry out taken as
+    V2 < V.  Words are int64: the add wraps, and the unsigned compare
+    flips the sign bit.  Returns [R, N] int32; columns >= n_queries are
+    0."""
+    r, lr = refs.shape
+    n = queries.shape[0]
+    dev = refs.device
+    w = max(1, -(-lr // 64))
+    masks = torch.zeros((r, NO_VALID_AMINOACIDS + 1, w), dtype=torch.int64,
+                        device=dev)             # row 20: the no-op symbols
+    ref64 = refs.to(torch.int64)
+    rr, pp = torch.nonzero((ref64 >= 0) & (ref64 < NO_VALID_AMINOACIDS),
+                           as_tuple=True)
+    # distinct bits of one word: their sum is their OR
+    masks.index_put_((rr, ref64[rr, pp], pp // 64),
+                     torch.ones_like(pp) << (pp % 64), accumulate=True)
+    q = queries[:n_queries].to(torch.int64)
+    q = torch.where((q >= 0) & (q < NO_VALID_AMINOACIDS), q,
+                    NO_VALID_AMINOACIDS)
+    x = torch.full((r, n_queries, w), -1, dtype=torch.int64, device=dev)
+    for t in range(q.shape[1]):
+        sb = masks[:, q[:, t]]                   # [R, nq, W]
+        carry = torch.zeros((r, n_queries), dtype=torch.int64, device=dev)
+        for k in range(w):
+            v = x[..., k]
+            tb = v & sb[..., k]
+            v2 = v + tb + carry
+            carry = ((v2 ^ SIGN) < (v ^ SIGN)).to(torch.int64)
+            x[..., k] = v2 | (v & ~tb)
+    out = torch.zeros((r, n), dtype=torch.int32, device=dev)
+    out[:, :n_queries] = _popcount64(~x).to(torch.int32)
+    return out
+
+
+def lcs_refmask(refs, queries, n_queries=None, out_dtype=torch.int32,
+                out=None, cur=None, flags=None):
+    """LCS of each reference row `refs` ([R, Lr] int32, pad symbols >= 20
+    are no-ops) against the query rows `queries` ([N, Lq] int32) in
+    FAMSA's layout (see lcs_refmask_plain).  Returns [R, N] of out_dtype
+    (int32, or uint16 when Lr < 65536); only the first n_queries columns
+    are computed.  out: write into this [R, N] tensor instead.  cur, flags
+    (a Prim round, R = 1): the round's reference id ([1] int64) and the
+    per-sequence flags ([N] bool, famsa_flags) on the same device; out
+    (the round's LCS row) is then overwritten only when flags[cur].
+
+    CUDA tensors launch kernel K9 (in a Prim round it reads cur and flags
+    on the card, so nothing waits for the device); CPU tensors run
+    lcs_refmask_plain."""
+    if refs.dim() != 2 or queries.dim() != 2:
+        raise ValueError("refs must be [R, Lr] and queries [N, Lq]")
+    if refs.dtype != torch.int32 or queries.dtype != torch.int32:
+        raise TypeError("refs and queries must be int32")
+    r, lr = refs.shape
+    n = queries.shape[0]
+    nq = n if n_queries is None else int(min(n, n_queries))
+    if out is None:
+        if out_dtype not in (torch.int32, torch.uint16):
+            raise TypeError("out_dtype must be int32 or uint16")
+        out = torch.empty((r, n), dtype=out_dtype, device=refs.device)
+    elif out.shape != (r, n) or out.dtype not in (torch.int32, torch.uint16):
+        raise ValueError("out must be [R, N] int32 or uint16")
+    if out.dtype == torch.uint16 and lr >= 65536:
+        raise ValueError("uint16 LCS output needs Lr < 65536")
+    if (cur is None) != (flags is None):
+        raise ValueError("cur and flags come together")
+    if cur is not None and (r != 1 or cur.shape != (1,)
+                            or cur.dtype != torch.int64
+                            or flags.shape != (n,)
+                            or flags.dtype != torch.bool):
+        raise ValueError("a Prim round takes R = 1, cur [1] int64 and "
+                         "flags [N] bool")
+    tensors = [refs, queries, out] + ([cur, flags] if cur is not None else [])
+    if any(t.device != refs.device for t in tensors):
+        raise ValueError("every tensor must be on one device")
+    if refs.device.type == "cpu":
+        if cur is None or bool(flags[int(cur[0])]):
+            out[:, :nq] = lcs_refmask_plain(refs, queries, nq)[:, :nq].to(
+                out.dtype)
+        return out
+    if refs.device.type != "cuda":
+        raise ValueError(f"unsupported device {refs.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("every tensor must be contiguous")
+    if r == 0 or nq == 0:
+        return out
+    lib = kernels.get("lcs")
+    stream = torch.cuda.current_stream(refs.device).cuda_stream
+    kernels.LAUNCHES["lcs_refmask"] += 1
+    err = lib.lcs_refmask(refs.data_ptr(), queries.data_ptr(), r, lr, n,
+                          queries.shape[1], nq, out.data_ptr(),
+                          int(out.dtype == torch.uint16),
+                          None if cur is None else cur.data_ptr(),
+                          None if flags is None else flags.data_ptr(), stream)
+    kernels.check(err, "lcs_refmask")
     return out
 
 
@@ -254,13 +391,33 @@ class TorchDistanceBackend:
             ).to(self.device)
             self.lengths = np.array([s.length for s in sequences],
                                     dtype=np.int64)
+            self.flags = famsa_flags(self.padded)
+            self._queries = None         # the padded rows on the device
 
     def _lcs_block(self, ref_ids, n_queries=None):
-        syms = torch.from_numpy(
-            self.padded[ref_ids].astype(np.int32)).to(self.device)
-        dt = torch.uint16 if syms.shape[1] < 65536 else torch.int32
-        out = lcs_rows(self.table, syms, n_queries=n_queries, out_dtype=dt)
-        return out.cpu().numpy().astype(np.int64)
+        """[R, N] int64 LCS rows of the references ref_ids, each in the
+        host reference's role (ops/distance.py:DistanceBackend.row): K1 for
+        unflagged references, K9 for flagged ones."""
+        ref_ids = np.asarray(ref_ids, dtype=np.int64)
+        dt = torch.uint16 if self.padded.shape[1] < 65536 else torch.int32
+        fl = self.flags[ref_ids]
+        out = np.empty((len(ref_ids), self.n), dtype=np.int64)
+        for sel, flagged in ((~fl, False), (fl, True)):
+            if not sel.any():
+                continue
+            syms = torch.from_numpy(
+                self.padded[ref_ids[sel]].astype(np.int32)).to(self.device)
+            if flagged:
+                if self._queries is None:
+                    self._queries = torch.from_numpy(
+                        self.padded.astype(np.int32)).to(self.device)
+                got = lcs_refmask(syms, self._queries, n_queries=n_queries,
+                                  out_dtype=dt)
+            else:
+                got = lcs_rows(self.table, syms, n_queries=n_queries,
+                               out_dtype=dt)
+            out[sel] = got.cpu().numpy()
+        return out
 
     def _lcs_all(self, ref_idx, need_cols=None):
         need = self.n if need_cols is None else need_cols

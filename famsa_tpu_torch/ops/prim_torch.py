@@ -9,7 +9,12 @@ pair and taking the lexicographic argmin (one launch of kernel K8,
 csrc/prim.cu, a cluster of cluster_size(n) CTAs, through prim_round; its
 plain twin prim_round_plain on CPU tensors).  `cur/dist/tieb/active` and
 the next round's reference row stay on the device and are updated in
-place; the rounds run in chunks of
+place.  A family with a flagged sequence (ops/lcs_torch.py:famsa_flags:
+FAMSA's own LCS departs from the exact one when that sequence is the
+reference) launches kernel K9 between the two: it reads the round's
+reference id and the flags on the card and, only when the reference is
+flagged, overwrites the round's LCS row with FAMSA's value.  The rounds
+run in chunks of
 FAMSA_TORCH_PRIM_CHUNK, and only each chunk's edge buffer comes back to
 the host, in one copy, where tree/mst_prim.py builds the dendrogram.
 
@@ -33,7 +38,8 @@ import torch
 from .. import kernels
 from ..tree.mst_prim import _mst_to_dendrogram
 from .distance import _pow075_table
-from .lcs_torch import BV32, build_query_mask_table, lcs_rows, pad_sequences
+from .lcs_torch import (BV32, build_query_mask_table, famsa_flags,
+                        lcs_refmask, lcs_rows, pad_sequences)
 
 SIGN = -(1 << 63)                 # int64 sign bit
 DMAX = np.finfo(np.float64).max
@@ -154,11 +160,14 @@ class PrimState:
     float64, tieb [n] int64 (uint64 key bits), active [n] bool, and ref
     [1, L] int32, the reference row of the next round (queries[cur]);
     initialised as famsa_tpu/ops/prim_device.py:prim_device does, with
-    vertex 0 in the tree."""
+    vertex 0 in the tree.  flags: None, or [n] bool on the device
+    (famsa_flags of the family, which has a flagged sequence): the rounds
+    then launch K9 after K1 wave."""
 
-    def __init__(self, queries):
+    def __init__(self, queries, flags=None):
         n = queries.shape[0]
         dev = queries.device
+        self.flags = flags
         self.cur = torch.zeros(1, dtype=torch.int64, device=dev)
         self.dist = torch.full((n,), DMAX, dtype=torch.float64, device=dev)
         self.tieb = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -169,27 +178,40 @@ class PrimState:
 
 def prim_chunk(table, queries, lengths, pow_tab, state, k):
     """k Prim rounds on `state` (a PrimState, updated in place): per
-    round K1 wave, then K8, and nothing else.  Returns the chunk's edge
-    buffer, [3, k] int64 on the device (prim_round's `edges`)."""
+    round K1 wave, then K8, and nothing else (with state.flags, K1 wave,
+    K9, then K8).  Returns the chunk's edge buffer, [3, k] int64 on the
+    device (prim_round's `edges`)."""
     edges = torch.empty((3, k), dtype=torch.int64, device=queries.device)
     for slot in range(k):
         lcs = lcs_rows(table, state.ref, variant="wave")
+        if state.flags is not None:
+            lcs_refmask(state.ref, queries, out=lcs, cur=state.cur,
+                        flags=state.flags)
         prim_round(lcs, lengths, pow_tab, queries, state.cur, state.dist,
                    state.tieb, state.active, state.ref, edges, slot)
     return edges
 
 
-def prim_rounds(table, queries, lengths, pow_tab, chunk=None):
+def device_flags(flags, device):
+    """famsa_flags on `device` as PrimState takes them: None when no
+    sequence is flagged (the rounds then launch no K9)."""
+    if not flags.any():
+        return None
+    return torch.from_numpy(flags).to(torch.device(device))
+
+
+def prim_rounds(table, queries, lengths, pow_tab, chunk=None, flags=None):
     """Run all n-1 Prim rounds.
 
     table: [32, W, N] int32 query masks; queries: [N, L] int32 symbols;
     lengths: [N] int64; pow_tab: float64 pow(i, 0.75) covering every indel
-    count (all on one device, the CPU or a CUDA card).  Returns numpy
-    arrays (edge_p1, edge_p2, edge_dist_neg), each of length n-1."""
+    count; flags: None or [N] bool (device_flags) (all on one device, the
+    CPU or a CUDA card).  Returns numpy arrays (edge_p1, edge_p2,
+    edge_dist_neg), each of length n-1."""
     n = queries.shape[0]
     if chunk is None:
         chunk = int(os.environ.get("FAMSA_TORCH_PRIM_CHUNK", "2048"))
-    state = PrimState(queries)
+    state = PrimState(queries, flags)
     outs = []
     done = 0
     while done < n - 1:
@@ -224,7 +246,8 @@ def mst_prim_tree_torch(sequences, tree, device="cuda", chunk=None):
     padded = pad_sequences(sequences, align=BV32)
     lengths = np.array([s.length for s in sequences], dtype=np.int64)
     e1, e2, dneg = prim_rounds(*prim_inputs(padded, lengths, device),
-                               chunk=chunk)
+                               chunk=chunk,
+                               flags=device_flags(famsa_flags(padded), device))
 
     prim_orders = np.full(n, n, dtype=np.int64)
     prim_orders[0] = 0

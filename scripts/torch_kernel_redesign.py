@@ -3,18 +3,18 @@
 alternating order.
 
     python3 scripts/torch_kernel_redesign.py [--reps 200] [--rounds 2]
-        [--parts k1,k2,k3,k4,k6,k8,k1rows,wide,split,threads,e2e]
+        [--parts k1,k2,k3,k4,k6,k8,k1rows,wide,split,threads,spans,e2e]
         [--parent .parent]
 
-The old designs of K1 and K2 are still in the port: K1's rows variant
-(one thread a query, ops/lcs_torch.py variant="rows") and K2's global
-variant (one CTA a merge, ops/dp_torch.py variant="global"); the new ones
-are K1's wave variant and K2's staged and stripes variants.  K3's first
-design (the L2 variant) and K4's and K6's old designs live only in an
-earlier tree: parts k3, k4, k6 and wide build that tree's csrc/dp_wide.cu,
-csrc/traceback.cu and csrc/merged.cu (--parent: a directory with the tree
-unpacked, e.g. `git archive <commit> | tar -x -C .parent`) into libraries
-of their own under DIR/_build.
+K1's old design is still in the port: its rows variant (one thread a
+query, ops/lcs_torch.py variant="rows"); the new one is its wave
+variant.  K2's first design (one CTA a merge, csrc/dp.cu, the "global"
+variant), K3's first design (the L2 variant) and K4's and K6's old
+designs live only in an earlier tree: parts k2, k3, k4, k6, wide, spans
+and e2e build that tree's csrc/dp.cu, csrc/dp_wide.cu, csrc/traceback.cu
+and csrc/merged.cu (--parent: a directory with the tree unpacked, e.g.
+`git archive <commit> | tar -x -C .parent`) into libraries of their own
+under DIR/_build.
 
 k1   Kernel-only CUDA-event times of one MST-Prim round, the first
      reference of chip_smoke.py's 1000-, 2000- and 10,000-sequence
@@ -36,7 +36,8 @@ k1rows K1's rows variant (csrc/lcs.cu:lcs_bitpar), the parent's design
      and the 10,000 of phase 6, a case of W >= 40 (256 x 2000 of mean
      length 1300) and one past 64 words (64 x 1000 of mean length 2600);
      both designs' outputs must be equal.
-k2   Kernel-only times of K2, global, staged, staged, global: a lone
+k2   Kernel-only times of K2, global (the parent's csrc/dp.cu), staged,
+     staged, global: a lone
      2048x2048 merge (random profiles of 12 and 9 sequences, as
      chip_smoke.py phase 3), and the largest batch of 16 merges (by
      cells) that the 1000- and the 10,000-sequence default runs launch,
@@ -90,11 +91,22 @@ k4   Kernel-only device times of K4 (launches captured in a CUDA graph,
      nb 1, ldf the leaf row).  Both designs' output bytes must be equal.
 k6   The same for K6 on those launches' merged counters (the chain step
      at smax = its capacity); both designs' int32 must be equal.
+spans K2 past 32767 columns, the parent's first design (csrc/dp.cu, one
+     CTA a merge, up to 256 columns a thread) against this tree's spans
+     variant (up to 4 clusters of 16 folds a merge) and against design
+     (a), built from csrc/dp_wide.cu with scripts/dp_wide_variants.patch
+     (dp_profile_batched_wide_stripes: one cluster of 16 folds of 8 or 16
+     columns a thread, every plane read from L2), old, new, a, a, new,
+     old in --rounds rounds (CUDA events; every design's direction bytes
+     and finals must be equal), each with its bound: lone merges of
+     1000 x 40,000, 1000 x 100,000 and 300 x 131,071 and a batch of
+     three of w2 33,000, 70,000 and 131,071 (chip_smoke.py's
+     SPANS_LONE and SPANS_BATCH), each plain and banded.
 e2e  The 1000-sequence default run (refinement on) and the 10,000-
      sequence run (the wide route) through the CLI entry point, K1's and
-     K2's old designs forced (WAVE_MAX_GRID 0, K2 on its global variant)
-     and not, in --rounds rounds of old, new, new, old: stage seconds
-     and launches per kernel variant.
+     K2's old designs forced (WAVE_MAX_GRID 0, every K2 launch on the
+     parent's global design) and not, in --rounds rounds of old, new,
+     new, old: stage seconds and launches per kernel variant.
 
 Needs a CUDA device; every block of lines carries the card's name and
 power limit."""
@@ -320,11 +332,47 @@ def largest_k2_batch(work, n, max_batch=16):
     return best["args"]
 
 
-def part_k2(reps, smi):
+def old_k2_geometry(max_w2):
+    """(threads, stripe) of K2's first design (csrc/dp.cu): the smallest
+    register stripe (1, 2, 4, 8) whose 512 threads cover max_w2 + 1
+    columns, else a local-memory stripe; threads in whole warps."""
+    cols = max_w2 + 1
+    for s in (1, 2, 4, 8):
+        if s * 512 >= cols:
+            break
+    else:
+        s = -(-cols // 512)
+    threads = -(-cols // s)
+    return ((threads + 31) // 32) * 32, s
+
+
+def old_k2(lib, colf, rowf, meta, total, variant=None, meta_host=None):
+    """K2's first design (the parent's csrc/dp.cu:dp_profile_batched, one
+    CTA a merge) on a packed batch, on dp_dirs's arguments: (dirs, fin)."""
+    import torch
+    from famsa_tpu_torch import kernels
+    b, _, ldc = colf.shape
+    ldr = rowf.shape[1]
+    dirs = torch.empty(total, dtype=torch.uint8, device=colf.device)
+    fin = torch.empty((b, ldr - 1, 3), dtype=torch.int64, device=colf.device)
+    threads, stripe = old_k2_geometry(ldc - 1)
+    kernels.check(lib.dp_profile_batched(
+        colf.data_ptr(), rowf.data_ptr(), meta.data_ptr(), b, threads,
+        stripe, ldc, ldr, ldr - 1, dirs.data_ptr(), fin.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "parent dp_profile_batched")
+    return dirs, fin
+
+
+def part_k2(parent, reps, smi):
     import torch
     from famsa_tpu_torch.core.params import Params
     from famsa_tpu_torch.ops.dp_torch import dp_dirs, pack_batch, prepare_merge
     from famsa_tpu_torch.ops.dp_wide import staged_geometry
+    if not parent:
+        raise SystemExit("part k2 needs --parent DIR")
+    old_lib = parent_lib(parent, "dp")
+    fns = {"global": lambda *a: old_k2(old_lib, *a),
+           "staged": lambda *a: dp_dirs(*a, variant="staged")}
     rng = np.random.default_rng(17)
     params = Params(device="cuda")
     params.adjust(1000)
@@ -341,8 +389,7 @@ def part_k2(reps, smi):
     for what, args in cases:
         t = {v: [] for v in ("global", "staged")}
         for v in ("global", "staged", "staged", "global"):
-            t[v].append(chip_smoke.cuda_ms(
-                lambda: dp_dirs(*args, variant=v), reps))
+            t[v].append(chip_smoke.cuda_ms(lambda: fns[v](*args), reps))
         w1s, w2s = args[2][:, 0].tolist(), args[2][:, 1].tolist()
         bms, by = chip_smoke.dp_bound_ms(*args)
         print(f"k2 {what}: merges (w1, w2) {list(zip(w1s, w2s))}, staged "
@@ -629,14 +676,16 @@ def part_wide(parent, rounds, reps, smi):
         return
     w2s = args[2][:, 1].tolist()
     new_v = k2_variant(max(w2s))
-    got = {v: dp_dirs(*args, variant=v) for v in ("global", new_v)}
+    k2_lib = parent_lib(parent, "dp")
+    fns = {"global": lambda: old_k2(k2_lib, *args),
+           new_v: lambda: dp_dirs(*args, variant=new_v)}
+    got = {v: fn() for v, fn in fns.items()}
     if not torch.equal(got["global"][0], got[new_v][0]):
         raise AssertionError("wide k2: the designs differ")
     t = {"global": [], new_v: []}
     for _ in range(rounds):
         for v in ("global", new_v, new_v, "global"):
-            t[v].append(chip_smoke.cuda_ms(
-                lambda: dp_dirs(*args, variant=v), reps))
+            t[v].append(chip_smoke.cuda_ms(fns[v], reps))
     bms, by = chip_smoke.dp_bound_ms(*args)
     print(f"wide k2 largest batch past 4095 of the {chip_smoke.WIDE_FAMILY} "
           f"run ({count} such launches): merges (w1, w2) "
@@ -665,6 +714,13 @@ def parent_lib(parent, name):
         lib.prim_round.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, vp,
                                    vp, vp, ci, ci, vp]
         lib.prim_round.restype = ci
+        return lib
+    if name == "dp":
+        # K2's first design, deleted from this tree
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.dp_profile_batched.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
+                                           ci, vp, vp, vp]
+        lib.dp_profile_batched.restype = ci
         return lib
     if name != "dp_wide":
         kernels._configure(name, lib)
@@ -982,11 +1038,82 @@ def part_threads(rounds, reps, smi):
               f"{geos['256'](w2)} {t['256']} ms; {smi}", flush=True)
 
 
-def part_e2e(rounds, smi):
+def part_spans(parent, rounds, reps, smi):
+    import torch
+    from famsa_tpu_torch.core.params import Params
+    from famsa_tpu_torch.ops.dp_torch import dp_dirs, pack_batch, prepare_merge
+    from famsa_tpu_torch.ops.dp_wide import spans_geometry
+    if not parent:
+        raise SystemExit("part spans needs --parent DIR")
+    import ctypes
+    old_lib = parent_lib(parent, "dp")
+    a_lib = variant_lib("STRIPES_SCORES_ON_CHIP=0", "dp_wide_design_a")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    a_lib.dp_profile_batched_wide_stripes.argtypes = [
+        vp, vp, vp, ci, ctypes.c_longlong, ci, ci, ci, ci, ci, vp, vp, vp]
+    a_lib.dp_profile_batched_wide_stripes.restype = ci
+
+    def design_a(colf, rowf, meta, total, max_w2):
+        from famsa_tpu_torch import kernels
+        from famsa_tpu_torch.ops.dp_wide import BLK
+        b, _, ldc = colf.shape
+        ldr = rowf.shape[1]
+        dirs = torch.empty(total, dtype=torch.uint8, device=colf.device)
+        fin = torch.empty((b, ldr - 1, 3), dtype=torch.int64,
+                          device=colf.device)
+        kernels.check(a_lib.dp_profile_batched_wide_stripes(
+            colf.data_ptr(), rowf.data_ptr(), meta.data_ptr(), b, max_w2,
+            8 if max_w2 <= 65535 else 16, ldc, ldr, ldr - 1, BLK,
+            dirs.data_ptr(), fin.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "design (a)")
+        return dirs, fin
+
+    rng = np.random.default_rng(29)
+    params = Params(device="cuda")
+    params.adjust(1000)
+    reps = max(2, reps // 100)
+    for banded in (False, True):
+        for shapes in ([[sh] for sh in chip_smoke.SPANS_LONE]
+                       + [list(chip_smoke.SPANS_BATCH)]):
+            pairs, bands, _ = chip_smoke.spans_pairs(rng, params, shapes,
+                                                     banded)
+            colf, rowf, meta, total = pack_batch(
+                [prepare_merge(params, a, b, bd)
+                 for (a, b), bd in zip(pairs, bands)])
+            args = [torch.from_numpy(x).cuda() for x in (colf, rowf, meta)]
+            fns = {"old": lambda: old_k2(old_lib, *args, total),
+                   "new": lambda: dp_dirs(*args, total),
+                   "a": lambda: design_a(*args, total,
+                                         int(meta[:, 1].max()))}
+            got = {v: fn() for v, fn in fns.items()}
+            if chip_smoke.dp_max_err(got["old"], got["new"], meta) or \
+                    chip_smoke.dp_max_err(got["a"], got["new"], meta):
+                raise AssertionError(f"spans {shapes}: the designs differ")
+            t = {"old": [], "new": [], "a": []}
+            for _ in range(rounds):
+                for v in ("old", "new", "a", "a", "new", "old"):
+                    t[v].append(chip_smoke.cuda_ms(fns[v], reps))
+            bms, by = chip_smoke.dp_bound_ms(*args, total)
+            w2s = meta[:, 1].tolist()
+            print(f"spans {'banded ' if banded else ''}merges (w1, w2) "
+                  f"{meta[:, :2].tolist()} (old {old_k2_geometry(max(w2s))}"
+                  f" threads, stripe; new clusters a merge "
+                  f"{spans_geometry(w2s)[1]}; a: 16 folds of "
+                  f"{8 if max(w2s) <= 65535 else 16} columns a thread): old "
+                  f"{t['old']} ms, new {t['new']} ms, a {t['a']} ms; bound "
+                  f"{bms:.5f} ms ({by}); {smi}",
+                  flush=True)
+
+
+def part_e2e(parent, rounds, smi):
     from famsa_tpu_torch import kernels
     from famsa_tpu_torch.ops import dp_torch, lcs_torch
-    wave, k2v = lcs_torch.WAVE_MAX_GRID, dp_torch.k2_variant
-    designs = {"old": (0, lambda w: "global"), "new": (wave, k2v)}
+    if not parent:
+        raise SystemExit("part e2e needs --parent DIR")
+    old_lib = parent_lib(parent, "dp")
+    wave, dirs = lcs_torch.WAVE_MAX_GRID, dp_torch.dp_dirs
+    designs = {"old": (0, lambda *a, **kw: old_k2(old_lib, *a, **kw)),
+               "new": (wave, dirs)}
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as work:
         fams = {}
         for n in (1000, 10000):
@@ -997,7 +1124,7 @@ def part_e2e(rounds, smi):
             for rnd in range(rounds):
                 for design in ("old", "new", "new", "old"):
                     for n in (1000, 10000):
-                        lcs_torch.WAVE_MAX_GRID, dp_torch.k2_variant = \
+                        lcs_torch.WAVE_MAX_GRID, dp_torch.dp_dirs = \
                             designs[design]
                         stats = os.path.join(work, "stats.txt")
                         kernels.reset_launches()
@@ -1017,7 +1144,7 @@ def part_e2e(rounds, smi):
                               f"launches {dict(kernels.LAUNCHES)}; {smi}",
                               flush=True)
         finally:
-            lcs_torch.WAVE_MAX_GRID, dp_torch.k2_variant = wave, k2v
+            lcs_torch.WAVE_MAX_GRID, dp_torch.dp_dirs = wave, dirs
 
 
 def main():
@@ -1026,9 +1153,10 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--parts",
                     default="k1,k2,k3,k4,k6,k8,k1rows,wide,split,threads,"
-                            "e2e")
+                            "spans,e2e")
     ap.add_argument("--parent",
-                    help="a tree with the old K1 rows, K3, K4, K6 and K8")
+                    help="a tree with the old K1 rows, K2, K3, K4, K6 "
+                         "and K8")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1041,7 +1169,7 @@ def main():
     if "k1" in parts:
         part_k1(args.reps, smi)
     if "k2" in parts:
-        part_k2(args.reps, smi)
+        part_k2(args.parent, args.reps, smi)
     if "k3" in parts:
         part_k3(args.parent, args.reps, smi)
     if "wide" in parts:
@@ -1057,8 +1185,10 @@ def main():
         part_k8(args.parent, max(3, args.rounds), args.reps, smi)
     if "k1rows" in parts:
         part_k1rows(args.parent, max(3, args.rounds), args.reps, smi)
+    if "spans" in parts:
+        part_spans(args.parent, max(2, args.rounds), args.reps, smi)
     if "e2e" in parts:
-        part_e2e(args.rounds, smi)
+        part_e2e(args.parent, args.rounds, smi)
     return 0
 
 

@@ -97,9 +97,10 @@ def test_staged_plain_equals_dp_plain_mixed_batch(monkeypatch, small_folds):
     seen = []
     orig = dp_wide.dp_wide_plain
 
-    def spy(*a, fold_cols=None, blk=dp_wide.BLK, meta_host=None):
+    def spy(*a, fold_cols=None, blk=dp_wide.BLK, meta_host=None, span=None):
         seen.append(fold_cols)
-        return orig(*a, fold_cols=fold_cols, blk=blk, meta_host=meta_host)
+        return orig(*a, fold_cols=fold_cols, blk=blk, meta_host=meta_host,
+                    span=span)
     monkeypatch.setattr(dp_wide, "dp_wide_plain", spy)
     want_d, want_f = dp_plain(colf, rowf, meta, total)
     got_d, got_f = dp_dirs(colf, rowf, meta, total, variant="staged")
@@ -188,7 +189,7 @@ def test_k2_variant_by_width(w2):
     assert STAGED_MAX_W2 == 8191
     assert k2_variant(w2) == ("staged" if w2 <= 8191 else "stripes")
     assert (k2_variant(w2) == "staged") == (fold_geometry(w2)[2] == 1)
-    assert k2_variant(MAX_W2 + 1) == "global"
+    assert k2_variant(MAX_W2 + 1) == "spans"
 
 
 @pytest.mark.parametrize("w2s,want", [
@@ -215,8 +216,9 @@ def test_staged_geometry_limit():
 
 
 def test_dp_dirs_variant_checks():
-    """variant: None, "staged" or "global"; "staged" refuses a batch wider
-    than STAGED_MAX_W2; on CPU tensors "global" and the default run
+    """variant: None, "staged", "stripes" or "spans"; "staged" refuses a
+    batch wider than STAGED_MAX_W2 and "spans" one within MAX_W2 (the
+    first design's "global" is gone); on CPU tensors the default runs
     dp_plain, "staged" its fold walk, and nothing counts a launch."""
     rng = np.random.default_rng(8)
     jp, tp = _params()
@@ -225,16 +227,19 @@ def test_dp_dirs_variant_checks():
               for w2 in (30, 300)]
     colf, rowf, meta, total = pack_batch(merges)
     args = [torch.from_numpy(x) for x in (colf, rowf, meta)]
-    with pytest.raises(ValueError, match="variant"):
-        dp_dirs(*args, total, variant="l2")
+    for bad in ("l2", "global"):
+        with pytest.raises(ValueError, match="variant"):
+            dp_dirs(*args, total, variant=bad)
+    with pytest.raises(ValueError, match="spans"):
+        dp_dirs(*args, total, variant="spans")
     kernels.reset_launches()
     want = dp_plain(*args, total)
-    for variant in (None, "global", "staged"):
+    for variant in (None, "staged"):
         got = dp_dirs(*args, total, variant=variant)
         assert torch.equal(got[0], want[0])
         assert all(torch.equal(got[1][k, :20], want[1][k, :20])
                    for k in range(2))
-    assert kernels.LAUNCHES["dp"] == kernels.LAUNCHES["dp_staged"] == 0
+    assert kernels.LAUNCHES["dp_spans"] == kernels.LAUNCHES["dp_staged"] == 0
     wide = [torch.zeros((1, 44, 4098), dtype=torch.int64),
             torch.zeros((1, 2, 77), dtype=torch.int64),
             torch.tensor([[1, STAGED_MAX_W2 + 1, 0, 0]])]

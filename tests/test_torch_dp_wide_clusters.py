@@ -220,7 +220,7 @@ def test_batched_twin_mixed_matches_pallas_interpret(monkeypatch):
 def test_variants_by_width(w2):
     """Up to 8191 columns the staged body (8 folds to 4095, then 9-16),
     past it the stripes body, for K3, K2 and a chain chunk's capacity;
-    K2's global variant only past MAX_W2."""
+    K2's spans variant only past MAX_W2."""
     folds, threads, stripe = fold_geometry(w2)
     want = "staged" if w2 <= 8191 else "stripes"
     assert k3_variant(w2) == k2_variant(w2) == dp_chain.dp_variant(w2) == want
@@ -233,7 +233,7 @@ def test_variants_by_width(w2):
     assert dp_wide.launch_key("K2", want, folds) == (
         "dp_staged" if w2 <= 4095 else "dp_staged16" if w2 <= 8191
         else "dp_stripes")
-    assert k2_variant(32768) == "global"
+    assert k2_variant(32768) == "spans"
 
 
 def test_max_w2_pinned():
