@@ -20,11 +20,15 @@ Phases (one line each; any mismatch or exception exits non-zero):
     references) against lcs_refmask_plain, bit-exact: the flagged
     references of phase 5b's poly-Q family against all its sequences
     (int32 and uint16 out, a triangular n_queries), an unflagged short
-    reference, references past 32 words (the local-memory state), and
-    inside Prim rounds from round 0 (after K1 wave: the row equals the
-    plain version's for a flagged reference and K1 wave's for an
-    unflagged one, which K9 leaves); a profiled chunk of the poly-Q
-    family's rounds (exactly K1 wave, K9, K8 a round) and K9's times.
+    reference, references past 32 words (wpl 2 of the word wavefront),
+    the wavefront's geometry edges (REFMASK_EDGE_W64: W64 = 1, 2, 3, 5,
+    17, 32, 33 and 65, queries of mixed lengths padded with no-op
+    symbols, uint16 at every second), and inside Prim rounds from round 0
+    (after K1 wave: the row equals the plain version's for a flagged
+    reference and K1 wave's for an unflagged one, which K9 leaves); a
+    profiled chunk of the poly-Q family's rounds (exactly K1 wave, K9, K8
+    a round) and K9's times (a flagged round also in a CUDA graph, with
+    its bound).
     K8 (csrc/prim.cu, a Prim round after its
     LCS) against prim_round_plain, bit-exact on every state tensor (cur,
     dist, tieb, active, the next reference row) and edge, 64 consecutive
@@ -151,16 +155,21 @@ Phases (one line each; any mismatch or exception exits non-zero):
     variant never.  Prints the stage seconds, the merges per route, the
     device merges past 4095 columns on K3 and in K2 batches, and the DP
     launches per variant with their CUDA-event totals and means;
- 7. the chain route (ops/dp_chain.py): K7 (csrc/chain.cu) against
+ 7. the chain route (ops/dp_chain.py): K7 (csrc/chain.cu, the chain's
+    carry, csrc/chain.cuh, as a launch of its own) against
     chain_carry_plain on every case of its state (a step that ran, an
     overflow, a poisoned chain, an invalid lane, a failed walk, the fold
-    after the last step), every word; one chunk's CUDA-graph replay
-    against the plain chunk on the same card buffers at a staged
+    after the last step; both slots of the double-buffered state), every
+    word; one chunk's CUDA-graph replay (per step K5, whose chain entry
+    runs the carry, the DP, K4, K6; K7 once after the last step) against
+    the plain chunk on the same card buffers at a staged
     capacity of 8 and of 9-16 folds (6 and 4 leaves, the other lanes of
     32 invalid), with an overflow forced mid-chunk, and at the buckets
     8191 (16 staged folds) and 16256 (the stripes body; 2 leaves) with DP
-    folds past the chain's width left dead: state, recorded widths, both
-    carry buffers and every path of a step that ran, its launches counted, no host read; then a
+    folds past the chain's width left dead: both state slots, recorded
+    widths, both carry buffers, every step's header and descriptors (the
+    carry K5's chain entry ran) and every path of a step that ran, its
+    launches counted (one K7 a replay), no host read; then a
     family of 1700 variants of one 800-residue protein (make_variants,
     seed 5: its guide tree is one caterpillar) through the
     CLI entry point with -backend torch at the default knobs (host merges
@@ -169,7 +178,9 @@ Phases (one line each; any mismatch or exception exits non-zero):
     dispatch a merge, on the torch tree read back through -gt import),
     each byte-identical to -backend numpy on the torch tree; the chain
     counters (one run, prefix + chain merges = the
-    run, one replay a chunk), every chunk under set_sync_debug_mode
+    run, one replay a chunk, one K7 launch a replay and a capture's
+    warm-up; the all-chain run's saved chunk replayed against the plain
+    chunk, headers and descriptors too), every chunk under set_sync_debug_mode
     ("error"), the device operations of one chunk (torch.profiler), the
     replays' CUDA-event times, one chunk's replay against its launch loop
     and by kernel, ms a merge by chain width on the chain and on the host
@@ -245,7 +256,8 @@ outputs written once) and the int64 multiply-adds and adds their rows
 need (K5: 32 lanes a row times its nonzero amino-acid counts plus one;
 K6: a row of 32 adds a parent's advance).  K7's bound counts the ~260
 bytes it reads and writes; its "ms" is a launch's device time from 100
-launches captured in one CUDA graph (a launch loop from Python, its
+launches captured in one CUDA graph, at the fold after a chunk's last
+step, the one launch a replay makes (a launch loop from Python, its
 "launch_loop_ms", measures the host's launch rate).  Its entry's
 "graph" holds the chain's chunks: replays, their CUDA-event total and
 mean in the all-chain run, one chunk's replay and launch-loop ms and
@@ -920,6 +932,51 @@ def refmask_check(refs, queries, q, what, out_dtype=None):
         raise AssertionError(f"K9 {what}: mismatch at {bad.tolist()}")
 
 
+# K9's wavefront edges (K1 wave's geometry over 64-bit words,
+# csrc/lcs.cu:wave_geometry): W64 = 1 (no carry), powers of two and not
+# (a partial last lane), 32 (one lane a word), 33 and 65 (wpl 2 and 3:
+# registers, a partial last lane)
+REFMASK_EDGE_W64 = (1, 2, 3, 5, 17, 32, 33, 65)
+
+
+def refmask_edge_case(w64, seed, device, n_refs=3, n_queries=101):
+    """(refs, queries) int32 on `device`: references of exactly W64
+    64-bit words, each (W64 >= 2) with a whole word k >= 1 of glutamine
+    (flagged), some symbols >= 20 inside; queries of 1-100 residues, every
+    third with a poly-Q tract of 64-100, padded with the no-op symbol past
+    their ends and past the longest (tests/test_torch_refmask_wave.py's
+    cases, shorter: the plain version walks every query position and
+    reference word from Python)."""
+    import torch
+    from famsa_tpu_torch.ops.lcs_torch import PAD_SYMBOL
+    rng = np.random.default_rng(seed)
+    q_code = AA.index("Q")
+    lr = 64 * w64 if w64 <= 2 else int(rng.integers(64 * (w64 - 1) + 1,
+                                                    64 * w64 + 1))
+    refs = []
+    for _ in range(n_refs):
+        ref = rng.choice(24, size=lr, p=[0.048] * 20 + [0.01] * 4)
+        if w64 >= 2:
+            word = int(rng.integers(1, lr // 64))
+            ref[64 * word:64 * (word + 1)] = q_code
+        refs.append(ref)
+    rows = []
+    for j in range(n_queries):
+        row = rng.choice(24, size=int(rng.integers(1, 101)),
+                         p=[0.048] * 20 + [0.01] * 4)
+        if j % 3 == 0:
+            off = int(rng.integers(0, min(64, len(row)) + 1))
+            row = np.concatenate([row[:off], np.full(
+                int(rng.integers(64, 101)), q_code), row[off:]])
+        rows.append(row)
+    lq = max(len(r) for r in rows) + 7
+    queries = np.full((n_queries, lq), PAD_SYMBOL, dtype=np.int32)
+    for j, r in enumerate(rows):
+        queries[j, :len(r)] = r
+    return (torch.from_numpy(np.stack(refs).astype(np.int32)).to(device),
+            torch.from_numpy(queries).to(device))
+
+
 def k9_prim_check(inputs, flags, min_rounds=K8_ROUNDS, max_rounds=512):
     """K9 inside Prim rounds from round 0, as prim_chunk runs it (K1 wave,
     K9, K8): each round's row after K9 against lcs_refmask_plain when the
@@ -997,12 +1054,20 @@ def phase_k9(device="cuda"):
     refmask_check(long_r, short_q, short_q.shape[0],
                   f"4 refs of L={long_r.shape[1]} (W64="
                   f"{-(-long_r.shape[1] // 64)}) x 64 queries")
+    # the wavefront's geometry edges, queries of mixed lengths with pads
+    # and no-op symbols, a triangular n_queries, both output types
+    for i, w64 in enumerate(REFMASK_EDGE_W64):
+        e_refs, e_q = refmask_edge_case(w64, 60 + i, device)
+        refmask_check(e_refs, e_q, e_q.shape[0] - 5, f"W64={w64}",
+                      torch.uint16 if i % 2 else torch.int32)
     seen, states = k9_prim_check(inputs, flags)
     msg = (f"phase 2 K9: bit-exact vs lcs_refmask_plain on the poly-Q "
            f"family (n={nq}, L={queries.shape[1]}, {int(fl.sum())} flagged): "
            f"{len(ids)} flagged refs x {nq} (int32 and uint16), triangular "
            f"{nq // 3}, an unflagged 40-residue ref, 4 refs of "
-           f"L={long_r.shape[1]} x 64; in Prim rounds from round 0 "
+           f"L={long_r.shape[1]} x 64, 3 refs x 96 of 101 queries of mixed "
+           f"lengths at W64 {REFMASK_EDGE_W64} (uint16 at every second); "
+           f"in Prim rounds from round 0 "
            f"{seen[True]} flagged and {seen[False]} unflagged references "
            f"(row after K9 = plain / = K1 wave's)")
     if device == "cuda":
@@ -1016,9 +1081,14 @@ def phase_k9(device="cuda"):
                                            cur=st_f.cur, flags=flags), 50)
         u_ms = graph_ms(lambda: lcs_refmask(st_u.ref, queries, out=row,
                                             cur=st_u.cur, flags=flags))
+        fg_ms = graph_ms(lambda: lcs_refmask(st_f.ref, queries, out=row,
+                                             cur=st_f.cur, flags=flags))
+        fbms, fby = refmask_bound_ms(st_f.ref, queries, nq)
         msg += (f"; {len(ids)} x {nq}: K9 {ms:.4f} ms, plain {pms:.1f} ms, "
                 f"bound {bms:.5f} ms ({by}); in a round, flagged reference "
-                f"{f_ms:.5f} ms, unflagged (returns at once) {u_ms:.5f} ms a "
+                f"{f_ms:.5f} ms ({fg_ms:.5f} a launch in a CUDA graph; "
+                f"bound {fbms:.6f} ms, {fby}), unflagged (returns at once) "
+                f"{u_ms:.5f} ms a "
                 f"launch in a CUDA graph; a profiled chunk of the poly-Q "
                 f"rounds: {prof['device_ops_a_round']:g} device operations "
                 f"a round (K1 wave, K9, K8), {prof['device_ms_a_round']:.5f} "
@@ -2729,12 +2799,15 @@ def addr_offsets(bufs, s):
 
 
 def k7_check(device, k=32, w1p=1024, cap=4095):
-    """K7 (csrc/chain.cu) against chain_carry_plain on two buffer sets of
-    one content: a step that ran, an overflow, a poisoned chain, an
-    invalid lane, a failed walk and the fold after the last step; the
-    state, the recorded widths, the header and the descriptors, every
-    word.  Returns (buffers in the "ran" state, its step, the max abs
-    error, plain ms)."""
+    """K7 (csrc/chain.cu, the chain's carry as a launch of its own: the
+    device function K5's chain entry runs before each step) against
+    chain_carry_plain on two buffer sets of one content: a step that ran,
+    an overflow, a poisoned chain (an odd step: state slot 1), an invalid
+    lane, a failed walk and the fold after the last step (slot 0 in
+    place); the state (both slots), the recorded widths, the header and
+    the descriptors, every word.  Returns (the buffers after the last
+    case, the fold after the last step, as a chunk launches K7; that
+    step, the capacity, the max abs error, the plain ms of that case)."""
     import torch
     from famsa_tpu_torch import kernels
     from famsa_tpu_torch.ops import dp_chain
@@ -2750,9 +2823,11 @@ def k7_check(device, k=32, w1p=1024, cap=4095):
              ("failed walk", 2, (1500, 40, 0), 800, -1, 790),
              ("last step", k, (1500, 40, 0), 800, 1550, 0)]
     err, plain_ms = 0, None
-    for what, s, st, w1_prev, n, lw in reversed(cases):
+    for what, s, st, w1_prev, n, lw in cases:
+        src, _ = dp_chain.state_slots(s, k)
         for bufs in (a, b):
-            bufs.st[:3] = torch.tensor(st)
+            bufs.st.fill_(-9)
+            bufs.st[4 * src:4 * src + 3] = torch.tensor(st)
             bufs.lw.zero_()
             if s < k:
                 bufs.lw[s] = lw
@@ -2782,7 +2857,7 @@ def k7_check(device, k=32, w1p=1024, cap=4095):
                                      f"chain_carry_plain: "
                                      f"{first_diff(g.cpu(), w.cpu())}")
             err = max(err, e)
-    return a, cases[0][1], cap, err, plain_ms
+    return a, k, cap, err, plain_ms
 
 
 def chain_case(params, seed, width, n_leaves=6):
@@ -2805,8 +2880,10 @@ def chunk_check(params, device, seed, width, cap=None, k=32, w1p=1024,
     that one overflows it and poisons the steps after it; with a `cap`
     (a CHAIN_CAPS bucket well past the chain's width), all steps run
     and the DP's folds past the width are dead.  The state, the recorded
-    widths, both carry buffers and every path of a step that ran must be
-    equal; the resolved results stop at the overflow.  Then the chunk is
+    widths, both carry buffers, every step's header and descriptors (the
+    carry K5's chain entry ran before it) and every path of a step that
+    ran must be equal, with one K7 launch in the replay; the resolved
+    results stop at the overflow.  Then the chunk is
     timed again from the same state, one replay against the plain
     chunk's wall time.  Returns (cap, variant, overflow step or None,
     replay ms, plain ms, live DP folds a step of the folds launched)."""
@@ -2862,7 +2939,7 @@ def chunk_check(params, device, seed, width, cap=None, k=32, w1p=1024,
     dp = launch_key("K2", variant, folds)
     # the warm-up launch sequence and the replay
     for key, times in (("stage0", 2 * k), (dp, 2 * k), ("traceback", 2 * k),
-                       ("merged", 2 * k), ("chain", 2 * (k + 1))):
+                       ("merged", 2 * k), ("chain", 2)):
         if kernels.LAUNCHES[key] - counts[key] != times:
             raise AssertionError(f"chain chunk {variant}: {key} launched "
                                  f"{kernels.LAUNCHES[key] - counts[key]} "
@@ -2870,11 +2947,7 @@ def chunk_check(params, device, seed, width, cap=None, k=32, w1p=1024,
     if kernels.CHAIN["replays"] != replays + 1:
         raise AssertionError(f"chain chunk {variant}: not one replay")
     a, b = bufs
-    for name in ("st", "carry"):
-        g, w = getattr(a, name).cpu(), getattr(b, name).cpu()
-        if not torch.equal(g, w):
-            raise AssertionError(f"chain chunk {variant}: {name} differs "
-                                 f"from the plain chunk: {first_diff(g, w)}")
+    fold_check(a, b, f"chain chunk {variant}")
     wa, wb = a.widths(cap).cpu(), b.widths(cap).cpu()
     want = widths[:ran] + [dp_chain.NOT_RUN] * (k - ran)
     if not torch.equal(wa, wb) or wa.tolist() != want:
@@ -3051,9 +3124,11 @@ def saved_chunk_check(params, watch, steps=3):
     (the other lanes made invalid) through one replay of its graph, and
     through chunk_plain on a second ChainBuffers given the same state,
     carry, leaves and score table.  The state, the recorded widths, both
-    carry buffers and the paths must be equal.  Returns the steps' (w1,
-    w2) and the plain chunk's wall ms."""
+    carry buffers, every step's header and descriptors (K5's chain entry's
+    fold) and the paths must be equal, with one K7 launch in the replay.
+    Returns the steps' (w1, w2) and the plain chunk's wall ms."""
     import torch
+    from famsa_tpu_torch import kernels
     from famsa_tpu_torch.ops import dp_chain
     from famsa_tpu_torch.ops.traceback_torch import PATH_TRAILER
     graph, st, carry, inp = watch.saved
@@ -3065,16 +3140,16 @@ def saved_chunk_check(params, watch, steps=3):
         x.inp.copy_(inp)
         x.lw[steps:] = 0
     b.table.copy_(a.table)
-    graph.graph.replay()
+    before = kernels.LAUNCHES["chain"]
+    graph.replay()
+    if kernels.LAUNCHES["chain"] != before + 1:
+        raise AssertionError("saved chain chunk: not one K7 launch in the "
+                             "replay")
     t0 = time.perf_counter()
     dp_chain.chunk_plain(params, b, cap)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    for name in ("st", "carry"):
-        g, w = getattr(a, name).cpu(), getattr(b, name).cpu()
-        if not torch.equal(g, w):
-            raise AssertionError(f"saved chain chunk: {name} differs from "
-                                 f"the plain chunk: {first_diff(g, w)}")
+    fold_check(a, b, "saved chain chunk")
     wa, wb = a.widths(cap).cpu(), b.widths(cap).cpu()
     ran = [w for w in wa.tolist() if w != dp_chain.NOT_RUN]
     if not torch.equal(wa, wb) or len(ran) != steps:
@@ -3089,6 +3164,23 @@ def saved_chunk_check(params, watch, steps=3):
                                  f"from the plain chunk")
     w1s = a.lw[:steps].tolist()
     return list(zip(w1s, [int(st[0])] + ran[:-1])), plain_ms
+
+
+def fold_check(a, b, what):
+    """The chain's carry on the card (K5's chain entry before each step, K7
+    after the last) against chain_carry_plain's in the plain chunk, on two
+    ChainBuffers after one chunk each: both state slots, both carry
+    buffers, every step's header and descriptors (addresses as offsets
+    into their buffers), word for word."""
+    import torch
+    got = {"st": a.st.cpu(), "carry": a.carry.cpu(), "hdr": a.hdr.cpu(),
+           "desc": torch.stack([addr_offsets(a, s) for s in range(a.k)])}
+    want = {"st": b.st.cpu(), "carry": b.carry.cpu(), "hdr": b.hdr.cpu(),
+            "desc": torch.stack([addr_offsets(b, s) for s in range(b.k)])}
+    for name, g in got.items():
+        if not torch.equal(g, want[name]):
+            raise AssertionError(f"{what}: {name} differs from the plain "
+                                 f"chunk: {first_diff(g, want[name])}")
 
 
 def chunk_split(graph, restore):
@@ -3245,6 +3337,12 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
                     or sum(counts[k] for k in K2_KEYS) == 0):
                 raise AssertionError(f"variants {name}: the chain's kernels "
                                      f"were not all launched: {counts}")
+            # one K7 launch a replay, and one a capture's warm-up loop
+            if counts["chain"] != ch["replays"] + ch["captures"]:
+                raise AssertionError(f"variants {name}: K7 launched "
+                                     f"{counts['chain']} times in "
+                                     f"{ch['replays']} replays and "
+                                     f"{ch['captures']} captures")
         elif name != "numpy" and ch["runs"]:
             raise AssertionError(f"variants {name}: chain runs {ch}")
         report.append(f"{name} {wall:.2f} s (alignment {secs[name]:.2f})")
@@ -3252,11 +3350,18 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
         if outs[name] != outs["numpy"]:
             raise AssertionError(f"variants: {name} output differs from "
                                  "numpy")
+    # the profiled chunk on the card: K7 at most once (the profiler may
+    # drop some of a graph's kernel records, never add one)
+    if watch.ops.get("chain_kernel", 0) > 1:
+        raise AssertionError(f"a profiled chunk's device operations "
+                             f"{watch.ops}: more than one K7 launch")
     ch = chains["chain"]
     rounds = [secs[n] for n in ("chain", "per_merge")]
     log(f"phase 7 chain route: K7 bit-exact vs chain_carry_plain (ran, "
         f"overflow, poisoned, invalid lane, failed walk, last step); chunk "
-        f"graph = plain chunk (state, widths, carry, paths) at capacities "
+        f"graph = plain chunk (state, widths, carry, the headers and "
+        f"descriptors of K5's chain entry's fold, paths; one K7 launch a "
+        f"replay) at capacities "
         f"{[c[:2] for c in checks]} with the overflow at steps "
         f"{[c[2] for c in checks]} (live DP folds a step of those launched "
         f"{[c[5] for c in checks]}) and {[32 - n for n in (6, 4, 2, 2)]} "
@@ -3293,8 +3398,9 @@ def phase_chain(work, recorder, device="cuda", family=CHAIN_FAMILY):
             "launches": recorder.counts["chain"]["chain"],
             "max_abs_err": k7_err, "ms": ms, "plain_ms": k7_plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "launches_run": "chain", "at": "K7 check's step that ran, 100 "
-            "launches in one CUDA graph", "launch_loop_ms": loop_ms,
+            "launches_run": "chain", "at": "K7 check's fold after the last "
+            "step (a step that ran), 100 launches in one CUDA graph",
+            "launch_loop_ms": loop_ms,
             "runs": {},
             "graph": {"replays": ch["replays"], "chunks": ch["chunks"],
                       "captures": ch["captures"],

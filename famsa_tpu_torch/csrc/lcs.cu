@@ -69,19 +69,39 @@
 // where V & M is all ones and a carry comes in, which can only happen in
 // a word k >= 1 whose 64 positions are one valid symbol (a "flagged"
 // reference, ops/lcs_torch.py:famsa_flags); for every other reference
-// FAMSA's value is the exact LCS that K1 computes.  One CTA a reference
-// and 128 queries: the reference's 20 symbol masks (uint64, W64 words)
-// are built in shared memory from its symbols (shared atomicOr), then
-// each thread streams one query's symbols and updates its W64 words
-// (registers up to 32 words, a local-memory array past them, as K1 rows'
-// W > 64 path).  Replaces no Pallas kernel: it computes the host
-// reference's value where the Pallas kernel (famsa_tpu/ops/
-// lcs_pallas.py:_make_kernel, 32-bit words) and K1 compute the exact
-// LCS.  Bound: the same ~6 dependent 64-bit operations an update as K1,
-// one chain a thread; flagged references are rare, so it is kept
-// simple.  In a Prim round (cur != null) it reads the round's reference
-// id and the flag vector on the card and returns at once unless the
-// reference is flagged, so the host never waits to choose.
+// FAMSA's value is the exact LCS that K1 computes.  Replaces no Pallas
+// kernel: it computes the host reference's value where the Pallas kernel
+// (famsa_tpu/ops/lcs_pallas.py:_make_kernel, 32-bit words) and K1 compute
+// the exact LCS.
+//
+// Design: K1 wave's word wavefront over FAMSA's layout.  A CTA takes one
+// reference (grid.y) and REFMASK_THREADS / wseg queries; it builds the
+// reference's 20 symbol masks (W64 uint64 words) once in shared memory
+// (shared atomicOr), [symbol][word-in-lane][lane], with an all-zero row
+// for the no-op symbols.  Each query gets a segment of wseg lanes (the
+// power of two >= W64, at most 32; past 32 words a lane holds wpl =
+// ceil(W64 / 32) consecutive words in registers), and at step s lane k
+// takes query position s - k with the carry out of lane k-1 one step
+// late (a segmented __shfl_up_sync).  Word k at position t needs only
+// word k-1 at t and word k at t-1, so this is the serial order's
+// dependency graph and V2 < V is reproduced exactly; the carry is
+// FAMSA's test, not the exact 65th bit.  A no-op position (symbol >= 20,
+// outside the query) reads the zero row: the lane before it saw the same
+// position, so its carry in is 0 and its words stay.  Words past W64
+// have zero masks and stay all ones, so idle lanes and the last lane's
+// spare words count nothing.  Each warp stages its queries' symbols as
+// bytes in a window of REFMASK_TILE steps (WAVE_LAG positions of
+// lookback, REFMASK_STAGE loads in flight a lane) and ends a window's
+// steps where every lane that holds words is past the warp's last live
+// symbol, so a warp of short queries does not walk the padded length.
+// A step's masks are loaded a step ahead (and its symbol two), so the
+// loop's critical path is the carry's shuffle and add.
+// Bound: ~12 int32 instructions a (live query position, reference word)
+// against tiny bytes; in practice the carry chain's latency, a shuffle
+// and ~6 dependent instructions a step.  In a Prim round (cur != null)
+// it reads the round's reference id and the flag vector on the card and
+// returns at once unless the reference is flagged, so the host never
+// waits to choose.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -391,95 +411,179 @@ cudaError_t launch_wave(const WaveGeom& g, const uint32_t* masks,
 }
 
 // ---- K9, FAMSA's layout (see the header)
+// Geometry: K1 wave's (wave_geometry: wseg lanes a query, wpl words a
+// lane, nl lanes that hold words) over the reference's W64 64-bit words;
+// a CTA of REFMASK_THREADS threads holds REFMASK_THREADS / wseg queries.
 constexpr int REFMASK_THREADS = 128;
-constexpr int REFMASK_W_LOCAL_MAX = 1024;   // 65536 positions, as K1
+constexpr int REFMASK_W_MAX = 1024;      // 65536 positions, as K1
+constexpr int REFMASK_TILE = 256;        // steps a staged window of symbols
+// a query's window: REFMASK_TILE steps, WAVE_LAG positions of lookback
+// and 2 of prefetch, padded to an odd number of words (the segments of a
+// warp read their windows on distinct banks)
+constexpr int REFMASK_WIN = REFMASK_TILE + WAVE_LAG + 5;
+constexpr int REFMASK_STAGE = 8;         // symbol loads in flight a lane
 
-template <int WMAX>
+// shared memory of a K9 CTA: the masks and a window a query slot
+size_t refmask_smem(const WaveGeom& g) {
+    return (size_t)(NO_VALID_AMINOACIDS + 1) * g.wpl * g.wseg * 8 +
+           (size_t)(REFMASK_THREADS / g.wseg) * REFMASK_WIN;
+}
+
+template <int WPL>
 __global__ void __launch_bounds__(REFMASK_THREADS)
 lcs_refmask_kernel(const int32_t* __restrict__ refs,
-                   const int32_t* __restrict__ queries, int Lr, int W64,
-                   int N, int Lq, int n_queries,
+                   const int32_t* __restrict__ queries, int Lr, int N,
+                   int Lq, int n_queries, int wseg, int wpl, int nl,
                    const long long* __restrict__ cur,
                    const uint8_t* __restrict__ flags,
                    uint16_t* __restrict__ out16, int32_t* __restrict__ out32) {
     if (cur != nullptr && flags[*cur] == 0) return;     // CTA-uniform
-    extern __shared__ unsigned long long M[];           // [20][W64]
-    const int r = blockIdx.y;
-    for (int idx = threadIdx.x; idx < NO_VALID_AMINOACIDS * W64;
+    // the reference's masks [21][wpl][wseg] (word w = lane * wpl + j at
+    // [j][lane]; row 20 all zero, the no-op symbols' row), then a window
+    // of symbol bytes a query slot
+    extern __shared__ unsigned long long M[];
+    const int row = wpl * wseg;
+    uint8_t* win = reinterpret_cast<uint8_t*>(
+        M + (NO_VALID_AMINOACIDS + 1) * row);
+    for (int idx = threadIdx.x; idx < (NO_VALID_AMINOACIDS + 1) * row;
          idx += REFMASK_THREADS)
         M[idx] = 0ull;
     __syncthreads();
-    const int32_t* ref = refs + (size_t)r * Lr;
+    const int32_t* ref = refs + (size_t)blockIdx.y * Lr;
     for (int p = threadIdx.x; p < Lr; p += REFMASK_THREADS) {
         const int s = __ldg(ref + p);
-        if ((unsigned)s < (unsigned)NO_VALID_AMINOACIDS)
-            atomicOr(M + s * W64 + (p >> 6), 1ull << (p & 63));
-    }
-    __syncthreads();
-    const int q = blockIdx.x * REFMASK_THREADS + threadIdx.x;
-    if (q >= n_queries) return;
-    constexpr bool REG = WMAX <= 32;
-    unsigned long long X[WMAX];
-    if constexpr (REG) {
-#pragma unroll
-        for (int k = 0; k < WMAX; ++k) X[k] = ~0ull;
-    } else {
-        for (int k = 0; k < W64; ++k) X[k] = ~0ull;
-    }
-    const int32_t* qs = queries + (size_t)q * Lq;
-    for (int t = 0; t < Lq; ++t) {
-        const int c = __ldg(qs + t);
-        if ((unsigned)c >= (unsigned)NO_VALID_AMINOACIDS) continue;  // no-op
-        const unsigned long long* m = M + c * W64;
-        unsigned long long carry = 0ull;
-        if constexpr (REG) {
-#pragma unroll
-            for (int k = 0; k < WMAX; ++k) {
-                if (k < W64) {
-                    const unsigned long long v = X[k], tb = v & m[k];
-                    const unsigned long long v2 = v + tb + carry;
-                    carry = v2 < v;     // FAMSA's test, not the exact one
-                    X[k] = v2 | (v - tb);
-                }
-            }
-        } else {
-            for (int k = 0; k < W64; ++k) {
-                const unsigned long long v = X[k], tb = v & m[k];
-                const unsigned long long v2 = v + tb + carry;
-                carry = v2 < v;
-                X[k] = v2 | (v - tb);
-            }
+        if ((unsigned)s < (unsigned)NO_VALID_AMINOACIDS) {
+            const int w = p >> 6;
+            atomicOr(M + s * row + (w % wpl) * wseg + w / wpl,
+                     1ull << (p & 63));
         }
     }
-    int cnt = 0;
-    if constexpr (REG) {
+    __syncthreads();
+
+    const int lane = threadIdx.x & 31;
+    const int qpw = 32 / wseg;                   // query slots a warp
+    const int g0 = (threadIdx.x >> 5) * qpw;     // the warp's first slot
+    const int g = threadIdx.x / wseg;            // query slot of the CTA
+    const int k = threadIdx.x % wseg;            // lane in the segment
+    const int q0 = blockIdx.x * (REFMASK_THREADS / wseg);
+    const int q = q0 + g;
+    if (q0 + g0 >= n_queries) return;            // warp-uniform
+    const unsigned long long* mk = M + k;        // this lane's column
+    const uint8_t* mine = win + g * REFMASK_WIN;
+    unsigned long long X[WPL];
 #pragma unroll
-        for (int k = 0; k < WMAX; ++k)
-            if (k < W64) cnt += __popcll(~X[k]);
-    } else {
-        for (int k = 0; k < W64; ++k) cnt += __popcll(~X[k]);
+    for (int j = 0; j < WPL; ++j) X[j] = ~0ull;
+    const int steps = Lq + nl - 1;
+    // positions a window stages: the tile's, the lookback and two more
+    // for the prefetch of the symbol two steps ahead
+    constexpr int SPAN = REFMASK_TILE + WAVE_LAG + 2;
+    uint32_t carry = 0;          // carry out of this lane, previous step
+    for (int base = 0; base < steps; base += REFMASK_TILE) {
+        // the warp's windows: win[slot][p] = the symbol of position
+        // base - WAVE_LAG + p, ZERO_ROW where none or no-op; `last` the
+        // window's last live position over the warp's queries
+        __syncwarp();
+        int last = -1;
+        for (int i0 = lane; i0 < qpw * SPAN; i0 += 32 * REFMASK_STAGE) {
+            int s[REFMASK_STAGE];
+#pragma unroll
+            for (int u = 0; u < REFMASK_STAGE; ++u) {
+                const int i = i0 + 32 * u;
+                const int gg = i / SPAN, pos = base - WAVE_LAG + i % SPAN;
+                const int qq = q0 + g0 + gg;
+                s[u] = i < qpw * SPAN && qq < n_queries && pos >= 0 &&
+                       pos < Lq ? __ldg(queries + (size_t)qq * Lq + pos)
+                                : NO_VALID_AMINOACIDS;
+            }
+#pragma unroll
+            for (int u = 0; u < REFMASK_STAGE; ++u) {
+                const int i = i0 + 32 * u;
+                if (i < qpw * SPAN) {
+                    const bool live =
+                        (unsigned)s[u] < (unsigned)NO_VALID_AMINOACIDS;
+                    win[(g0 + i / SPAN) * REFMASK_WIN + i % SPAN] =
+                        live ? (uint8_t)s[u] : ZERO_ROW;
+                    if (live) last = max(last, base - WAVE_LAG + i % SPAN);
+                }
+            }
+        }
+        last = __reduce_max_sync(FULL, last);
+        __syncwarp();
+        // past step last - base + nl - 1 every lane that holds words sees
+        // a no-op position: the tile ends there (or is skipped), and a
+        // no-op step passes a zero carry
+        const int end = min(min(REFMASK_TILE, steps - base),
+                            last - base + nl);
+        if (end <= 0) {
+            carry = 0;
+            continue;
+        }
+        // the masks of the next step and the symbol of the one after are
+        // loaded before a step's arithmetic: the step's critical path is
+        // the carry's shuffle and add, not two dependent shared loads
+        unsigned long long mc[WPL];
+        {
+            const unsigned long long* m = mk + mine[WAVE_LAG - k] * row;
+#pragma unroll
+            for (int j = 0; j < WPL; ++j)
+                if (j < wpl) mc[j] = m[j * wseg];
+        }
+        int cn = mine[1 + WAVE_LAG - k];
+        for (int st = 0; st < end; ++st) {
+            unsigned long long mn[WPL];
+            const unsigned long long* m = mk + cn * row;
+#pragma unroll
+            for (int j = 0; j < WPL; ++j)
+                if (j < wpl) mn[j] = m[j * wseg];
+            cn = mine[st + 2 + WAVE_LAG - k];
+            uint32_t cy = __shfl_up_sync(FULL, carry, 1, wseg);
+            if (k == 0) cy = 0;
+#pragma unroll
+            for (int j = 0; j < WPL; ++j) {
+                if (j < wpl) {
+                    const unsigned long long v = X[j], tb = v & mc[j];
+                    const unsigned long long v2 = v + tb + cy;
+                    cy = v2 < v;     // FAMSA's test, not the exact one
+                    X[j] = v2 | (v - tb);
+                    mc[j] = mn[j];
+                }
+            }
+            carry = cy;
+        }
+        if (end < REFMASK_TILE) carry = 0;
     }
-    const size_t o = (size_t)r * N + q;
-    if (out16) out16[o] = (uint16_t)cnt;
-    else out32[o] = cnt;
+    // words past W64 have zero masks and stay all ones: they count 0
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < WPL; ++j)
+        if (j < wpl) cnt += __popcll(~X[j]);
+    for (int o = wseg >> 1; o > 0; o >>= 1)
+        cnt += __shfl_xor_sync(FULL, cnt, o, wseg);
+    if (k == 0 && q < n_queries) {
+        const size_t o = (size_t)blockIdx.y * N + q;
+        if (out16) out16[o] = (uint16_t)cnt;
+        else out32[o] = cnt;
+    }
 }
 
-template <int WMAX>
-cudaError_t launch_refmask(const int32_t* refs, const int32_t* queries, int R,
-                           int Lr, int W64, int N, int Lq, int n_queries,
-                           const long long* cur, const uint8_t* flags,
-                           uint16_t* out16, int32_t* out32,
-                           cudaStream_t stream) {
-    const size_t smem = (size_t)NO_VALID_AMINOACIDS * W64 * 8;
+template <int WPL>
+cudaError_t launch_refmask(const WaveGeom& g, const int32_t* refs,
+                           const int32_t* queries, int R, int Lr, int N,
+                           int Lq, int n_queries, const long long* cur,
+                           const uint8_t* flags, uint16_t* out16,
+                           int32_t* out32, cudaStream_t stream) {
+    const size_t smem = refmask_smem(g);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            lcs_refmask_kernel<WMAX>,
+            lcs_refmask_kernel<WPL>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return e;
     }
-    dim3 grid((n_queries + REFMASK_THREADS - 1) / REFMASK_THREADS, R);
-    lcs_refmask_kernel<WMAX><<<grid, REFMASK_THREADS, smem, stream>>>(
-        refs, queries, Lr, W64, N, Lq, n_queries, cur, flags, out16, out32);
+    const int qpc = REFMASK_THREADS / g.wseg;
+    dim3 grid((n_queries + qpc - 1) / qpc, R);
+    lcs_refmask_kernel<WPL><<<grid, REFMASK_THREADS, smem, stream>>>(
+        refs, queries, Lr, N, Lq, n_queries, g.wseg, g.wpl, g.nl, cur, flags,
+        out16, out32);
     return cudaGetLastError();
 }
 
@@ -546,9 +650,10 @@ int lcs_refmask(const void* refs, const void* queries, int R, int Lr, int N,
                 const void* cur, const void* flags, void* stream) {
     if (R <= 0 || n_queries <= 0) return 0;
     const int W64 = (Lr + 63) / 64;
-    if (Lr < 1 || W64 > REFMASK_W_LOCAL_MAX || n_queries > N || R > 65535 ||
-        (cur != nullptr && (flags == nullptr || R != 1)))
+    if (Lr < 1 || Lq < 1 || W64 > REFMASK_W_MAX || n_queries > N ||
+        R > 65535 || (cur != nullptr && (flags == nullptr || R != 1)))
         return (int)cudaErrorInvalidValue;
+    const WaveGeom g = wave_geometry(W64);
     const int32_t* rf = static_cast<const int32_t*>(refs);
     const int32_t* qs = static_cast<const int32_t*>(queries);
     const long long* cp = static_cast<const long long*>(cur);
@@ -556,16 +661,15 @@ int lcs_refmask(const void* refs, const void* queries, int R, int Lr, int N,
     uint16_t* o16 = out_u16 ? static_cast<uint16_t*>(out) : nullptr;
     int32_t* o32 = out_u16 ? nullptr : static_cast<int32_t*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K9(WM) launch_refmask<WM>(rf, qs, R, Lr, W64, N, Lq, n_queries, cp, \
+#define K9(WP) launch_refmask<WP>(g, rf, qs, R, Lr, N, Lq, n_queries, cp, \
                                   fp, o16, o32, st)
     cudaError_t e;
-    if (W64 <= 1) e = K9(1);
-    else if (W64 <= 2) e = K9(2);
-    else if (W64 <= 4) e = K9(4);
-    else if (W64 <= 8) e = K9(8);
-    else if (W64 <= 16) e = K9(16);
-    else if (W64 <= 32) e = K9(32);
-    else e = K9(REFMASK_W_LOCAL_MAX);
+    if (g.wpl <= 1) e = K9(1);
+    else if (g.wpl <= 2) e = K9(2);
+    else if (g.wpl <= 4) e = K9(4);
+    else if (g.wpl <= 8) e = K9(8);
+    else if (g.wpl <= 16) e = K9(16);
+    else e = K9(32);
 #undef K9
     return (int)e;
 }

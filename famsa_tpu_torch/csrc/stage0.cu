@@ -40,16 +40,25 @@
 // of the column sums of their counts (exact mod 2^64), and h0's sum is
 // card1 (s[1][GTO] + that GAP_TERM_EXT sum - s[1][GTE]).
 //
-// The chain's entry, stage0_chain (ops/dp_chain.py): one merge whose
-// header K7 (csrc/chain.cu) wrote on the card, with the grid sized for
-// the chunk's capacity.  A step K7 marked skipped (w1 0) writes its meta
-// and returns; a CTA whose rows start past its side's width + 1 returns
-// at once (the DP kernels read no column past w2 + 1 and no row past
-// w1).
+// The chain's entry, stage0_chain (ops/dp_chain.py): one merge of a
+// chain chunk, with the grid sized for the chunk's capacity.  Each CTA
+// first runs the chain's carry before its step (csrc/chain.cuh:fold,
+// K7's body; warp 0): from the state and step k-1's header and path
+// length it computes step k's header and side descriptors into its own
+// shared memory, and reads its sides from there.  CTA (0, 0) commits the
+// fold: the state (double-buffered, so no CTA of the launch sees it half
+// written), step k-1's recorded width, and step k's header and
+// descriptors in global memory, for the DP, K4 and K6 launches that
+// follow in stream order.  Only then may a CTA return: a step the fold
+// marked skipped (w1 0) writes its meta and returns, and a CTA whose rows
+// start past its side's width + 1 returns at once (the DP kernels read no
+// column past w2 + 1 and no row past w1).  This removes K7's launch
+// before every step; K7 runs once a chunk, after its last step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "chain.cuh"
 #include "dp_common.cuh"
 #include "sides.cuh"
 
@@ -146,10 +155,11 @@ __device__ __forceinline__ void gap_corrections(Row& rw, i64 r, i64 w,
 
 template <bool CHAIN>
 __global__ void __launch_bounds__(THREADS)
-stage0_kernel(const i64* __restrict__ desc, const i64* __restrict__ hdr,
+stage0_kernel(const i64* __restrict__ desc_in, const i64* __restrict__ hdr_in,
               const i64* __restrict__ table, const i64* __restrict__ band,
               int nb, int w1p, int ldc, int nch1, i64* __restrict__ colf,
-              i64* __restrict__ rowf, i64* __restrict__ meta) {
+              i64* __restrict__ rowf, i64* __restrict__ meta,
+              famsa_chain::ChainArgs ca) {
     __shared__ i64 T[TROWS][32];
     __shared__ i64 part[3][WARPS];
     __shared__ i64 stage[NCOLF][WARPS + 1];
@@ -159,6 +169,25 @@ stage0_kernel(const i64* __restrict__ desc, const i64* __restrict__ hdr,
     const bool cols = (int)blockIdx.y >= nch1;   // side 2: column planes
     const i64 r0 = (i64)(cols ? blockIdx.y - nch1 : blockIdx.y) * CHUNK;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const i64* desc = desc_in;
+    const i64* hdr = hdr_in;
+    if constexpr (CHAIN) {
+        // the chain's carry before step ca.k (see the header)
+        constexpr int HW = famsa_chain::HDR_WORDS;
+        constexpr int DW = 2 * famsa_sides::DESC_WORDS;
+        __shared__ i64 step_hdr[HW];
+        __shared__ i64 step_desc[DW];
+        const bool commit = blockIdx.y == 0;
+        if (warp == 0) famsa_chain::fold(ca, lane, step_hdr, step_desc, commit);
+        __syncthreads();
+        if (commit && threadIdx.x < HW + DW) {
+            const int t = threadIdx.x;
+            if (t < HW) ca.hdr[HW * (i64)ca.k + t] = step_hdr[t];
+            else ca.desc[DW * (i64)ca.k + t - HW] = step_desc[t - HW];
+        }
+        desc = step_desc;
+        hdr = step_hdr;
+    }
     for (int t = threadIdx.x; t < TROWS * 32; t += THREADS)
         T[t / 32][t % 32] = table[t];
     const Side s = load_side(desc, cols ? nb + b : b);
@@ -304,7 +333,7 @@ stage0_kernel(const i64* __restrict__ desc, const i64* __restrict__ hdr,
 template <bool CHAIN>
 int launch(const void* desc, const void* hdr, const void* table,
            const void* band, int nb, int w1p, int ldc, void* colf, void* rowf,
-           void* meta, void* stream) {
+           void* meta, const famsa_chain::ChainArgs& ca, void* stream) {
     if (nb <= 0) return 0;
     const int nch1 = (w1p + 1 + CHUNK - 1) / CHUNK;
     const int nch2 = (ldc + CHUNK - 1) / CHUNK;
@@ -313,7 +342,7 @@ int launch(const void* desc, const void* hdr, const void* table,
         static_cast<const i64*>(desc), static_cast<const i64*>(hdr),
         static_cast<const i64*>(table), static_cast<const i64*>(band), nb,
         w1p, ldc, nch1, static_cast<i64*>(colf), static_cast<i64*>(rowf),
-        static_cast<i64*>(meta));
+        static_cast<i64*>(meta), ca);
     return (int)cudaGetLastError();
 }
 
@@ -331,18 +360,32 @@ int stage0(const void* desc, const void* hdr, const void* table,
            const void* band, int nb, int w1p, int ldc, void* colf,
            void* rowf, void* meta, void* stream) {
     return launch<false>(desc, hdr, table, band, nb, w1p, ldc, colf, rowf,
-                         meta, stream);
+                         meta, famsa_chain::ChainArgs{}, stream);
 }
 
-// One step of a chain chunk: desc [2][8] and hdr [8] as K7 wrote them (w1
-// 0: a skipped step), no band; the grid covers w1p + 1 rows and ldc
-// columns, but only the rows and columns up to each side's width + 1
-// (rounded up to a chunk of 256) are written.  meta is always written.
-int stage0_chain(const void* desc, const void* hdr, const void* table,
-                 int w1p, int ldc, void* colf, void* rowf, void* meta,
+// Step k (0 <= k < nk, nk even) of a chain chunk: the chain's carry
+// before it on the chunk's buffers (leaf .. cap, as csrc/chain.cu:
+// chain_carry takes them; hdr [nk][8], desc [nk][2][8] receive step k's),
+// then stage 0 of its merge, no band (w1 0: a skipped step).  The grid
+// covers w1p + 1 rows and ldc columns, but only the rows and columns up
+// to each side's width + 1 (rounded up to a chunk of 256) are written.
+// meta is always written.  Returns the launch's cudaError_t.
+int stage0_chain(const void* leaf, const void* lw, void* st,
+                 const void* paths, long long ps, void* widths, void* hdr,
+                 void* desc, const void* carry0, const void* carry1,
+                 long long cap, const void* table, int w1p, int ldc,
+                 void* colf, void* rowf, void* meta, int k, int nk,
                  void* stream) {
-    return launch<true>(desc, hdr, table, nullptr, 1, w1p, ldc, colf, rowf,
-                        meta, stream);
+    if (k < 0 || k >= nk || nk % 2 != 0 || ps % 16 != 0)
+        return (int)cudaErrorInvalidValue;
+    const famsa_chain::ChainArgs ca{
+        static_cast<const uint8_t*>(leaf), static_cast<const i64*>(lw),
+        static_cast<i64*>(st), static_cast<const uint8_t*>(paths), ps,
+        static_cast<int*>(widths), static_cast<i64*>(hdr),
+        static_cast<i64*>(desc), static_cast<const int*>(carry0),
+        static_cast<const int*>(carry1), cap, w1p, k, nk};
+    return launch<true>(nullptr, nullptr, table, nullptr, 1, w1p, ldc, colf,
+                        rowf, meta, ca, stream);
 }
 
 }  // extern "C"

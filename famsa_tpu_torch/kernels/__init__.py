@@ -37,7 +37,8 @@ KERNELS = ("lcs", "dp_wide", "traceback", "stage0", "merged", "chain",
 # folds of 4 columns a thread a merge, w2 <= 131071); K3 staged
 # ("dp_wide", "dp_wide16") and stripes ("dp_wide_stripes") on the same
 # widths; K4, the traceback; K5, stage 0; K6, the merged counters; K7,
-# the chain's carry; K8, a Prim round after its LCS; and K9, FAMSA's LCS
+# the chain's carry after a chunk's last step (K5's chain entry runs it
+# before each step); K8, a Prim round after its LCS; and K9, FAMSA's LCS
 # layout for flagged references ("lcs_refmask")
 LAUNCHES = {"lcs": 0, "lcs_wave": 0, "lcs_refmask": 0, "dp_staged": 0,
             "dp_staged16": 0, "dp_stripes": 0, "dp_spans": 0, "dp_wide": 0,
@@ -163,7 +164,9 @@ def _configure(name, lib):
     elif name == "stage0":
         lib.stage0.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp]
         lib.stage0.restype = ci
-        lib.stage0_chain.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp, vp]
+        ll = ctypes.c_longlong
+        lib.stage0_chain.argtypes = [vp, vp, vp, vp, ll, vp, vp, vp, vp, vp,
+                                     ll, vp, ci, ci, vp, vp, vp, ci, ci, vp]
         lib.stage0_chain.restype = ci
     elif name == "chain":
         ll = ctypes.c_longlong

@@ -7,19 +7,22 @@ merge k and one leaf, so its merges cannot be batched.  The pipeline
 CHAIN_K merges.  A chunk is three device operations, with no host read:
 one pinned upload of its leaves' symbol bytes and widths, one replay of
 a CUDA graph and one copy of its paths down.  The graph holds, for each
-step, K7 (csrc/chain.cu: the carry, writing the step's header and side
-descriptors), stage 0 (K5, csrc/stage0.cu), the DP (K2's staged variant
-with B = 1 up to a capacity of 8191 columns, else its stripes variant
-with B = 1, csrc/dp_wide.cu; both read the step's widths from its meta),
-the traceback (K4) and the merged counters (K6), which
-write the chain's counters into the other of two ping-pong carry
-buffers; a last K7 folds the last step.  The chain's counters, width and
+step, stage 0 (K5's chain entry, csrc/stage0.cu:stage0_chain, which
+first runs the chain's carry, csrc/chain.cuh: it folds the previous
+step into the chain's state and writes the step's header and side
+descriptors), the DP (K2's staged variant with B = 1 up to a capacity
+of 8191 columns, else its stripes variant with B = 1, csrc/dp_wide.cu;
+both read the step's widths from its meta), the traceback (K4) and the
+merged counters (K6), which write the chain's counters into the other
+of two ping-pong carry buffers; then K7 (csrc/chain.cu), the same carry
+once more, folds the last step.  The chain's counters, width and
 cardinality stay on the card from step to step and from chunk to chunk.
 
 Port of famsa_tpu/ops/dp_chain.py: the constants (:44-66; all but
 CHAIN_W1P are environment knobs read at each call), ChainState (:129-158),
 dispatch_chain_chunk (:161-193) and _dp_chain_scan (:74), whose scan
-carry (:81-101) and want_width (ops/dp_giant.py:477-479) are K7.  Left
+carry (:81-101) and want_width (ops/dp_giant.py:477-479) are the carry
+(K5's chain entry, K7).  Left
 out as TPU compile workarounds: prewarm (:197-245) and _seed_state's
 fixed row padding.  The score table is dp_resident._score_table, keyed
 by content (not by id, as famsa_tpu's _sm_dev is).
@@ -78,6 +81,7 @@ CHAIN_MARGIN = 512
 # profile the route takes
 CHAIN_CAPS = (2047, 4095, 8191, 16256)
 NOT_RUN = -2                # a step's recorded width when it did not run
+STATE_SLOT = 4              # int64 words of a slot of the chain's state
 
 
 def knob(name):
@@ -109,15 +113,19 @@ class ChainBuffers:
     widest capacity max_cap (every one zero at first):
       inp    uint8: the K leaf rows [K, w1p] (symbol bytes) then lw [K]
              int64, their widths (0: an invalid lane); the chunk's upload
-      st     [4] int64: the chain's width, cardinality and poison (K7)
+      st     [2, 4] int64 (flat): two slots of the chain's width,
+             cardinality and poison; the carry before step k < K reads
+             slot k % 2 and writes the other, the fold after the last
+             step (K7) updates slot 0 in place, so a chunk starts and
+             ends in slot 0 (st[:3])
       hdr    [K, 8] int64, desc [K, 2, DESC_WORDS] int64: each step's
-             header and side descriptors (K7)
+             header and side descriptors (the carry)
       table  [25, 32] int64: the score table (dp_stage0.score_table)
       carry  [2, max_cap+1, 32] int32: the chain's counters, even steps
              read carry[0] and odd ones carry[1]; K6 writes the other
       colf, rowf, meta, dirs, fin: one step's K5 output and DP output
       out    uint8: K4's output of step j at j * ps, then widths [K]
-             int32 (K7's record of each step's merged width)
+             int32 (the carry's record of each step's merged width)
     graphs: {cap: ChainGraph}."""
 
     def __init__(self, device, k, w1p, max_cap):
@@ -133,7 +141,7 @@ class ChainBuffers:
         self.inp = zeros(k * w1p + 8 * k, dtype=torch.uint8)
         self.leaf = self.inp[:k * w1p].view(k, w1p)
         self.lw = self.inp[k * w1p:].view(torch.int64)
-        self.st = zeros(4, dtype=torch.int64)
+        self.st = zeros(2 * STATE_SLOT, dtype=torch.int64)
         self.hdr = zeros(k, 8, dtype=torch.int64)
         self.desc = zeros(k, 2, DESC_WORDS, dtype=torch.int64)
         self.table = zeros(TABLE_ROWS, 32, dtype=torch.int64)
@@ -153,7 +161,8 @@ class ChainBuffers:
         return self.k * path_stride(self.w1p, cap) + 4 * self.k
 
     def widths(self, cap):
-        """[K] int32 view of K7's record of a chunk of capacity cap."""
+        """[K] int32 view of the carry's record of a chunk of capacity
+        cap."""
         at = self.k * path_stride(self.w1p, cap)
         return self.out[at:at + 4 * self.k].view(torch.int32)
 
@@ -179,11 +188,21 @@ def buffers(device, k, w1p):
     return _BUFFERS[key]
 
 
+def state_slots(k, nk):
+    """(read, written) slot of the chain's state for the carry before
+    step k of a chunk of nk steps (csrc/chain.cuh): k % 2 and the other,
+    and for the fold after the last step (k = nk, even) slot 0 both."""
+    return k % 2, (k + 1) % 2 if k < nk else k % 2
+
+
 def chain_carry_plain(bufs, k, cap):
-    """Plain PyTorch twin of K7 (csrc/chain.cu) on the same buffers: fold
-    step k-1 into the state (k > 0), then write step k's header and
-    descriptors (k < K)."""
-    w, card, poison = (int(x) for x in bufs.st[:3].tolist())
+    """Plain PyTorch twin of the chain's carry (csrc/chain.cuh:fold: K5's
+    chain entry before step k < K, K7 after the last step, k = K) on the
+    same buffers: fold step k-1 into the state (k > 0), read from one
+    slot and written to the other (state_slots), then write step k's
+    header and descriptors (k < K)."""
+    src, dst = (STATE_SLOT * x for x in state_slots(k, bufs.k))
+    w, card, poison = (int(x) for x in bufs.st[src:src + 3].tolist())
     if k > 0:
         rec = NOT_RUN
         if int(bufs.hdr[k - 1, 0]) >= 1:
@@ -194,8 +213,8 @@ def chain_carry_plain(bufs, k, cap):
                 poison = 1
             if n >= 0:
                 w, card = n, card + 1
-        bufs.st[:3] = torch.tensor([w, card, poison])
         bufs.widths(cap)[k - 1] = rec
+    bufs.st[dst:dst + 3] = torch.tensor([w, card, poison])
     if k >= bufs.k:
         return
     lw = int(bufs.lw[k])
@@ -209,9 +228,10 @@ def chain_carry_plain(bufs, k, cap):
 
 
 def chain_carry(bufs, k, cap):
-    """K7 before step k of a chunk of capacity cap (k = K: after the last
-    step).  CUDA buffers launch kernel K7 on the current stream; CPU
-    buffers run chain_carry_plain."""
+    """The chain's carry before step k of a chunk of capacity cap as a
+    launch of its own (k = K: after the last step, the one K7 launch of a
+    chunk; before a step K5's chain entry runs it).  CUDA buffers launch
+    kernel K7 on the current stream; CPU buffers run chain_carry_plain."""
     if not 0 <= k <= bufs.k:
         raise ValueError(f"step {k} outside a chunk of {bufs.k}")
     if bufs.device.type == "cpu":
@@ -232,12 +252,12 @@ def chain_carry(bufs, k, cap):
 
 def chunk_plain(params, bufs, cap):
     """Plain PyTorch version of a chunk's graph on the same buffers, any
-    device: per step chain_carry_plain, then (when the step runs) the
-    plain twins of K5 (stage0_plain on the descriptor reader), of the DP
-    (dp_wide_plain over the capacity's folds), of K4 (trace_paths_plain,
-    written at the step's place
-    in `out`) and of K6 (merged_from_paths_plain, into the other carry
-    buffer); a last chain_carry_plain folds the last step."""
+    device: per step the plain twin of K5's chain entry (chain_carry_plain,
+    then, when the step runs, stage0_plain on the descriptor reader), of
+    the DP (dp_wide_plain over the capacity's folds), of K4
+    (trace_paths_plain, written at the step's place in `out`) and of K6
+    (merged_from_paths_plain, into the other carry buffer); a last
+    chain_carry_plain (K7's twin) folds the last step."""
     ps = path_stride(bufs.w1p, cap)
     _, threads, stripe = fold_geometry(cap)
     for s in range(bufs.k):
@@ -276,14 +296,15 @@ class ChainGraph:
 
     def _count(self):
         """One launch a step of K5, the DP, K4 and K6 (K7: chain_carry
-        counts its own, and a replay its K + 1)."""
+        counts its own, and a replay its one)."""
         dp = launch_key("K2", self.variant, self.folds)
         for key in ("stage0", dp, "traceback", "merged"):
             kernels.LAUNCHES[key] += self.bufs.k
 
     def launch(self):
         """Enqueue the chunk's steps on the current stream as separate
-        launches: per step K7, K5, the DP, K4 and K6, then K7 once more."""
+        launches: per step K5 (its chain entry runs the carry), the DP, K4
+        and K6, then K7 once to fold the last step."""
         b, cap, k = self.bufs, self.cap, self.bufs.k
         stream = torch.cuda.current_stream(b.device).cuda_stream
         s0, dpw = kernels.get("stage0"), kernels.get("dp_wide")
@@ -293,13 +314,16 @@ class ChainGraph:
         table, colf, rowf = (b.table.data_ptr(), b.colf.data_ptr(),
                              b.rowf.data_ptr())
         meta, dirs, fin = b.meta.data_ptr(), b.dirs.data_ptr(), b.fin.data_ptr()
+        carry = (b.leaf.data_ptr(), b.lw.data_ptr(), b.st.data_ptr(),
+                 b.out.data_ptr(), self.ps, b.widths(cap).data_ptr(),
+                 b.hdr.data_ptr(), b.desc.data_ptr(), b.carry[0].data_ptr(),
+                 b.carry[1].data_ptr(), cap)
         for s in range(k):
-            chain_carry(b, s, cap)
             hdr = b.hdr[s].data_ptr()
             desc = b.desc[s].data_ptr()
             path = b.out.data_ptr() + s * self.ps
-            kernels.check(s0.stage0_chain(desc, hdr, table, b.w1p, self.ldc,
-                                          colf, rowf, meta, stream),
+            kernels.check(s0.stage0_chain(*carry, table, b.w1p, self.ldc,
+                                          colf, rowf, meta, s, k, stream),
                           "stage0_chain")
             if self.variant == "staged":
                 err = dpw.dp_profile_batched_staged(
@@ -322,7 +346,7 @@ class ChainGraph:
         """Run the chunk as one replay of its CUDA graph (captured)."""
         self.graph.replay()
         self._count()
-        kernels.LAUNCHES["chain"] += self.bufs.k + 1
+        kernels.LAUNCHES["chain"] += 1
         kernels.CHAIN["replays"] += 1
 
     def capture(self):
@@ -388,12 +412,12 @@ class ChainState:
         n = 32 if dev is not None else 32 + 128 * (w + 1)
         host = _pinned(n, b.device)
         h = host.numpy()
-        h[:32].view(np.int64)[:] = (w, card, 0, 0)
+        h[:32].view(np.int64)[:] = (w, card, 0, 0)      # state slot 0
         if dev is None:
             h[32:].view(np.int32).reshape(w + 1, 32)[:] = profile.counters
         stage = host.to(b.device, non_blocking=True)
         kernels.CHAIN["bytes_up"] += n
-        b.st.copy_(stage[:32].view(torch.int64))
+        b.st[:STATE_SLOT].copy_(stage[:32].view(torch.int64))
         if dev is None:
             b.carry[0, :w + 1].copy_(stage[32:].view(torch.int32)
                                      .view(w + 1, 32))

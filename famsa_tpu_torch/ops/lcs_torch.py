@@ -153,6 +153,82 @@ def lcs_refmask_plain(refs, queries, n_queries):
     return out
 
 
+# K9's wavefront (csrc/lcs.cu:lcs_refmask_kernel): K1 wave's geometry
+# (wave_geometry) over the reference's W64 64-bit words; a CTA of
+# REFMASK_THREADS threads, REFMASK_THREADS / wseg queries; each warp stages
+# its queries' symbols in windows of REFMASK_TILE steps; references up to
+# REFMASK_W_MAX 64-bit words (65536 positions)
+REFMASK_THREADS = 128
+REFMASK_TILE = 256
+REFMASK_W_MAX = 1024
+
+
+def lcs_refmask_wave_plain(refs, queries, n_queries, trim=True):
+    """Plain PyTorch emulation of K9's order, on lcs_refmask_plain's
+    arguments and with its result: the reference's 64-bit masks laid out
+    [symbol][lane][word-in-lane] with an all-zero row for the no-op
+    symbols; each query a segment of wseg lanes, lane k owning words
+    [k*wpl, (k+1)*wpl) (words past W64 zero-masked, lanes past nl holding
+    only such words); at step s lane k takes query position s - k with
+    the carry lane k-1 produced one step earlier (lane 0: none), and
+    every lane takes every step, no-op positions through the zero row.
+    A query runs Lq + nl - 1 steps; with `trim`, as the kernel, the
+    queries of one warp (32 // wseg consecutive ones) stop after their
+    last live position p at step p + nl - 1 and pass no carry after it
+    (the kernel ends each staged window there, and skips a window with no
+    live symbol: steps where every lane that holds words sees a no-op
+    change nothing, which trim=False shows)."""
+    r, lr = refs.shape
+    lq = queries.shape[1]
+    n = queries.shape[0]
+    dev = refs.device
+    w64 = max(1, -(-lr // 64))
+    wseg, wpl, nl = wave_geometry(w64)
+    masks = torch.zeros((r, NO_VALID_AMINOACIDS + 1, wseg * wpl),
+                        dtype=torch.int64, device=dev)
+    ref64 = refs.to(torch.int64)
+    rr, pp = torch.nonzero((ref64 >= 0) & (ref64 < NO_VALID_AMINOACIDS),
+                           as_tuple=True)
+    masks.index_put_((rr, ref64[rr, pp], pp // 64),
+                     torch.ones_like(pp) << (pp % 64), accumulate=True)
+    masks = masks.view(r, NO_VALID_AMINOACIDS + 1, wseg, wpl)
+    q = queries[:n_queries].to(torch.int64)
+    live = (q >= 0) & (q < NO_VALID_AMINOACIDS)
+    q = torch.where(live, q, NO_VALID_AMINOACIDS)
+    steps = lq + nl - 1
+    stop = torch.full((n_queries,), steps, dtype=torch.int64, device=dev)
+    if trim:
+        pos = torch.arange(lq, device=dev)
+        last = torch.where(live, pos, -1).amax(dim=1)
+        qpw = 32 // wseg
+        pad = -n_queries % qpw
+        warp = torch.cat([last, last.new_full((pad,), -1)]).view(-1, qpw)
+        stop = (warp.amax(dim=1) + nl).repeat_interleave(qpw)[:n_queries]
+    lanes = torch.arange(wseg, device=dev)
+    x = torch.full((r, n_queries, wseg, wpl), -1, dtype=torch.int64,
+                   device=dev)
+    carry = torch.zeros((r, n_queries, wseg), dtype=torch.int64, device=dev)
+    zero = torch.zeros((r, n_queries, 1), dtype=torch.int64, device=dev)
+    for s in range(steps):
+        cy = torch.cat([zero, carry[..., :-1]], dim=-1)    # one step late
+        p = s - lanes
+        sym = torch.where((p >= 0) & (p < lq), q[:, p.clamp(0, lq - 1)],
+                          NO_VALID_AMINOACIDS)              # [nq, wseg]
+        m = masks[:, sym, lanes[None, :]]                   # [R, nq, wseg, wpl]
+        run = (s < stop)[None, :, None]
+        for j in range(wpl):
+            v = x[..., j]
+            tb = v & m[..., j]
+            v2 = v + tb + cy
+            cy = ((v2 ^ SIGN) < (v ^ SIGN)).to(torch.int64)
+            x[..., j] = torch.where(run, v2 | (v & ~tb), v)
+        carry = torch.where(run, cy, 0)
+    out = torch.zeros((r, n), dtype=torch.int32, device=dev)
+    out[:, :n_queries] = _popcount64(~x.view(r, n_queries, -1)).to(
+        torch.int32)
+    return out
+
+
 def lcs_refmask(refs, queries, n_queries=None, out_dtype=torch.int32,
                 out=None, cur=None, flags=None):
     """LCS of each reference row `refs` ([R, Lr] int32, pad symbols >= 20
@@ -164,9 +240,10 @@ def lcs_refmask(refs, queries, n_queries=None, out_dtype=torch.int32,
     per-sequence flags ([N] bool, famsa_flags) on the same device; out
     (the round's LCS row) is then overwritten only when flags[cur].
 
-    CUDA tensors launch kernel K9 (in a Prim round it reads cur and flags
-    on the card, so nothing waits for the device); CPU tensors run
-    lcs_refmask_plain."""
+    CUDA tensors launch kernel K9, a word wavefront over FAMSA's layout
+    (lcs_refmask_wave_plain emulates its order; in a Prim round it reads
+    cur and flags on the card, so nothing waits for the device); CPU
+    tensors run lcs_refmask_plain."""
     if refs.dim() != 2 or queries.dim() != 2:
         raise ValueError("refs must be [R, Lr] and queries [N, Lq]")
     if refs.dtype != torch.int32 or queries.dtype != torch.int32:

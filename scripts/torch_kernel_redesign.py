@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Old against new designs of K1, K2, K3, K4, K6 and K8 on one card, in
-alternating order.
+"""Old against new designs of K1, K2, K3, K4, K6, K7, K8 and K9 on one
+card, in alternating order.
 
     python3 scripts/torch_kernel_redesign.py [--reps 200] [--rounds 2]
-        [--parts k1,k2,k3,k4,k6,k8,k1rows,wide,split,threads,spans,e2e]
-        [--parent .parent]
+        [--parts k1,k2,k3,k4,k6,k8,k1rows,wide,split,threads,spans,k9,k7,
+        e2e] [--parent .parent]
 
 K1's old design is still in the port: its rows variant (one thread a
 query, ops/lcs_torch.py variant="rows"); the new one is its wave
@@ -102,6 +102,28 @@ spans K2 past 32767 columns, the parent's first design (csrc/dp.cu, one
      1000 x 40,000, 1000 x 100,000 and 300 x 131,071 and a batch of
      three of w2 33,000, 70,000 and 131,071 (chip_smoke.py's
      SPANS_LONE and SPANS_BATCH), each plain and banded.
+k9   K9 (csrc/lcs.cu:lcs_refmask), the parent's design (one thread a
+     query, its W64 words one after another) against this tree's word
+     wavefront, old, new, new, old in at least three rounds (a launch's
+     device ms in a CUDA graph, chip_smoke.py:graph_ms), with the bound
+     (chip_smoke.py:refmask_bound_ms) and K1 wave's time on the same
+     round: a flagged Prim round of the poly-Q family of phase 5b (1 x
+     500), the rows path's 18 flagged references x 500 (the -dist_export
+     block, rows padded to the longest), a flagged round of a 10,000-
+     sequence poly-Q family (make_polyq(10000, 300, 13)), and a round
+     whose reference is not flagged (both return at once).  Both designs'
+     rows must be equal.
+k7   The chain chunk, the parent's launch order (K7 before every step
+     and after the last: 5 launches a step and 1) against this tree's
+     (K5's chain entry runs the carry: 4 a step and 1), old, new, new, old
+     in at least three rounds: one replay of each order's CUDA graph from
+     the same state (a chain of 4 variants of chip_smoke.py's 800-residue
+     family aligned on the host, then 32 more at capacity 2047), and
+     a launch of each design's K5 chain entry and of K7 in a CUDA graph.
+     The parent's K7 and K5 (csrc/chain.cu, csrc/stage0.cu) are built from
+     --parent; the DP, K4 and K6 are this tree's in both.  Both orders'
+     state, widths, carry buffers, headers, descriptors and paths must be
+     equal.
 e2e  The 1000-sequence default run (refinement on) and the 10,000-
      sequence run (the wide route) through the CLI entry point, K1's and
      K2's old designs forced (WAVE_MAX_GRID 0, every K2 launch on the
@@ -1105,6 +1127,246 @@ def part_spans(parent, rounds, reps, smi):
                   flush=True)
 
 
+def part_k9(parent, rounds, reps, smi):
+    """The parent's K9 against this tree's, old, new, new, old."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.core.sequence import Sequence
+    from famsa_tpu_torch.ops.lcs_torch import (famsa_flags, lcs_rows,
+                                               pad_sequences,
+                                               wave_geometry)
+    if not parent:
+        raise SystemExit("part k9 needs --parent DIR")
+    libs = {"old": parent_lib(parent, "lcs"), "new": kernels.get("lcs")}
+    cases = []
+    for fam in ((500, 300, 13), (10000, 300, 13)):
+        strings = chip_smoke.fasta_strings(chip_smoke.make_polyq(*fam))
+        table, queries, _, _ = chip_smoke.prim_case(strings, "cuda")
+        fl = famsa_flags(queries.cpu().numpy().astype(np.int8))
+        flags = torch.from_numpy(fl).cuda()
+        n = queries.shape[0]
+        for flagged in (True, False):
+            i = int(np.nonzero(fl == flagged)[0][0])
+            ref = queries[i:i + 1].contiguous()
+            cur = torch.tensor([i], dtype=torch.int64, device="cuda")
+            cases.append((f"round 1 x {n} ({'' if flagged else 'un'}"
+                          f"flagged)", ref, queries, cur, flags, table))
+        if n == 500:
+            seqs = [Sequence(f">s{k}", s, k) for k, s in enumerate(strings)]
+            padded = pad_sequences(seqs)       # TorchDistanceBackend's rows
+            rows = torch.from_numpy(padded.astype(np.int32)).cuda()
+            ids = np.nonzero(famsa_flags(padded))[0][:18]
+            cases.append((f"rows {len(ids)} x {n}",
+                          rows[torch.from_numpy(ids).cuda()].contiguous(),
+                          rows, None, None, None))
+    for name, refs, queries, cur, flags, table in cases:
+        r, lr = refs.shape
+        n, lq = queries.shape
+        outs = {v: torch.full((r, n), -1, dtype=torch.int32, device="cuda")
+                for v in libs}
+
+        def call(v):
+            kernels.check(libs[v].lcs_refmask(
+                refs.data_ptr(), queries.data_ptr(), r, lr, n, lq, n,
+                outs[v].data_ptr(), 0,
+                None if cur is None else cur.data_ptr(),
+                None if flags is None else flags.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), v)
+        for v in libs:
+            call(v)
+        torch.cuda.synchronize()
+        if not torch.equal(outs["old"], outs["new"]):
+            raise AssertionError(f"k9 {name}: the designs differ")
+        t = {v: [] for v in libs}
+        for _ in range(rounds):
+            for v in ("old", "new", "new", "old"):
+                t[v].append(chip_smoke.graph_ms(lambda: call(v), n=20,
+                                                reps=max(3, reps // 20)))
+        bms, by = chip_smoke.refmask_bound_ms(refs, queries, n)
+        wave = ""
+        if table is not None:
+            wave_ms = chip_smoke.graph_ms(
+                lambda: lcs_rows(table, refs, variant="wave"), n=20,
+                reps=max(3, reps // 20))
+            wave = f"; K1 wave on the round {wave_ms:.5f} ms"
+        print(f"k9 {name} (Lr={lr}, Lq={lq}, W64={-(-lr // 64)}, new "
+              f"geometry (wseg, wpl, nl) {wave_geometry(-(-lr // 64))}): "
+              f"device ms a launch in a CUDA graph old {t['old']}, new "
+              f"{t['new']}; bound {bms:.6f} ms ({by}){wave}; {smi}",
+              flush=True)
+
+
+def k7_chain(device="cuda", k=32, w1p=1024, cap=2047):
+    """(params, start profile, leaves) of part k7: 4 variants of
+    chip_smoke.py's 800-residue family (seed 5) aligned on the host into
+    the chain's start, and the next k as ungapped leaves."""
+    from famsa_tpu_torch.core.aligner import align_into
+    from famsa_tpu_torch.core.params import Params
+    from famsa_tpu_torch.core.profile import Profile
+    from famsa_tpu_torch.core.sequence import GappedSequence, Sequence
+    params = Params(device=device)
+    params.adjust(1700)
+    strings = chip_smoke.fasta_strings(
+        chip_smoke.make_variants(k + 4, 800, 5, 0.6))
+
+    def leaf(i):
+        return Profile.from_gapped_sequence(GappedSequence.from_sequence(
+            Sequence(f">v{i}", strings[i], i)), params)
+    start = leaf(0)
+    for i in range(1, 4):
+        start = align_into(Profile(params), leaf(i), start, backend="numpy")
+    return params, start, [leaf(i) for i in range(4, k + 4)]
+
+
+def part_k7(parent, rounds, reps, smi):
+    """The parent's chunk order (K7 a step) against this tree's (the carry
+    in K5's chain entry), old, new, new, old."""
+    import ctypes
+
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops import dp_chain
+    from famsa_tpu_torch.ops.dp_wide import BLK
+    if not parent:
+        raise SystemExit("part k7 needs --parent DIR")
+    old_chain, old_s0 = parent_lib(parent, "chain"), parent_lib(parent,
+                                                                "stage0")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    old_s0.stage0_chain.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp, vp]
+    params, start, leaves = k7_chain()
+    cap = 2047
+    bufs = {v: dp_chain.ChainBuffers(torch.device("cuda"), 32, 1024,
+                                     dp_chain.CHAIN_CAPS[-1])
+            for v in ("old", "new")}
+    for b in bufs.values():
+        dp_chain.ChainState(b, start).seed(params, start)
+    new_graph = bufs["new"].graph(cap)
+    new_graph.capture()
+    b = bufs["old"]
+    g = dp_chain.ChainGraph(b, cap)
+    dpw = kernels.get("dp_wide")
+    tb, mg = kernels.get("traceback"), kernels.get("merged")
+
+    def old_launch():
+        """The parent's chunk: per step K7, K5, the DP, K4, K6; K7."""
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def k7(s):
+            kernels.check(old_chain.chain_carry(
+                b.leaf.data_ptr(), b.lw.data_ptr(), b.st.data_ptr(),
+                b.out.data_ptr(), g.ps, b.widths(cap).data_ptr(),
+                b.hdr.data_ptr(), b.desc.data_ptr(), b.carry[0].data_ptr(),
+                b.carry[1].data_ptr(), cap, b.w1p, s, b.k, stream), "old K7")
+        for s in range(b.k):
+            k7(s)
+            hdr, desc = b.hdr[s].data_ptr(), b.desc[s].data_ptr()
+            kernels.check(old_s0.stage0_chain(
+                desc, hdr, b.table.data_ptr(), b.w1p, g.ldc,
+                b.colf.data_ptr(), b.rowf.data_ptr(), b.meta.data_ptr(),
+                stream), "old K5")
+            kernels.check(dpw.dp_profile_batched_staged(
+                b.colf.data_ptr(), b.rowf.data_ptr(), b.meta.data_ptr(), 1,
+                cap, g.folds, g.threads, g.ldc, b.w1p + 1, b.w1p, BLK,
+                b.dirs.data_ptr(), b.fin.data_ptr(), stream), "DP")
+            path = b.out.data_ptr() + s * g.ps
+            kernels.check(tb.trace_paths(b.dirs.data_ptr(), b.fin.data_ptr(),
+                                         b.meta.data_ptr(), 1, b.w1p, path,
+                                         stream), "K4")
+            kernels.check(mg.merged_counters(
+                desc, hdr, path, 1, cap, b.carry[(s + 1) % 2].data_ptr(),
+                stream), "K6")
+        k7(b.k)
+    if g.variant != "staged":
+        raise AssertionError(f"k7: capacity {cap} is not staged")
+    b.lw.zero_()
+    old_launch()                         # the warm-up on invalid lanes
+    old_graph = torch.cuda.CUDAGraph()
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        old_graph.capture_begin()
+        old_launch()
+        old_graph.capture_end()
+    cur.wait_stream(side)
+    for x in bufs.values():
+        dp_chain.upload_leaves(x, leaves)
+    saved = {v: [x.clone() for x in (bufs[v].st, bufs[v].carry,
+                                      bufs[v].inp)] for v in bufs}
+    replays = {"old": old_graph.replay, "new": new_graph.graph.replay}
+
+    def restore(v):
+        for x, y in zip((bufs[v].st, bufs[v].carry, bufs[v].inp), saved[v]):
+            x.copy_(y)
+    for v in bufs:
+        restore(v)
+        replays[v]()
+    torch.cuda.synchronize()
+    a, n = bufs["old"], bufs["new"]
+    ran = [w for w in n.widths(cap).tolist() if w != dp_chain.NOT_RUN]
+    if len(ran) != len(leaves) or max(ran) > cap:
+        raise AssertionError(f"k7: the chunk ran {ran}")
+    same = (torch.equal(a.st[:3], n.st[:3]) and torch.equal(a.carry, n.carry)
+            and torch.equal(a.widths(cap), n.widths(cap))
+            and torch.equal(a.hdr, n.hdr)
+            and all(torch.equal(chip_smoke.addr_offsets(a, s),
+                                chip_smoke.addr_offsets(n, s))
+                    for s in range(a.k))
+            and torch.equal(a.out[:a.k * g.ps], n.out[:n.k * g.ps]))
+    if not same:
+        raise AssertionError("k7: the two orders' chunks differ")
+    t = {v: [] for v in bufs}
+    for _ in range(rounds):
+        for v in ("old", "new", "new", "old"):
+            base = chip_smoke.cuda_ms(lambda: restore(v), reps // 20)
+            t[v].append(chip_smoke.cuda_ms(
+                lambda: (restore(v), replays[v]()), reps // 20) - base)
+    # one launch of each design's K5 chain entry (step 5 of the chunk's
+    # final buffers: both entries rewrite what they read it from) and of
+    # K7 (the fold after the last step)
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+    carry_args = (n.leaf.data_ptr(), n.lw.data_ptr(), n.st.data_ptr(),
+                  n.out.data_ptr(), g.ps, n.widths(cap).data_ptr(),
+                  n.hdr.data_ptr(), n.desc.data_ptr(), n.carry[0].data_ptr(),
+                  n.carry[1].data_ptr(), cap)
+    s0, lib = kernels.get("stage0"), kernels.get("chain")
+
+    def k7_args(x):
+        return (x.leaf.data_ptr(), x.lw.data_ptr(), x.st.data_ptr(),
+                x.out.data_ptr(), g.ps, x.widths(cap).data_ptr(),
+                x.hdr.data_ptr(), x.desc.data_ptr(), x.carry[0].data_ptr(),
+                x.carry[1].data_ptr(), cap, x.w1p, x.k, x.k)
+    calls = {("K5", "old"): lambda: old_s0.stage0_chain(
+                 a.desc[5].data_ptr(), a.hdr[5].data_ptr(),
+                 a.table.data_ptr(), a.w1p, g.ldc, a.colf.data_ptr(),
+                 a.rowf.data_ptr(), a.meta.data_ptr(), stream()),
+             ("K5", "new"): lambda: s0.stage0_chain(
+                 *carry_args, n.table.data_ptr(), n.w1p, g.ldc,
+                 n.colf.data_ptr(), n.rowf.data_ptr(), n.meta.data_ptr(), 5,
+                 n.k, stream()),
+             ("K7", "old"): lambda: old_chain.chain_carry(*k7_args(a),
+                                                          stream()),
+             ("K7", "new"): lambda: lib.chain_carry(*k7_args(n), stream())}
+    one = {key: [] for key in calls}
+    for _ in range(rounds):
+        for v in ("old", "new", "new", "old"):
+            for kern in ("K5", "K7"):
+                fn = calls[kern, v]
+                one[kern, v].append(chip_smoke.graph_ms(
+                    lambda: kernels.check(fn(), f"{kern} {v}"), n=20,
+                    reps=max(3, reps // 20)))
+    steps = list(zip(n.lw[:n.k].tolist(), [int(saved["new"][0][0])] +
+                     ran[:-1]))
+    print(f"k7 chunk of {len(leaves)} variant leaves at capacity {cap} "
+          f"(steps (w1, w2) {steps[0]} .. {steps[-1]}): one replay ms, old "
+          f"order ({5 * n.k + 1} launches) {t['old']}, new ({4 * n.k + 1}) "
+          f"{t['new']}; K5 chain entry at step 5, a launch in a CUDA graph, "
+          f"old {one['K5', 'old']}, new (with the carry) {one['K5', 'new']}; "
+          f"K7 after the last step, a launch in a CUDA graph, old "
+          f"{one['K7', 'old']}, new {one['K7', 'new']}; {smi}", flush=True)
+
+
 def part_e2e(parent, rounds, smi):
     from famsa_tpu_torch import kernels
     from famsa_tpu_torch.ops import dp_torch, lcs_torch
@@ -1153,10 +1415,10 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--parts",
                     default="k1,k2,k3,k4,k6,k8,k1rows,wide,split,threads,"
-                            "spans,e2e")
+                            "spans,k9,k7,e2e")
     ap.add_argument("--parent",
-                    help="a tree with the old K1 rows, K2, K3, K4, K6 "
-                         "and K8")
+                    help="a tree with the old K1 rows, K2, K3, K4, K6, "
+                         "K7, K8 and K9")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1187,6 +1449,10 @@ def main():
         part_k1rows(args.parent, max(3, args.rounds), args.reps, smi)
     if "spans" in parts:
         part_spans(args.parent, max(2, args.rounds), args.reps, smi)
+    if "k9" in parts:
+        part_k9(args.parent, max(3, args.rounds), args.reps, smi)
+    if "k7" in parts:
+        part_k7(args.parent, max(3, args.rounds), args.reps, smi)
     if "e2e" in parts:
         part_e2e(args.parent, args.rounds, smi)
     return 0

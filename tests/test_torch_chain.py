@@ -1,5 +1,5 @@
-"""famsa_tpu_torch's chain route (ops/dp_chain.py: the chunk, K7's plain
-twin chain_carry_plain; pipeline.py: run detection and run_chain)
+"""famsa_tpu_torch's chain route (ops/dp_chain.py: the chunk, the carry's
+plain twin chain_carry_plain; pipeline.py: run detection and run_chain)
 against famsa_tpu's (ops/dp_chain.py:_dp_chain_scan, pipeline.py
 _run_chain) on the CPU, where every chunk runs its kernels' plain twins.
 
@@ -16,9 +16,14 @@ last merge overflows, where famsa_tpu raises (ROADMAP C2).
 
 - One chunk with a trailing invalid lane: paths, first channels, totals,
   the final counters, width and cardinality equal _dp_chain_scan's.
-- chain_carry_plain (K7's twin) on a step that ran (its width the
-  path's emits that are not 3, as want_width counts them), an overflow,
-  a poisoned chain, an invalid lane and a failed walk.
+- chain_carry_plain (the twin of the carry that K5's chain entry runs
+  before each step and K7 after the last) on a step that ran (its width
+  the path's emits that are not 3, as want_width counts them), an
+  overflow, a poisoned chain, an invalid lane and a failed walk, each
+  reading one slot of the double-buffered state and writing the other
+  (the fold after the last step: slot 0 in place); and a whole chunk's
+  carries, step by step, equal to the carry kept as one state updated in
+  place (the order before it was folded into K5).
 - Whole runs on caterpillar trees, both child orders, a width abort,
   overflow recovery and an overflow on the run's last merge: byte-
   identical to famsa_tpu -backend numpy (and -backend jax where it does
@@ -203,23 +208,41 @@ def test_chunk_matches_famsa_tpu_chain_scan(n_valid):
     assert np.array_equal(final.numpy(), cfin[:w + 1])
 
 
-# ------------------------------------------------------------------ K7
-def _carry_case(bufs, cap, st, lw_prev, n, lw_next):
-    """Buffers where step 0 ran with a path of length n (or did not run:
-    lw_prev 0) and step 1's lane has width lw_next."""
-    bufs.st[:3] = torch.tensor(st)
+# ------------------------------------------------------- the chain carry
+def _carry_case(bufs, cap, st, lw_prev, n, lw_next, k=1):
+    """Buffers where step k-1 ran with a path of length n (or did not
+    run: lw_prev 0) and step k's lane (k < K) has width lw_next; the
+    state in the slot the carry before step k reads, the other slot
+    holding a marker."""
+    src, dst = dp_chain.state_slots(k, bufs.k)
+    bufs.st[:] = -9
+    bufs.st[4 * src:4 * src + 3] = torch.tensor(st)
     bufs.lw[:] = 0
-    bufs.lw[1] = lw_next
-    bufs.hdr[0, 0] = lw_prev
-    bufs.out[8:12].view(torch.int32)[0] = n
+    if k < bufs.k:
+        bufs.lw[k] = lw_next
+    bufs.hdr[k - 1, 0] = lw_prev
+    at = (k - 1) * dp_chain.path_stride(bufs.w1p, cap) + 8
+    bufs.out[at:at + 4].view(torch.int32)[0] = n
 
 
-@pytest.mark.parametrize("case", ["ran", "overflow", "poisoned",
-                                  "invalid_lane", "failed_walk"])
+CARRY_CASES = ["ran", "overflow", "poisoned", "invalid_lane", "failed_walk"]
+
+
+def _carry_want(case, cap, n, st):
+    """(w, card, poison, recorded width) after the fold of case."""
+    if case == "poisoned":
+        return st[0], st[1], 1, dp_chain.NOT_RUN
+    if case == "failed_walk":
+        return st[0], st[1], 1, -1
+    return n, st[1] + 1, int(case == "overflow"), n
+
+
+@pytest.mark.parametrize("case", CARRY_CASES)
 def test_chain_carry_plain(case):
-    """K7's twin folds step 0 and writes step 1's header and descriptors.
-    "ran": the width is the path's emits that are not 3 (famsa_tpu's
-    want_width, from the chain scan's packed output) and the
+    """The carry's twin folds step 0 and writes step 1's header and
+    descriptors; it reads state slot 1 and writes slot 0, leaving slot 1
+    as it was.  "ran": the width is the path's emits that are not 3
+    (famsa_tpu's want_width, from the chain scan's packed output) and the
     cardinality the host's card + 1."""
     bufs = dp_chain.ChainBuffers(CPU, K, W1P, 384)
     cap = 128
@@ -235,6 +258,7 @@ def test_chain_carry_plain(case):
     lw_next = 0 if case == "invalid_lane" else 25
     _carry_case(bufs, cap, st, lw_prev, n, lw_next)
     dp_chain.chain_carry_plain(bufs, 1, cap)
+    assert bufs.st[4:7].tolist() == list(st)
     w, card, poison = bufs.st[:3].tolist()
     rec = int(bufs.widths(cap)[0])
     if case == "poisoned":
@@ -252,6 +276,132 @@ def test_chain_carry_plain(case):
                       25 if live else 0, 1]
     assert d2[:5] == [dp_chain.SIDE_RESIDENT, bufs.carry[1].data_ptr(), 32,
                       w, card]
+
+
+@pytest.mark.parametrize("k", [2, K])
+@pytest.mark.parametrize("case", CARRY_CASES)
+def test_chain_carry_plain_slots(case, k):
+    """The five cases at an even step (the carry before step 2 reads
+    slot 0 and writes slot 1) and at the fold after the last step (K7:
+    slot 0 in place, no header written)."""
+    bufs = dp_chain.ChainBuffers(CPU, K, W1P, 384)
+    cap = 128
+    n = {"ran": 77, "overflow": cap + 1, "poisoned": 50,
+         "invalid_lane": 70, "failed_walk": -1}[case]
+    st = (60, 7, 1 if case == "poisoned" else 0)
+    lw_next = 0 if case == "invalid_lane" else 25
+    _carry_case(bufs, cap, st, 0 if case == "poisoned" else 30, n, lw_next,
+                k=k)
+    src, dst = dp_chain.state_slots(k, K)
+    assert (src, dst) == ((0, 1) if k < K else (0, 0))
+    hdr = bufs.hdr.clone()
+    dp_chain.chain_carry_plain(bufs, k, cap)
+    w, card, poison, rec = _carry_want(case, cap, n, st)
+    assert bufs.st[4 * dst:4 * dst + 3].tolist() == [w, card, poison]
+    if src != dst:
+        assert bufs.st[4 * src:4 * src + 3].tolist() == list(st)
+    assert int(bufs.widths(cap)[k - 1]) == rec
+    if k == K:
+        assert torch.equal(bufs.hdr, hdr)
+        return
+    live = not poison and lw_next >= 1
+    assert bufs.hdr[k].tolist() == [25 if live else 0, w, 0, 0, 1, card,
+                                    0, 0]
+    assert bufs.desc[k, 1, 1] == bufs.carry[k % 2].data_ptr()
+
+
+def _unfolded_carries(bufs, cap, st0):
+    """The chain's carry as it ran before it was folded into K5: one state
+    (w, card, poison) updated in place, a launch before every step and
+    one after the last, over a chunk's finished buffers (each step's
+    header word w1, path length and leaf width are written once).
+    Returns per fold k = 0..K (state after it, width recorded, header,
+    descriptors)."""
+    w, card, poison = st0
+    out = []
+    for k in range(bufs.k + 1):
+        rec = None
+        if k > 0:
+            rec = dp_chain.NOT_RUN
+            if int(bufs.hdr[k - 1, 0]) >= 1:
+                at = (k - 1) * dp_chain.path_stride(bufs.w1p, cap) + 8
+                n = int(bufs.out[at:at + 4].view(torch.int32)[0])
+                rec = n
+                poison = int(poison or n < 0 or n > cap)
+                if n >= 0:
+                    w, card = n, card + 1
+        hdr = desc = None
+        if k < bufs.k:
+            lw = int(bufs.lw[k])
+            w1 = lw if not poison and lw >= 1 else 0
+            hdr = [w1, w, 0, 0, 1, card, 0, 0]
+            desc = [[dp_chain.SIDE_LEAF, bufs.leaf[k].data_ptr(), 1, w1, 1,
+                     0, 0, 0],
+                    [dp_chain.SIDE_RESIDENT, bufs.carry[k % 2].data_ptr(), 32,
+                     w, card, 0, 0, 0]]
+        out.append(((w, card, poison), rec, hdr, desc))
+    return out
+
+
+@pytest.mark.parametrize("over", [False, True])
+def test_folded_carry_matches_unfolded(over, monkeypatch):
+    """A chunk through its plain twin (the carry run before each step, as
+    K5's chain entry runs it, and once after the last, as K7): after each
+    fold the state slot it wrote, the recorded width, the step's header
+    and descriptors equal the carry kept as one state updated in place,
+    fold for fold; the slot it read is left as it was.  3 valid lanes and
+    a trailing invalid one; with `over`, a capacity that a merge
+    overflows (the later steps poisoned)."""
+    jp, tp = _params(12)
+
+    def make():
+        start = _make_profile(np.random.default_rng(71), jp, 9, 40)
+        return _port(tp, start), [_leaf(tp, s, k) for k, s in enumerate(
+            _random_strings(73, 3, 40, 60))]
+    cap, ran = 128, 3
+    if over:
+        # the width after the last merge that the next one widens: the
+        # next one overflows it (align_into consumes its profiles)
+        prof, leaves = make()
+        widths = []
+        for leaf in leaves:
+            prof = t_pipeline.align_into(TProfile(tp), leaf, prof,
+                                         backend="numpy")
+            widths.append(prof.width)
+        j = max(j for j in range(2) if widths[j + 1] > widths[j])
+        cap, ran = widths[j], j + 2
+    start, leaves = make()
+    bufs = dp_chain.ChainBuffers(CPU, K, W1P, 384)
+    state = dp_chain.ChainState(bufs, start)
+    state.seed(tp, start)
+    st0 = tuple(bufs.st[:3].tolist())
+    seen = []
+    orig = dp_chain.chain_carry_plain
+
+    def carry(b, k, c):
+        before = b.st.clone()
+        orig(b, k, c)
+        seen.append((k, before, b.st.clone(), b.widths(c).clone(),
+                     b.hdr.clone(), b.desc.clone()))
+    monkeypatch.setattr(dp_chain, "chain_carry_plain", carry)
+    res = dp_chain.dispatch_chain_chunk(tp, state, leaves, cap).resolve()
+    assert len(res) == ran
+    want = _unfolded_carries(bufs, cap, st0)
+    assert [k for k, *_ in seen] == list(range(K + 1))
+    for (k, before, st, widths, hdr, desc), (wst, rec, whdr, wdesc) in \
+            zip(seen, want):
+        src, dst = dp_chain.state_slots(k, K)
+        assert st[4 * dst:4 * dst + 3].tolist() == list(wst), k
+        if src != dst:
+            assert torch.equal(st[4 * src:4 * src + 4],
+                               before[4 * src:4 * src + 4]), k
+        if rec is not None:
+            assert int(widths[k - 1]) == rec, k
+        if whdr is not None:
+            assert hdr[k].tolist() == whdr, k
+            assert desc[k].tolist() == wdesc, k
+    assert bufs.st[:3].tolist() == list(want[-1][0])
+    assert (bufs.st[2] == 1) == over
 
 
 # ------------------------------------------------------------ whole runs
