@@ -66,8 +66,8 @@ Phases (one line each; any mismatch or exception exits non-zero):
     folds a merge; phase_k2_spans): against its fold walk and dp_plain
     at w1 6 x w2 32768, 65536 and 131071, plain and banded, and a mixed
     batch of three, with the host DP, K5, K4 and K6; against dp_plain at
-    SPANS_LONE (1000 x 40,000, 1000 x 100,000, 300 x 131,071) and
-    SPANS_BATCH (400 x 33,000 / 70,000 / 131,071), each plain and banded
+    SPANS_LONE (500 x 40,000, 500 x 100,000, 300 x 131,071) and
+    SPANS_BATCH (300 x 33,000 / 70,000 / 131,071), each plain and banded
     along the diagonal, with its ms and bound.  Prints the staged ms at
     2048^2, on the 16-merge batch and on the batches past 4095, how many
     clusters of F =
@@ -139,6 +139,18 @@ Phases (one line each; any mismatch or exception exits non-zero):
     make_profiles), refinement off: one K2 launch on its spans variant
     (B = 1; K3 refuses the width), byte-identical to a -backend numpy
     child;
+ 5d. the row axis of multi-device sharding (famsa_tpu_torch/parallel/)
+    on meshes of MESH_SIZES (4 and 3) shards on cuda:0, each on its own
+    stream (phase_mesh): auto_mesh gives no mesh on one card; with a mesh
+    set in its cache, the CLI's -gt_export of phase 5's 2000 sequences
+    (a Prim chunk of 300) and of phase 5b's poly-Q family (K9 on every
+    shard), each byte-identical to the numpy output its phase wrote, with
+    S x (n - 1) K1 wave (and K9) launches and n - 1 K8; the poly-Q
+    family's -dist_export (against 5b's numpy child) and -gt upgma
+    -gt_export (against a numpy run) through ShardedDistanceBackend; the
+    sharded trees' seconds beside one card's route's, and the host's ms
+    a round to issue 256 rounds against their ms to the device's end (on
+    one card: the route's overhead, not a multi-GPU speed);
  6. the wide path: a seeded 10,000-sequence family of mean length 300
     (refinement AUTO = off) with -backend torch at the default knobs,
     against -backend numpy on the guide tree the torch -gt_export wrote;
@@ -590,18 +602,24 @@ def fasta_strings(text):
     return ["".join(block.splitlines()[1:]) for block in text.split(">")[1:]]
 
 
-def prim_case(strings, device, dedup=True):
-    """The device Prim's inputs (ops/prim_torch.py:prim_inputs) for the
-    sequences `strings` as the CLI builds its tree: sorted, padded, and
-    (dedup) without duplicates."""
+def cli_sequences(strings, dedup=True):
+    """The sequences `strings` as the CLI builds its tree from them:
+    sorted, padded, and (dedup) without duplicates."""
     from famsa_tpu_torch.core.sequence import Sequence
-    from famsa_tpu_torch.ops.lcs_torch import BV32, pad_sequences
-    from famsa_tpu_torch.ops.prim_torch import prim_inputs
     from famsa_tpu_torch.pipeline import remove_duplicates, sort_and_extend
     seqs = sort_and_extend([Sequence(f">s{k}", s, k)
                             for k, s in enumerate(strings)])
     if dedup:
         seqs = remove_duplicates(seqs, list(range(len(seqs))))
+    return seqs
+
+
+def prim_case(strings, device, dedup=True):
+    """The device Prim's inputs (ops/prim_torch.py:prim_inputs) for the
+    sequences `strings` as the CLI builds its tree (cli_sequences)."""
+    from famsa_tpu_torch.ops.lcs_torch import BV32, pad_sequences
+    from famsa_tpu_torch.ops.prim_torch import prim_inputs
+    seqs = cli_sequences(strings, dedup)
     lengths = np.array([s.length for s in seqs], dtype=np.int64)
     return prim_inputs(pad_sequences(seqs, align=BV32), lengths, device)
 
@@ -1564,8 +1582,8 @@ def phase_k2(device="cuda", big=2048, card_big=70000):
 # K2 past 32767 columns (the spans variant): (w1, w2) of the lone merges
 # and of the batch of three, each plain and banded, held against
 # dp_plain; and the widths at which its fold walk is held (w1 6)
-SPANS_LONE = ((1000, 40000), (1000, 100000), (300, 131071))
-SPANS_BATCH = ((400, 33000), (400, 70000), (400, 131071))
+SPANS_LONE = ((500, 40000), (500, 100000), (300, 131071))
+SPANS_BATCH = ((300, 33000), (300, 70000), (300, 131071))
 SPANS_WALK = (32768, 65536, 131071)
 
 
@@ -2654,6 +2672,178 @@ def phase_profprof(work, recorder, watch, device="cuda"):
         f"{secs:.2f} s, byte-identical to a numpy child (waited "
         f"{np_wait:.2f} s more for it); K2 spans {counts['dp_spans']}, K5 "
         f"{counts['stage0']}, K4 {counts['traceback']}{route}")
+
+
+# phase 5d's meshes: shards on one card, each on a stream of its own
+MESH_SIZES = (4, 3)
+MESH_ROUNDS = 256        # the rounds timed for the host's ms a round
+
+
+def sharded_launch_check(what, counts, n, size, flagged):
+    """A sharded Prim tree of n sequences on `size` shards launches, a
+    round, K1 wave once a shard, K9 once a shard when the family has a
+    flagged sequence (none otherwise), K8 once, and no K1 rows."""
+    want = {"lcs": 0, "lcs_wave": size * (n - 1),
+            "lcs_refmask": size * (n - 1) if flagged else 0,
+            "prim_round": n - 1}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def round_split(issue, k):
+    """(host ms a round to issue k rounds, ms a round to the device's
+    end) of issue(), which issues k Prim rounds on an idle device."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    issue()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3 / k, (t2 - t0) * 1e3 / k
+
+
+def phase_mesh(work, recorder, device="cuda"):
+    """Phase 5d: the row axis of multi-device sharding (parallel/) on
+    meshes of MESH_SIZES shards on one card, each shard on its own
+    stream, so every launch, copy and cross-stream wait of the route runs
+    (copies between distinct cards do not).  auto_mesh gives no mesh on
+    one card; then a mesh is set in its cache and the CLI entry point
+    runs, with -backend torch: phase 5's -gt_export of its 2000
+    sequences with a Prim chunk that crosses boundaries, byte-identical to
+    the numpy tree phase 5 wrote (S x (n - 1) K1 wave, n - 1 K8 launches);
+    phase 5b's poly-Q family's -gt_export (K9 on every shard, S x (n - 1)
+    launches) and -dist_export (ShardedDistanceBackend, K1 and K9),
+    byte-identical to 5b's numpy child's outputs, and its -gt upgma
+    -gt_export, byte-identical to a -backend numpy run here.  The
+    sharded trees' seconds (the CLI's time.tree_build) beside the
+    2000-sequence tree built on one card's route, and the host's ms a
+    round to issue MESH_ROUNDS rounds against their ms to the device's
+    end: on one card these measure the route's overhead, not a
+    multi-GPU speed."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.lcs_torch import BV32, famsa_flags, pad_sequences
+    from famsa_tpu_torch.ops.prim_torch import (PrimState, mst_prim_tree_torch,
+                                                prim_chunk, prim_inputs)
+    from famsa_tpu_torch.parallel import dist_sharded, mesh
+    mesh._AUTO_MESH.clear()
+    if mesh.auto_mesh("rows", device) is not None:
+        raise AssertionError("5d: auto_mesh gave a mesh on one card")
+    fam = os.path.join(work, "fam_tree.fa")
+    polyq = os.path.join(work, "polyq.fa")
+    upgma_ref = os.path.join(work, "mesh_upgma_numpy.dnd")
+    rc, np_secs = run_cli(["-backend", "numpy", "-gt", "upgma",
+                           "-gt_export", polyq, upgma_ref], {})
+    if rc != 0:
+        raise AssertionError(f"5d upgma numpy: rc={rc}")
+    # (name, input, flags, env, reference, a Prim tree of a flagged family)
+    runs = (("tree", fam, ["-gt_export"], {"FAMSA_TORCH_PRIM_CHUNK": "300"},
+             os.path.join(work, "tree_numpy.dnd"), False),
+            ("polyq_tree", polyq, ["-gt_export"], {},
+             os.path.join(work, "polyq_tree_numpy.dnd"), True),
+            ("polyq_dist", polyq, ["-dist_export"], {},
+             os.path.join(work, "polyq_dist_numpy.csv"), None),
+            ("polyq_upgma", polyq, ["-gt", "upgma", "-gt_export"], {},
+             upgma_ref, None))
+    trees, blocks = [], [0]
+    orig_tree = dist_sharded.mst_prim_tree_sharded
+    backend = dist_sharded.TorchDistanceBackend
+    orig_block = backend._lcs_block
+
+    def tree(sequences, *a, **kw):
+        trees.append(len(sequences))
+        return orig_tree(sequences, *a, **kw)
+
+    def block(self, *a, **kw):
+        blocks[0] += isinstance(self, dist_sharded.ShardedDistanceBackend)
+        return orig_block(self, *a, **kw)
+
+    report, tree_secs = [], []
+    dist_sharded.mst_prim_tree_sharded = tree
+    backend._lcs_block = block
+    try:
+        for size in MESH_SIZES:
+            mesh._AUTO_MESH["rows"] = mesh.make_mesh([f"{device}:0"] * size)
+            for name, fa, flags, env, ref, flagged in runs:
+                out = os.path.join(work, f"mesh{size}_{name}")
+                stats = out + ".stats"
+                trees.clear()
+                blocks[0] = 0
+                recorder.start(None)
+                kernels.reset_launches()
+                rc, secs = run_cli(["-backend", "torch", "-device", device,
+                                    "-stats", stats] + flags + [fa, out],
+                                   env)
+                counts = dict(kernels.LAUNCHES)
+                recorder.stop(counts)
+                what = f"5d {name} on {size} shards"
+                if rc != 0:
+                    raise AssertionError(f"{what}: rc={rc}")
+                with open(out, "rb") as f, open(ref, "rb") as g:
+                    if f.read() != g.read():
+                        raise AssertionError(f"{what}: output differs from "
+                                             "numpy's")
+                if flagged is None:
+                    if trees or not blocks[0] or counts["prim_round"] or \
+                            not counts["lcs_refmask"]:
+                        raise AssertionError(f"{what}: sharded trees {trees},"
+                                             f" row blocks {blocks[0]}, "
+                                             f"launches {counts}")
+                else:
+                    if len(trees) != 1:
+                        raise AssertionError(f"{what}: sharded trees {trees}")
+                    sharded_launch_check(what, counts, trees[0], size,
+                                         flagged)
+                if name == "tree":
+                    build = float(read_stats(stats)["time.tree_build"])
+                    tree_secs.append(f"{size} shards {build:.3f} s")
+                report.append(
+                    f"{name} S={size} {secs:.2f} s (K1 rows {counts['lcs']} "
+                    f"wave {counts['lcs_wave']}, K9 {counts['lcs_refmask']}, "
+                    f"K8 {counts['prim_round']})")
+    finally:
+        dist_sharded.mst_prim_tree_sharded = orig_tree
+        backend._lcs_block = orig_block
+        mesh._AUTO_MESH.clear()
+
+    with open(fam) as f:
+        seqs = cli_sequences(fasta_strings(f.read()))
+    padded = pad_sequences(seqs, align=BV32)
+    lengths = np.array([s.length for s in seqs], dtype=np.int64)
+    if famsa_flags(padded).any():
+        raise AssertionError("5d: the 2000-sequence family has a flagged "
+                             "sequence")
+    t0 = time.perf_counter()
+    mst_prim_tree_torch(seqs, [], device=device, chunk=300)
+    tree_secs.insert(0, f"one card's route {time.perf_counter() - t0:.3f} s")
+    table, queries, lens, pow_tab = prim_inputs(padded, lengths, device)
+    state = PrimState(queries)
+    host, dev = round_split(lambda: prim_chunk(
+        table, queries, lens, pow_tab, state, MESH_ROUNDS), MESH_ROUNDS)
+    split = [f"one card's route {host:.4f} / {dev:.4f}"]
+    for size in MESH_SIZES:
+        m = mesh.make_mesh([f"{device}:0"] * size)
+        prim = mesh.PrimShards(m, padded, lengths)
+        edges = torch.empty((3, MESH_ROUNDS), dtype=torch.int64,
+                            device=device)
+
+        def issue():
+            for slot in range(MESH_ROUNDS):
+                mesh.prim_round_sharded(prim, edges, slot)
+
+        with m.lead.use():
+            host, dev = round_split(issue, MESH_ROUNDS)
+        split.append(f"{size} shards {host:.4f} / {dev:.4f}")
+    log(f"phase 5d mesh (shards on {device}:0, each on its own stream): "
+        f"auto_mesh None on one card; byte-identical to numpy (upgma "
+        f"numpy {np_secs:.2f} s): " + "; ".join(report)
+        + f"; the {len(seqs)}-sequence tree (tree_build): "
+        + ", ".join(tree_secs) + f"; host ms a round to issue {MESH_ROUNDS} "
+        "rounds / ms a round to the device's end: " + ", ".join(split)
+        + " (one card: these measure the route's overhead, not a multi-GPU "
+        "speed)")
 
 
 class RouteCounter:
@@ -4244,6 +4434,7 @@ def main():
         phase_tree(work, rec)
         phase_polyq(work, rec, watch)
         phase_profprof(work, rec, watch)
+        phase_mesh(work, rec)
         wide = [phase_wide(work, rec, watch),
                 phase_wide(work, rec, watch, family=WIDE_FAMILY,
                            run="wide600", label="6b wide family")]

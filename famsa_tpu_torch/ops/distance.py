@@ -98,11 +98,27 @@ class DistanceBackend:
 
 
 def get_distance_backend(sequences, measure, dtype, backend="numpy",
-                         device="cuda"):
+                         device="cuda", mesh=None):
     """numpy -> DistanceBackend (native host LCS); torch ->
     TorchDistanceBackend (the LCS kernel on `device`, its plain PyTorch
-    version on the CPU)."""
+    version on the CPU), or ShardedDistanceBackend with its rows sharded
+    over `mesh` (parallel/mesh.py) when one is given."""
     if backend == "torch":
+        if mesh is not None:
+            from ..parallel.dist_sharded import ShardedDistanceBackend
+            return ShardedDistanceBackend(sequences, measure, dtype, mesh)
         from .lcs_torch import TorchDistanceBackend
         return TorchDistanceBackend(sequences, measure, dtype, device=device)
     return DistanceBackend(sequences, measure, dtype)
+
+
+def run_distances(params, measure):
+    """(sequences, dtype) -> a run's distance backend for `measure`: K1 on
+    `-backend torch` (on params.device, or its rows sharded over the mesh
+    parallel/mesh.py:rows_mesh gives), the native host LCS on `-backend
+    numpy`."""
+    from ..parallel.mesh import rows_mesh
+    return lambda seqs, dtype: get_distance_backend(
+        seqs, measure, dtype, params.backend, device=params.device,
+        mesh=rows_mesh(len(seqs), params.device)
+        if params.backend == "torch" else None)

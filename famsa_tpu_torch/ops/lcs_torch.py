@@ -237,8 +237,11 @@ def lcs_refmask(refs, queries, n_queries=None, out_dtype=torch.int32,
     (int32, or uint16 when Lr < 65536); only the first n_queries columns
     are computed.  out: write into this [R, N] tensor instead.  cur, flags
     (a Prim round, R = 1): the round's reference id ([1] int64) and the
-    per-sequence flags ([N] bool, famsa_flags) on the same device; out
-    (the round's LCS row) is then overwritten only when flags[cur].
+    per-sequence flags ([M] bool, famsa_flags) on the same device; out
+    (the round's LCS row) is then overwritten only when flags[cur].  The
+    flags are indexed by cur alone, so a shard of a sharded round
+    (parallel/mesh.py) passes all M flags and a global cur with its own
+    N queries.
 
     CUDA tensors launch kernel K9, a word wavefront over FAMSA's layout
     (lcs_refmask_wave_plain emulates its order; in a Prim round it reads
@@ -263,10 +266,10 @@ def lcs_refmask(refs, queries, n_queries=None, out_dtype=torch.int32,
         raise ValueError("cur and flags come together")
     if cur is not None and (r != 1 or cur.shape != (1,)
                             or cur.dtype != torch.int64
-                            or flags.shape != (n,)
+                            or flags.dim() != 1
                             or flags.dtype != torch.bool):
         raise ValueError("a Prim round takes R = 1, cur [1] int64 and "
-                         "flags [N] bool")
+                         "flags [M] bool")
     tensors = [refs, queries, out] + ([cur, flags] if cur is not None else [])
     if any(t.device != refs.device for t in tensors):
         raise ValueError("every tensor must be on one device")
@@ -445,10 +448,15 @@ def pad_sequences(sequences, align=1):
 class TorchDistanceBackend:
     """Device distance backend (the counterpart of the JAX package's
     PallasDistanceBackend): LCS row blocks per launch on `device`, exact
-    float64/float32 distance transforms on the host."""
+    float64/float32 distance transforms on the host.  mesh (a
+    parallel/mesh.py Mesh; ShardedDistanceBackend): each shard holds the
+    query columns Mesh.bounds gives it and computes its columns of every
+    block on its own stream; without one, one part holds every column on
+    `device`'s current stream."""
 
     def __init__(self, sequences, measure, dtype, device="cuda",
-                 block_rows=256):
+                 block_rows=256, mesh=None):
+        from ..parallel.mesh import Shard
         from .distance import transform_distances
         self._transform = transform_distances
         self.sequences = sequences
@@ -463,37 +471,62 @@ class TorchDistanceBackend:
         self._cache_cols = 0
         if n:
             self.padded = pad_sequences(sequences)
-            self.table = torch.from_numpy(
-                build_query_mask_table(self.padded).view(np.int32)
-            ).to(self.device)
             self.lengths = np.array([s.length for s in sequences],
                                     dtype=np.int64)
             self.flags = famsa_flags(self.padded)
-            self._queries = None         # the padded rows on the device
+            parts = ([(Shard(self.device, stream=False), (0, n))]
+                     if mesh is None else zip(mesh.shards, mesh.bounds(n)))
+            self.parts = [self._part(shard, s0, s1)
+                          for shard, (s0, s1) in parts]
+
+    def _part(self, shard, s0, s1):
+        """(shard, s0, s1, table, queries): what _lcs_block reads of the
+        query columns [s0, s1) on the shard's device, their query mask
+        table and, for a family with a flagged sequence (K9), their padded
+        rows."""
+        rows = self.padded[s0:s1]
+        with shard.use():
+            table = torch.from_numpy(build_query_mask_table(rows).view(
+                np.int32)).to(shard.device)
+            queries = (torch.from_numpy(rows.astype(np.int32)).to(
+                shard.device) if self.flags.any() else None)
+        return shard, s0, s1, table, queries
 
     def _lcs_block(self, ref_ids, n_queries=None):
         """[R, N] int64 LCS rows of the references ref_ids, each in the
         host reference's role (ops/distance.py:DistanceBackend.row): K1 for
-        unflagged references, K9 for flagged ones."""
+        unflagged references, K9 for flagged ones, on every part; only the
+        first n_queries columns are computed (the rest are 0), and a part
+        whose columns all lie past them is idle.  Every part's launches and
+        copies are issued before the host waits for any of them."""
         ref_ids = np.asarray(ref_ids, dtype=np.int64)
+        nq = self.n if n_queries is None else min(self.n, int(n_queries))
         dt = torch.uint16 if self.padded.shape[1] < 65536 else torch.int32
         fl = self.flags[ref_ids]
-        out = np.empty((len(ref_ids), self.n), dtype=np.int64)
-        for sel, flagged in ((~fl, False), (fl, True)):
-            if not sel.any():
+        out = np.zeros((len(ref_ids), self.n), dtype=np.int64)
+        pending = []
+        for shard, s0, s1, table, queries in self.parts:
+            cols = min(max(nq - s0, 0), s1 - s0)
+            if cols == 0:
                 continue
-            syms = torch.from_numpy(
-                self.padded[ref_ids[sel]].astype(np.int32)).to(self.device)
-            if flagged:
-                if self._queries is None:
-                    self._queries = torch.from_numpy(
-                        self.padded.astype(np.int32)).to(self.device)
-                got = lcs_refmask(syms, self._queries, n_queries=n_queries,
-                                  out_dtype=dt)
-            else:
-                got = lcs_rows(self.table, syms, n_queries=n_queries,
-                               out_dtype=dt)
-            out[sel] = got.cpu().numpy()
+            with shard.use():
+                for sel, flagged in ((~fl, False), (fl, True)):
+                    if not sel.any():
+                        continue
+                    syms = torch.from_numpy(self.padded[ref_ids[sel]].astype(
+                        np.int32)).to(shard.device)
+                    got = (lcs_refmask(syms, queries, n_queries=cols,
+                                       out_dtype=dt) if flagged
+                           else lcs_rows(table, syms, n_queries=cols,
+                                         out_dtype=dt))
+                    host = torch.empty(got.shape, dtype=dt, pin_memory=(
+                        shard.device.type == "cuda"))
+                    host.copy_(got, non_blocking=True)
+                    pending.append((sel, s0, cols, host, shard.record()))
+        for sel, s0, cols, host, done in pending:
+            if done is not None:
+                done.synchronize()
+            out[sel, s0:s0 + cols] = host[:, :cols].numpy()
         return out
 
     def _lcs_all(self, ref_idx, need_cols=None):

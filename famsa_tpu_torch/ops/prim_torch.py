@@ -208,16 +208,24 @@ def prim_rounds(table, queries, lengths, pow_tab, chunk=None, flags=None):
     count; flags: None or [N] bool (device_flags) (all on one device, the
     CPU or a CUDA card).  Returns numpy arrays (edge_p1, edge_p2,
     edge_dist_neg), each of length n-1."""
-    n = queries.shape[0]
+    state = PrimState(queries, flags)
+    return chunked_rounds(queries.shape[0], chunk, lambda k: prim_chunk(
+        table, queries, lengths, pow_tab, state, k))
+
+
+def chunked_rounds(n, chunk, run_chunk):
+    """The n-1 Prim rounds of a tree in chunks of `chunk` rounds (None:
+    FAMSA_TORCH_PRIM_CHUNK, default 2048): run_chunk(k) issues k rounds
+    and returns their [3, k] int64 edge buffer (prim_round's `edges`),
+    which comes to the host in one copy, the chunk's only wait.  Returns
+    numpy arrays (edge_p1, edge_p2, edge_dist_neg) of length n-1."""
     if chunk is None:
         chunk = int(os.environ.get("FAMSA_TORCH_PRIM_CHUNK", "2048"))
-    state = PrimState(queries, flags)
     outs = []
     done = 0
     while done < n - 1:
         k = min(chunk, n - 1 - done)
-        outs.append(prim_chunk(table, queries, lengths, pow_tab, state,
-                               k).cpu().numpy())
+        outs.append(run_chunk(k).cpu().numpy())
         done += k
     e = (np.concatenate(outs, axis=1) if outs
          else np.zeros((3, 0), dtype=np.int64))
@@ -248,7 +256,13 @@ def mst_prim_tree_torch(sequences, tree, device="cuda", chunk=None):
     e1, e2, dneg = prim_rounds(*prim_inputs(padded, lengths, device),
                                chunk=chunk,
                                flags=device_flags(famsa_flags(padded), device))
+    edges_to_tree(e1, e2, dneg, tree)
 
+
+def edges_to_tree(e1, e2, dneg, tree):
+    """The dendrogram (tree/mst_prim.py:_mst_to_dendrogram) of the n-1
+    Prim edges (e1, e2, dneg: chunked_rounds' arrays) into `tree`."""
+    n = len(e1) + 1
     prim_orders = np.full(n, n, dtype=np.int64)
     prim_orders[0] = 0
     edges_from = [0]

@@ -2,8 +2,9 @@
 
 Stages: sort+dedup -> guide tree (MST-Prim as device rounds on the torch
 backend, ops/prim_torch.py; SLINK, UPGMA, NJ and the PartTree/MedoidTree
-heuristic on distance rows from K1) -> progressive profile alignment up
-the tree (batched device DP with device-resident profiles,
+heuristic on distance rows from K1; both sharded over the mesh a caller
+set, parallel/mesh.py:auto_mesh) -> progressive profile
+alignment up the tree (batched device DP with device-resident profiles,
 ops/dp_torch.py, ops/dp_resident.py; caterpillar runs as device-resident
 chunks, ops/dp_chain.py) -> iterative refinement (guided device DP) ->
 duplicate restoration and input-order output.  -dist_export writes the
@@ -26,7 +27,7 @@ from .core.defs import UNKNOWN_SYMBOL
 from .core.profile import Profile
 from .core.refinement import refine_alignment
 from .core.sequence import GappedSequence
-from .ops.distance import get_distance_backend
+from .ops.distance import run_distances
 from .tree.distance_export import export_distances
 from .tree.fast_tree import FastTree
 from .tree.guide_tree import GuideTree
@@ -68,19 +69,12 @@ def remove_duplicates(sorted_seqs, original2sorted):
 
 
 # ----------------------------------------------------------------------
-def _distances(params, measure):
-    """(sequences, dtype) -> the run's distance backend: K1 on `-backend
-    torch` (on params.device), the native host LCS on `-backend numpy`."""
-    return lambda seqs, dtype: get_distance_backend(
-        seqs, measure, dtype, params.backend, device=params.device)
-
-
 def _make_partial_generator(params, measure):
     """Partial generator used by FastTree (createTreeGenerator semantics):
     each subgroup's tree by SLINK (for MST-Prim too), UPGMA or NJ, its
     rows from a distance backend of its own."""
     method = params.gt_method
-    distances = _distances(params, measure)
+    distances = run_distances(params, measure)
 
     def partial(seqs, tree_list):
         if len(seqs) < 2:
@@ -114,7 +108,7 @@ def build_guide_tree(params, sequences, tree: GuideTree):
     n = len(sequences)
     tree.init_leaves(n)
     tree_list = tree.tree
-    distances = _distances(params, measure)
+    distances = run_distances(params, measure)
 
     def rows(dtype):
         be = distances(sequences, dtype)
@@ -151,8 +145,16 @@ def build_guide_tree(params, sequences, tree: GuideTree):
         slink_tree(n, rows(np.float64), tree_list)
     elif params.gt_method == P.GT_MST_PRIM:
         if backend == "torch" and measure == P.DIST_INDEL075_DIV_LCS:
-            from .ops.prim_torch import mst_prim_tree_torch
-            mst_prim_tree_torch(sequences, tree_list, device=params.device)
+            from .parallel.mesh import rows_mesh
+            mesh = rows_mesh(n, params.device)
+            if mesh is not None:
+                # the Prim rounds sharded over the mesh
+                from .parallel.dist_sharded import mst_prim_tree_sharded
+                mst_prim_tree_sharded(sequences, tree_list, mesh)
+            else:
+                from .ops.prim_torch import mst_prim_tree_torch
+                mst_prim_tree_torch(sequences, tree_list,
+                                    device=params.device)
             return
         be = distances(sequences, np.float64)
         mst_prim_tree(n, lambda ref, ids: be.row(ref, ids), tree_list,

@@ -7,7 +7,7 @@ incl. its truncate-then-round representation)."""
 import numpy as np
 
 from ..core.params import DIST_PID
-from ..ops.distance import get_distance_backend
+from ..ops.distance import run_distances
 
 
 def format_double6(val: float) -> str:
@@ -21,13 +21,13 @@ def format_double6(val: float) -> str:
 
 def export_distances(params, sequences):
     """Writes CSV to params.output_file_name; sequences in input order,
-    padded to one length.  Rows come from the distance backend (K1 on the
-    torch backend, a prefix sweep of row blocks)."""
+    padded to one length.  Rows come from the run's distance backend (K1
+    on the torch backend, its rows sharded on the run's mesh if any; a
+    prefix sweep of row blocks)."""
     measure = DIST_PID if params.calculate_pid else params.distance
     # distances: double transform stored as float32; PID: float transform
     inner_dtype = np.float32 if params.calculate_pid else np.float64
-    be = get_distance_backend(sequences, measure, inner_dtype, params.backend,
-                              device=params.device)
+    be = run_distances(params, measure)(sequences, inner_dtype)
 
     n = len(sequences)
     square = params.generate_square_matrix
