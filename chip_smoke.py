@@ -5,7 +5,13 @@
 
 Phases (one line each; any mismatch or exception exits non-zero):
  1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
-    print the build seconds and the card's name and power limit;
+    print the build seconds and the card's name and power limit; write
+    phases 4-8's inputs, build phases 6's and 6b's guide trees with
+    -backend torch (-gt_export) and start every -backend numpy reference
+    run of phases 4-8 but phase 7's as child processes at the lowest CPU
+    priority, REF_WIDTH (4) at a time, phase 4's and then the longest
+    first, so that they run beside phases 2-3c
+    (start_references; each phase waits for its own);
  2. K1 (csrc/lcs.cu) against its plain PyTorch version on the card,
     bit-exact, each variant: rows on 256 refs x 4096 queries of mean
     length 300 (W=10) and 256 x 10,000 of mean length 346 (the -dist
@@ -54,7 +60,9 @@ Phases (one line each; any mismatch or exception exits non-zero):
     direction bytes, finals, last, path and total, and path/total against
     the native host DP.  Staged variant (csrc/dp_wide.cu:
     dp_profile_batched_staged, one cluster of column folds a merge; held
-    against dp_plain and its fold walk dp_staged_plain): 8 mixed merges
+    against dp_plain and its fold walk dp_staged_plain, which runs on host
+    copies of the inputs on one CPU thread, as every fold walk of the
+    smoke does, ~3x faster there than on the card): 8 mixed merges
     <= 512^2 (one seq-prof), one banded merge, one merge with cardinality
     > 2^16, 60x700, 60x1500, 16 merges of 1 to 8 folds (one at w2 4095),
     w2 on a fold edge and one column past it, 2^22-scaled scores, one
@@ -107,8 +115,8 @@ Phases (one line each; any mismatch or exception exits non-zero):
  4. the main path: a seeded 1000-sequence family of mean length 300
     through the CLI entry point (refinement AUTO = on) with -backend torch
     at the default knobs, with every profile merge and guided
-    re-alignment forced on K2, then on K3, and with -backend numpy; every
-    torch output must equal the numpy one byte for byte, and each run
+    re-alignment forced on K2, then on K3; every torch output must equal
+    its -backend numpy child's byte for byte, and each run
     must launch the kernel variants it is meant to exercise (n - 1 Prim
     rounds for its n sequences, each one K1 wave and one K8 launch, every
     K2 launch whose widest w2 is <= 4095 on K2 staged, every K3 call at
@@ -147,22 +155,38 @@ Phases (one line each; any mismatch or exception exits non-zero):
     shard), each byte-identical to the numpy output its phase wrote, with
     S x (n - 1) K1 wave (and K9) launches and n - 1 K8; the poly-Q
     family's -dist_export (against 5b's numpy child) and -gt upgma
-    -gt_export (against a numpy run) through ShardedDistanceBackend; the
+    -gt_export (against a numpy child) through ShardedDistanceBackend; the
     sharded trees' seconds beside one card's route's, and the host's ms
     a round to issue 256 rounds against their ms to the device's end (on
     one card: the route's overhead, not a multi-GPU speed);
+ 5e. the column axis of multi-device sharding (parallel/dp_sharded.py,
+    K10 csrc/dp_wide.cu:dp_profile_shard) on meshes of shards on cuda:0,
+    each on its own stream (phase_cols): auto_mesh gives no "cols" mesh
+    on one card; K10 against the same pipeline run with its plain
+    version dp_shard_plain and against dp_plain (every direction byte
+    and final) at COLS_K10: 300 x 26,001 on 3 uneven slices (the stripes
+    body) and 200 x 3000 on 4 (the staged body, 3 folds a slice; the
+    plain version on the kernel's folds), unguided and banded, blocks
+    that do not divide w1, S x blocks launches; with a "cols" mesh set,
+    phase 5c's merge through the CLI on 2 and 3 shards (S x ceil(1500 /
+    ROW_BLOCK) K10 launches, one K5, one K4, no other DP launch),
+    byte-identical to 5c's numpy child, the merge's ms on the mesh
+    beside 5c's K2 spans ms, the merge at row blocks COLS_BLOCKS (two
+    rounds in turn), the gather's ms and K10 held and timed at its
+    main-path shape (k10_measure); and the poly-Q family with refinement
+    on (its default) on 3 shards at a threshold that shards progressive
+    merges and guided re-alignments, byte-identical to its numpy child;
  6. the wide path: a seeded 10,000-sequence family of mean length 300
     (refinement AUTO = off) with -backend torch at the default knobs,
     against -backend numpy on the guide tree the torch -gt_export wrote;
     byte-identical, and K1 wave, K8, K2 staged, K3 staged, K4, K5 and K6
     launched as in phase 4, the route held to ResidencyWatch as there (the
-    numpy run in a child process beside phase 8's torch runs, so that no
-    phase-7 time shares the host with it).  Prints the stage seconds and
-    the profile merges per route (host / K2 / K3);
+    numpy run a child process started in phase 1).  Prints the stage
+    seconds and the profile merges per route (host / K2 / K3);
  6b. the wide family past 4095 columns (WIDE_FAMILY: 10,000 sequences of
     mean length 600, seed 7, an alignment of 5906 columns) the same way,
-    its numpy reference (-gt import of the torch tree) in a child process
-    beside phase 8's; every DP launch on the variant its width selects, the
+    its numpy reference (-gt import of the torch tree) a child process
+    started in phase 1; every DP launch on the variant its width selects, the
     staged body on 9-16 folds launched at least once and K2's spans
     variant never.  Prints the stage seconds, the merges per route, the
     device merges past 4095 columns on K3 and in K2 batches, and the DP
@@ -174,7 +198,7 @@ Phases (one line each; any mismatch or exception exits non-zero):
     after the last step; both slots of the double-buffered state), every
     word; one chunk's CUDA-graph replay (per step K5, whose chain entry
     runs the carry, the DP, K4, K6; K7 once after the last step) against
-    the plain chunk on the same card buffers at a staged
+    the plain chunk on host buffers of the same content at a staged
     capacity of 8 and of 9-16 folds (6 and 4 leaves, the other lanes of
     32 invalid), with an overflow forced mid-chunk, and at the buckets
     8191 (16 staged folds) and 16256 (the stripes body; 2 leaves) with DP
@@ -200,8 +224,8 @@ Phases (one line each; any mismatch or exception exits non-zero):
     run (one each, for the record);
  8. the guide-tree methods and the distance export (TREE_RUNS) through
     the CLI entry point, -backend torch against -backend numpy byte for
-    byte (the numpy runs in three child processes beside the torch runs,
-    with phases 6 and 6b's two):
+    byte (the numpy runs child processes started in phase 1, every one
+    ended before the torch runs, whose seconds are then the host's alone):
     -gt slink, upgma and upgma_modified with -gt_export on phase 5's 2000
     sequences, -gt nj -gt_export on phase 4's 1000, -gt upgma aligned
     (refinement on) on the 1000, -dist_export, -dist_export -pid and
@@ -219,9 +243,7 @@ Phases (one line each; any mismatch or exception exits non-zero):
     staged variants as in phase 4.  Prints per run the tree and total
     seconds of torch and numpy, K1's launches, CUDA-event total and mean
     ms, its largest launch's ms and bound, and the peak device memory
-    (with what the recorder held of it); then each torch tree and export
-    run again alone on the host (every numpy child ended), each
-    byte-identical to its first run, and its seconds.
+    (with what the recorder held of it).
 Then a JSON line with every kernel variant's numbers, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -281,8 +303,14 @@ K1 wave's ms and bound there, and the profiled chunks); its bound
 counts bytes (an active vertex's lcs, length, dist and tieb, the pow
 entry of one with lcs > 0, the writes of the vertices it updates, the
 reference row read and written); its launches and totals are the
-recorded runs'.  No kernel has a single PyTorch call computing the
-same function, so library_ms is null.
+recorded runs'.  K10's entry comes from phase 5e: "ms" is a launch's
+CUDA-event mean at the first block (ROW_BLOCK rows) of shard 0's slice of
+phase 5c's merge on 2 shards, held there against dp_shard_plain; its
+launches and totals are the 2-shard CLI run's ("cols"); its bound counts
+dp_bound_ms's instructions a cell against the slice's planes, the rows'
+factors, its direction bytes, finals, row state and edges.  No kernel
+has a single PyTorch call computing the same function, so library_ms is
+null.
 """
 
 import json
@@ -347,6 +375,21 @@ def graph_ms(fn, n=20, reps=10):
         graph.capture_end()
     cur.wait_stream(side)
     return cuda_ms(graph.replay, reps) / n
+
+
+def on_host(fn, *args, **kw):
+    """fn on host copies of its tensor arguments, on one CPU thread: the
+    fold walks (the plain versions of K2's fold-walking variants, K3, K10
+    and a chain chunk) are chains of small operations, ~3x faster there
+    than as launches on the card, and threads slow them."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args), **kw)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def wall_ms(fn):
@@ -1167,17 +1210,15 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
              variants=(None,), walk=True, trace=True):
     """K2 against its plain versions on one batch, once per variant in
     `variants` (None: the one k2_variant picks): dp_plain, and for the
-    staged and stripes variants their fold walk dp_staged_plain too (for
-    the spans variant with walk: its fold walk, dp_staged_plain with span
-    MAX_FOLDS; it takes seconds a DP row at its widths); full direction
-    bytes (so D everywhere and H/V on [1:, 1:]), per-row finals, last,
-    path and total; and path/total vs the native host DP (guided by
-    `mappings`, the column mappings the bands came from).  Each launch
-    must go to its variant.  K4 and K6 run on the first variant's output
-    (k4_check, k6_check; trace "native": K4 against the native walk
-    alone, no K6: their plain twins step through a path of w1 + w2 steps
-    from Python).  Returns the packed inputs on the device and dp_plain's
-    wall ms."""
+    staged and stripes variants their fold walk dp_staged_plain too, on
+    the host (on_host; for the spans variant with walk: its fold walk,
+    dp_staged_plain with span MAX_FOLDS); full direction bytes (so D
+    everywhere and H/V on [1:, 1:]), per-row finals, last, path and
+    total; and path/total vs the native host DP (guided by `mappings`,
+    the column mappings the bands came from).  Each launch must go to its
+    variant.  K4 and K6 run on the first variant's output (k4_check,
+    k6_check; trace "native": K4 against the native walk alone, no K6).
+    Returns the packed inputs on the device and dp_plain's wall ms."""
     import torch
     from famsa_tpu_torch import kernels
     from famsa_tpu_torch.core.dp_native import dp_profile, finish_path
@@ -1194,11 +1235,11 @@ def dp_check(params, pairs, bands, device, what, mappings=None,
     plains = {"dp_plain": [x.cpu().numpy() for x in dp_plain(*args, total)]}
     plain_ms = (time.perf_counter() - t0) * 1e3
     if {"staged", "stripes"} & set(variants):
-        plains["dp_staged_plain"] = [x.cpu().numpy() for x in
-                                     dp_staged_plain(*args, total)]
+        plains["dp_staged_plain"] = [x.numpy() for x in on_host(
+            dp_staged_plain, *args, total)]
     if "spans" in variants and walk:
-        plains["spans fold walk"] = [x.cpu().numpy() for x in dp_staged_plain(
-            *args, total, span=MAX_FOLDS)]
+        plains["spans fold walk"] = [x.numpy() for x in on_host(
+            dp_staged_plain, *args, total, span=MAX_FOLDS)]
     hosts = [dp_profile(params, p1, p2, *(mappings[k] if mappings else ()))
              for k, (p1, p2) in enumerate(pairs)]
     sides, hdr = stage0_check(params, pairs, bands, (colf, rowf, meta),
@@ -1749,7 +1790,8 @@ def wide_check(params, p1, p2, band, device, what, mapping=None,
                                              k3_variant)
     variant = variant or k3_variant(p2.width)
     key = dp_key("K3", [p2.width], variant)
-    fns = {"plain": dp_wide_plain, "dp_plain": dp_plain, "K2": dp_dirs,
+    fns = {"plain": lambda *a: on_host(dp_wide_plain, *a),
+           "dp_plain": dp_plain, "K2": dp_dirs,
            "K3": lambda *a: dp_dirs_wide(*a, variant=variant)}
     colf, rowf, meta, total = pack_batch([prepare_merge(params, p1, p2, band)])
     args = [torch.from_numpy(x).to(device) for x in (colf, rowf, meta)]
@@ -2202,6 +2244,16 @@ def stage_report(name, secs, stats, counts):
             f"{counts['prim_round']} K9 {counts['lcs_refmask']}")
 
 
+def numpy_report(stats, waited):
+    """A numpy reference run's stage seconds from its -stats file."""
+    st = read_stats(stats)
+    return (f"numpy (a child process): {float(st['time.total']):.2f} s (tree "
+            f"{float(st['time.tree_build']):.2f}, alignment "
+            f"{float(st['time.alignment']):.2f}, refinement "
+            f"{float(st['time.refinement']):.2f}; waited {waited:.1f} s for "
+            f"it)")
+
+
 def check_launches(what, counts, needed, rec):
     """Each run must launch the kernels it is meant to exercise.  A run
     that builds the default guide tree ("prim_round" in needed) runs n-1
@@ -2431,13 +2483,13 @@ def ops_report(ops):
             f"{[short_name(n) for n in ops[0]]}")
 
 
-def phase_main(work, recorder, watch, device="cuda", n=1000, mean_len=300):
-    """The main path as a user runs it; the recorder times every kernel
-    launch of the default torch run ("1000"); every device merge's
-    resident counters are held against the host's."""
+def phase_main(work, recorder, watch, refs, device="cuda"):
+    """The main path as a user runs it, against its numpy reference run
+    ("main" of refs); the recorder times every kernel launch of the
+    default torch run ("1000"); every device merge's resident counters are
+    held against the host's."""
+    n, mean_len, _ = MAIN_FAMILY
     fa = os.path.join(work, "fam.fa")
-    with open(fa, "w") as f:
-        f.write(make_family(n, mean_len, 7))
     torch_flags = ["-backend", "torch", "-device", device]
     runs = [("torch", torch_flags, {}, DEFAULT_KERNELS),
             ("torch_k2", torch_flags, {"FAMSA_TORCH_DP_MIN_CELLS": "0",
@@ -2446,8 +2498,7 @@ def phase_main(work, recorder, watch, device="cuda", n=1000, mean_len=300):
             ("torch_k3", torch_flags, {"FAMSA_TORCH_DP_MIN_CELLS": "0",
                                        "FAMSA_TORCH_WIDE_MIN_CELLS": "0",
                                        "FAMSA_TORCH_MAX_BATCH": "1"},
-             ("lcs_wave", "prim_round", "dp_wide")),
-            ("numpy", ["-backend", "numpy"], {}, ())]
+             ("lcs_wave", "prim_round", "dp_wide"))]
     outs, report = {}, []
     for name, flags, env, needed in runs:
         out = os.path.join(work, f"out_{name}.fa")
@@ -2458,8 +2509,8 @@ def phase_main(work, recorder, watch, device="cuda", n=1000, mean_len=300):
         watch.ops = []
         rc, secs, counts, route = run_torch(
             f"main path {name}", flags + ["-stats", stats, fa, out], env,
-            recorder, watch, "1000" if name == "torch" else None,
-            name != "numpy", device)
+            recorder, watch, "1000" if name == "torch" else None, True,
+            device)
         watch.profile = None
         if rc != 0:
             raise AssertionError(f"main path {name}: rc={rc}")
@@ -2469,6 +2520,11 @@ def phase_main(work, recorder, watch, device="cuda", n=1000, mean_len=300):
                       + ops_report(watch.ops))
         if device == "cuda":
             check_launches(f"main path {name}", counts, needed, recorder)
+    waited = refs.wait("main")
+    with open(os.path.join(work, "out_numpy.fa"), "rb") as f:
+        outs["numpy"] = f.read()
+    report.append(numpy_report(os.path.join(work, "stats_numpy.txt"),
+                               waited))
     for name in ("torch", "torch_k2", "torch_k3"):
         if outs[name] != outs["numpy"]:
             raise AssertionError(f"main path: {name} output differs from "
@@ -2478,46 +2534,48 @@ def phase_main(work, recorder, watch, device="cuda", n=1000, mean_len=300):
         + "; ".join(report))
 
 
-def phase_tree(work, recorder, device="cuda", n=2000, mean_len=300,
-               chunk=300):
-    """-gt_export of an n-sequence family, torch against numpy: with a
-    Prim chunk small enough to cross chunk boundaries, and under -dist
-    indel_div_lcs, whose host Prim reads distance rows from
-    TorchDistanceBackend (at n >= 2000 a first block of 256 references
-    on K1's rows variant, then single rows on its wave variant); the
-    recorder times that run's launches ("dist")."""
+# phase 5's -gt_export runs: name, flags
+TREE_CASES = (("tree", []), ("dist", ["-dist", "indel_div_lcs"]))
+
+
+def phase_tree(work, recorder, refs, device="cuda", chunk=300):
+    """-gt_export of TREE_FAMILY, torch against its numpy reference runs
+    (TREE_CASES, in refs): with a Prim chunk small enough to cross chunk
+    boundaries, and under -dist indel_div_lcs, whose host Prim reads
+    distance rows from TorchDistanceBackend (at n >= 2000 a first block of
+    256 references on K1's rows variant, then single rows on its wave
+    variant); the recorder times that run's launches ("dist")."""
     from famsa_tpu_torch import kernels
+    n = TREE_FAMILY[0]
     fa = os.path.join(work, "fam_tree.fa")
-    with open(fa, "w") as f:
-        f.write(make_family(n, mean_len, 11))
-    cases = (("tree", [], {"FAMSA_TORCH_PRIM_CHUNK": str(chunk)}),
-             ("dist", ["-dist", "indel_div_lcs"], {}))
+    env = {"tree": {"FAMSA_TORCH_PRIM_CHUNK": str(chunk)}, "dist": {}}
     msg, extra_msg = [], ""
-    for what, extra, env in cases:
+    for what, extra in TREE_CASES:
         outs, secs = {}, {}
-        for name, flags in (("torch", ["-backend", "torch", "-device",
-                                       device]),
-                            ("numpy", ["-backend", "numpy"])):
-            out = os.path.join(work, f"{what}_{name}.dnd")
-            active = what == "dist" and name == "torch"
-            recorder.start("dist" if active else None)
-            kernels.reset_launches()
-            rc, secs[name] = run_cli(flags + extra + ["-gt_export", fa, out],
-                                     env)
-            counts = dict(kernels.LAUNCHES)
-            recorder.stop(counts)
-            if rc != 0:
-                raise AssertionError(f"gt_export {what} {name}: rc={rc}")
-            if device == "cuda" and name == "torch":
-                if what == "dist":
-                    check_launches("gt_export -dist indel_div_lcs", counts,
-                                   ("lcs",), recorder)
-                else:
-                    check_launches(f"gt_export Prim chunk {chunk}", counts,
-                                   ("lcs_wave", "prim_round"), recorder)
-                    extra_msg = (f" (launches: K1 wave {counts['lcs_wave']}"
-                                 f", K8 {counts['prim_round']})")
-            with open(out, "rb") as f:
+        out = os.path.join(work, f"{what}_torch.dnd")
+        recorder.start("dist" if what == "dist" else None)
+        kernels.reset_launches()
+        rc, secs["torch"] = run_cli(["-backend", "torch", "-device", device]
+                                    + extra + ["-gt_export", fa, out],
+                                    env[what])
+        counts = dict(kernels.LAUNCHES)
+        recorder.stop(counts)
+        if rc != 0:
+            raise AssertionError(f"gt_export {what} torch: rc={rc}")
+        if device == "cuda":
+            if what == "dist":
+                check_launches("gt_export -dist indel_div_lcs", counts,
+                               ("lcs",), recorder)
+            else:
+                check_launches(f"gt_export Prim chunk {chunk}", counts,
+                               ("lcs_wave", "prim_round"), recorder)
+                extra_msg = (f" (launches: K1 wave {counts['lcs_wave']}"
+                             f", K8 {counts['prim_round']})")
+        refs.wait(what)
+        secs["numpy"] = float(read_stats(os.path.join(
+            work, f"{what}_numpy.st"))["time.total"])
+        for name in ("torch", "numpy"):
+            with open(os.path.join(work, f"{what}_{name}.dnd"), "rb") as f:
                 outs[name] = f.read()
         if outs["torch"] != outs["numpy"]:
             raise AssertionError(f"gt_export {what}: torch tree differs "
@@ -2525,70 +2583,63 @@ def phase_tree(work, recorder, device="cuda", n=2000, mean_len=300,
         msg.append(f"{n} seqs {' '.join(extra) or f'Prim chunk {chunk}'}:"
                    f" torch {secs['torch']:.2f} s, numpy {secs['numpy']:.2f} s"
                    + ("" if extra else extra_msg))
-    log("phase 5 guide tree (-gt_export), torch byte-identical to numpy: "
-        + "; ".join(msg) + f"; K1 launches of the -dist run: rows "
+    log("phase 5 guide tree (-gt_export), torch byte-identical to numpy "
+        "(child processes): " + "; ".join(msg) + f"; K1 launches of the -dist run: rows "
         f"{recorder.counts['dist']['lcs']} wave "
         f"{recorder.counts['dist']['lcs_wave']}")
 
 
-def phase_polyq(work, recorder, watch, device="cuda"):
+# phase 5b's runs of the poly-Q family: name, flags, output's extension
+POLYQ_RUNS = (("polyq", ["-refine_mode", "off"], ".fa"),
+              ("polyq_tree", ["-gt_export"], ".dnd"),
+              ("polyq_dist", ["-dist_export"], ".csv"))
+
+
+def phase_polyq(work, recorder, watch, refs, device="cuda"):
     """Phase 5b: the poly-Q family (POLYQ_FAMILY, make_polyq: every 10th
     sequence with a poly-Q tract of 64-200 residues) through the CLI
     entry point with -backend torch, refinement off: aligned (its
     launches recorded as "polyq": K1 wave, K9 and K8 once a Prim round;
     the device DP route held to ResidencyWatch), -gt_export and
     -dist_export (recorded as "polyq_dist": K1 for unflagged references,
-    K9 for flagged ones); each byte-identical to a -backend numpy child
-    process's output."""
+    K9 for flagged ones); each byte-identical to its -backend numpy
+    child's output (POLYQ_RUNS, in refs)."""
     import torch
     from famsa_tpu_torch import kernels
-    n, mean_len, seed = POLYQ_FAMILY
+    n, mean_len, _ = POLYQ_FAMILY
     fa = os.path.join(work, "polyq.fa")
-    with open(fa, "w") as f:
-        f.write(make_polyq(n, mean_len, seed))
-    runs = (("polyq", ["-refine_mode", "off"], ".fa"),
-            ("polyq_tree", ["-gt_export"], ".dnd"),
-            ("polyq_dist", ["-dist_export"], ".csv"))
-
-    def argv(name, flags, ext, side):
-        return flags + [fa, os.path.join(work, f"{name}_{side}{ext}")]
-
-    refs = NumpyRefs(work, [(name, argv(name, flags, ext, "numpy"))
-                            for name, flags, ext in runs])
     torch_flags = ["-backend", "torch", "-device", device]
     report = []
-    try:
-        for name, flags, ext in runs:
-            args = torch_flags + argv(name, flags, ext, "torch")
-            if name == "polyq":
-                rc, secs, counts, _ = run_torch(
-                    "5b poly-Q alignment", args, {}, recorder, watch, name,
-                    False, device)
+    for name, flags, ext in POLYQ_RUNS:
+        args = torch_flags + flags + [fa, os.path.join(
+            work, f"{name}_torch{ext}")]
+        if name == "polyq":
+            rc, secs, counts, _ = run_torch(
+                "5b poly-Q alignment", args, {}, recorder, watch, name,
+                False, device)
+        else:
+            recorder.start(name if name == "polyq_dist" else None)
+            kernels.reset_launches()
+            rc, secs = run_cli(args, {})
+            counts = dict(kernels.LAUNCHES)
+            recorder.stop(counts)
+        if rc != 0:
+            raise AssertionError(f"5b {name}: rc={rc}")
+        if device == "cuda":
+            if name == "polyq_dist":
+                if not counts["lcs_refmask"] or not (
+                        counts["lcs"] + counts["lcs_wave"]):
+                    raise AssertionError(f"5b {name}: launches {counts}")
             else:
-                recorder.start(name if name == "polyq_dist" else None)
-                kernels.reset_launches()
-                rc, secs = run_cli(args, {})
-                counts = dict(kernels.LAUNCHES)
-                recorder.stop(counts)
-            if rc != 0:
-                raise AssertionError(f"5b {name}: rc={rc}")
-            if device == "cuda":
-                if name == "polyq_dist":
-                    if not counts["lcs_refmask"] or not (
-                            counts["lcs"] + counts["lcs_wave"]):
-                        raise AssertionError(f"5b {name}: launches {counts}")
-                else:
-                    check_launches(f"5b {name}", counts,
-                                   ("lcs_wave", "prim_round", "lcs_refmask"),
-                                   recorder)
-            report.append(f"{name} {secs:.2f} s (K1 rows {counts['lcs']}, "
-                          f"wave {counts['lcs_wave']}, K9 "
-                          f"{counts['lcs_refmask']}, K8 "
-                          f"{counts['prim_round']})")
-        refs.wait_all()
-    finally:
-        refs.close()
-    for name, flags, ext in runs:
+                check_launches(f"5b {name}", counts,
+                               ("lcs_wave", "prim_round", "lcs_refmask"),
+                               recorder)
+        report.append(f"{name} {secs:.2f} s (K1 rows {counts['lcs']}, "
+                      f"wave {counts['lcs_wave']}, K9 "
+                      f"{counts['lcs_refmask']}, K8 "
+                      f"{counts['prim_round']})")
+    refs.wait(*(name for name, _, _ in POLYQ_RUNS))
+    for name, flags, ext in POLYQ_RUNS:
         with open(os.path.join(work, f"{name}_torch{ext}"), "rb") as f:
             got = f.read()
         with open(os.path.join(work, f"{name}_numpy{ext}"), "rb") as f:
@@ -2631,33 +2682,26 @@ def make_profiles(seed=41):
     return "".join(out1), "".join(out2)
 
 
-def phase_profprof(work, recorder, watch, device="cuda"):
+def profprof_argv(work, side):
+    """Phase 5c's CLI arguments, writing profprof_{side}.fa."""
+    return ["-refine_mode", "off", os.path.join(work, "prof1.fa"),
+            os.path.join(work, "prof2.fa"),
+            os.path.join(work, f"profprof_{side}.fa")]
+
+
+def phase_profprof(work, recorder, watch, refs, device="cuda"):
     """Phase 5c: profile-profile mode (pipeline.align_profiles) on a
     PROFPROF[0] x PROFPROF[1] merge through the CLI entry point, refinement
     off: -backend torch (recorded as "profprof": one K2 launch on its
-    spans variant, B = 1, K3 refusing the width) byte-identical to a
-    -backend numpy child."""
-    p1, p2 = (os.path.join(work, f"prof{k}.fa") for k in (1, 2))
-    for path, text in zip((p1, p2), make_profiles()):
-        with open(path, "w") as f:
-            f.write(text)
-
-    def argv(side):
-        return ["-refine_mode", "off", p1, p2,
-                os.path.join(work, f"profprof_{side}.fa")]
-
-    refs = NumpyRefs(work, [("profprof", argv("numpy"))], width=1)
-    try:
-        rc, secs, counts, route = run_torch(
-            "5c profile-profile", ["-backend", "torch", "-device", device]
-            + argv("torch"), {}, recorder, watch, "profprof", False, device)
-        if rc != 0:
-            raise AssertionError(f"5c profile-profile: rc={rc}")
-        t0 = time.perf_counter()
-        refs.wait_all()
-        np_wait = time.perf_counter() - t0
-    finally:
-        refs.close()
+    spans variant, B = 1, K3 refusing the width) byte-identical to its
+    -backend numpy child ("profprof" in refs)."""
+    rc, secs, counts, route = run_torch(
+        "5c profile-profile", ["-backend", "torch", "-device", device]
+        + profprof_argv(work, "torch"), {}, recorder, watch, "profprof",
+        False, device)
+    if rc != 0:
+        raise AssertionError(f"5c profile-profile: rc={rc}")
+    np_wait = refs.wait("profprof")
     if device == "cuda" and not (counts["dp_spans"] == counts["stage0"] ==
                                  counts["traceback"] == 1):
         raise AssertionError(f"5c profile-profile: launches {counts}")
@@ -2704,7 +2748,7 @@ def round_split(issue, k):
     return (t1 - t0) * 1e3 / k, (t2 - t0) * 1e3 / k
 
 
-def phase_mesh(work, recorder, device="cuda"):
+def phase_mesh(work, recorder, refs, device="cuda"):
     """Phase 5d: the row axis of multi-device sharding (parallel/) on
     meshes of MESH_SIZES shards on one card, each shard on its own
     stream, so every launch, copy and cross-stream wait of the route runs
@@ -2716,7 +2760,8 @@ def phase_mesh(work, recorder, device="cuda"):
     phase 5b's poly-Q family's -gt_export (K9 on every shard, S x (n - 1)
     launches) and -dist_export (ShardedDistanceBackend, K1 and K9),
     byte-identical to 5b's numpy child's outputs, and its -gt upgma
-    -gt_export, byte-identical to a -backend numpy run here.  The
+    -gt_export, byte-identical to its -backend numpy child ("mesh_upgma"
+    in refs).  The
     sharded trees' seconds (the CLI's time.tree_build) beside the
     2000-sequence tree built on one card's route, and the host's ms a
     round to issue MESH_ROUNDS rounds against their ms to the device's
@@ -2734,10 +2779,8 @@ def phase_mesh(work, recorder, device="cuda"):
     fam = os.path.join(work, "fam_tree.fa")
     polyq = os.path.join(work, "polyq.fa")
     upgma_ref = os.path.join(work, "mesh_upgma_numpy.dnd")
-    rc, np_secs = run_cli(["-backend", "numpy", "-gt", "upgma",
-                           "-gt_export", polyq, upgma_ref], {})
-    if rc != 0:
-        raise AssertionError(f"5d upgma numpy: rc={rc}")
+    refs.wait("mesh_upgma")
+    np_secs = float(read_stats(upgma_ref + ".st")["time.total"])
     # (name, input, flags, env, reference, a Prim tree of a flagged family)
     runs = (("tree", fam, ["-gt_export"], {"FAMSA_TORCH_PRIM_CHUNK": "300"},
              os.path.join(work, "tree_numpy.dnd"), False),
@@ -2838,12 +2881,338 @@ def phase_mesh(work, recorder, device="cuda"):
         split.append(f"{size} shards {host:.4f} / {dev:.4f}")
     log(f"phase 5d mesh (shards on {device}:0, each on its own stream): "
         f"auto_mesh None on one card; byte-identical to numpy (upgma "
-        f"numpy {np_secs:.2f} s): " + "; ".join(report)
+        f"numpy child {np_secs:.2f} s): " + "; ".join(report)
         + f"; the {len(seqs)}-sequence tree (tree_build): "
         + ", ".join(tree_secs) + f"; host ms a round to issue {MESH_ROUNDS} "
         "rounds / ms a round to the device's end: " + ", ".join(split)
         + " (one card: these measure the route's overhead, not a multi-GPU "
         "speed)")
+
+
+# phase 5e: the column axis of multi-device sharding, on meshes of shards
+# on one card.  K10 against its plain version: (w1, w2, shards, rows a
+# block, the plain version's folds: "geometry" the kernel's, else one a
+# slice), each unguided and banded along the diagonal: the stripes body
+# on 3 uneven slices, the staged body on 4 slices of 3 folds, blocks that
+# do not divide w1
+COLS_K10 = ((300, 26001, 3, 128, None), (200, 3000, 4, 48, "geometry"))
+# (the plain version on the kernel's fold geometry only unguided: on the
+# banded check it takes one fold a slice, ~4 s less)
+COLS_MESHES = (2, 3)    # phase 5c's merge on meshes of these sizes
+COLS_PROFPROF_CELLS = "1e7"   # ... with the shard threshold below its cells
+COLS_BLOCKS = (64, 128, 256, 512, 1500)   # row blocks timed on that merge
+COLS_POLYQ = (3, "1e5")   # the poly-Q run's shards and shard threshold
+
+
+def k10_bound_ms(cols, rows, nnz, edges):
+    """Least time of one K10 launch of `rows` rows (nnz their nonzero
+    counts in all) of a slice of `cols` columns: dp_bound_ms's int32
+    instructions a cell and a match term, against its bytes (the slice's
+    column planes and the rows' factors read once; its direction bytes,
+    finals, the row state in and out and `edges` edge buffers of the
+    rows moved once)."""
+    from famsa_tpu_torch.ops.dp_pack import NCOLF, NROWF
+    ops = cols * (rows * (17 * 3 + 23 * 2 + 17 * 2 + 11 * 2) + 5 * nnz)
+    nbytes = (8 * NCOLF * cols + 8 * NROWF * rows + rows * cols + 24 * rows
+              + 2 * 24 * (cols + 1) + 24 * rows * edges)
+    return bound(nbytes, ops)
+
+
+def cols_check(params, rng, case, banded, device):
+    """K10 on a mesh of shards on one card (parallel/dp_sharded.py) against
+    the same pipeline run with K10's plain version dp_shard_plain on a
+    mesh of as many host shards (on_host), and against the one-device
+    dp_plain: every direction byte and per-row final; its launches
+    counted (shards x blocks).  Returns a line."""
+    import functools
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.dp_torch import (dp_plain, pack_batch,
+                                              prepare_merge)
+    from famsa_tpu_torch.ops.dp_wide import dp_shard_plain
+    from famsa_tpu_torch.parallel import dp_sharded, mesh
+    w1, w2, size, block, walk = case
+    walk = walk and not banded
+    a = random_profile(rng, params, 4, w1)
+    b = random_profile(rng, params, 3, w2, 0.0)
+    band = diagonal_band(params, w1, w2) if banded else None
+    m = mesh.make_mesh([f"{device}:0"] * size)
+    what = (f"{'banded ' if banded else ''}{w1}x{w2} on {size} shards, "
+            f"blocks of {block}")
+    before = kernels.LAUNCHES["dp_shard"]
+    t0 = time.perf_counter()
+    dirs, fin = dp_sharded.dp_profile_sharded(params, a, b, m, band=band,
+                                              block=block)
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = kernels.LAUNCHES["dp_shard"] - before
+    if device == "cuda" and launched != size * -(-w1 // block):
+        raise AssertionError(f"5e K10 {what}: {launched} launches")
+    slices = [c1 - c0 for c0, c1 in m.bounds(w2 + 1)]
+    step = dp_shard_plain if walk else functools.partial(
+        dp_shard_plain, fold_cols=max(slices))
+    t0 = time.perf_counter()
+    want = on_host(dp_sharded.dp_profile_sharded, params, a, b,
+                   mesh.make_mesh(["cpu"] * size), band=band, block=block,
+                   step=step)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(dirs, want[0]) and np.array_equal(fin, want[1])):
+        raise AssertionError(f"5e K10 {what}: differs from dp_shard_plain")
+    colf, rowf, meta, total = pack_batch([prepare_merge(params, a, b, band)])
+    d, f = dp_plain(*(torch.from_numpy(x).to(device)
+                      for x in (colf, rowf, meta)), total)
+    if not (np.array_equal(dirs.reshape(-1), d.cpu().numpy())
+            and np.array_equal(fin, f[0, :w1].cpu().numpy())):
+        raise AssertionError(f"5e K10 {what}: differs from dp_plain")
+    return (f"{what} (slices {slices}): {launched} launches, the merge "
+            f"{ms:.2f} ms on the mesh (host clock, with its copies to the "
+            f"host), the plain pipeline ({'the kernel' if walk else 'one'}"
+            f"{' fold geometry' if walk else ' fold a slice'}) "
+            f"{plain_ms:.0f} ms")
+
+
+def read_profiles(work, params):
+    """Phase 5c's two profiles (prof1.fa, prof2.fa) as the CLI's
+    profile-profile mode builds them, in align_into's operand order."""
+    from famsa_tpu_torch.core.aligner import order_operands
+    from famsa_tpu_torch.core.profile import Profile
+    from famsa_tpu_torch.core.sequence import encode_gapped
+    profs, k = [], 0
+    for name in ("prof1.fa", "prof2.fa"):
+        prof = Profile(params)
+        with open(os.path.join(work, name)) as f:
+            for row in fasta_strings(f.read()):
+                prof.append_raw_sequence(encode_gapped(f">p{k}", row, k))
+                k += 1
+        prof.calculate_counters_scores()
+        profs.append(prof)
+    return order_operands(*profs)
+
+
+def k10_measure(params, a, b, device, size=2):
+    """K10 at the shape phase 5e's profile-profile run gives it on `size`
+    shards: the first block (ROW_BLOCK rows) of shard 0's slice, its
+    inputs captured from the pipeline.  Held against dp_shard_plain (one
+    fold, on copies of the outputs) in every output; CUDA-event ms, the
+    plain version's ms and the bound.  Returns the report's fields."""
+    import torch
+    from famsa_tpu_torch.ops.dp_wide import dp_shard, dp_shard_plain
+    from famsa_tpu_torch.parallel import dp_sharded, mesh
+    m = mesh.make_mesh([f"{device}:0"] * size)
+    seen = []
+
+    def capture(*args, **kw):
+        if not seen:
+            seen.append((args, kw))
+        return dp_shard(*args, **kw)
+
+    dp_sharded.dp_profile_sharded_paths(params, a, b, m, step=capture)
+    args, kw = seen[0]
+    colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state = args
+    with m.shards[0].use():
+        torch.cuda.current_stream().synchronize()
+        outs = [dirs, fin, state, kw["eout"]]
+        plain = [x.clone() for x in outs]
+        dp_shard(*args, **kw)
+        got = [x.clone() for x in outs]
+        plain_ms = wall_ms(lambda: dp_shard_plain(
+            colf, rowf, w1, cs, c1, r0, r1, plain[0], plain[1], plain[2],
+            ein=kw["ein"], eout=plain[3], fold_cols=c1 - cs))
+        err = max(int_err(g.long(), p.long()) for g, p in zip(got, plain))
+        ms = cuda_ms(lambda: dp_shard(*args, **kw), 20)
+    nnz = int(rowf[r0:r1, 0].sum())
+    bms, by = k10_bound_ms(c1 - cs, r1 - r0, nnz,
+                           (kw["ein"] is not None) + (kw["eout"] is not None))
+    shape = (f"rows {r0}-{r1 - 1} of the {a.width}x{b.width} merge, "
+             f"columns {cs}-{c1 - 1} (shard 0 of {size})")
+    return err, ms, plain_ms, bms, by, shape
+
+
+def gather_ms(w1, w2, size, device):
+    """CUDA-event ms of the gather of a w1 x w2 merge's direction bytes
+    from `size` slices (Mesh.bounds) into one native buffer: the strided
+    copies parallel/dp_sharded.py makes on the card, here on one stream."""
+    import torch
+    from famsa_tpu_torch.parallel import mesh
+    bounds = mesh.make_mesh([f"{device}:0"] * size).bounds(w2 + 1)
+    full = torch.empty((w1 + 1, w2 + 1), dtype=torch.uint8, device=device)
+    parts = [torch.zeros((w1 + 1, c1 - c0), dtype=torch.uint8, device=device)
+             for c0, c1 in bounds]
+
+    def gather():
+        for (c0, c1), part in zip(bounds, parts):
+            full[:, c0:c1].copy_(part)
+
+    return cuda_ms(gather, 10)
+
+
+def phase_cols(work, recorder, refs, device="cuda"):
+    """Phase 5e: the column axis of multi-device sharding
+    (parallel/dp_sharded.py, K10) on meshes of shards on one card, each
+    shard on its own stream (auto_mesh's cache set for "cols").  (a) K10
+    against its plain version on COLS_K10, unguided and banded
+    (cols_check).  (b) Phase 5c's profile-profile merge through the CLI
+    entry point on meshes of COLS_MESHES shards, its shard threshold below
+    its cells: byte-identical to 5c's numpy child's output, with S x
+    ceil(w1 / ROW_BLOCK) K10 launches, one K5 and one K4, no other DP
+    launch (the 2-shard run recorded as "cols"); the merge's ms on each
+    mesh beside 5c's K2 spans ms; the merge at the row blocks COLS_BLOCKS
+    (parent of ROW_BLOCK's choice), two rounds in turn; K10 held and
+    timed at its main-path shape (k10_measure).  (c) The poly-Q family,
+    refinement on (its default), on a mesh of COLS_POLYQ[0] shards with
+    the threshold at COLS_POLYQ[1] cells, so that progressive merges and
+    guided re-alignments go sharded: byte-identical to its -backend numpy
+    child ("polyq_refine" in refs).  Returns K10's kernel-report entry."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.core.params import Params
+    from famsa_tpu_torch.parallel import dp_sharded, mesh
+    polyq = os.path.join(work, "polyq.fa")
+    report = []
+    mesh._AUTO_MESH.clear()
+    if mesh.auto_mesh("cols", device) is not None:
+        raise AssertionError("5e: auto_mesh gave a mesh on one card")
+    # (a)
+    rng = np.random.default_rng(29)
+    params = Params(device=device)
+    params.adjust(1000)
+    checks = [cols_check(params, rng, case, banded, device)
+              for case in COLS_K10 for banded in (False, True)]
+    # (b)
+    merges = []
+    orig = dp_sharded.dp_profile_sharded_paths
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig(*a, **kw)
+        merges.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    p1, p2 = (os.path.join(work, f"prof{k}.fa") for k in (1, 2))
+    with open(os.path.join(work, "profprof_numpy.fa"), "rb") as f:
+        want = f.read()
+    w1 = PROFPROF[0]
+    env = {"FAMSA_TORCH_SHARD_DP_CELLS": COLS_PROFPROF_CELLS}
+    dp_sharded.dp_profile_sharded_paths = timed
+    try:
+        for size in COLS_MESHES:
+            mesh._AUTO_MESH["cols"] = mesh.make_mesh([f"{device}:0"]
+                                                     * size)
+            out = os.path.join(work, f"cols{size}_profprof.fa")
+            merges.clear()
+            recorder.start("cols" if size == COLS_MESHES[0] else None)
+            kernels.reset_launches()
+            rc, secs = run_cli(["-backend", "torch", "-device", device,
+                                "-refine_mode", "off", p1, p2, out], env)
+            counts = dict(kernels.LAUNCHES)
+            recorder.stop(counts)
+            what = f"5e profile-profile on {size} shards"
+            if rc != 0:
+                raise AssertionError(f"{what}: rc={rc}")
+            with open(out, "rb") as f:
+                if f.read() != want:
+                    raise AssertionError(f"{what}: output differs from "
+                                         "5c's numpy child's")
+            nb = -(-w1 // dp_sharded.ROW_BLOCK)
+            dp_keys = ("dp_staged", "dp_staged16", "dp_stripes",
+                       "dp_spans", "dp_wide", "dp_wide16",
+                       "dp_wide_stripes")
+            if len(merges) != 1 or device == "cuda" and (
+                    counts["dp_shard"] != size * nb
+                    or counts["stage0"] != 1 or counts["traceback"] != 1
+                    or any(counts[k] for k in dp_keys)):
+                raise AssertionError(f"{what}: launches {counts}, "
+                                     f"sharded merges {len(merges)}")
+            report.append(f"{size} shards: {secs:.2f} s, the merge "
+                          f"{merges[0]:.2f} ms (K10 {counts['dp_shard']},"
+                          f" K5 {counts['stage0']}, K4 "
+                          f"{counts['traceback']}, K2 spans 0)")
+    finally:
+        dp_sharded.dp_profile_sharded_paths = orig
+        mesh._AUTO_MESH.clear()
+    n, tot, mean = recorder.totals("cols", "dp_shard")
+    ns, tots, _ = recorder.totals("profprof", "dp_spans")
+    report.append(f"K10 in the 2-shard run: {n} launches, {tot:.3f} ms "
+                  f"of events in all, {mean:.4f} ms mean (events on "
+                  f"the shards' streams overlap); 5c's K2 spans: {ns} "
+                  f"launch, {tots:.3f} ms")
+    params = Params(device=device)
+    params.adjust(PROFPROF_1 + PROFPROF_2)
+    a, b = read_profiles(work, params)
+    blocks = {}
+    for rnd in range(2):
+        for block in (COLS_BLOCKS if rnd == 0 else COLS_BLOCKS[::-1]):
+            m = mesh.make_mesh([f"{device}:0"] * COLS_MESHES[0])
+            t = wall_ms(lambda: dp_sharded.dp_profile_sharded_paths(
+                params, a, b, m, block=block))
+            blocks.setdefault(block, []).append(t)
+    report.append(f"the merge on {COLS_MESHES[0]} shards by row block "
+                  f"(ms, two rounds in turn; ROW_BLOCK "
+                  f"{dp_sharded.ROW_BLOCK}): " + ", ".join(
+                      f"{blk}: {v[0]:.2f} / {v[1]:.2f}"
+                      for blk, v in blocks.items()))
+    gathers = [(size, gather_ms(a.width, b.width, size, device))
+               for size in COLS_MESHES]
+    report.append(f"the gather of its {a.width + 1} x {b.width + 1} "
+                  f"direction bytes from " + ", ".join(
+                      f"{n} slices {t:.4f} ms" for n, t in gathers)
+                  + " (events, one stream)")
+    err, ms, plain_ms, bms, by, shape = k10_measure(params, a, b, device)
+    if err:
+        raise AssertionError(f"5e K10 at {shape}: max abs error {err} "
+                             "against dp_shard_plain")
+    report.append(f"K10 at {shape}: {ms:.4f} ms (events), bound "
+                  f"{bms:.5f} ms ({by}), dp_shard_plain (one fold) "
+                  f"{plain_ms:.0f} ms")
+    # (c)
+    size, cells = COLS_POLYQ
+    calls = {"guided": 0, "unguided": 0}
+    orig = dp_sharded.dp_profile_sharded_paths
+
+    def counted(*a, band=None, **kw):
+        calls["unguided" if band is None else "guided"] += 1
+        return orig(*a, band=band, **kw)
+
+    out = os.path.join(work, "polyq_refine_torch.fa")
+    dp_sharded.dp_profile_sharded_paths = counted
+    mesh._AUTO_MESH["cols"] = mesh.make_mesh([f"{device}:0"] * size)
+    try:
+        kernels.reset_launches()
+        rc, secs = run_cli(["-backend", "torch", "-device", device,
+                            polyq, out],
+                           {"FAMSA_TORCH_SHARD_DP_CELLS": cells})
+        counts = dict(kernels.LAUNCHES)
+    finally:
+        dp_sharded.dp_profile_sharded_paths = orig
+        mesh._AUTO_MESH.clear()
+    if rc != 0:
+        raise AssertionError(f"5e poly-Q refinement on: rc={rc}")
+    if not (calls["guided"] and calls["unguided"]):
+        raise AssertionError(f"5e poly-Q: sharded merges {calls}")
+    np_wait = refs.wait("polyq_refine")
+    with open(out, "rb") as f, \
+            open(os.path.join(work, "polyq_refine_numpy.fa"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("5e poly-Q refinement on: torch output "
+                                 "differs from the numpy child's")
+    report.append(f"poly-Q, refinement on, {size} shards, threshold "
+                  f"{cells} cells: {secs:.2f} s, sharded merges "
+                  f"{calls['unguided']} progressive and {calls['guided']} "
+                  f"guided (K10 {counts['dp_shard']}, K5 {counts['stage0']},"
+                  f" K4 {counts['traceback']}), byte-identical to a numpy "
+                  f"child (waited {np_wait:.2f} s more for it)")
+    log(f"phase 5e cols mesh (shards on {device}:0, each on its own stream): "
+        f"auto_mesh None on one card; K10 bit-exact vs dp_shard_plain and "
+        f"dp_plain (dirs, finals) on " + "; ".join(checks) + "; "
+        + "; ".join(report))
+    return {"name": "dp_profile_shard", "route": "cuda",
+            "source": "famsa_tpu_torch/csrc/dp_wide.cu",
+            "replaces": "famsa_tpu/parallel/dp_sharded.py:40",
+            "launches": recorder.counts["cols"]["dp_shard"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "launches_run": "cols", "at": shape,
+            "runs": run_totals(recorder, "dp_shard")}
 
 
 class RouteCounter:
@@ -2878,27 +3247,17 @@ WIDE_300 = (10000, 300, 7)
 WIDE_FAMILY = (10000, 600, 7)
 
 
-def phase_wide(work, recorder, watch, device="cuda", family=WIDE_300,
-               run="10000", label="6 wide path"):
-    """Phases 6 and 6b: the wide path of a family, refinement off.  The
-    torch run at the default knobs (its launches recorded as `run`), then
-    -backend numpy on the torch tree (-gt import) started as a child
-    process by the returned function's start(); the function waits for
-    it, checks the output byte for byte and logs the phase (phase 8
-    starts the children of phases 6 and 6b beside its own, whose torch
-    seconds it takes again alone, so that they contend with no timed
-    run of phase 7).  The
-    run past 4095 columns ("wide600") must launch the staged body on
-    9-16 folds and never K2's spans variant."""
+def phase_wide(work, recorder, watch, refs, tree_secs, device="cuda",
+               family=WIDE_300, run="10000", label="6 wide path"):
+    """Phases 6 and 6b: the wide path of a family, refinement off: the
+    torch run at the default knobs (its launches recorded as `run`)
+    against its -backend numpy reference (`run` in refs: -gt import of
+    the torch tree that start_references wrote, in tree_secs[run]
+    seconds), byte for byte.  The run past 4095 columns ("wide600") must
+    launch the staged body on 9-16 folds and never K2's spans variant."""
     n, mean_len, seed = family
     fa = os.path.join(work, f"fam_{run}.fa")
-    with open(fa, "w") as f:
-        f.write(make_family(n, mean_len, seed))
-    tree = os.path.join(work, f"{run}.dnd")
     torch_flags = ["-backend", "torch", "-device", device]
-    rc, t_tree = run_cli(torch_flags + ["-gt_export", fa, tree], {})
-    if rc != 0:
-        raise AssertionError(f"wide family gt_export: rc={rc}")
     routes = RouteCounter()
     out = os.path.join(work, f"{run}_torch.fa")
     stats = os.path.join(work, f"{run}_stats_torch.txt")
@@ -2922,54 +3281,30 @@ def phase_wide(work, recorder, watch, device="cuda", family=WIDE_300,
                                  f"{counts['dp_staged16']} times, K2 spans "
                                  f"{counts['dp_spans']}")
     report = stage_report("torch", secs, stats, counts) + route
-    np_out = os.path.join(work, f"{run}_numpy.fa")
-    np_stats = os.path.join(work, f"{run}_stats_numpy.txt")
-    refs = []
-
-    def start():
-        refs.append(NumpyRefs(work, [(run, ["-gt", "import", tree, "-stats",
-                                            np_stats, fa, np_out])], width=1))
-
-    def close():
-        for r in refs:
-            r.close()
     variants = ", ".join(
         f"{k} {v[0]} launches, {v[1]:.3f} ms in all, "
         f"{v[2] or 0:.5f} ms mean" for k, v in
         ((k, recorder.totals(run, k)) for k in DP_KEYS)
         if v[0]) if device == "cuda" else ""
     c = routes.counts
-    recorder_calls = {"wide": list(recorder.wide_calls),
-                      "k2": list(recorder.k2_merges)}
-
-    def finish():
-        if not refs:
-            start()
-        t0 = time.perf_counter()
-        try:
-            refs[0].wait_all()
-        finally:
-            close()
-        waited = time.perf_counter() - t0
-        with open(out, "rb") as f, open(np_out, "rb") as g:
-            if f.read() != g.read():
-                raise AssertionError(f"{label}: torch output differs from "
-                                     "numpy")
-        st = read_stats(np_stats)
-        with open(out) as f:
-            width = len("".join(f.read().split(">", 2)[1].splitlines()[1:]))
-        log(f"phase {label} ({n} seqs, mean len {mean_len}, seed "
-            f"{seed}, alignment {width} columns, refinement off): torch "
-            f"byte-identical to numpy on the torch tree (-gt_export "
-            f"{t_tree:.2f} s); profile merges per route: host {c['host']}, "
-            f"K2 {c['K2']}, K3 {c['K3']}; device merges past 4095 columns: "
-            f"K3 {k3_past} of {len(recorder_calls['wide'])}, K2 {k2_past} of "
-            f"{len(recorder_calls['k2'])} (widest w2 {widest}); {report}; DP "
-            f"launches by variant (CUDA events) {variants}; numpy: alignment "
-            f"{float(st['time.alignment']):.2f} s (beside phase 8's torch "
-            f"and numpy runs; waited {waited:.1f} s after them)")
-    finish.start, finish.close = start, close
-    return finish
+    waited = refs.wait(run)
+    with open(out, "rb") as f, \
+            open(os.path.join(work, f"{run}_numpy.fa"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError(f"{label}: torch output differs from numpy")
+    st = read_stats(os.path.join(work, f"{run}_stats_numpy.txt"))
+    with open(out) as f:
+        width = len("".join(f.read().split(">", 2)[1].splitlines()[1:]))
+    log(f"phase {label} ({n} seqs, mean len {mean_len}, seed "
+        f"{seed}, alignment {width} columns, refinement off): torch "
+        f"byte-identical to numpy on the torch tree (-gt_export "
+        f"{tree_secs[run]:.2f} s); profile merges per route: host "
+        f"{c['host']}, K2 {c['K2']}, K3 {c['K3']}; device merges past 4095 "
+        f"columns: K3 {k3_past} of {len(recorder.wide_calls)}, K2 {k2_past} "
+        f"of {len(recorder.k2_merges)} (widest w2 {widest}); {report}; DP "
+        f"launches by variant (CUDA events) {variants}; numpy (a child "
+        f"process): alignment {float(st['time.alignment']):.2f} s (waited "
+        f"{waited:.1f} s for it)")
 
 
 # ----------------------------------------------------------------------
@@ -3105,8 +3440,9 @@ def chunk_check(params, device, seed, width, cap=None, k=32, w1p=1024,
     fw = threads * stripe
     live = [min(folds, (w2 + fw) // fw)
             for w2 in [start.width] + widths[:ran - 1]]
-    dev = torch.device(device)
-    bufs = [dp_chain.ChainBuffers(dev, k, w1p, cap) for _ in range(2)]
+    # the plain chunk runs on host buffers of the same content (on_host)
+    bufs = [dp_chain.ChainBuffers(torch.device(d), k, w1p, cap)
+            for d in (device, "cpu")]
     states = [dp_chain.ChainState(b, start) for b in bufs]
     for st in states:
         st.seed(params, start)
@@ -3120,8 +3456,7 @@ def chunk_check(params, device, seed, width, cap=None, k=32, w1p=1024,
         torch.cuda.set_sync_debug_mode("default")
     dp_chain.upload_leaves(bufs[1], leaves)
     t0 = time.perf_counter()
-    dp_chain.chunk_plain(params, bufs[1], cap)
-    torch.cuda.synchronize()
+    on_host(dp_chain.chunk_plain, params, bufs[1], cap)
     plain_ms = (time.perf_counter() - t0) * 1e3
     res = pend.resolve()
     torch.cuda.synchronize()
@@ -3323,7 +3658,7 @@ def saved_chunk_check(params, watch, steps=3):
     from famsa_tpu_torch.ops.traceback_torch import PATH_TRAILER
     graph, st, carry, inp = watch.saved
     a, cap = graph.bufs, graph.cap
-    b = dp_chain.ChainBuffers(a.device, a.k, a.w1p, a.max_cap)
+    b = dp_chain.ChainBuffers(torch.device("cpu"), a.k, a.w1p, a.max_cap)
     for x in (a, b):
         x.st.copy_(st)
         x.carry.copy_(carry)
@@ -3336,8 +3671,7 @@ def saved_chunk_check(params, watch, steps=3):
         raise AssertionError("saved chain chunk: not one K7 launch in the "
                              "replay")
     t0 = time.perf_counter()
-    dp_chain.chunk_plain(params, b, cap)
-    torch.cuda.synchronize()
+    on_host(dp_chain.chunk_plain, params, b, cap)
     plain_ms = (time.perf_counter() - t0) * 1e3
     fold_check(a, b, "saved chain chunk")
     wa, wb = a.widths(cap).cpu(), b.widths(cap).cpu()
@@ -3638,13 +3972,24 @@ TREE_RUNS = (
     ("medoid_align", "3000", ["-medoidtree"], ("lcs", "lcs_wave"),
      ("dp_staged",)),
 )
+# the families of TREE_RUNS, by the name it gives them: their files
+TREE_FAMS = {"1000": "fam.fa", "2000": "fam_tree.fa", "10000": "fam_10000.fa",
+             "3000": "fam_3000.fa"}
+
+
+def tree_argv(work, name, fam, flags, side):
+    """The CLI arguments of a TREE_RUNS run on `side` (torch, numpy)."""
+    return flags + ["-stats", os.path.join(work, f"t8_{name}_{side}.st"),
+                    os.path.join(work, TREE_FAMS[fam]),
+                    os.path.join(work, f"t8_{name}_{side}")]
 
 
 class NumpyRefs:
-    """The -backend numpy reference runs of phase 8 as child processes of
-    the port's CLI, at most `width` at a time, started while the torch
-    runs go on in this process (they share the host's cores); every child
-    is killed if the phase fails (close)."""
+    """The -backend numpy reference runs as child processes of the port's
+    CLI, at most `width` at a time, in the order given, while this process
+    goes on; they share the host's cores at the lowest CPU priority, so
+    that this process's timed runs keep the cores they use.  Every child
+    is killed if the smoke fails (close)."""
 
     def __init__(self, work, jobs, width=3):
         self.work = work
@@ -3668,13 +4013,22 @@ class NumpyRefs:
         while self.todo and len(self.running) < self.width:
             name, argv = self.todo.pop(0)
             err = open(os.path.join(self.work, f"np_{name}.err"), "w")
-            self.running[name] = (subprocess.Popen(
+            proc = subprocess.Popen(
                 [sys.executable, "-m", "famsa_tpu_torch", "-backend",
                  "numpy"] + argv, cwd=ROOT, stdout=subprocess.DEVNULL,
-                stderr=err), err)
+                stderr=err)
+            # before its interpreter starts threads, which inherit it
+            os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+            self.running[name] = (proc, err)
 
-    def wait_all(self):
-        while self.todo or self.running:
+    def wait(self, *names):
+        """Wait until the runs `names` have ended (all runs: none given);
+        returns the seconds waited."""
+        t0 = time.perf_counter()
+        while True:
+            pending = set(self.running) | {name for name, _ in self.todo}
+            if not (pending & set(names) if names else pending):
+                return time.perf_counter() - t0
             self.poll()
             time.sleep(0.1)
 
@@ -3684,6 +4038,7 @@ class NumpyRefs:
             proc.wait()
             err.close()
         self.running = {}
+        self.todo = []
 
 
 def k1_largest(rec, run):
@@ -3723,20 +4078,18 @@ def k1_text(rec, run, largest):
     return ", ".join(parts)
 
 
-def phase_trees(work, recorder, watch, device="cuda", wide=()):
+def phase_trees(work, recorder, watch, refs, device="cuda"):
     """Every guide-tree method, the PartTree/MedoidTree heuristic and the
     distance export through the CLI entry point (TREE_RUNS), -backend
-    torch against -backend numpy byte for byte (the numpy runs as child
-    processes beside the torch runs); each torch run launches exactly the
-    K1 variants listed, its largest launch of each is held bit-exact
-    against lcs_plain, and no device memory is left allocated after a
-    tree run (hundreds of subgroup backends in the heuristics); the
-    alignments are held to ResidencyWatch as in phase 4.  Then each tree
-    and export run of torch again, alone on the host, byte-identical to
-    its first run.  The recorder times every K1 launch of each first run
-    (run names: TREE_RUNS' names).  `wide`: phase_wide's finishers,
-    whose numpy children start with phase 8's and are checked before the
-    runs alone."""
+    torch against its -backend numpy child ("t8_" + the run's name in
+    refs) byte for byte; every child has ended before the torch runs, so
+    their seconds are taken alone on the host.  Each torch run launches
+    exactly the K1 variants listed, its largest launch of each is held
+    bit-exact against lcs_plain, and no device memory is left allocated
+    after a tree run (hundreds of subgroup backends in the heuristics);
+    the alignments are held to ResidencyWatch as in phase 4.  The
+    recorder times every K1 launch of each run (run names: TREE_RUNS'
+    names)."""
     import gc
     import torch
     from famsa_tpu_torch import kernels
@@ -3745,90 +4098,64 @@ def phase_trees(work, recorder, watch, device="cuda", wide=()):
     if clash:
         raise AssertionError(f"phase 8 runs {clash} would overwrite the "
                              "recorder's earlier runs")
-    fams = {"1000": "fam.fa", "2000": "fam_tree.fa", "10000": "fam_10000.fa",
-            "3000": "fam_3000.fa"}
-    fams = {k: os.path.join(work, v) for k, v in fams.items()}
-    with open(fams["3000"], "w") as f:
-        f.write(make_family(3000, 300, 13))
-
-    def argv(name, fam, flags, side):
-        return flags + ["-stats", os.path.join(work, f"t8_{name}_{side}.st"),
-                        fams[fam], os.path.join(work, f"t8_{name}_{side}")]
-
-    # the longest numpy runs first
-    order = sorted(TREE_RUNS, key=lambda r: ("align" not in r[0],
-                                             r[1] != "10000"))
-    for finish in wide:
-        finish.start()
-    refs = NumpyRefs(work, [(name, argv(name, fam, flags, "numpy"))
-                            for name, fam, flags, _, _ in order])
+    waited = refs.wait()
     torch_flags = ["-backend", "torch", "-device", device]
     lines = []
-    try:
-        for name, fam, flags, k1, dp in TREE_RUNS:
-            align = bool(dp)
-            gc.collect()
-            before = torch.cuda.memory_allocated() if cuda else 0
-            args = torch_flags + argv(name, fam, flags, "torch")
-            if align:
-                watch.profile, watch.ops = None, []
-                rc, _, counts, route = run_torch(
-                    f"phase 8 {name}", args, {}, recorder, watch, name,
-                    False, device)
-                watch.reset()           # it holds the run's profiles
-            else:
-                if cuda:
-                    torch.cuda.reset_peak_memory_stats()
-                recorder.start(name)
-                kernels.reset_launches()
-                rc, _ = run_cli(args, {})
-                counts, route = dict(kernels.LAUNCHES), ""
-                recorder.stop(counts)
-            refs.poll()
-            if rc != 0:
-                raise AssertionError(f"phase 8 {name}: rc={rc}")
-            peak = torch.cuda.max_memory_allocated() if cuda else 0
-            launched = tuple(k for k in ("lcs", "lcs_wave") if counts[k])
-            if cuda and launched != k1:
-                raise AssertionError(f"phase 8 {name}: K1 variants "
-                                     f"{launched} launched, {k1} expected: "
-                                     f"{counts}")
-            if cuda and align:
-                check_launches(f"phase 8 {name}", counts, dp, recorder)
-            elif any(counts[k] for k in VARIANTS if k not in ("lcs",
-                                                               "lcs_wave")):
-                raise AssertionError(f"phase 8 {name}: a tree run launched "
-                                     f"DP kernels or K8: {counts}")
-            # the recorder's hold on the largest launches' inputs (in the
-            # peak: it keeps their mask tables alive past their backends)
-            kept = {id(t): t.numel() * t.element_size()
-                    for _, (table, syms, _, _) in recorder.lcs_largest.get(
-                        name, {}).values()
-                    for t in (table, syms) if t.is_cuda}
-            largest = k1_largest(recorder, name)
-            gc.collect()
-            # the recorder holds no new input: phases 4 and 5 gave it both
-            # K1 variants' first calls, and k1_largest dropped this run's
-            held = (torch.cuda.memory_allocated() if cuda else 0) - before
-            if not align and held >= 2 ** 20:
-                raise AssertionError(f"phase 8 {name}: {held} bytes of "
-                                     "device memory left allocated")
-            st = read_stats(os.path.join(work, f"t8_{name}_torch.st"))
-            lines.append((name, st, k1_text(recorder, name, largest)
-                          + (route if align else
-                             ", peak device memory above the run's start "
-                             f"{(peak - before) / 2 ** 20:.1f} MiB (the "
-                             "recorder's held inputs "
-                             f"{sum(kept.values()) / 2 ** 20:.1f})")
-                          + f", left allocated {held} bytes"))
-            refs.poll()
-        refs.wait_all()
-        for finish in wide:
-            finish()
-    finally:
-        refs.close()
-        for finish in wide:
-            finish.close()
+    for name, fam, flags, k1, dp in TREE_RUNS:
+        align = bool(dp)
+        gc.collect()
+        before = torch.cuda.memory_allocated() if cuda else 0
+        args = torch_flags + tree_argv(work, name, fam, flags, "torch")
+        if align:
+            watch.profile, watch.ops = None, []
+            rc, _, counts, route = run_torch(
+                f"phase 8 {name}", args, {}, recorder, watch, name,
+                False, device)
+            watch.reset()           # it holds the run's profiles
+        else:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            recorder.start(name)
+            kernels.reset_launches()
+            rc, _ = run_cli(args, {})
+            counts, route = dict(kernels.LAUNCHES), ""
+            recorder.stop(counts)
+        if rc != 0:
+            raise AssertionError(f"phase 8 {name}: rc={rc}")
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        launched = tuple(k for k in ("lcs", "lcs_wave") if counts[k])
+        if cuda and launched != k1:
+            raise AssertionError(f"phase 8 {name}: K1 variants "
+                                 f"{launched} launched, {k1} expected: "
+                                 f"{counts}")
+        if cuda and align:
+            check_launches(f"phase 8 {name}", counts, dp, recorder)
+        elif any(counts[k] for k in VARIANTS if k not in ("lcs",
+                                                           "lcs_wave")):
+            raise AssertionError(f"phase 8 {name}: a tree run launched "
+                                 f"DP kernels or K8: {counts}")
+        # the recorder's hold on the largest launches' inputs (in the
+        # peak: it keeps their mask tables alive past their backends)
+        kept = {id(t): t.numel() * t.element_size()
+                for _, (table, syms, _, _) in recorder.lcs_largest.get(
+                    name, {}).values()
+                for t in (table, syms) if t.is_cuda}
+        largest = k1_largest(recorder, name)
+        gc.collect()
+        # the recorder holds no new input: phases 4 and 5 gave it both
+        # K1 variants' first calls, and k1_largest dropped this run's
+        held = (torch.cuda.memory_allocated() if cuda else 0) - before
+        if not align and held >= 2 ** 20:
+            raise AssertionError(f"phase 8 {name}: {held} bytes of "
+                                 "device memory left allocated")
+        st = read_stats(os.path.join(work, f"t8_{name}_torch.st"))
+        lines.append((name, st, k1_text(recorder, name, largest)
+                      + (route if align else
+                         ", peak device memory above the run's start "
+                         f"{(peak - before) / 2 ** 20:.1f} MiB (the "
+                         "recorder's held inputs "
+                         f"{sum(kept.values()) / 2 ** 20:.1f})")
+                      + f", left allocated {held} bytes"))
     report = []
     for name, st, text in lines:
         outs = []
@@ -3844,30 +4171,8 @@ def phase_trees(work, recorder, watch, device="cuda", wide=()):
             for k in ("time.tree_build", "time.total") if k in st)
         report.append(f"{name}: {secs}; {text}")
     log("phase 8 tree methods and distance export, torch byte-identical "
-        "to numpy (numpy in child processes beside the torch runs): "
-        + "; ".join(report))
-    # the torch tree and export runs again, alone on the host: the
-    # seconds above share its cores with the numpy children
-    alone = []
-    for name, fam, flags, _, dp in TREE_RUNS:
-        if dp:
-            continue
-        rc, _ = run_cli(torch_flags + argv(name, fam, flags, "alone"), {})
-        if rc != 0:
-            raise AssertionError(f"phase 8 {name} alone: rc={rc}")
-        outs = []
-        for side in ("torch", "alone"):
-            with open(os.path.join(work, f"t8_{name}_{side}"), "rb") as f:
-                outs.append(f.read())
-        if outs[0] != outs[1]:
-            raise AssertionError(f"phase 8 {name} alone: output differs "
-                                 "from its first run")
-        st = read_stats(os.path.join(work, f"t8_{name}_alone.st"))
-        alone.append(f"{name} " + ", ".join(
-            f"{k[5:]} {float(st[k]):.2f}"
-            for k in ("time.tree_build", "time.total") if k in st))
-    log("phase 8 torch tree and export runs again, alone on the host, "
-        "every output identical to its first run (s): " + "; ".join(alone))
+        f"to numpy (numpy in child processes, every one ended before the "
+        f"torch runs; waited {waited:.1f} s for them): " + "; ".join(report))
 
 
 # kernel variant -> (library, C entry point, source, the TPU kernel it
@@ -3910,6 +4215,9 @@ VARIANTS = {
               "famsa_tpu/ops/dp_chain.py:74"),
     "prim_round": ("prim", "prim_round", "famsa_tpu_torch/csrc/prim.cu",
                    "famsa_tpu/ops/prim_device.py:67"),
+    "dp_shard": ("dp_wide", "dp_profile_shard",
+                 "famsa_tpu_torch/csrc/dp_wide.cu",
+                 "famsa_tpu/parallel/dp_sharded.py:40"),
 }
 # the entry points that two variants share, told apart by the launch's
 # fold count (its argument at this index): up to PORTABLE_FOLDS folds the
@@ -3924,18 +4232,19 @@ REPORT_NAME = {"dp_staged16": "dp_profile_batched_staged[9-16 folds]",
 # default run, for K1's rows variant the -dist tree run, for K9 the
 # poly-Q family's alignment (phase 5b), for the DP past 4095 columns the
 # wide family's run (phase 6b), for K2 past 32767 the profile-profile run
-# (phase 5c), for K7 the variant family's all-chain run, and for K8
-# (measured in phase 2) the main path's default run
+# (phase 5c), for K7 the variant family's all-chain run, for K8
+# (measured in phase 2) the main path's default run, and for K10 phase
+# 5e's profile-profile run on 2 shards
 LAUNCH_RUN = {"lcs": "dist", "lcs_wave": "1000", "lcs_refmask": "polyq",
               "dp_spans": "profprof",
               "dp_staged": "1000", "dp_staged16": "wide600",
               "dp_stripes": "wide600", "dp_wide": "1000",
               "dp_wide16": "wide600", "dp_wide_stripes": "wide600",
               "traceback": "1000", "stage0": "1000", "merged": "1000",
-              "chain": "chain", "prim_round": "1000"}
+              "chain": "chain", "prim_round": "1000", "dp_shard": "cols"}
 # the recorded runs whose per-variant totals the report gives
 RECORDED_RUNS = ("1000", "10000", "wide600", "dist", "polyq",
-                 "polyq_dist", "profprof")
+                 "polyq_dist", "profprof", "cols")
 
 
 class LaunchRecorder:
@@ -4265,7 +4574,7 @@ def run_totals(rec, key):
     return runs
 
 
-def kernel_report(rec, stand_ins, k7, k8):
+def kernel_report(rec, stand_ins, k7, k8, k10):
     """One entry per kernel variant: held against its plain version at
     the largest input the main-path runs gave it (bit-exact, or the smoke
     fails), its CUDA-event time there, the bound, and the per-run totals
@@ -4280,7 +4589,8 @@ def kernel_report(rec, stand_ins, k7, k8):
     launches in the all-chain run are graph replays' in the main, so its
     totals are the replays' ("graph").  K8's entry (k8) comes from phase
     2, which holds it on the main path's families and times it there; its
-    launches and totals are the recorded runs'."""
+    launches and totals are the recorded runs'.  K10's entry (k10) comes
+    from phase 5e, which holds and times it."""
     from famsa_tpu_torch.ops.dp_stage0 import stage0, stage0_plain
     from famsa_tpu_torch.ops.dp_torch import dp_dirs, dp_plain
     from famsa_tpu_torch.ops.dp_wide import dp_dirs_wide
@@ -4305,6 +4615,9 @@ def kernel_report(rec, stand_ins, k7, k8):
     for key, (_, entry, source, replaces) in VARIANTS.items():
         if key == "chain":
             out.append(k7)
+            continue
+        if key == "dp_shard":
+            out.append(k10)
             continue
         if key == "prim_round":
             out.append({**k8, "launches": rec.counts["1000"][key],
@@ -4408,6 +4721,77 @@ def kernel_report(rec, stand_ins, k7, k8):
     return out
 
 
+# ----------------------------------------------------------------------
+# the inputs of phases 4-8 and their -backend numpy references
+MAIN_FAMILY = (1000, 300, 7)        # phase 4: sequences, mean length, seed
+TREE_FAMILY = (2000, 300, 11)       # phase 5 (and phase 8's trees)
+MEDOID_FAMILY = (3000, 300, 13)     # phase 8's aligned MedoidTree run
+# numpy runs at a time: the host has 8 cores, and phases 2-3c, which run
+# beside them, keep one busy
+REF_WIDTH = 4
+
+
+def write_families(work):
+    """Phases 4-8's input files in `work`, under the names they read."""
+    texts = {"fam.fa": make_family(*MAIN_FAMILY),
+             "fam_tree.fa": make_family(*TREE_FAMILY),
+             "fam_3000.fa": make_family(*MEDOID_FAMILY),
+             "fam_10000.fa": make_family(*WIDE_300),
+             "fam_wide600.fa": make_family(*WIDE_FAMILY),
+             "polyq.fa": make_polyq(*POLYQ_FAMILY)}
+    texts["prof1.fa"], texts["prof2.fa"] = make_profiles()
+    for name, text in texts.items():
+        with open(os.path.join(work, name), "w") as f:
+            f.write(text)
+
+
+def start_references(work, device="cuda"):
+    """Write phases 4-8's inputs, the torch guide trees of phases 6 and 6b
+    (-gt_export; their numpy references import them), and start every
+    -backend numpy reference run of phases 4-8 as a child process,
+    REF_WIDTH at a time, phase 4's and then the longest first, so that
+    they run beside phases 2-3c (phase 7's numpy run stays in this
+    process, which times its host merges).  Returns (the NumpyRefs, {run: seconds of its torch
+    -gt_export}); the phases wait for their runs by name."""
+    write_families(work)
+
+    def w(name):
+        return os.path.join(work, name)
+    tree_secs = {}
+    for run in ("wide600", "10000"):
+        rc, tree_secs[run] = run_cli(["-backend", "torch", "-device", device,
+                                      "-gt_export", w(f"fam_{run}.fa"),
+                                      w(f"{run}.dnd")], {})
+        if rc != 0:
+            raise AssertionError(f"{run} gt_export: rc={rc}")
+    trees = {name: (fam, flags) for name, fam, flags, _, _ in TREE_RUNS}
+
+    def tree_job(name):
+        return "t8_" + name, tree_argv(work, name, *trees[name], "numpy")
+    polyq = w("polyq.fa")
+    # phase 4's first (the first needed), then the longest
+    jobs = [("main", ["-stats", w("stats_numpy.txt"), w("fam.fa"),
+                      w("out_numpy.fa")])]
+    jobs += [(run, ["-gt", "import", w(f"{run}.dnd"), "-stats",
+                    w(f"{run}_stats_numpy.txt"), w(f"fam_{run}.fa"),
+                    w(f"{run}_numpy.fa")]) for run in ("wide600", "10000")]
+    jobs += [tree_job("upgma_align"), tree_job("medoid_align"),
+             tree_job("medoid"), tree_job("parttree")]
+    jobs += [(what, extra + ["-stats", w(f"{what}_numpy.st"), "-gt_export",
+                             w("fam_tree.fa"), w(f"{what}_numpy.dnd")])
+             for what, extra in TREE_CASES]
+    jobs += [(name, flags + [polyq, w(f"{name}_numpy{ext}")])
+             for name, flags, ext in POLYQ_RUNS]
+    jobs += [("profprof", profprof_argv(work, "numpy")),
+             ("mesh_upgma", ["-gt", "upgma", "-gt_export", "-stats",
+                             w("mesh_upgma_numpy.dnd.st"), polyq,
+                             w("mesh_upgma_numpy.dnd")]),
+             ("polyq_refine", [polyq, w("polyq_refine_numpy.fa")])]
+    jobs += [tree_job(name) for name in trees
+             if "t8_" + name not in dict(jobs)]
+    return NumpyRefs(work, jobs, width=REF_WIDTH), tree_secs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4420,27 +4804,39 @@ def main():
     secs = kernels.build_all()
     log(f"phase 1 build: {secs:.1f} s for {len(kernels.KERNELS)} kernel "
         f"sources; {smi}")
-    phase_k1()
-    phase_k9()
-    k8 = phase_k8()
-    stand_ins = phase_k2()
-    phase_k2_spans()
-    stand_ins.update(phase_k3())
-    phase_edges()
-    rec = LaunchRecorder()
-    watch = ResidencyWatch()
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as work:
-        phase_main(work, rec, watch)
-        phase_tree(work, rec)
-        phase_polyq(work, rec, watch)
-        phase_profprof(work, rec, watch)
-        phase_mesh(work, rec)
-        wide = [phase_wide(work, rec, watch),
-                phase_wide(work, rec, watch, family=WIDE_FAMILY,
-                           run="wide600", label="6b wide family")]
-        k7 = phase_chain(work, rec)
-        phase_trees(work, rec, watch, wide=wide)
-    kern = kernel_report(rec, stand_ins, k7, k8)
+        refs, tree_secs = start_references(work)
+        log(f"phase 1 references: {len(refs.todo) + len(refs.running)} "
+            f"numpy runs of phases 4-8 started as child processes, "
+            f"{REF_WIDTH} at a time; the torch trees of phases 6b and 6 "
+            f"(-gt_export) {tree_secs['wide600']:.2f} s and "
+            f"{tree_secs['10000']:.2f} s")
+        try:
+            phase_k1()
+            phase_k9()
+            k8 = phase_k8()
+            stand_ins = phase_k2()
+            phase_k2_spans()
+            stand_ins.update(phase_k3())
+            phase_edges()
+            rec = LaunchRecorder()
+            watch = ResidencyWatch()
+            phase_main(work, rec, watch, refs)
+            phase_tree(work, rec, refs)
+            phase_polyq(work, rec, watch, refs)
+            phase_profprof(work, rec, watch, refs)
+            phase_mesh(work, rec, refs)
+            k10 = phase_cols(work, rec, refs)
+            phase_wide(work, rec, watch, refs, tree_secs)
+            phase_wide(work, rec, watch, refs, tree_secs,
+                       family=WIDE_FAMILY, run="wide600",
+                       label="6b wide family")
+            refs.wait()             # phase 7's timed runs alone on the host
+            k7 = phase_chain(work, rec)
+            phase_trees(work, rec, watch, refs)
+        finally:
+            refs.close()
+    kern = kernel_report(rec, stand_ins, k7, k8, k10)
     log(f"smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kern}))
     print(smi)

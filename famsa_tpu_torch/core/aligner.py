@@ -99,6 +99,33 @@ def split_wide(device, max_batch):
     return wide, batched
 
 
+def split_sharded(ready, device):
+    """Routes the profile merges [(key, profile1, profile2)] that the
+    scheduler has ready together: returns (sharded, rest), both
+    [(key, profile1, profile2)] as given, sharded those that
+    parallel/mesh.py:cols_mesh shards over a mesh a caller set (in
+    align_into's operand order); none without such a mesh."""
+    from ..parallel.mesh import auto_mesh, cols_mesh
+    if auto_mesh("cols", device) is None:
+        return [], ready
+    sharded, rest = [], []
+    for m in ready:
+        p1, p2 = order_operands(m[1], m[2])
+        (sharded if cols_mesh(p1, p2, device) is not None
+         else rest).append(m)
+    return sharded, rest
+
+
+def _dp_sharded(params, p1, p2, mesh, cm1=None, cm2=None):
+    """One merge's DP with its columns sharded over `mesh`
+    (parallel/dp_sharded.py), traced on the lead (K4): only its path
+    comes back; guided when column mappings are given
+    (famsa_tpu/core/aligner.py:40-58 and :101-116)."""
+    from ..parallel.dp_sharded import dp_profile_sharded_paths
+    band = None if cm1 is None else row_ranges(params, cm1, cm2)
+    return dp_profile_sharded_paths(params, p1, p2, mesh, band=band)
+
+
 def _dp_torch(params, p1, p2, cm1=None, cm2=None):
     """One merge on the device DP (K3 when wide_dp_ok accepts it, else
     K2), traced on the device (K4): only its path comes back, and no
@@ -135,7 +162,13 @@ def align_into(dest: Profile, profile1: Profile, profile2: Profile,
     cm1, cm2 = column_mapping1, column_mapping2
     if p1 is not profile1:
         cm1, cm2 = cm2, cm1
-    if backend == "torch" and device_dp_ok(p1, p2):
+    mesh = None
+    if backend == "torch":
+        from ..parallel.mesh import cols_mesh
+        mesh = cols_mesh(p1, p2, dest.params.device)
+    if mesh is not None:
+        res = _dp_sharded(dest.params, p1, p2, mesh, cm1, cm2)
+    elif backend == "torch" and device_dp_ok(p1, p2):
         res = _dp_torch(dest.params, p1, p2, cm1, cm2)
     else:
         res = dp_profile(dest.params, p1, p2, cm1, cm2)

@@ -89,6 +89,28 @@
 // does no row work but takes every cluster barrier, and a step with w1 0
 // (K7 skipped it) returns at once.
 //
+// K10 (dp_profile_shard, ops/dp_wide.py:dp_shard; the port of
+// famsa_tpu/parallel/dp_sharded.py:40 _sharded_program, a shard_map
+// program with no pallas_call): one shard's column slice [cs, c1) of one
+// merge, for one block of rows [r0, r1), on either body (staged to 8192
+// columns a slice, stripes to 32768), BATCH false, in a third mode beside
+// the cluster's own folds and the spans' global edges (Slice, below).
+// famsa_tpu runs every row in lockstep over its shards, a halo exchange
+// and two all-gathers a row; K10 is the same recurrence cut into blocks
+// of rows, so one shard's block b + 1 overlaps the next shard's block b
+// (parallel/dp_sharded.py, the pipeline of FAMSA's column stripes,
+// profile_par.cpp:214-230).  Between shards it keeps the spans variant's
+// edge (D, V and the running max of m - bc of every row of the slice's
+// last column) in global memory, written by the thread of column c1 - 1
+// and read by the slice's first fold; between blocks, the row state the
+// body keeps in registers (the last row's D, H, V of every column and of
+// the column left of the slice) goes to global memory at the end of a
+// launch and comes back at the start of the next instead of row 0.  The
+// column factors are the merge's own, sliced, so the cumulative planes
+// and the band stay in global column numbers and the H scan's seed needs
+// no offset (famsa_tpu's bc_loc + off and carry_in, dp_sharded.py:
+// 140-155).  Every bound is the stripes' and staged bodies', per row.
+//
 // A cluster of more than 8 CTAs is non-portable: the launch sets
 // cudaFuncAttributeNonPortableClusterSizeAllowed, and a cluster the card
 // cannot place fails the launch (the wrapper raises); no other variant
@@ -121,6 +143,26 @@ constexpr size_t STAGED_SMEM_MAX =
 constexpr size_t STRIPES_SMEM_MAX = 232448 - 4096;
 // the spans variant: clusters a merge at most (64 folds of 2048 columns)
 constexpr int MAX_SPAN = 4;
+// K10: the columns of a slice's column planes before its first column cs
+// (cs - 1 for the left halo's factors, and an even count so that the
+// bulk copies from the fold starts stay 16-byte aligned); must match
+// ops/dp_wide.py:SHARD_PAD
+constexpr long long SHARD_PAD = 2;
+
+// K10's slice of one merge: its columns [cs, w2] (the w2 the body is
+// given is the slice's last column, c1 - 1) for the rows [r0, r1).  ein
+// [w1][3]: the edge (D, V, running max of m - bc) at column cs - 1 of
+// row i at i - 1, written by the previous shard (nullptr when cs is 0);
+// eout the same at column w2 for the next shard (nullptr on the last);
+// state [3][w2 - cs + 2]: the last row's D, H and V at columns cs - 1 ..
+// w2, stored at the end of the launch and loaded at the start of the
+// next (when r0 > 1) instead of row 0.
+struct Slice {
+    long long cs, r0, r1;
+    const long long* ein;
+    long long* eout;
+    long long* state;
+};
 
 // ------------------------------------------------------------ staged
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -202,6 +244,61 @@ __device__ __forceinline__ void load_rows(i64* tile, const i64* rowf, i64 i0,
     asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
+// n rows of edges (D, V, running max) from global memory into a fold's
+// edge buffer (every thread, then a CTA barrier): the spans' previous
+// cluster's or K10's previous shard's.
+__device__ __forceinline__ void edge_in(i64 (*edge)[3], const i64* src, int n,
+                                        int t, int nt) {
+    for (int k = t; k < n * 3; k += nt)
+        edge[k / 3][k % 3] = __ldcg(src + k);
+    __syncthreads();
+}
+
+// K10's row state (Slice::state) of the stripe of S columns from j0: its
+// columns' D, H, V and, from the thread of the slice's first column, the
+// halo's (column cs - 1).  The halo of every other thread is its left
+// neighbour's column, so loading it back gives each thread the registers
+// the next row of the same launch would have found.
+template <int S>
+__device__ __forceinline__ void save_state(const Stripe<S>& st, i64* state,
+                                           i64 cs, i64 w2, i64 j0) {
+    const i64 ld = w2 - cs + 2;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+        const i64 j = j0 + k;
+        if (j <= w2) {
+            state[j - cs + 1] = st.pD[k];
+            state[ld + j - cs + 1] = st.pH[k];
+            state[2 * ld + j - cs + 1] = st.pV[k];
+        }
+    }
+    if (j0 == cs) {
+        state[0] = st.hD;
+        state[ld] = st.hH;
+        state[2 * ld] = st.hV;
+    }
+}
+
+template <int S>
+__device__ __forceinline__ void load_state(Stripe<S>& st, const i64* state,
+                                           i64 cs, i64 w2, i64 j0) {
+    const i64 ld = w2 - cs + 2;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+        const i64 j = j0 + k;
+        const bool in = j <= w2;
+        st.pD[k] = in ? state[j - cs + 1] : NEG;
+        st.pH[k] = in ? state[ld + j - cs + 1] : NEG;
+        st.pV[k] = in ? state[2 * ld + j - cs + 1] : NEG;
+    }
+    st.hD = st.hH = st.hV = NEG;
+    if (j0 - 1 <= w2) {
+        st.hD = state[j0 - cs];
+        st.hH = state[ld + j0 - cs];
+        st.hV = state[2 * ld + j0 - cs];
+    }
+}
+
 // The staged kernel: K3's staged variant (one merge) and K2's staged
 // variant (a batch of merges), one body.
 //
@@ -229,13 +326,14 @@ __device__ __forceinline__ void load_rows(i64* tile, const i64* rowf, i64 i0,
 // the batched one reassigns the pointers and widths per merge, and a
 // body that did so for K3's lone merges too measured 3-10 % slower a row
 // there (the kernel sits at the 128-register cap of 512 threads); K3's
-// instantiation leaves them kernel parameters.
-template <bool BATCH>
+// instantiation leaves them kernel parameters.  SLICE (BATCH false):
+// K10, one shard's slice of one merge for a block of rows (Slice).
+template <bool BATCH, bool SLICE = false>
 __global__ void __launch_bounds__(MAX_THREADS)
 dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                  const i64* __restrict__ meta, i64 w1, i64 w2, int ldc,
                  int ldr, int ldf, int blk, uint8_t* __restrict__ dirs,
-                 i64* __restrict__ fin) {
+                 i64* __restrict__ fin, Slice sl) {
     extern __shared__ __align__(16) i64 dsm[];
     __shared__ i64 edge[2][BLK_MAX][3];
     __shared__ i64 xD[MAX_WARPS], xV[MAX_WARPS], wmax[2][MAX_WARPS];
@@ -255,13 +353,21 @@ dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
         rowf += (size_t)b * ldr * NROWF;
         fin += (size_t)b * ldf * 3;
     }
+    // the columns [cs, w2] and rows [ra, rz): K10's slice (colf's column
+    // 0 is cs - SHARD_PAD, dirs' cs), else the whole merge
+    const i64 cs = SLICE ? sl.cs : 0;
+    const i64 ra = SLICE ? sl.r0 : 1, rz = SLICE ? sl.r1 : w1 + 1;
+    if constexpr (SLICE) {
+        colf -= cs - SHARD_PAD;
+        dirs -= cs;
+    }
     // folds holding a column of the merge: all of the cluster's for K3
     const int F = BATCH ? (int)((w2 + fw) / fw) : (int)cluster.num_blocks();
     const bool live = !BATCH || f < F;
-    const i64 c0 = (i64)f * fw;
+    const i64 c0 = cs + (i64)f * fw;
     const i64 j = c0 + t;
-    const i64 stride = w2 + 1;
-    const i64 nrb = (w1 + blk - 1) / blk;
+    const i64 stride = w2 + 1 - cs;
+    const i64 nrb = (rz - ra + blk - 1) / blk;
     i64* s2 = dsm;                               // [30][fw]
     i64* rtile = dsm + NSCORE * fw;              // [2][blk][NROWF]
 
@@ -300,12 +406,18 @@ dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
     }
     cols.s2 = s2 + t;
     cols.lds = fw;
-    if (live) load_rows(rtile, rowf, 1, (int)min((i64)blk, w1), t, fw);
+    if (live) load_rows(rtile, rowf, ra, (int)min((i64)blk, rz - ra), t, fw);
 
     i64* next = (f + 1 < F && t == fw - 1)
                     ? cluster.map_shared_rank(&edge[0][0][0], f + 1) : nullptr;
+    // K10: the previous shard's edges into fold 0, column w2's out
+    const bool shard_in = SLICE && f == 0 && sl.ein != nullptr;
+    i64* eout = SLICE && j == w2 ? sl.eout : nullptr;
     Stripe<1> st;
-    row0<1>(st, colf, ldc, w2, j, 1, dirs);
+    if (SLICE && ra > 1)
+        load_state<1>(st, sl.state, cs, w2, j);
+    else
+        row0<1>(st, colf, ldc, w2, j, 1, dirs);
     WarpXch xch{xD, xV, &wmax[0][0], fw / 32};
     asm volatile("cp.async.wait_all;" ::: "memory");
     if (live) {
@@ -323,15 +435,19 @@ dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
         if (live && rb >= 0 && rb < nrb) {
             const int in = (int)((s + 1) & 1), out = (int)(s & 1);
             const i64* cur = rtile + (rb & 1) * blk * NROWF;
+            const i64 i0 = ra + rb * blk;         // the block's first row
             if (rb + 1 < nrb)
                 load_rows(rtile + ((rb + 1) & 1) * blk * NROWF, rowf,
-                          (rb + 1) * blk + 1,
-                          (int)min((i64)blk, w1 - (rb + 1) * blk), t, fw);
+                          i0 + blk, (int)min((i64)blk, rz - i0 - blk), t,
+                          fw);
+            if (shard_in)
+                edge_in(edge[in], sl.ein + (i0 - 1) * 3,
+                        (int)min((i64)blk, rz - i0), t, fw);
             for (int r = 0; r < blk; ++r) {
-                const i64 i = rb * blk + r + 1;
-                if (i > w1) break;
+                const i64 i = i0 + r;
+                if (i >= rz) break;
                 i64 eD = NEG, eV = NEG, seed = IMIN;
-                if (f > 0) {
+                if (f > 0 || shard_in) {
                     eD = edge[in][r][0];
                     eV = edge[in][r][1];
                     seed = edge[in][r][2];
@@ -346,11 +462,18 @@ dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                     e[1] = st.pV[0];
                     e[2] = run;
                 }
+                if (eout != nullptr) {
+                    i64* e = eout + (size_t)(i - 1) * 3;
+                    e[0] = st.pD[0];
+                    e[1] = st.pV[0];
+                    e[2] = run;
+                }
             }
             asm volatile("cp.async.wait_all;" ::: "memory");
         }
         cluster.sync();
     }
+    if constexpr (SLICE) save_state<1>(st, sl.state, cs, w2, j);
 }
 
 // ----------------------------------------------------------- stripes
@@ -395,12 +518,15 @@ __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
 // u32, zeroed before the launch: per merge its ticket count, then the
 // row blocks published across each cluster boundary; gedge
 // [B][MAX_SPAN - 1][ldf][3] i64, the rows' edges at each boundary.
-template <int S, bool BATCH, bool SPAN>
+// SLICE (BATCH false): K10, one shard's slice of one merge for a block of
+// rows (Slice), its edges in and out through global memory as the spans'.
+template <int S, bool BATCH, bool SPAN, bool SLICE = false>
 __global__ void __launch_bounds__(MAX_THREADS)
 dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                   const i64* __restrict__ meta, i64 w1, i64 w2, int ldc,
                   int ldr, int ldf, int blk, uint8_t* __restrict__ dirs,
-                  i64* __restrict__ fin, unsigned* sync, i64* gedge) {
+                  i64* __restrict__ fin, unsigned* sync, i64* gedge,
+                  Slice sl) {
     extern __shared__ __align__(16) i64 dsm[];
     __shared__ i64 edge[2][BLK_MAX][3];
     __shared__ i64 xD[MAX_WARPS], xV[MAX_WARPS], wmax[2][MAX_WARPS];
@@ -436,19 +562,33 @@ dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
         ready = sync + b * (1 + MAX_SPAN) + 1;
         gedge += (size_t)b * (MAX_SPAN - 1) * ldf * 3;
     }
+    // the columns [cs, w2] and rows [ra, rz): K10's slice (colf's column
+    // 0 is cs - SHARD_PAD, dirs' cs), else the whole merge
+    const i64 cs = SLICE ? sl.cs : 0;
+    const i64 ra = SLICE ? sl.r0 : 1, rz = SLICE ? sl.r1 : w1 + 1;
+    if constexpr (SLICE) {
+        colf -= cs - SHARD_PAD;
+        dirs -= cs;
+    }
     const int F = BATCH ? (int)min((i64)MAX_FOLDS,
                                    (w2 + fw) / fw - (i64)c * MAX_FOLDS)
                         : (int)cluster.num_blocks();
     const bool live = !BATCH || f < F;
-    const i64 c0 = ((i64)c * MAX_FOLDS + f) * fw;
-    // edges in from the previous cluster (fold 0 of c > 0), out to the
-    // next (the last fold of c < C - 1, thread nt - 1)
-    const bool span_in = SPAN && f == 0 && c > 0;
-    i64* gout = (SPAN && f == MAX_FOLDS - 1 && c + 1 < C && t == nt - 1)
-                    ? gedge + (size_t)c * ldf * 3 : nullptr;
+    const i64 c0 = cs + ((i64)c * MAX_FOLDS + f) * fw;
     const i64 j0 = c0 + (i64)t * S;
-    const i64 stride = w2 + 1;
-    const i64 nrb = (w1 + blk - 1) / blk;
+    // edges through global memory: in from the previous cluster (fold 0
+    // of c > 0) or K10's previous shard (fold 0 when cs > 0), out to the
+    // next cluster (the last fold of c < C - 1, thread nt - 1, its
+    // stripe's last column) or shard (the thread of column w2)
+    const bool span_in = SPAN && f == 0 && c > 0;
+    const i64* gin = span_in ? gedge + (size_t)(c - 1) * ldf * 3
+                     : SLICE && f == 0 ? sl.ein : nullptr;
+    i64* gout = (SPAN && f == MAX_FOLDS - 1 && c + 1 < C && t == nt - 1)
+                    ? gedge + (size_t)c * ldf * 3
+                : (SLICE && j0 <= w2 && w2 < j0 + S) ? sl.eout : nullptr;
+    const int kout = SLICE ? (int)(w2 - j0) : S - 1;
+    const i64 stride = w2 + 1 - cs;
+    const i64 nrb = (rz - ra + blk - 1) / blk;
     i64* planes = dsm;                           // [NPLANE_CHIP][fw]
     i64* rtile = dsm + (size_t)NPLANE_CHIP * fw;   // [2][blk][NROWF]
 
@@ -486,12 +626,15 @@ dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
         cols.cumEl = __ldg(colf + (size_t)C_CUME * ldc + j0 - 1);
         cols.cumTl = __ldg(colf + (size_t)C_CUMT * ldc + j0 - 1);
     }
-    if (live) load_rows(rtile, rowf, 1, (int)min((i64)blk, w1), t, nt);
+    if (live) load_rows(rtile, rowf, ra, (int)min((i64)blk, rz - ra), t, nt);
 
     i64* next = (f + 1 < F && t == nt - 1)
                     ? cluster.map_shared_rank(&edge[0][0][0], f + 1) : nullptr;
     Stripe<S> st;
-    row0<S>(st, colf, ldc, w2, j0, S, dirs);
+    if (SLICE && ra > 1)
+        load_state<S>(st, sl.state, cs, w2, j0);
+    else
+        row0<S>(st, colf, ldc, w2, j0, S, dirs);
     WarpXch xch{xD, xV, &wmax[0][0], nt / 32};
     asm volatile("cp.async.wait_all;" ::: "memory");
     if (ncopy > 0) {
@@ -509,26 +652,26 @@ dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
         if (live && rb >= 0 && rb < nrb) {
             const int in = (int)((s + 1) & 1), out = (int)(s & 1);
             const i64* cur = rtile + (rb & 1) * blk * NROWF;
+            const i64 i0 = ra + rb * blk;         // the block's first row
             if (rb + 1 < nrb)
                 load_rows(rtile + ((rb + 1) & 1) * blk * NROWF, rowf,
-                          (rb + 1) * blk + 1,
-                          (int)min((i64)blk, w1 - (rb + 1) * blk), t, nt);
-            if (span_in) {          // the previous cluster's edges of block rb
-                if (t == 0)
-                    while (ld_acquire(ready + c - 1) < (unsigned)(rb + 1))
-                        __nanosleep(32);
-                __syncthreads();
-                const int nr = (int)min((i64)blk, w1 - rb * blk);
-                const i64* e = gedge + ((size_t)(c - 1) * ldf + rb * blk) * 3;
-                for (int k = t; k < nr * 3; k += nt)
-                    edge[in][k / 3][k % 3] = __ldcg(e + k);
-                __syncthreads();
+                          i0 + blk, (int)min((i64)blk, rz - i0 - blk), t,
+                          nt);
+            if (gin != nullptr) {   // the previous cluster's or shard's edges
+                if constexpr (SPAN) {   // once the cluster published block rb
+                    if (t == 0)
+                        while (ld_acquire(ready + c - 1) < (unsigned)(rb + 1))
+                            __nanosleep(32);
+                    __syncthreads();
+                }
+                edge_in(edge[in], gin + (i0 - 1) * 3,
+                        (int)min((i64)blk, rz - i0), t, nt);
             }
             for (int r = 0; r < blk; ++r) {
-                const i64 i = rb * blk + r + 1;
-                if (i > w1) break;
+                const i64 i = i0 + r;
+                if (i >= rz) break;
                 i64 eD = NEG, eV = NEG, seed = IMIN;
-                if (f > 0 || span_in) {
+                if (f > 0 || gin != nullptr) {
                     eD = edge[in][r][0];
                     eV = edge[in][r][1];
                     seed = edge[in][r][2];
@@ -544,20 +687,30 @@ dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                     e[2] = run;
                 }
                 if (gout != nullptr) {
+                    i64 eD_out = 0, eV_out = 0;
+#pragma unroll
+                    for (int k = 0; k < S; ++k)
+                        if (k == kout) {
+                            eD_out = st.pD[k];
+                            eV_out = st.pV[k];
+                        }
                     i64* e = gout + (size_t)(i - 1) * 3;
-                    e[0] = st.pD[S - 1];
-                    e[1] = st.pV[S - 1];
+                    e[0] = eD_out;
+                    e[1] = eV_out;
                     e[2] = run;
                 }
             }
-            if (gout != nullptr) {  // publish block rb to the next cluster
-                __threadfence();
-                st_release(ready + c, (unsigned)(rb + 1));
+            if constexpr (SPAN) {
+                if (gout != nullptr) {  // publish block rb to the next cluster
+                    __threadfence();
+                    st_release(ready + c, (unsigned)(rb + 1));
+                }
             }
             asm volatile("cp.async.wait_all;" ::: "memory");
         }
         cluster.sync();
     }
+    if constexpr (SLICE) save_state<S>(st, sl.state, cs, w2, j0);
 }
 
 // grid (folds, batch), one cluster of the folds per batch index
@@ -604,67 +757,70 @@ size_t stripes_smem(int fw, int blk) {
     return (size_t)NPLANE_CHIP * fw * 8 + 2 * (size_t)blk * NROWF * 8;
 }
 
-template <bool BATCH>
+template <bool BATCH, bool SLICE = false>
 cudaError_t staged_ready() {
     static bool done = false;
-    return kernel_ready(dp_staged_kernel<BATCH>, STAGED_SMEM_MAX, done);
+    return kernel_ready(dp_staged_kernel<BATCH, SLICE>, STAGED_SMEM_MAX, done);
 }
 
-template <int S, bool BATCH, bool SPAN = false>
+template <int S, bool BATCH, bool SPAN = false, bool SLICE = false>
 cudaError_t stripes_ready() {
     static bool done = false;
-    return kernel_ready(dp_stripes_kernel<S, BATCH, SPAN>, STRIPES_SMEM_MAX,
-                        done);
+    return kernel_ready(dp_stripes_kernel<S, BATCH, SPAN, SLICE>,
+                        STRIPES_SMEM_MAX, done);
 }
 
-template <bool BATCH>
+template <bool BATCH, bool SLICE = false>
 cudaError_t launch_staged(const i64* colf, const i64* rowf, const i64* meta,
                           i64 w1, i64 w2, int batch, int folds, int threads,
                           int ldc, int ldr, int ldf, int blk, uint8_t* dirs,
-                          i64* fin, cudaStream_t stream) {
-    cudaError_t err = staged_ready<BATCH>();
+                          i64* fin, cudaStream_t stream, Slice sl = Slice{}) {
+    cudaError_t err = staged_ready<BATCH, SLICE>();
     if (err != cudaSuccess) return err;
     cudaLaunchAttribute attr[1];
     cudaLaunchConfig_t cfg = cluster_config(folds, batch, threads,
                                             staged_smem(threads, blk), stream,
                                             attr);
-    err = cudaLaunchKernelEx(&cfg, dp_staged_kernel<BATCH>, colf, rowf, meta,
-                             w1, w2, ldc, ldr, ldf, blk, dirs, fin);
+    err = cudaLaunchKernelEx(&cfg, dp_staged_kernel<BATCH, SLICE>, colf, rowf,
+                             meta, w1, w2, ldc, ldr, ldf, blk, dirs, fin, sl);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
-template <int S, bool BATCH>
+template <int S, bool BATCH, bool SLICE>
 cudaError_t launch_stripes_s(const i64* colf, const i64* rowf,
                              const i64* meta, i64 w1, i64 w2, int batch,
                              int folds, int threads, int ldc, int ldr,
                              int ldf, int blk, uint8_t* dirs, i64* fin,
-                             cudaStream_t stream) {
-    cudaError_t err = stripes_ready<S, BATCH>();
+                             cudaStream_t stream, Slice sl) {
+    cudaError_t err = stripes_ready<S, BATCH, false, SLICE>();
     if (err != cudaSuccess) return err;
     cudaLaunchAttribute attr[1];
     cudaLaunchConfig_t cfg = cluster_config(folds, batch, threads,
                                             stripes_smem(threads * S, blk),
                                             stream, attr);
-    err = cudaLaunchKernelEx(&cfg, dp_stripes_kernel<S, BATCH, false>, colf,
-                             rowf, meta, w1, w2, ldc, ldr, ldf, blk, dirs, fin,
-                             (unsigned*)nullptr, (i64*)nullptr);
+    err = cudaLaunchKernelEx(&cfg, dp_stripes_kernel<S, BATCH, false, SLICE>,
+                             colf, rowf, meta, w1, w2, ldc, ldr, ldf, blk,
+                             dirs, fin, (unsigned*)nullptr, (i64*)nullptr,
+                             sl);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
-template <bool BATCH>
+template <bool BATCH, bool SLICE = false>
 cudaError_t launch_stripes(const i64* colf, const i64* rowf, const i64* meta,
                            i64 w1, i64 w2, int batch, int folds, int threads,
                            int stripe, int ldc, int ldr, int ldf, int blk,
-                           uint8_t* dirs, i64* fin, cudaStream_t stream) {
+                           uint8_t* dirs, i64* fin, cudaStream_t stream,
+                           Slice sl = Slice{}) {
     if (stripe == 2)
-        return launch_stripes_s<2, BATCH>(colf, rowf, meta, w1, w2, batch,
-                                          folds, threads, ldc, ldr, ldf, blk,
-                                          dirs, fin, stream);
-    return launch_stripes_s<4, BATCH>(colf, rowf, meta, w1, w2, batch, folds,
-                                      threads, ldc, ldr, ldf, blk, dirs, fin,
-                                      stream);
+        return launch_stripes_s<2, BATCH, SLICE>(colf, rowf, meta, w1, w2,
+                                                 batch, folds, threads, ldc,
+                                                 ldr, ldf, blk, dirs, fin,
+                                                 stream, sl);
+    return launch_stripes_s<4, BATCH, SLICE>(colf, rowf, meta, w1, w2, batch,
+                                             folds, threads, ldc, ldr, ldf,
+                                             blk, dirs, fin, stream, sl);
 }
 
 // a fold geometry the bodies take: folds (1..16) CTAs of threads (32..512,
@@ -816,9 +972,53 @@ int dp_profile_batched_spans(const void* colf, const void* rowf,
         static_cast<const i64*>(colf), static_cast<const i64*>(rowf),
         static_cast<const i64*>(meta), (i64)0, (i64)0, ldc, ldr, ldf, blk,
         static_cast<uint8_t*>(dirs), static_cast<i64*>(fin),
-        static_cast<unsigned*>(sync), static_cast<i64*>(gedge));
+        static_cast<unsigned*>(sync), static_cast<i64*>(gedge), Slice{});
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+// K10 (the header): one shard's column slice [cs, c1) of one merge for
+// its rows [r0, r1) (1 <= r0 < r1 <= w1 + 1).  colf [44][ldc]: the
+// merge's column planes from column cs - 2 (ldc even, >= c1 - cs + 3,
+// 16-byte aligned; columns outside the merge zero); rowf [>= r1][77] the
+// merge's row factors (band included); dirs [w1 + 1][c1 - cs] u8, the
+// slice's direction bytes (row 0 written when r0 is 1); fin [w1][3] the
+// (D, H, V) of column c1 - 1 of every row; ein [w1][3] the previous
+// shard's edges (nullptr exactly when cs is 0), eout this shard's
+// (nullptr on the last shard); state [3][c1 - cs + 1] the row state
+// (read when r0 > 1, written).  folds / threads / stripe: the slice's
+// fold geometry (ops/dp_wide.py:fold_geometry(c1 - cs - 1)), stripe 1
+// the staged body, 2 or 4 the stripes body.  blk (1..32): rows per
+// wavefront step.  Returns the launch's cudaError_t (0 on success).
+int dp_profile_shard(const void* colf, const void* rowf, long long w1,
+                     long long cs, long long c1, long long r0, long long r1,
+                     int folds, int threads, int stripe, int ldc, int blk,
+                     void* dirs, void* fin, const void* ein, void* eout,
+                     void* state, void* stream) {
+    const long long n = c1 - cs;
+    if (cs < 0 || n < 1 || r0 < 1 || r0 >= r1 || r1 > w1 + 1 ||
+        bad_geometry(n - 1, folds, threads, stripe, ldc, blk) ||
+        ldc < n + SHARD_PAD + 1 || (stripe != 1 &&
+                                    bad_stripes(threads, stripe, blk)) ||
+        reinterpret_cast<uintptr_t>(colf) % 16 != 0 ||
+        (cs > 0) != (ein != nullptr) || state == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const Slice sl{cs, r0, r1, static_cast<const i64*>(ein),
+                   static_cast<i64*>(eout), static_cast<i64*>(state)};
+    const i64* cf = static_cast<const i64*>(colf);
+    const i64* rf = static_cast<const i64*>(rowf);
+    uint8_t* dr = static_cast<uint8_t*>(dirs);
+    i64* fn = static_cast<i64*>(fin);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (stripe == 1)
+        return (int)launch_staged<false, true>(cf, rf, nullptr, (i64)w1,
+                                               (i64)(c1 - 1), 1, folds,
+                                               threads, ldc, 0, 0, blk, dr,
+                                               fn, st, sl);
+    return (int)launch_stripes<false, true>(cf, rf, nullptr, (i64)w1,
+                                            (i64)(c1 - 1), 1, folds, threads,
+                                            stripe, ldc, 0, 0, blk, dr, fn,
+                                            st, sl);
 }
 
 // How many clusters of `folds` CTAs of `threads` threads (blk rows a

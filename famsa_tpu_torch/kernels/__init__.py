@@ -38,17 +38,24 @@ KERNELS = ("lcs", "dp_wide", "traceback", "stage0", "merged", "chain",
 # ("dp_wide", "dp_wide16") and stripes ("dp_wide_stripes") on the same
 # widths; K4, the traceback; K5, stage 0; K6, the merged counters; K7,
 # the chain's carry after a chunk's last step (K5's chain entry runs it
-# before each step); K8, a Prim round after its LCS; and K9, FAMSA's LCS
-# layout for flagged references ("lcs_refmask")
+# before each step); K8, a Prim round after its LCS; K9, FAMSA's LCS
+# layout for flagged references ("lcs_refmask"); and K10, one shard's
+# column slice of a merge for a block of rows ("dp_shard", either body)
 LAUNCHES = {"lcs": 0, "lcs_wave": 0, "lcs_refmask": 0, "dp_staged": 0,
             "dp_staged16": 0, "dp_stripes": 0, "dp_spans": 0, "dp_wide": 0,
             "dp_wide16": 0, "dp_wide_stripes": 0, "traceback": 0,
-            "stage0": 0, "merged": 0, "chain": 0, "prim_round": 0}
+            "stage0": 0, "merged": 0, "chain": 0, "prim_round": 0,
+            "dp_shard": 0}
 # the device DP route's traffic (ops/dp_resident.py): bytes copied to and
 # from the device, and the launch sides that were resident on the device,
-# ungapped leaves (their symbol bytes uploaded) or uploaded counters
+# ungapped leaves (their symbol bytes uploaded) or uploaded counters; and
+# the column-sharded route's (parallel/dp_sharded.py) copies on the card:
+# the column planes, row factors and edges copied to and between shards
+# (bytes_shard) and the direction bytes and finals gathered to the lead
+# (bytes_gather)
 TRAFFIC = {"bytes_up": 0, "bytes_down": 0, "sides_resident": 0,
-           "sides_leaf": 0, "sides_uploaded": 0}
+           "sides_leaf": 0, "sides_uploaded": 0, "bytes_shard": 0,
+           "bytes_gather": 0}
 # the chain route (ops/dp_chain.py, pipeline.py): caterpillar runs taken,
 # their merges on the native host DP below the width floor (prefix) and
 # in chunks (merges), chunks dispatched, overflows recovered, runs handed
@@ -196,6 +203,9 @@ def _configure(name, lib):
         lib.dp_profile_batched_spans.argtypes = [
             vp, vp, vp, ci, ll, ci, ci, ci, ci, vp, vp, vp, vp, vp]
         lib.dp_profile_batched_spans.restype = ci
+        lib.dp_profile_shard.argtypes = [vp, vp, ll, ll, ll, ll, ll, ci, ci,
+                                         ci, ci, ci, vp, vp, vp, vp, vp, vp]
+        lib.dp_profile_shard.restype = ci
         lib.dp_wide_max_clusters.argtypes = [ci, ci, ci, ci]
         lib.dp_wide_max_clusters.restype = ci
 

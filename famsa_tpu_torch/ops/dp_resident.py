@@ -268,18 +268,23 @@ def assemble_side(profiles, devs, wp, device):
     return out
 
 
-def dispatch_paths(params, pairs, dirs_fn, dev_pairs=None, want_merged=False,
-                   bands=None):
-    """Dispatch one launch of the device route without waiting for it.
+class Stage0:
+    """A launch's inputs after stage 0 (stage0_launch): colf, rowf and
+    meta on the device (K2's and K3's packed planes), meta_h the host's
+    copy of meta, hdr and sides what K6 reads, total the direction
+    bytes of the launch."""
+    __slots__ = ("colf", "rowf", "meta", "meta_h", "hdr", "sides", "total")
 
-    pairs: [(profile1, profile2)] in the DP's operand order, host counters
-    computed, widths >= 1; dev_pairs: optional [(MergedRef|None,
-    MergedRef|None)] aligned with pairs (the resident counters of sides a
-    previous merge of this route produced); want_merged: also build each
-    merge's counters on the card (PathResult.merged_dev); bands: optional
-    [band rows (core/dp_native.row_ranges) | None] aligned with pairs;
-    dirs_fn: the DP kernel's wrapper (ops/dp_torch.py:dp_dirs or
-    ops/dp_wide.py:dp_dirs_wide).  Returns a PendingPaths."""
+    def __init__(self, colf, rowf, meta, meta_h, hdr, sides, total):
+        self.colf, self.rowf, self.meta = colf, rowf, meta
+        self.meta_h, self.hdr, self.sides, self.total = (meta_h, hdr, sides,
+                                                         total)
+
+
+def stage0_launch(params, pairs, dev_pairs=None, bands=None):
+    """The upload and stage 0 (K5) of one launch of the device route on
+    params.device, on the current stream, without waiting (arguments as
+    dispatch_paths').  Returns a Stage0."""
     dev = torch.device(params.device)
     b = len(pairs)
     if dev_pairs is None:
@@ -304,24 +309,52 @@ def dispatch_paths(params, pairs, dirs_fn, dev_pairs=None, want_merged=False,
             if bd is not None:
                 band_h[k, :w1s[k] + 1] = bd[:w1s[k] + 1]
     hdr_d, band, sides = upload_launch(pairs, dev_pairs, hdr, band_h, dev)
-    # each input is freed once its last reader is enqueued: the caching
-    # allocator orders a later reuse of its memory on the same stream
     colf, rowf, meta = stage0(params, sides, hdr_d, _score_table(params, dev),
                               band)
-    meta_h = hdr[:, :4].copy()
-    # the widths come from the host: nothing here waits for the device
-    dirs, fin = dirs_fn(colf, rowf, meta, int(sizes.sum()), meta_host=meta_h)
-    del colf, rowf
-    out = trace_paths(dirs, fin, meta, meta_host=meta_h)
-    del dirs, fin
-    merged = None
-    if want_merged:
-        merged = merged_from_paths(sides, out, hdr_d, int((w1s + w2s).max()))
+    return Stage0(colf, rowf, meta, hdr[:, :4].copy(), hdr_d, sides,
+                  int(sizes.sum()))
+
+
+def paths_down(out, meta_h, merged=None):
+    """A PendingPaths of K4's output buffer `out`: on CUDA one
+    non-blocking copy into pinned host memory and its event on the
+    current stream.  Counted in kernels.TRAFFIC["bytes_down"]."""
     kernels.TRAFFIC["bytes_down"] += out.numel()
-    if dev.type == "cpu":
+    if out.device.type == "cpu":
         return PendingPaths(out, None, meta_h, merged)
     host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
     host.copy_(out, non_blocking=True)
     event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(dev))
+    event.record(torch.cuda.current_stream(out.device))
     return PendingPaths(host, event, meta_h, merged)
+
+
+def dispatch_paths(params, pairs, dirs_fn, dev_pairs=None, want_merged=False,
+                   bands=None):
+    """Dispatch one launch of the device route without waiting for it.
+
+    pairs: [(profile1, profile2)] in the DP's operand order, host counters
+    computed, widths >= 1; dev_pairs: optional [(MergedRef|None,
+    MergedRef|None)] aligned with pairs (the resident counters of sides a
+    previous merge of this route produced); want_merged: also build each
+    merge's counters on the card (PathResult.merged_dev); bands: optional
+    [band rows (core/dp_native.row_ranges) | None] aligned with pairs;
+    dirs_fn: the DP kernel's wrapper (ops/dp_torch.py:dp_dirs or
+    ops/dp_wide.py:dp_dirs_wide).  Returns a PendingPaths."""
+    s0 = stage0_launch(params, pairs, dev_pairs, bands)
+    meta_h = s0.meta_h
+    # each input is freed once its last reader is enqueued: the caching
+    # allocator orders a later reuse of its memory on the same stream
+    # (and the widths come from the host: nothing here waits for the
+    # device)
+    dirs, fin = dirs_fn(s0.colf, s0.rowf, s0.meta, s0.total,
+                        meta_host=meta_h)
+    s0.colf = s0.rowf = None
+    out = trace_paths(dirs, fin, s0.meta, meta_host=meta_h)
+    del dirs, fin
+    merged = None
+    if want_merged:
+        w1s, w2s = meta_h[:, 0], meta_h[:, 1]
+        merged = merged_from_paths(s0.sides, out, s0.hdr,
+                                   int((w1s + w2s).max()))
+    return paths_down(out, meta_h, merged)

@@ -2,10 +2,13 @@
 CUDA kernel K3 (one wide merge; csrc/dp_wide.cu: the staged body up to
 w2 = 8191 and the stripes body past it), its plain PyTorch version, the
 plain version of K2's fold-walking variants (a batch of merges, each
-walked over the launch's folds; their wrapper is ops/dp_torch.py:dp_dirs)
-and the single-merge entry points: the device-resident path route of the
-scheduler and the aligner (dp_profile_torch_wide_paths_async) and the
-host-prep route (dp_profile_torch_wide).
+walked over the launch's folds; their wrapper is ops/dp_torch.py:dp_dirs),
+the wrapper of K10 (dp_shard: one shard's column slice of a merge for a
+block of rows, parallel/dp_sharded.py's step) with its plain version
+dp_shard_plain, and the single-merge entry points: the device-resident
+path route of the scheduler and the aligner
+(dp_profile_torch_wide_paths_async) and the host-prep route
+(dp_profile_torch_wide).
 
 K3 computes what K2 (ops/dp_torch.py) computes for one merge, on the
 same packed inputs (prepare_merge / pack_batch, or stage 0 on the device,
@@ -165,52 +168,57 @@ def _cat1(head, x):
     return torch.cat([head.reshape(1), x[:-1]])
 
 
-def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
-                  meta_host=None, span=None):
-    """Plain PyTorch version of K3 on the same inputs (B = 1): the
-    recurrence of dp_plain walked fold by fold in K3's wavefront order,
-    fold_cols columns a fold (default: fold_geometry's), blk rows a
-    step, with the fold edges passed through a buffer double-buffered by
-    step parity as K3 does.  span: folds a cluster (K2's spans variant,
-    MAX_FOLDS): the edge into the first fold of a cluster then comes
-    through a buffer of every row, as the kernel's global edges do.
-    meta_host: meta as a host array (default: read from meta).  Returns
-    (dirs [total] uint8, fin [1, ldr-1, 3] int64: the last-column D, H,
-    V of every row)."""
-    dev = colf.device
-    w1, w2, off = (int(v) for v in host_meta(meta, meta_host)[0, :3])
-    cols = w2 + 1
-    if fold_cols is None:
-        _, threads, stripe = fold_geometry(w2)
-        fold_cols = threads * stripe
-    folds = -(-cols // fold_cols)
-    nrb = -(-w1 // blk)
-    cf = colf[0, :, :cols]
-    rf = rowf[0]
+def _fold_walk(cf, cb, rf, w1, cs, c1, r0, r1, fold_cols, blk, rows, fin,
+               span=None, gin=None, gout=None, state=None):
+    """The fold wavefront of K3 (and K2's fold-walking variants, and
+    K10's slice) in plain PyTorch: the recurrence of dp_plain over the
+    columns [cs, c1) of one merge, fold_cols a fold, for the rows [r0,
+    r1), blk rows a step, the fold edges passed through a buffer
+    double-buffered by step parity as the kernel does.
+
+    cf: the merge's column planes, its column k global column cb + k; rf
+    [>= r1, NROWF] its row factors; rows [w1 + 1, c1 - cs] uint8: the
+    direction bytes of the columns, written in place (row 0 when r0 is
+    1); fin [>= w1, 3]: (D, H, V) of column c1 - 1, written for the rows.
+    span: folds a cluster (K2's spans variant): the edge into the first
+    fold of a cluster comes through a buffer of every row, as the
+    kernel's global edges do.  gin / gout [w1, 3]: such buffers into
+    column cs and out of column c1 - 1 (K10's shards; None at column 0
+    and at the merge's last column).  state [3, c1 - cs + 1]: the last
+    row's D, H, V at columns cs - 1 .. c1 - 1, loaded instead of row 0
+    when r0 > 1 and stored at the end (K10; None for a whole merge)."""
+    dev = cf.device
+    folds = -(-(c1 - cs) // fold_cols)
+    nrb = -(-(r1 - r0) // blk)
     neg = torch.tensor(NEG, dtype=torch.int64, device=dev)
     imin = torch.tensor(IMIN, dtype=torch.int64, device=dev)
-    rows = torch.empty((w1 + 1, cols), dtype=torch.uint8, device=dev)
-    rows[0] = ROW0_PACK
-    rows[0, 0] = 0
-    fin = torch.zeros((1, rf.shape[0] - 1, 3), dtype=torch.int64, device=dev)
 
     def bc_at(r, j):
-        return r[R_G1CE] * cf[C_CUME, j] + r[R_G1CTE] * cf[C_CUMT, j]
+        return r[R_G1CE] * cf[C_CUME, j - cb] + r[R_G1CTE] * cf[C_CUMT, j - cb]
 
+    if r0 == 1:
+        rows[0] = ROW0_PACK
+        if cs == 0:
+            rows[0, 0] = 0
     # per fold: its columns and its row state (previous row, and the
-    # previous row at the column left of the fold), from DP row 0
-    state = []
+    # previous row at the column left of the fold), from DP row 0 or from
+    # the saved state
+    fst = []
     for f in range(folds):
-        c0, c1 = f * fold_cols, min((f + 1) * fold_cols, cols)
-        jj = torch.arange(c0, c1, device=dev)
-        pD = torch.where(jj == 0, 0, neg)
-        pH = cf[C_H0, c0:c1].clone()
-        pV = neg.expand(c1 - c0).clone()
-        halo = (neg, neg, neg)
-        if c0 > 0:
-            halo = (torch.zeros_like(neg) if c0 == 1 else neg,
-                    cf[C_H0, c0 - 1], neg)
-        state.append([c0, c1, jj, pD, pH, pV, halo])
+        c0, ce = cs + f * fold_cols, min(cs + (f + 1) * fold_cols, c1)
+        jj = torch.arange(c0, ce, device=dev)
+        if r0 == 1:
+            pD = torch.where(jj == 0, 0, neg)
+            pH = cf[C_H0, c0 - cb:ce - cb].clone()
+            pV = neg.expand(ce - c0).clone()
+            halo = (neg, neg, neg)
+            if c0 > 0:
+                halo = (torch.zeros_like(neg) if c0 == 1 else neg,
+                        cf[C_H0, c0 - 1 - cb], neg)
+        else:
+            pD, pH, pV = state[:, c0 - cs + 1:ce - cs + 1].clone()
+            halo = tuple(state[:, c0 - cs].clone())
+        fst.append([c0, ce, jj, pD, pH, pV, halo])
     # edge[f][parity, r] = (D, V, run) of fold f-1's last column, row r
     # of the block fold f-1 computed at a step of that parity
     edge = [torch.empty((2, blk, 3), dtype=torch.int64, device=dev)
@@ -218,22 +226,26 @@ def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
     # gedge[f][i - 1]: the edge into fold f (first of a cluster) at row i
     gedge = {f: torch.empty((w1, 3), dtype=torch.int64, device=dev)
              for f in range(span or folds, folds, span or folds)}
+    if gin is not None:
+        gedge[0] = gin
+    if gout is not None:
+        gedge[folds] = gout
 
     for s in range(nrb + folds - 1):
         for f in range(folds):
             b = s - f
             if not 0 <= b < nrb:
                 continue
-            st = state[f]
-            c0, c1, jj = st[:3]
-            cfs = cf[:, c0:c1]
+            st = fst[f]
+            c0, ce, jj = st[:3]
+            cfs = cf[:, c0 - cb:ce - cb]
             s2 = cfs[C_S2:C_S2 + 30]
             p2o, p2e, p2to, p2te = (cfs[C_P2O], cfs[C_P2E], cfs[C_P2TO],
                                     cfs[C_P2TE])
             dE, dT = p2e - p2o, p2te - p2to
             for r in range(blk):
-                i = b * blk + r + 1
-                if i > w1:
+                i = r0 + b * blk + r
+                if i >= r1:
                     break
                 pD, pH, pV, (hD, hH, hV) = st[3], st[4], st[5], st[6]
                 if f in gedge:
@@ -309,9 +321,9 @@ def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
                 packed = (dD | (dH << 2) | (dV << 4)).to(torch.uint8)
                 if c0 == 0:
                     packed[0] = COL0_PACK
-                rows[i, c0:c1] = packed
-                if c1 == cols:
-                    fin[0, i - 1] = torch.stack([D[-1], H[-1], V[-1]])
+                rows[i, c0 - cs:ce - cs] = packed
+                if ce == c1:
+                    fin[i - 1] = torch.stack([D[-1], H[-1], V[-1]])
                 if f + 1 in gedge:
                     gedge[f + 1][i - 1] = torch.stack([D[-1], V[-1],
                                                        run[-1]])
@@ -320,6 +332,34 @@ def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
                                                          run[-1]])
                 st[3:7] = [D, H, V, (eD, Hl, eV)]
 
+    if state is not None:
+        for c0, ce, _, pD, pH, pV, _ in fst:
+            state[:, c0 - cs + 1:ce - cs + 1] = torch.stack([pD, pH, pV])
+        state[:, 0] = torch.stack(list(fst[0][6]))
+
+
+def dp_wide_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
+                  meta_host=None, span=None):
+    """Plain PyTorch version of K3 on the same inputs (B = 1): the
+    recurrence of dp_plain walked fold by fold in K3's wavefront order
+    (_fold_walk), fold_cols columns a fold (default: fold_geometry's),
+    blk rows a step.  span: folds a cluster (K2's spans variant,
+    MAX_FOLDS): the edge into the first fold of a cluster then comes
+    through a buffer of every row, as the kernel's global edges do.
+    meta_host: meta as a host array (default: read from meta).  Returns
+    (dirs [total] uint8, fin [1, ldr-1, 3] int64: the last-column D, H,
+    V of every row)."""
+    dev = colf.device
+    w1, w2, off = (int(v) for v in host_meta(meta, meta_host)[0, :3])
+    cols = w2 + 1
+    if fold_cols is None:
+        _, threads, stripe = fold_geometry(w2)
+        fold_cols = threads * stripe
+    rows = torch.empty((w1 + 1, cols), dtype=torch.uint8, device=dev)
+    fin = torch.zeros((1, rowf.shape[1] - 1, 3), dtype=torch.int64,
+                      device=dev)
+    _fold_walk(colf[0], 0, rowf[0], w1, 0, cols, 1, w1 + 1, fold_cols, blk,
+               rows, fin[0], span=span)
     dirs = torch.zeros(total, dtype=torch.uint8, device=dev)
     dirs[off:off + (w1 + 1) * cols] = rows.reshape(-1)
     return dirs, fin
@@ -355,6 +395,114 @@ def dp_staged_plain(colf, rowf, meta, total, fold_cols=None, blk=BLK,
         dirs[off:off + n] = d
         fin[k] = f[0]
     return dirs, fin
+
+
+# K10 (csrc/dp_wide.cu:dp_profile_shard): the columns of a slice's column
+# planes before its first column (mirrored in csrc/dp_wide.cu)
+SHARD_PAD = 2
+
+
+def shard_columns(colf, cs, c1, device):
+    """The column planes K10 takes for the columns [cs, c1) of a merge
+    whose planes are colf [NCOLF, L]: [NCOLF, ldc] int64 on `device`, its
+    column k the merge's column cs - SHARD_PAD + k (zero outside the
+    merge's L columns), ldc >= c1 - cs + SHARD_PAD + 1 and even, copied
+    from colf with one copy on the current stream."""
+    ldc = -(-(c1 - cs + SHARD_PAD + 1) // 2) * 2
+    out = torch.zeros((NCOLF, ldc), dtype=torch.int64, device=device)
+    a, b = max(cs - SHARD_PAD, 0), min(c1 + 1, colf.shape[1])
+    base = cs - SHARD_PAD
+    out[:, a - base:b - base].copy_(colf[:, a:b], non_blocking=True)
+    return out
+
+
+def _check_shard(colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state, ein,
+                 eout):
+    n = c1 - cs
+    if not (0 <= cs < c1 and 1 <= r0 < r1 <= w1 + 1):
+        raise ValueError(f"K10 takes columns 0 <= {cs} < {c1} and rows "
+                         f"1 <= {r0} < {r1} <= {w1 + 1}")
+    if colf.dim() != 2 or colf.shape[0] != NCOLF \
+            or colf.shape[1] < n + SHARD_PAD + 1:
+        raise ValueError("colf must be [NCOLF, >= c1 - cs + 3] "
+                         "(shard_columns)")
+    if rowf.dim() != 2 or rowf.shape[1] != NROWF or rowf.shape[0] < r1:
+        raise ValueError("rowf must be [>= r1, NROWF]")
+    if dirs.shape != (w1 + 1, n) or dirs.dtype != torch.uint8:
+        raise ValueError("dirs must be uint8 [w1 + 1, c1 - cs]")
+    if state.shape != (3, n + 1):
+        raise ValueError("state must be [3, c1 - cs + 1]")
+    if (ein is None) != (cs == 0):
+        raise ValueError("ein is given exactly when cs > 0")
+    edges = [e for e in (fin, ein, eout) if e is not None]
+    if any(e.shape != (w1, 3) for e in edges):
+        raise ValueError("fin, ein and eout must be [w1, 3]")
+    ts = [colf, rowf, state] + edges
+    if any(x.dtype != torch.int64 for x in ts):
+        raise TypeError("colf, rowf, fin, state and the edges must be int64")
+    if any(x.device != colf.device for x in ts + [dirs]):
+        raise ValueError("inputs must be on one device")
+
+
+def dp_shard_plain(colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state,
+                   ein=None, eout=None, fold_cols=None, blk=BLK):
+    """Plain PyTorch version of K10 on the same inputs and outputs: the
+    fold walk of K3 (_fold_walk) over the slice's columns [cs, c1), fold
+    geometry fold_geometry(c1 - cs - 1) (or fold_cols columns a fold;
+    the output does not depend on it), its edge in from ein and out to
+    eout and its row state in state, as dp_shard documents."""
+    _check_shard(colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state, ein,
+                 eout)
+    if fold_cols is None:
+        _, threads, stripe = fold_geometry(c1 - cs - 1)
+        fold_cols = threads * stripe
+    _fold_walk(colf, cs - SHARD_PAD, rowf, w1, cs, c1, r0, r1, fold_cols,
+               blk, dirs, fin, gin=ein, gout=eout, state=state)
+
+
+def dp_shard(colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state, ein=None,
+             eout=None):
+    """One shard's column slice [cs, c1) of one merge of w1 rows, for its
+    DP rows [r0, r1) (kernel K10 on CUDA tensors; dp_shard_plain on CPU
+    tensors), writing in place:
+      dirs [w1 + 1, c1 - cs] uint8: the slice's packed direction bytes
+        (row 0 when r0 is 1, COL0_PACK at column 0);
+      fin [w1, 3] int64: the (D, H, V) of column c1 - 1 of each row (the
+        merge's finals on the shard of its last column);
+      eout [w1, 3] int64 (None on the last shard): the edge into the next
+        shard, (D, V, running max of m - bc) at column c1 - 1;
+      state [3, c1 - cs + 1] int64: the row state, the last row's D, H, V
+        at columns cs - 1 .. c1 - 1, read when r0 > 1.
+    colf: shard_columns(...) of the merge's column planes; rowf [>= r1,
+    NROWF]: its row factors (with the band); ein [w1, 3]: the previous
+    shard's eout (None exactly when cs is 0).  The slice's fold geometry
+    is fold_geometry(c1 - cs - 1): the staged body to 8192 columns, the
+    stripes body to 32768; wider raises."""
+    _check_shard(colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state, ein,
+                 eout)
+    dev = colf.device
+    if dev.type == "cpu":
+        return dp_shard_plain(colf, rowf, w1, cs, c1, r0, r1, dirs, fin,
+                              state, ein, eout)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    ts = [x for x in (colf, rowf, dirs, fin, state, ein, eout)
+          if x is not None]
+    if not all(x.is_contiguous() for x in ts):
+        raise ValueError("inputs must be contiguous")
+    if colf.shape[1] % 2 or colf.data_ptr() % 16:
+        raise ValueError("K10 takes an even ldc and 16-byte aligned colf "
+                         "(shard_columns)")
+    folds, threads, stripe = fold_geometry(c1 - cs - 1)
+    lib = kernels.get("dp_wide")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernels.LAUNCHES["dp_shard"] += 1
+    err = lib.dp_profile_shard(
+        colf.data_ptr(), rowf.data_ptr(), w1, cs, c1, r0, r1, folds,
+        threads, stripe, colf.shape[1], BLK, dirs.data_ptr(), fin.data_ptr(),
+        None if ein is None else ein.data_ptr(),
+        None if eout is None else eout.data_ptr(), state.data_ptr(), stream)
+    kernels.check(err, "dp_profile_shard")
 
 
 def launch_key(kernel, variant, folds):

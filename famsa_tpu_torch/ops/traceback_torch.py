@@ -1,5 +1,5 @@
 """Traceback of the profile DP on the device: the wrapper of the CUDA
-kernel K4 (csrc/traceback.cu), its plain PyTorch version and the readers
+kernel K4 (csrc/traceback.cu), its plain version and the readers
 of its output buffer.
 
 K4 walks the packed direction bytes that K2 (ops/dp_torch.py:dp_dirs) or
@@ -74,57 +74,37 @@ def path_offsets(meta_h):
     return poff.astype(np.int64), int(PATH_TRAILER * b + lens.sum())
 
 
-def _first_channel(fin, w1):
-    """(dir0, total) [B] from the finals of row w1 - 1 of every merge."""
-    f = fin[torch.arange(fin.shape[0], device=fin.device), w1 - 1]
-    d0, h0, v0 = f[:, 0], f[:, 1], f[:, 2]
-    pick_d = (d0 >= h0) & (d0 >= v0)
-    pick_h = ~pick_d & (h0 > v0)
-    dir0 = torch.where(pick_d, 0, torch.where(pick_h, 1, 2))
-    total = torch.where(pick_d, d0, torch.where(pick_h, h0, v0))
-    return dir0, total
-
-
 def trace_paths_plain(dirs, fin, meta):
-    """Plain PyTorch version of K4 on the same inputs and with the same
-    output buffer: the native walk one step at a time, vectorised over the
-    merges of the batch."""
-    dev = dirs.device
+    """Plain version of K4 on the same inputs and with the same output
+    buffer (on dirs' device): the native walk, one merge and one step at a
+    time, in Python over a host copy of the direction bytes."""
     meta_h = meta.cpu().numpy()
-    b = meta_h.shape[0]
     poff, nbytes = path_offsets(meta_h)
-    w1, w2, off = (meta[:, k].clone() for k in range(3))
-    dir_, total = _first_channel(fin, w1)
-    dir0 = dir_.clone()
-    smax = int((meta_h[:, 0] + meta_h[:, 1]).max())
-    steps = torch.full((b, smax), 3, dtype=torch.int64, device=dev)
-    i, j = w1.clone(), w2.clone()
-    n = torch.zeros(b, dtype=torch.int64, device=dev)
-    bad = torch.zeros(b, dtype=torch.bool, device=dev)
-    for s in range(smax):
-        active = ((i != 0) | (j != 0)) & ~bad
-        if s % 64 == 0 and not bool(active.any()):
-            break
-        idx = off + i.clamp(min=0) * (w2 + 1) + j.clamp(min=0)
-        cell = dirs[torch.where(active, idx, off)].long()
-        steps[:, s] = torch.where(active, dir_, 3)
-        nd = (cell >> (2 * dir_)) & 3
-        i = i - (active & (dir_ != 1)).long()
-        j = j - (active & (dir_ != 2)).long()
-        dir_ = torch.where(active, nd, dir_)
-        n += active.long()
-        bad |= active & ((i < 0) | (j < 0))
-    k = torch.arange(smax, device=dev)[None, :]
-    fwd = steps.gather(1, (n[:, None] - 1 - k).clamp(min=0))
-    fwd = torch.where(k < n[:, None], fwd, 0).to(torch.uint8)
-    out = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
-    trailer = torch.stack(
-        [total, torch.where(bad, 0xFFFFFFFF, n) | (dir0 << 32)], dim=1)
-    out[:PATH_TRAILER * b] = trailer.reshape(-1).view(torch.uint8)
-    n_h = n.cpu().tolist()
-    for m in range(b):
-        out[poff[m]:poff[m] + n_h[m]] = fwd[m, :n_h[m]]
-    return out
+    cells = memoryview(dirs.cpu().numpy())
+    fin_h = fin.cpu()
+    out = bytearray(nbytes)
+    for m, (w1, w2, off, _) in enumerate(meta_h.tolist()):
+        dhv = fin_h[m, w1 - 1].tolist()
+        d, h, v = dhv
+        dir0 = 0 if d >= h and d >= v else (1 if h > v else 2)
+        i, j, dir_, steps, bad = w1, w2, dir0, [], False
+        while i or j:
+            cell = cells[off + i * (w2 + 1) + j]
+            steps.append(dir_)
+            i -= dir_ != 1
+            j -= dir_ != 2
+            dir_ = (cell >> (2 * dir_)) & 3
+            if i < 0 or j < 0:
+                bad = True
+                break
+        t = PATH_TRAILER * m
+        out[t:t + 8] = dhv[dir0].to_bytes(8, "little", signed=True)
+        out[t + 8:t + 12] = (0xFFFFFFFF if bad else len(steps)).to_bytes(
+            4, "little")
+        out[t + 12:t + 16] = dir0.to_bytes(4, "little")
+        out[poff[m]:poff[m] + len(steps)] = bytes(reversed(steps))
+    return torch.frombuffer(out, dtype=torch.uint8).to(dirs.device,
+                                                        copy=True)
 
 
 def trace_paths(dirs, fin, meta, meta_host=None):

@@ -1,4 +1,5 @@
-"""Multi-device sharding of the row axis (the counterpart of the JAX
-package's famsa_tpu/parallel/ "rows" half): a single-process mesh of
-shards (mesh.py), the sharded Prim tree and the sharded distance rows
-(dist_sharded.py)."""
+"""Multi-device sharding (the counterpart of the JAX package's
+famsa_tpu/parallel/): a single-process mesh of shards and the routing
+rules of both axes (mesh.py), the row axis's sharded Prim tree and
+distance rows (dist_sharded.py), and the column axis's column-sharded
+profile DP (dp_sharded.py)."""

@@ -4,8 +4,8 @@ distance rows on a mesh (parallel/mesh.py).
 The counterpart of famsa_tpu/parallel/dist_sharded.py.  The query axis
 is split across the mesh's shards (Mesh.bounds: contiguous slices, no
 pad rows), and with it the query mask table, so each shard computes its
-slice of every LCS row.  Two departures from famsa_tpu's sharded
-programs, where the port follows `-backend numpy` (ROADMAP C2):
+slice of every LCS row.  The sharded programs of famsa_tpu depart
+from `-backend numpy` twice, and the port follows numpy (ROADMAP C2):
  - every shard computes K1's exact LCS, and K9's FAMSA value for a
    flagged reference, where famsa_tpu's programs take the carry as
    V2 < V on 32-bit words (ops/lcs_jax.py:hyyro_step);

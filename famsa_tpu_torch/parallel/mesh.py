@@ -1,8 +1,10 @@
-"""A single-process device mesh for the row axis, and one Prim round on it.
+"""A single-process device mesh, one Prim round on it (the row axis) and
+the routing rules of both axes.
 
 The counterpart of famsa_tpu/parallel/mesh.py:32-58 (make_mesh,
-auto_mesh) and :85 (prim_round_sharded); its "cols" axis, the
-column-sharded DP, is not ported.  famsa_tpu's mesh is one controller
+auto_mesh), :85 (prim_round_sharded) and :145 (dp_row_sharded, the
+"cols" axis's row step, here a plain function; the column-sharded DP
+itself is parallel/dp_sharded.py).  famsa_tpu's mesh is one controller
 process driving jax.devices(); so is this one.  A Mesh is an ordered
 list of shards, each a torch.device with a CUDA stream of its own,
 driven from one thread; shard 0 is the lead.  A device may appear more
@@ -31,6 +33,7 @@ famsa_tpu all-gathers each shard's argmin candidate.
 """
 
 import contextlib
+import os
 
 import numpy as np
 import torch
@@ -151,6 +154,35 @@ def rows_mesh(n, device="cuda"):
     return mesh if mesh is not None and n >= mesh.size else None
 
 
+# A profile merge of at least FAMSA_TORCH_SHARD_DP_CELLS DP cells (read
+# per call) shards its columns over the "cols" mesh a caller set: the
+# counterpart of famsa_tpu's FAMSA_TPU_SHARD_DP_CELLS
+# (famsa_tpu/core/aligner.py:22-24), with its default
+SHARD_DP_CELLS_DEFAULT = "2e8"
+
+
+def cols_mesh(p1, p2, device="cuda"):
+    """The mesh a merge of p1 (its DP rows) and p2 (its columns), in
+    align_into's operand order, on `device` shards its DP columns over
+    (parallel/dp_sharded.py): auto_mesh("cols", device) when the merge
+    has at least FAMSA_TORCH_SHARD_DP_CELLS cells and every shard's
+    slice of its p2.width + 1 columns holds 1 to MAX_W2 + 1 columns (K10
+    on one cluster of the widest body, the stripes body), else None.
+    The one rule of the route's call sites (core/aligner.py:align_into
+    and split_sharded)."""
+    from ..ops.dp_wide import MAX_W2
+    mesh = auto_mesh("cols", device)
+    if mesh is None:
+        return None
+    min_cells = int(float(os.environ.get("FAMSA_TORCH_SHARD_DP_CELLS",
+                                         SHARD_DP_CELLS_DEFAULT)))
+    cols = p2.width + 1
+    if (p1.width * p2.width < min_cells or cols < mesh.size
+            or -(-cols // mesh.size) > MAX_W2 + 1):
+        return None
+    return mesh
+
+
 class _PrimPart:
     """A shard's part of a Prim tree: its columns [s0, s1) of the query
     mask table; its copies of the round's reference id (cur) and row
@@ -232,3 +264,55 @@ def prim_round_sharded(prim, edges, slot):
         prim_round(prim.row, prim.lengths, prim.pow_tab, prim.queries,
                    st.cur, st.dist, st.tieb, st.active, st.ref, edges, slot)
         prim.ready = lead.record()
+
+
+def dp_row_sharded(prevD, prevH, prevV, t_row, gh_start, gh_cont, gv_start,
+                   gv_cont, delta_row, tvx_row):
+    """One DP row over column-sharded state, the counterpart of
+    famsa_tpu/parallel/mesh.py:145 dp_row_sharded (the interior form: no
+    boundary column, no band, no directions; famsa_tpu reaches it only
+    from its own test).  Every argument is a list of 1-D int64 tensors,
+    one a shard, in column order (the shards' slices of the row).  D and
+    V read the previous row (D at j - 1, through a halo of the left
+    shard's last column, -inf left of the first shard); H is the
+    max-plus prefix scan H[j] = max(max(D[j-1], V[j-1]) + gh_start[j],
+    H[j-1] + gh_cont[j]) in two phases: each shard's local cummax of
+    m - bc, then the exclusive combine of the shards' (totals, bests)
+    before it, re-expressed in its own frame.  Returns (D, H, V), lists
+    of tensors like the inputs."""
+    neg = torch.tensor(-(1 << 62), dtype=torch.int64)
+    size = len(prevD)
+
+    def halo(xs):
+        # each slice shifted right a column, the left shard's last column
+        # (-inf left of the first) entering it
+        lefts = [neg.reshape(1)] + [x[-1:] for x in xs[:-1]]
+        return [torch.cat([left, x[:-1]]) for left, x in zip(lefts, xs)]
+
+    def pick3(a, b, c):
+        pa = (a > b) & (a > c)
+        pb = ~pa & (b > c)
+        return torch.where(pa, a, torch.where(pb, b, c))
+
+    pD_l, pH_l, pV_l = halo(prevD), halo(prevH), halo(prevV)
+    D = [pick3(pD_l[s] + t_row[s], pH_l[s] + t_row[s] + delta_row[s],
+               pV_l[s] + t_row[s] + tvx_row[s]) for s in range(size)]
+    V = [pick3(prevD[s] + gv_start[s], prevH[s] + gv_start[s],
+               prevV[s] + gv_cont[s]) for s in range(size)]
+    D_l, V_l = halo(D), halo(V)
+    m = [torch.maximum(D_l[s], V_l[s]) + gh_start[s] for s in range(size)]
+    bc = [torch.cumsum(g, 0) for g in gh_cont]
+    run = [torch.cummax(m[s] - bc[s], 0).values for s in range(size)]
+    # offs[r]: the sum of the shards' bc totals before shard r
+    offs = [torch.zeros((), dtype=torch.int64)]
+    for b in bc[:-1]:
+        offs.append(offs[-1] + b[-1])
+    H = []
+    for s in range(size):
+        # shard r's best is run[r][-1] - offs[r] in the global frame, and
+        # that + offs[s] in shard s's
+        carry = neg
+        for r in range(s):
+            carry = torch.maximum(carry, run[r][-1] - offs[r] + offs[s])
+        H.append(bc[s] + torch.maximum(run[s], carry))
+    return D, H, V

@@ -21,7 +21,7 @@ import numpy as np
 from . import kernels
 from .core import params as P
 from .core.aligner import (align_into, construct_profile, split_ready,
-                           split_wide)
+                           split_sharded, split_wide)
 from .core.construct_fast import drain_gap_queue, reset_gap_queue
 from .core.defs import UNKNOWN_SYMBOL
 from .core.profile import Profile
@@ -247,7 +247,10 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
     only paths come back, and each result's merged counters stay on the
     device for its parent.  Caterpillar runs of at least CHAIN_MIN_LEN
     merges (each merges the previous one's profile with one leaf) take
-    the chain route instead when their start is popped (run_chain)."""
+    the chain route instead when their start is popped (run_chain).  On
+    a "cols" mesh a caller set, the ready merges that
+    parallel/mesh.py:cols_mesh accepts run alone, their columns sharded
+    (split_sharded, through align_into)."""
     from .ops import dp_chain, dp_torch, dp_wide
 
     max_batch = int(os.environ.get("FAMSA_TORCH_MAX_BATCH", "16"))
@@ -457,6 +460,10 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
                     prof2.calculate_counters_scores()
                 (ready if prof1.size() + prof2.size() > 2
                  else host).append((node_id, prof1, prof2))
+            # merges that shard their columns over the "cols" mesh a
+            # caller set run alone, through align_into
+            # (famsa_tpu/pipeline.py:580-594, 617-625)
+            sharded, ready = split_sharded(ready, params.device)
             device, host_prof = split_ready(ready)
             host += host_prof
             wide, device = split_wide(device, max_batch)
@@ -484,6 +491,10 @@ def _compute_alignment_batched(params, gapped_sequences, tree_list):
                 for node_id, p1, p2 in host:
                     finish(node_id, align_into(Profile(params), p1, p2,
                                                backend="numpy"))
+
+            for node_id, p1, p2 in sharded:
+                finish(node_id, align_into(Profile(params), p1, p2,
+                                           backend=params.backend))
 
             for chunk, pend in pending:
                 for (node_id, p1, p2), res in zip(chunk, pend.resolve()):
