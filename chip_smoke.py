@@ -160,22 +160,39 @@ Phases (one line each; any mismatch or exception exits non-zero):
     a round to issue 256 rounds against their ms to the device's end (on
     one card: the route's overhead, not a multi-GPU speed);
  5e. the column axis of multi-device sharding (parallel/dp_sharded.py,
-    K10 csrc/dp_wide.cu:dp_profile_shard) on meshes of shards on cuda:0,
-    each on its own stream (phase_cols): auto_mesh gives no "cols" mesh
-    on one card; K10 against the same pipeline run with its plain
-    version dp_shard_plain and against dp_plain (every direction byte
-    and final) at COLS_K10: 300 x 26,001 on 3 uneven slices (the stripes
-    body) and 200 x 3000 on 4 (the staged body, 3 folds a slice; the
-    plain version on the kernel's folds), unguided and banded, blocks
-    that do not divide w1, S x blocks launches; with a "cols" mesh set,
-    phase 5c's merge through the CLI on 2 and 3 shards (S x ceil(1500 /
-    ROW_BLOCK) K10 launches, one K5, one K4, no other DP launch),
-    byte-identical to 5c's numpy child, the merge's ms on the mesh
-    beside 5c's K2 spans ms, the merge at row blocks COLS_BLOCKS (two
-    rounds in turn), the gather's ms and K10 held and timed at its
-    main-path shape (k10_measure); and the poly-Q family with refinement
-    on (its default) on 3 shards at a threshold that shards progressive
-    merges and guided re-alignments, byte-identical to its numpy child;
+    K10 csrc/dp_wide.cu:dp_profile_shard, one persistent launch a shard)
+    on meshes of shards on cuda:0, each on its own stream (phase_cols):
+    auto_mesh gives no "cols" mesh on one card; K10 against the (shard,
+    block) pipeline of its plain version dp_shard_plain on host shards
+    and against dp_plain (every direction byte and final) at COLS_K10:
+    300 x 26,001 on 3 uneven slices (the stripes body) and 200 x 3000 on
+    4 (the staged body, 3 folds a slice; the plain version on the
+    kernel's folds), unguided and banded, blocks that do not divide w1,
+    one launch a shard; the stripes case banded with its launches issued
+    in reverse pipeline order; the ticket rule on COLS_MANY (40 x
+    124,799 on 32 slices of 3900 columns, more than the card holds
+    clusters of at once) in pipeline and reverse order, both ending,
+    equal to dp_plain; with a "cols" mesh set, phase 5c's merge through
+    the CLI on 2 and 3 shards (S K10 launches, one K5, one K4, no other
+    DP launch), byte-identical to 5c's numpy child; the merge in turns
+    against K2 spans on one device (spans, 2, 3, 3, 2, spans: host ms of
+    the merge, K2 spans' and K10's device ms, the same path), K10 held at
+    the 2-shard merge's slice 0 against dp_shard_plain; and the poly-Q
+    family with refinement on (its default) on 3 shards at a threshold
+    that shards progressive merges and guided re-alignments,
+    byte-identical to its numpy child, 3 K10 launches a sharded merge;
+ 5f. sequences past 65,536 residues (phase_long): K1 wave at W 2049 and
+    8192 (a segment across warps; the masks staged and read from global
+    memory) against lcs_wave_plain and K9 at W64 1025 and 4096 against
+    lcs_refmask_wave_plain on host copies, bit-exact, K9 also in a Prim
+    round; a 65,537-residue query across warps against it as a reference
+    through one warp's segment; the LONG_FAMILY family with one
+    65,537-residue sequence (make_long; cut from 200 sequences, see
+    LONG_FAMILY) with -backend torch: aligned at its defaults
+    (refinement on), -gt_export and -dist_export, each byte-identical to a
+    -backend numpy child, every K1 launch on the wave variant, K9
+    launched; K1 wave's and K9's ms at the long sequence as the
+    reference against the family;
  6. the wide path: a seeded 10,000-sequence family of mean length 300
     (refinement AUTO = off) with -backend torch at the default knobs,
     against -backend numpy on the guide tree the torch -gt_export wrote;
@@ -303,14 +320,18 @@ K1 wave's ms and bound there, and the profiled chunks); its bound
 counts bytes (an active vertex's lcs, length, dist and tieb, the pow
 entry of one with lcs > 0, the writes of the vertices it updates, the
 reference row read and written); its launches and totals are the
-recorded runs'.  K10's entry comes from phase 5e: "ms" is a launch's
-CUDA-event mean at the first block (ROW_BLOCK rows) of shard 0's slice of
-phase 5c's merge on 2 shards, held there against dp_shard_plain; its
-launches and totals are the 2-shard CLI run's ("cols"); its bound counts
-dp_bound_ms's instructions a cell against the slice's planes, the rows'
-factors, its direction bytes, finals, row state and edges.  No kernel
-has a single PyTorch call computing the same function, so library_ms is
-null.
+recorded runs'.  K10's entry comes from phase 5e: "ms" is the device
+time of phase 5c's merge on 2 shards, from its first launch's start to
+its last launch's end (the faster of two rounds; "spans_ms" K2 spans'
+on the same merge in the same turns), held on 2 and 3 shards against
+K2 spans, every byte, and at slice 0 against dp_shard_plain; its launches and totals are the 2-shard CLI run's
+("cols"); its bound is the whole merge's (dp_bound_ms, the spans'
+work) and its edges'.  K1 wave's and K9's entries carry "seg" from
+phase 5f: their ms and bound at the long family's largest call (the
+65,537-residue reference against the family, a segment across warps;
+K1's bound counts each query's own words, lcs_bound_ms) and their plain
+twins' ms at 5f's checks.  No kernel has a single
+PyTorch call computing the same function, so library_ms is null.
 """
 
 import json
@@ -500,11 +521,23 @@ def bound(nbytes, ops):
 
 
 def lcs_bound_ms(table, syms, n_queries):
+    """K1's bound: a 32-bit word update (and, two adds, compare, subtract,
+    or) per live reference position and word of a query, each query up to
+    its last word that holds a residue (a shorter query's padded words add
+    nothing to its LCS), against the reference's symbols' masks in those
+    words, the references and the output (int32 at L >= 65536) read or
+    written once."""
+    import torch
     _, w, n = table.shape
     r, length = syms.shape
-    live = int((syms.cpu() < 20).sum())           # no-op symbols are skipped
-    ops = 6 * live * n_queries * w                # and, 2 add, cmp, sub, or
-    return bound(4 * table.numel() + 4 * syms.numel() + 2 * r * n, ops)
+    s = syms.cpu()
+    live = int((s < 20).sum())                    # no-op symbols are skipped
+    held = (table[:, :, :n_queries] != 0).any(dim=0).cpu()
+    words = int((held * torch.arange(1, w + 1)[:, None]).amax(dim=0).sum())
+    planes = len(torch.unique(s[s < 20]))
+    out = 4 if length >= 65536 else 2
+    return bound(4 * planes * words + 4 * syms.numel()
+                 + out * r * n_queries, 6 * live * words)
 
 
 def refmask_bound_ms(refs, queries, n_queries):
@@ -2653,6 +2686,40 @@ def phase_polyq(work, recorder, watch, refs, device="cuda"):
         f"child: " + "; ".join(report))
 
 
+# phase 5f: a family with one sequence past 65,536 residues (sequences,
+# mean length, seed of make_family; the long sequence's residues).  The
+# family is cut from 200 sequences to LONG_FAMILY[0]: its -backend numpy
+# references pad every sequence to the longest and walk 1025 words a
+# position, ~11 s a distance row, so a tree of 200 would take a child ~36
+# min of CPU (~55 s at 30); the children of phases 4-8 share 4 cores and
+# phase 7 waits for the last of them
+LONG_FAMILY = (16, 300, 19)
+LONG_RESIDUES = 65537
+# its runs: name, flags, output's extension (the alignment at its
+# defaults, refinement on)
+LONG_RUNS = (("long", [], ".fa"),
+             ("long_tree", ["-gt_export"], ".dnd"),
+             ("long_dist", ["-dist_export"], ".csv"))
+# K1 wave's query words and K9's reference words past one warp's segment
+# held bit-exact: the first word past it (masks staged) and a width whose
+# masks stay in global memory
+LONG_K1_WORDS = (2049, 8192)
+LONG_K9_WORDS = (1025, 4096)
+
+
+def make_long(n, mean_len, seed, length=LONG_RESIDUES):
+    """FASTA text: make_family(n, mean_len, seed) and one sequence of
+    `length` residues, random from seed + 1 with a tract of 200
+    glutamines from position 1000 (whole 64-position words of one
+    residue: a flagged reference, K9).  At 65,537 residues its 64-bit
+    word 1024 holds one residue, and every query table of the family is
+    2049 32-bit words wide."""
+    rng = np.random.default_rng(seed + 1)
+    seq = np.array(list(AA))[rng.integers(0, 20, size=length)]
+    seq[1000:1200] = "Q"
+    return make_family(n, mean_len, seed) + f">long_{length}\n{''.join(seq)}\n"
+
+
 # phase 5c's profile-profile run: profile1 of PROFPROF_1 sequences of
 # the first width, profile2 of PROFPROF_2 of the second
 PROFPROF = (1500, 40000)
@@ -2891,39 +2958,76 @@ def phase_mesh(work, recorder, refs, device="cuda"):
 
 # phase 5e: the column axis of multi-device sharding, on meshes of shards
 # on one card.  K10 against its plain version: (w1, w2, shards, rows a
-# block, the plain version's folds: "geometry" the kernel's, else one a
-# slice), each unguided and banded along the diagonal: the stripes body
-# on 3 uneven slices, the staged body on 4 slices of 3 folds, blocks that
-# do not divide w1
+# block of the plain pipeline, the plain version's folds: "geometry" the
+# kernel's, else one a slice), each unguided and banded along the
+# diagonal: the stripes body on 3 uneven slices, the staged body on 4
+# slices of 3 folds, blocks that do not divide w1
 COLS_K10 = ((300, 26001, 3, 128, None), (200, 3000, 4, 48, "geometry"))
 # (the plain version on the kernel's fold geometry only unguided: on the
 # banded check it takes one fold a slice, ~4 s less)
 COLS_MESHES = (2, 3)    # phase 5c's merge on meshes of these sizes
 COLS_PROFPROF_CELLS = "1e7"   # ... with the shard threshold below its cells
-COLS_BLOCKS = (64, 128, 256, 512, 1500)   # row blocks timed on that merge
 COLS_POLYQ = (3, "1e5")   # the poly-Q run's shards and shard threshold
+# the ticket rule's mesh: more slices than the card holds clusters of at
+# once (w1, slices, columns a slice: 512 threads a fold, one CTA an SM)
+COLS_MANY = (40, 32, 3900)
 
 
-def k10_bound_ms(cols, rows, nnz, edges):
-    """Least time of one K10 launch of `rows` rows (nnz their nonzero
-    counts in all) of a slice of `cols` columns: dp_bound_ms's int32
-    instructions a cell and a match term, against its bytes (the slice's
-    column planes and the rows' factors read once; its direction bytes,
-    finals, the row state in and out and `edges` edge buffers of the
-    rows moved once)."""
-    from famsa_tpu_torch.ops.dp_pack import NCOLF, NROWF
-    ops = cols * (rows * (17 * 3 + 23 * 2 + 17 * 2 + 11 * 2) + 5 * nnz)
-    nbytes = (8 * NCOLF * cols + 8 * NROWF * rows + rows * cols + 24 * rows
-              + 2 * 24 * (cols + 1) + 24 * rows * edges)
-    return bound(nbytes, ops)
+def k10_bound_ms(colf, rowf, meta, total, shards):
+    """Least time of a sharded merge's K10 launches: the whole merge's
+    (dp_bound_ms on its packed inputs, the work K2 spans does for it) and
+    the edges between its shards (D, V and the running max of every row,
+    written and read once)."""
+    ms, by = dp_bound_ms(colf, rowf, meta, total)
+    w1 = int(meta[0, 0])
+    edges = 2 * 24 * w1 * (shards - 1)
+    return max(ms, edges / MEM_BYTES_PER_S * 1e3), by
 
 
-def cols_check(params, rng, case, banded, device):
-    """K10 on a mesh of shards on one card (parallel/dp_sharded.py) against
-    the same pipeline run with K10's plain version dp_shard_plain on a
-    mesh of as many host shards (on_host), and against the one-device
-    dp_plain: every direction byte and per-row final; its launches
-    counted (shards x blocks).  Returns a line."""
+class K10Span:
+    """The device time of a sharded merge's K10 launches while active:
+    CUDA events right around each launch on its shard's stream, and the
+    span from the first start to the last end (the launches overlap: one
+    wavefront across their clusters)."""
+
+    def __init__(self):
+        from famsa_tpu_torch.parallel import dp_sharded
+        self.events = []
+        self.orig = dp_sharded.dp_shard
+
+        def timed(table):
+            import torch
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.orig(table)
+            end.record()
+            self.events.append((start, end, table))
+
+        dp_sharded.dp_shard = timed
+
+    def close(self):
+        from famsa_tpu_torch.parallel import dp_sharded
+        dp_sharded.dp_shard = self.orig
+
+    def take(self):
+        """(span ms, [launch ms], [tables]) of the launches since the last
+        take."""
+        import torch
+        torch.cuda.synchronize()
+        ev, self.events = self.events, []
+        first = min(ev, key=lambda e: ev[0][0].elapsed_time(e[0]))[0]
+        span = max(first.elapsed_time(e) for _, e, _ in ev)
+        return span, [s.elapsed_time(e) for s, e, _ in ev], [
+            t for _, _, t in ev]
+
+
+def cols_check(params, rng, case, banded, device, order=None):
+    """K10 on a mesh of shards on one card (parallel/dp_sharded.py, one
+    launch a shard) against the (shard, block) pipeline of its plain
+    version dp_shard_plain on a mesh of as many host shards (on_host),
+    and against the one-device dp_plain: every direction byte and per-row
+    final; its launches counted (one a shard).  Returns a line."""
     import functools
     import torch
     from famsa_tpu_torch import kernels
@@ -2937,15 +3041,15 @@ def cols_check(params, rng, case, banded, device):
     b = random_profile(rng, params, 3, w2, 0.0)
     band = diagonal_band(params, w1, w2) if banded else None
     m = mesh.make_mesh([f"{device}:0"] * size)
-    what = (f"{'banded ' if banded else ''}{w1}x{w2} on {size} shards, "
-            f"blocks of {block}")
+    what = (f"{'banded ' if banded else ''}{w1}x{w2} on {size} shards"
+            + (f" issued in order {order}" if order else ""))
     before = kernels.LAUNCHES["dp_shard"]
     t0 = time.perf_counter()
     dirs, fin = dp_sharded.dp_profile_sharded(params, a, b, m, band=band,
-                                              block=block)
+                                              order=order)
     ms = (time.perf_counter() - t0) * 1e3
     launched = kernels.LAUNCHES["dp_shard"] - before
-    if device == "cuda" and launched != size * -(-w1 // block):
+    if device == "cuda" and launched != size:
         raise AssertionError(f"5e K10 {what}: {launched} launches")
     slices = [c1 - c0 for c0, c1 in m.bounds(w2 + 1)]
     step = dp_shard_plain if walk else functools.partial(
@@ -2965,9 +3069,55 @@ def cols_check(params, rng, case, banded, device):
         raise AssertionError(f"5e K10 {what}: differs from dp_plain")
     return (f"{what} (slices {slices}): {launched} launches, the merge "
             f"{ms:.2f} ms on the mesh (host clock, with its copies to the "
-            f"host), the plain pipeline ({'the kernel' if walk else 'one'}"
+            f"host), the plain pipeline (blocks of {block}, "
+            f"{'the kernel' if walk else 'one'}"
             f"{' fold geometry' if walk else ' fold a slice'}) "
             f"{plain_ms:.0f} ms")
+
+
+def many_check(params, rng, device):
+    """The ticket rule: a merge of COLS_MANY's slices, more than the card
+    holds clusters of at once (dp_wide_max_clusters of their geometry),
+    launched in pipeline order and in reverse order, each on its shard's
+    stream; both end, their bytes equal each other's and dp_plain's.
+    Returns a line."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops.dp_torch import (dp_plain, pack_batch,
+                                              prepare_merge)
+    from famsa_tpu_torch.ops.dp_wide import BLK, fold_geometry
+    from famsa_tpu_torch.parallel import dp_sharded, mesh
+    w1, size, cols = COLS_MANY
+    w2 = size * cols - 1
+    fit = kernels.get("dp_wide").dp_wide_max_clusters(
+        *fold_geometry(cols - 1), BLK)
+    if not 0 < fit < size:
+        raise AssertionError(f"5e: {size} slices of {cols} columns fit the "
+                             f"card at once ({fit} clusters)")
+    a = random_profile(rng, params, 4, w1)
+    b = random_profile(rng, params, 3, w2, 0.0)
+    m = mesh.make_mesh([f"{device}:0"] * size)
+    outs, ms = [], []
+    for order in (None, list(range(size))[::-1]):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs.append(dp_sharded.dp_profile_sharded(params, a, b, m,
+                                                  order=order))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if kernels.LAUNCHES["dp_shard"] != size:
+            raise AssertionError(f"5e ticket mesh: launches "
+                                 f"{kernels.LAUNCHES['dp_shard']}")
+    colf, rowf, meta, total = pack_batch([prepare_merge(params, a, b)])
+    d, f = dp_plain(*(torch.from_numpy(x).to(device)
+                      for x in (colf, rowf, meta)), total)
+    for dirs, fin in outs:
+        if not (np.array_equal(dirs.reshape(-1), d.cpu().numpy())
+                and np.array_equal(fin, f[0, :w1].cpu().numpy())):
+            raise AssertionError("5e ticket mesh: differs from dp_plain")
+    return (f"{w1}x{w2} on {size} slices of {cols} columns (the card holds "
+            f"{fit} clusters of their geometry at once), pipeline order "
+            f"{ms[0]:.2f} ms and reverse order {ms[1]:.2f} ms (host clock): "
+            f"both ended, equal to dp_plain")
 
 
 def read_profiles(work, params):
@@ -2988,80 +3138,106 @@ def read_profiles(work, params):
     return order_operands(*profs)
 
 
-def k10_measure(params, a, b, device, size=2):
-    """K10 at the shape phase 5e's profile-profile run gives it on `size`
-    shards: the first block (ROW_BLOCK rows) of shard 0's slice, its
-    inputs captured from the pipeline.  Held against dp_shard_plain (one
-    fold, on copies of the outputs) in every output; CUDA-event ms, the
-    plain version's ms and the bound.  Returns the report's fields."""
+def profprof_rounds(params, a, b, device, spans_args):
+    """Phase 5c's merge, spans against K10 in turns (spans, 2, 3, 3, 2,
+    spans shards): the one-device merge (K5, K2 spans, K4:
+    dp_profile_torch_paths_async) and the sharded one
+    (dp_profile_sharded_paths), host ms with a synchronize each; K2
+    spans' CUDA-event ms on the merge's packed inputs (spans_args) and
+    K10's span (first launch's start to last launch's end) on each mesh;
+    the same path from every run.  Then the merge's DP on each of
+    COLS_MESHES (dp_profile_sharded) against K2 spans on spans_args:
+    every direction byte and final, both slices of each mesh.  Returns
+    ({what: [ms]}, (the 2-shard merge's tables, its K10 launch ms), the
+    max abs error of that check)."""
     import torch
-    from famsa_tpu_torch.ops.dp_wide import dp_shard, dp_shard_plain
+    from famsa_tpu_torch.ops.dp_torch import (dp_dirs,
+                                              dp_profile_torch_paths_async)
     from famsa_tpu_torch.parallel import dp_sharded, mesh
-    m = mesh.make_mesh([f"{device}:0"] * size)
-    seen = []
+    times, paths, keep = {}, [], None
+    span = K10Span()
+    try:
+        for what in ("spans", 2, 3, 3, 2, "spans"):
+            if what == "spans":
+                t = wall_ms(lambda: paths.append(dp_profile_torch_paths_async(
+                    params, [(a, b)]).resolve()[0]))
+                k = cuda_ms(lambda: dp_dirs(*spans_args, variant="spans"), 3)
+            else:
+                m = mesh.make_mesh([f"{device}:0"] * what)
+                t = wall_ms(lambda: paths.append(
+                    dp_sharded.dp_profile_sharded_paths(params, a, b, m)))
+                k, launch_ms, tables = span.take()
+                if what == 2:
+                    keep = (tables, launch_ms)
+            times.setdefault(f"{what} merge", []).append(t)
+            times.setdefault(f"{what} kernel", []).append(k)
+    finally:
+        span.close()
+    if any(p.total != paths[0].total or list(p.path) != list(paths[0].path)
+           for p in paths):
+        raise AssertionError("5e: the 1500 x 40,000 merge's paths differ "
+                             "between K2 spans and K10")
+    d, f = dp_dirs(*spans_args, variant="spans")
+    d, f = d.cpu(), f[0, :a.width].cpu()
+    err = 0
+    for size in COLS_MESHES:
+        m = mesh.make_mesh([f"{device}:0"] * size)
+        dirs, fin = dp_sharded.dp_profile_sharded(params, a, b, m)
+        err = max(err, int_err(torch.from_numpy(dirs.reshape(-1)),
+                               d[:dirs.size]),
+                  int_err(torch.from_numpy(fin), f))
+    return times, keep, err
 
-    def capture(*args, **kw):
-        if not seen:
-            seen.append((args, kw))
-        return dp_shard(*args, **kw)
 
-    dp_sharded.dp_profile_sharded_paths(params, a, b, m, step=capture)
-    args, kw = seen[0]
-    colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state = args
-    with m.shards[0].use():
-        torch.cuda.current_stream().synchronize()
-        outs = [dirs, fin, state, kw["eout"]]
-        plain = [x.clone() for x in outs]
-        dp_shard(*args, **kw)
-        got = [x.clone() for x in outs]
-        plain_ms = wall_ms(lambda: dp_shard_plain(
-            colf, rowf, w1, cs, c1, r0, r1, plain[0], plain[1], plain[2],
-            ein=kw["ein"], eout=plain[3], fold_cols=c1 - cs))
-        err = max(int_err(g.long(), p.long()) for g, p in zip(got, plain))
-        ms = cuda_ms(lambda: dp_shard(*args, **kw), 20)
-    nnz = int(rowf[r0:r1, 0].sum())
-    bms, by = k10_bound_ms(c1 - cs, r1 - r0, nnz,
-                           (kw["ein"] is not None) + (kw["eout"] is not None))
-    shape = (f"rows {r0}-{r1 - 1} of the {a.width}x{b.width} merge, "
-             f"columns {cs}-{c1 - 1} (shard 0 of {size})")
-    return err, ms, plain_ms, bms, by, shape
-
-
-def gather_ms(w1, w2, size, device):
-    """CUDA-event ms of the gather of a w1 x w2 merge's direction bytes
-    from `size` slices (Mesh.bounds) into one native buffer: the strided
-    copies parallel/dp_sharded.py makes on the card, here on one stream."""
+def k10_measure(tables, rows=256):
+    """K10 at phase 5c's merge on 2 shards: slice 0 of the merge's table
+    (its inputs as the launch read them) through dp_shard_plain (one
+    fold) on host copies for its first `rows` rows, against what its
+    cluster wrote there: the direction bytes, the finals and the edges
+    into slice 1.  Returns (max abs error, plain ms, shape)."""
     import torch
-    from famsa_tpu_torch.parallel import mesh
-    bounds = mesh.make_mesh([f"{device}:0"] * size).bounds(w2 + 1)
-    full = torch.empty((w1 + 1, w2 + 1), dtype=torch.uint8, device=device)
-    parts = [torch.zeros((w1 + 1, c1 - c0), dtype=torch.uint8, device=device)
-             for c0, c1 in bounds]
-
-    def gather():
-        for (c0, c1), part in zip(bounds, parts):
-            full[:, c0:c1].copy_(part)
-
-    return cuda_ms(gather, 10)
+    from famsa_tpu_torch.ops.dp_wide import dp_shard_plain
+    table = tables[0]
+    sl = table.slices[0]
+    w1, n = table.w1, sl.c1 - sl.cs
+    r1 = min(w1, rows) + 1
+    got = [sl.dirs[:r1], sl.fin[:r1 - 1], sl.eout[:r1 - 1]]
+    plain = [torch.zeros(x.shape, dtype=x.dtype)
+             for x in (sl.dirs, sl.fin, sl.eout)]
+    t0 = time.perf_counter()
+    on_host(dp_shard_plain, sl.colf, sl.rowf, w1, sl.cs, sl.c1, 1, r1,
+            plain[0], plain[1], torch.zeros((3, n + 1), dtype=torch.int64),
+            eout=plain[2], fold_cols=n)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int_err(g.cpu().long(), p[:g.shape[0]].long())
+              for g, p in zip(got, plain))
+    shape = (f"rows 1-{r1 - 1} of the {w1}x"
+             f"{sum(s.c1 - s.cs for s in table.slices) - 1} merge on 2 "
+             f"shards (slice 0: columns {sl.cs}-{sl.c1 - 1})")
+    return err, plain_ms, shape
 
 
 def phase_cols(work, recorder, refs, device="cuda"):
     """Phase 5e: the column axis of multi-device sharding
     (parallel/dp_sharded.py, K10) on meshes of shards on one card, each
     shard on its own stream (auto_mesh's cache set for "cols").  (a) K10
-    against its plain version on COLS_K10, unguided and banded
-    (cols_check).  (b) Phase 5c's profile-profile merge through the CLI
-    entry point on meshes of COLS_MESHES shards, its shard threshold below
-    its cells: byte-identical to 5c's numpy child's output, with S x
-    ceil(w1 / ROW_BLOCK) K10 launches, one K5 and one K4, no other DP
-    launch (the 2-shard run recorded as "cols"); the merge's ms on each
-    mesh beside 5c's K2 spans ms; the merge at the row blocks COLS_BLOCKS
-    (parent of ROW_BLOCK's choice), two rounds in turn; K10 held and
-    timed at its main-path shape (k10_measure).  (c) The poly-Q family,
+    against its plain version's (shard, block) pipeline and dp_plain on
+    COLS_K10, unguided and banded (cols_check; the stripes case also
+    with its launches issued in reverse pipeline order), and the ticket
+    rule on COLS_MANY (many_check).  (b) Phase 5c's profile-profile merge
+    through the CLI entry point on meshes of COLS_MESHES shards, its
+    shard threshold below its cells: byte-identical to 5c's numpy child's
+    output, with S K10 launches, one K5 and one K4, no other DP launch
+    (the 2-shard run recorded as "cols"); the merge timed against K2
+    spans in turns and held against K2 spans on it, every direction
+    byte and final of both meshes (profprof_rounds); K10 held at slice 0
+    of that merge against dp_shard_plain (k10_measure).  (c) The poly-Q
+    family,
     refinement on (its default), on a mesh of COLS_POLYQ[0] shards with
     the threshold at COLS_POLYQ[1] cells, so that progressive merges and
     guided re-alignments go sharded: byte-identical to its -backend numpy
-    child ("polyq_refine" in refs).  Returns K10's kernel-report entry."""
+    child ("polyq_refine" in refs), S K10 launches a sharded merge.
+    Returns K10's kernel-report entry."""
     import torch
     from famsa_tpu_torch import kernels
     from famsa_tpu_torch.core.params import Params
@@ -3077,6 +3253,9 @@ def phase_cols(work, recorder, refs, device="cuda"):
     params.adjust(1000)
     checks = [cols_check(params, rng, case, banded, device)
               for case in COLS_K10 for banded in (False, True)]
+    checks.append(cols_check(params, rng, COLS_K10[0], True, device,
+                             order=list(range(COLS_K10[0][2]))[::-1]))
+    checks.append(many_check(params, rng, device))
     # (b)
     merges = []
     orig = dp_sharded.dp_profile_sharded_paths
@@ -3091,7 +3270,6 @@ def phase_cols(work, recorder, refs, device="cuda"):
     p1, p2 = (os.path.join(work, f"prof{k}.fa") for k in (1, 2))
     with open(os.path.join(work, "profprof_numpy.fa"), "rb") as f:
         want = f.read()
-    w1 = PROFPROF[0]
     env = {"FAMSA_TORCH_SHARD_DP_CELLS": COLS_PROFPROF_CELLS}
     dp_sharded.dp_profile_sharded_paths = timed
     try:
@@ -3113,12 +3291,11 @@ def phase_cols(work, recorder, refs, device="cuda"):
                 if f.read() != want:
                     raise AssertionError(f"{what}: output differs from "
                                          "5c's numpy child's")
-            nb = -(-w1 // dp_sharded.ROW_BLOCK)
             dp_keys = ("dp_staged", "dp_staged16", "dp_stripes",
                        "dp_spans", "dp_wide", "dp_wide16",
                        "dp_wide_stripes")
             if len(merges) != 1 or device == "cuda" and (
-                    counts["dp_shard"] != size * nb
+                    counts["dp_shard"] != size
                     or counts["stage0"] != 1 or counts["traceback"] != 1
                     or any(counts[k] for k in dp_keys)):
                 raise AssertionError(f"{what}: launches {counts}, "
@@ -3133,37 +3310,40 @@ def phase_cols(work, recorder, refs, device="cuda"):
     n, tot, mean = recorder.totals("cols", "dp_shard")
     ns, tots, _ = recorder.totals("profprof", "dp_spans")
     report.append(f"K10 in the 2-shard run: {n} launches, {tot:.3f} ms "
-                  f"of events in all, {mean:.4f} ms mean (events on "
-                  f"the shards' streams overlap); 5c's K2 spans: {ns} "
-                  f"launch, {tots:.3f} ms")
+                  f"of events in all, {mean:.4f} ms mean (the shards' "
+                  f"launches overlap); 5c's K2 spans: {ns} launch, "
+                  f"{tots:.3f} ms")
     params = Params(device=device)
     params.adjust(PROFPROF_1 + PROFPROF_2)
     a, b = read_profiles(work, params)
-    blocks = {}
-    for rnd in range(2):
-        for block in (COLS_BLOCKS if rnd == 0 else COLS_BLOCKS[::-1]):
-            m = mesh.make_mesh([f"{device}:0"] * COLS_MESHES[0])
-            t = wall_ms(lambda: dp_sharded.dp_profile_sharded_paths(
-                params, a, b, m, block=block))
-            blocks.setdefault(block, []).append(t)
-    report.append(f"the merge on {COLS_MESHES[0]} shards by row block "
-                  f"(ms, two rounds in turn; ROW_BLOCK "
-                  f"{dp_sharded.ROW_BLOCK}): " + ", ".join(
-                      f"{blk}: {v[0]:.2f} / {v[1]:.2f}"
-                      for blk, v in blocks.items()))
-    gathers = [(size, gather_ms(a.width, b.width, size, device))
-               for size in COLS_MESHES]
-    report.append(f"the gather of its {a.width + 1} x {b.width + 1} "
-                  f"direction bytes from " + ", ".join(
-                      f"{n} slices {t:.4f} ms" for n, t in gathers)
-                  + " (events, one stream)")
-    err, ms, plain_ms, bms, by, shape = k10_measure(params, a, b, device)
+    spans_args = recorder.inputs["dp_spans"][1]
+    times, (tables, launch_ms), spans_err = profprof_rounds(
+        params, a, b, device, spans_args)
+    if spans_err:
+        raise AssertionError(f"5e K10: phase 5c's merge on {COLS_MESHES} "
+                             f"shards differs from K2 spans (max abs error "
+                             f"{spans_err})")
+    report.append("the merge in turns, host ms with a synchronize (K2 "
+                  "spans: K5, K2, K4 on one device; S shards: K5, copies, "
+                  "K10, gather, K4) and device ms (K2 spans' events; K10 "
+                  "from the first launch's start to the last one's end): "
+                  + ", ".join(f"{k} {' / '.join(f'{x:.3f}' for x in v)}"
+                              for k, v in times.items())
+                  + f"; the 2-shard merge's K10 launches "
+                  + " / ".join(f"{x:.3f}" for x in launch_ms) + " ms")
+    err, plain_ms, shape = k10_measure(tables)
     if err:
         raise AssertionError(f"5e K10 at {shape}: max abs error {err} "
                              "against dp_shard_plain")
-    report.append(f"K10 at {shape}: {ms:.4f} ms (events), bound "
-                  f"{bms:.5f} ms ({by}), dp_shard_plain (one fold) "
-                  f"{plain_ms:.0f} ms")
+    ms = min(times["2 kernel"])
+    bms, by = k10_bound_ms(*spans_args, 2)
+    held = (f"phase 5c's merge on {' and '.join(map(str, COLS_MESHES))} "
+            f"shards, every direction byte and final against K2 spans on "
+            f"its packed inputs; {shape}, dirs, finals and edges, against "
+            f"dp_shard_plain")
+    report.append(f"K10 bit-exact: {held} (one fold, {plain_ms:.0f} ms); "
+                  f"the merge's K10 {ms:.4f} ms (the faster span of the two "
+                  f"rounds), bound {bms:.5f} ms ({by})")
     # (c)
     size, cells = COLS_POLYQ
     calls = {"guided": 0, "unguided": 0}
@@ -3187,8 +3367,11 @@ def phase_cols(work, recorder, refs, device="cuda"):
         mesh._AUTO_MESH.clear()
     if rc != 0:
         raise AssertionError(f"5e poly-Q refinement on: rc={rc}")
-    if not (calls["guided"] and calls["unguided"]):
-        raise AssertionError(f"5e poly-Q: sharded merges {calls}")
+    merged = calls["guided"] + calls["unguided"]
+    if not (calls["guided"] and calls["unguided"]) or (
+            device == "cuda" and counts["dp_shard"] != size * merged):
+        raise AssertionError(f"5e poly-Q: sharded merges {calls}, K10 "
+                             f"launches {counts['dp_shard']}")
     np_wait = refs.wait("polyq_refine")
     with open(out, "rb") as f, \
             open(os.path.join(work, "polyq_refine_numpy.fa"), "rb") as g:
@@ -3198,9 +3381,10 @@ def phase_cols(work, recorder, refs, device="cuda"):
     report.append(f"poly-Q, refinement on, {size} shards, threshold "
                   f"{cells} cells: {secs:.2f} s, sharded merges "
                   f"{calls['unguided']} progressive and {calls['guided']} "
-                  f"guided (K10 {counts['dp_shard']}, K5 {counts['stage0']},"
-                  f" K4 {counts['traceback']}), byte-identical to a numpy "
-                  f"child (waited {np_wait:.2f} s more for it)")
+                  f"guided (K10 {counts['dp_shard']}, {size} a merge, K5 "
+                  f"{counts['stage0']}, K4 {counts['traceback']}), "
+                  f"byte-identical to a numpy child (waited {np_wait:.2f} s "
+                  "more for it)")
     log(f"phase 5e cols mesh (shards on {device}:0, each on its own stream): "
         f"auto_mesh None on one card; K10 bit-exact vs dp_shard_plain and "
         f"dp_plain (dirs, finals) on " + "; ".join(checks) + "; "
@@ -3209,10 +3393,211 @@ def phase_cols(work, recorder, refs, device="cuda"):
             "source": "famsa_tpu_torch/csrc/dp_wide.cu",
             "replaces": "famsa_tpu/parallel/dp_sharded.py:40",
             "launches": recorder.counts["cols"]["dp_shard"],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "launches_run": "cols", "at": shape,
+            "max_abs_err": max(err, spans_err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "launches_run": "cols", "at": held,
+            "spans_ms": min(times["spans kernel"]),
             "runs": run_totals(recorder, "dp_shard")}
+
+
+def long_queries(rng, n, length):
+    """[n, length] int8 queries: random residues (codes >= 20 among them)
+    with a run of 64-200 equal residues in every second one (K1's exact
+    carry across words and lanes), lengths from length // 2, the first
+    exactly length, padded with the no-op symbol."""
+    from famsa_tpu_torch.ops.lcs_torch import PAD_SYMBOL
+    padded = np.full((n, length), PAD_SYMBOL, dtype=np.int8)
+    for i in range(n):
+        ln = int(rng.integers(length // 2, length + 1)) if i else length
+        row = rng.choice(24, size=ln, p=[0.048] * 20 + [0.01] * 4)
+        if i % 2 == 0:
+            run = int(rng.integers(64, 201))
+            off = int(rng.integers(0, max(1, ln - run)))
+            row[off:off + run] = rng.integers(0, 20)
+        padded[i, :ln] = row
+    return padded
+
+
+def long_checks(device):
+    """Phase 5f (a): K1 wave and K9 past one warp's segment, bit for bit
+    against their plain twins on host copies; returns the log's parts and
+    the plain twins' wall ms by case."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops import lcs_torch as lt
+    rng = np.random.default_rng(23)
+    parts, plain = [], {}
+    for i, w in enumerate(LONG_K1_WORDS):
+        padded = long_queries(rng, 6, 32 * w)
+        refs = np.concatenate([padded[[1, 3]][:, :300],
+                               long_queries(rng, 1, 300)])
+        table = torch.from_numpy(lt.build_query_mask_table(padded).view(
+            np.int32))
+        syms = torch.from_numpy(refs.astype(np.int32))
+        t0 = time.perf_counter()
+        want = on_host(lt.lcs_wave_plain, table, syms, 5)
+        plain[f"K1 W={w}"] = (time.perf_counter() - t0) * 1e3
+        dt = torch.uint16 if i % 2 else torch.int32
+        before = kernels.LAUNCHES["lcs_wave"]
+        got = lt.lcs_rows(table.to(device), syms.to(device), n_queries=5,
+                          out_dtype=dt)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["lcs_wave"] != before + 1:
+            raise AssertionError(f"5f K1 W={w}: the wave variant was not "
+                                 "launched")
+        if not torch.equal(got[:, :5].cpu().to(torch.int32), want[:, :5]):
+            raise AssertionError(f"5f K1 wave W={w}: differs from "
+                                 "lcs_wave_plain")
+        parts.append(f"K1 wave W={w} {lt.seg_geometry(w)[:4]} "
+                     f"({str(dt)[6:]} out)")
+    # a 65,537-residue reference through the one-warp wave variant and
+    # the same pairs through a segment across warps: the LCS is symmetric
+    long = long_queries(rng, 4, LONG_RESIDUES)
+    short = long_queries(rng, 5, 300)
+    t_long, t_short = (torch.from_numpy(lt.build_query_mask_table(x).view(
+        np.int32)).to(device) for x in (long, short))
+    across = lt.lcs_rows(t_long, torch.from_numpy(short.astype(
+        np.int32)).to(device))
+    one = lt.lcs_rows(t_short, torch.from_numpy(long.astype(np.int32)).to(
+        device), variant="wave")
+    if not torch.equal(across, one.T):
+        raise AssertionError("5f K1 wave: a 65,537-residue query across "
+                             "warps differs from it as a reference")
+    parts.append(f"4 queries of {LONG_RESIDUES} (W={t_long.shape[1]}) x 5 "
+                 "refs of 300 = the transpose through one warp's segment")
+    for w64 in LONG_K9_WORDS:
+        refs = rng.choice(24, size=(2, 64 * w64 - 5),
+                          p=[0.048] * 20 + [0.01] * 4).astype(np.int8)
+        for ref in refs:
+            word = int(rng.integers(1, w64 - 1))
+            ref[64 * word:64 * (word + 1)] = AA.index("Q")
+        queries = long_queries(rng, 7, 150)
+        queries[1] = AA.index("Q")
+        r, q = (torch.from_numpy(x.astype(np.int32)) for x in (refs, queries))
+        t0 = time.perf_counter()
+        want = on_host(lt.lcs_refmask_wave_plain, r, q, 6)
+        plain[f"K9 W64={w64}"] = (time.perf_counter() - t0) * 1e3
+        before = kernels.LAUNCHES["lcs_refmask"]
+        got = lt.lcs_refmask(r.to(device), q.to(device), n_queries=6)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["lcs_refmask"] != before + 1:
+            raise AssertionError(f"5f K9 W64={w64}: not launched")
+        if not torch.equal(got[:, :6].cpu(), want[:, :6]):
+            raise AssertionError(f"5f K9 W64={w64}: differs from "
+                                 "lcs_refmask_wave_plain")
+        # a Prim round: the row overwritten only for a flagged cur
+        flags = torch.zeros(7, dtype=torch.bool, device=device)
+        flags[0] = True
+        rows = []
+        for cur in (0, 1):
+            row = torch.full((1, 7), -1, dtype=torch.int32, device=device)
+            lt.lcs_refmask(r[:1].to(device), q.to(device), out=row,
+                           cur=torch.tensor([cur], device=device),
+                           flags=flags)
+            rows.append(row.cpu())
+        if not (torch.equal(rows[0], on_host(lt.lcs_refmask_wave_plain,
+                                             r[:1], q, 7))
+                and bool((rows[1] == -1).all())):
+            raise AssertionError(f"5f K9 W64={w64}: the Prim round's row")
+        parts.append(f"K9 W64={w64} "
+                     f"{lt.seg_geometry(w64, 'refmask')[:4]} (and in a "
+                     "Prim round, flagged and not)")
+    return parts, plain
+
+
+def phase_long(work, recorder, watch, refs, device="cuda"):
+    """Phase 5f: sequences past 65,536 residues.  (a) long_checks: K1
+    wave past 2048 words (csrc/lcs.cu:lcs_wave_seg_kernel, a segment
+    across warps) at W LONG_K1_WORDS against lcs_wave_plain, a
+    65,537-residue query across warps against it as a reference through
+    one warp's segment, and K9 past 1024 64-bit words
+    (lcs_refmask_seg_kernel) at W64 LONG_K9_WORDS against
+    lcs_refmask_wave_plain and in a Prim round.  (b) The LONG_FAMILY
+    family with one LONG_RESIDUES-residue sequence (make_long, long.fa)
+    through the CLI with -backend torch: the alignment (its defaults,
+    refinement on; its DP route, the long sequence's merges and guided
+    re-alignments on K3 with 65,537 rows, held to ResidencyWatch),
+    -gt_export and -dist_export,
+    each byte-identical to its -backend numpy child (LONG_RUNS, in
+    refs); every K1 launch on the wave variant (its queries 2049 words),
+    K9 launched (a Prim round's when the long sequence is the reference,
+    a distance row's), the tree runs' K1 wave, K9 and K8 n - 1 each.
+    (c) K1 wave and K9 timed at those runs' largest call, the long
+    sequence as the reference against the family.  Returns K1 wave's and
+    K9's entries for the kernel report (their "seg" fields)."""
+    import torch
+    from famsa_tpu_torch import kernels
+    from famsa_tpu_torch.ops import lcs_torch as lt
+    t0 = time.perf_counter()
+    parts, plain = long_checks(device)
+    check_secs = time.perf_counter() - t0
+    fa = os.path.join(work, "long.fa")
+    report = []
+    for name, flags, ext in LONG_RUNS:
+        args = (["-backend", "torch", "-device", device] + flags
+                + [fa, os.path.join(work, f"{name}_torch{ext}")])
+        if name == "long":
+            rc, secs, counts, route = run_torch(
+                "5f long alignment", args, {}, recorder, watch, None, False,
+                device)
+        else:
+            recorder.start(None)
+            kernels.reset_launches()
+            rc, secs = run_cli(args, {})
+            counts, route = dict(kernels.LAUNCHES), ""
+            recorder.stop(counts)
+        if rc != 0:
+            raise AssertionError(f"5f {name}: rc={rc}")
+        if counts["lcs"] or not (counts["lcs_wave"]
+                                 and counts["lcs_refmask"]):
+            raise AssertionError(f"5f {name}: launches {counts}")
+        if name != "long_dist":
+            check_launches(f"5f {name}", counts,
+                           ("lcs_wave", "prim_round", "lcs_refmask"),
+                           recorder)
+        report.append(f"{name} {secs:.2f} s (K1 wave {counts['lcs_wave']}"
+                      f", K9 {counts['lcs_refmask']}, K8 "
+                      f"{counts['prim_round']}, K1 rows {counts['lcs']}, "
+                      f"K2 spans {counts['dp_spans']}){route}")
+    np_wait = refs.wait(*(name for name, _, _ in LONG_RUNS))
+    for name, _, ext in LONG_RUNS:
+        with open(os.path.join(work, f"{name}_torch{ext}"), "rb") as f, \
+                open(os.path.join(work, f"{name}_numpy{ext}"), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"5f {name}: torch output differs from "
+                                     "the numpy child's")
+    # (c) the long sequence as the reference against the family
+    with open(fa) as f:
+        strings = fasta_strings(f.read())
+    table, queries, _, _ = prim_case(strings, device)
+    lengths = (queries < 20).sum(dim=1)
+    ref = queries[int(lengths.argmax())][None].contiguous()
+    n = queries.shape[0]
+    out = {}
+    for key, fn, bfn, args in (
+            ("lcs_wave", lambda: lt.lcs_rows(table, ref, variant="wave"),
+             lcs_bound_ms, (table, ref, n)),
+            ("lcs_refmask", lambda: lt.lcs_refmask(ref, queries),
+             refmask_bound_ms, (ref, queries, n))):
+        ms = cuda_ms(fn, 3)
+        bms, by = bfn(*args)
+        tag = "K1" if key == "lcs_wave" else "K9"
+        out[key] = {"ms": ms, "bound_ms": bms, "bound_by": by,
+                    "at": f"1 reference of {ref.shape[1]} positions x {n} "
+                          f"queries of W={table.shape[1]} (phase 5f)",
+                    "plain_ms": {k: v for k, v in plain.items()
+                                 if k.startswith(tag)},
+                    "plain_at": "phase 5f's checks"}
+    log(f"phase 5f sequences past 65,536 residues: bit-exact vs their plain "
+        f"twins on host copies: " + "; ".join(parts) + f" ({check_secs:.1f}"
+        f" s, plain ms {', '.join(f'{k} {v:.0f}' for k, v in plain.items())}"
+        f"); the family of {LONG_FAMILY[0]} x {LONG_FAMILY[1]} (seed "
+        f"{LONG_FAMILY[2]}) and one of {LONG_RESIDUES}, torch byte-identical"
+        f" to numpy children (waited {np_wait:.2f} s more for them): "
+        + "; ".join(report) + "; at the long reference x the family: "
+        + "; ".join(f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.5f} ms, "
+                    f"{v['bound_by']})" for k, v in out.items()))
+    return out
 
 
 class RouteCounter:
@@ -4574,7 +4959,7 @@ def run_totals(rec, key):
     return runs
 
 
-def kernel_report(rec, stand_ins, k7, k8, k10):
+def kernel_report(rec, stand_ins, k7, k8, k10, seg):
     """One entry per kernel variant: held against its plain version at
     the largest input the main-path runs gave it (bit-exact, or the smoke
     fails), its CUDA-event time there, the bound, and the per-run totals
@@ -4590,7 +4975,8 @@ def kernel_report(rec, stand_ins, k7, k8, k10):
     totals are the replays' ("graph").  K8's entry (k8) comes from phase
     2, which holds it on the main path's families and times it there; its
     launches and totals are the recorded runs'.  K10's entry (k10) comes
-    from phase 5e, which holds and times it."""
+    from phase 5e, which holds and times it; K1 wave's and K9's "seg"
+    (seg) from phase 5f, past one warp's segment."""
     from famsa_tpu_torch.ops.dp_stage0 import stage0, stage0_plain
     from famsa_tpu_torch.ops.dp_torch import dp_dirs, dp_plain
     from famsa_tpu_torch.ops.dp_wide import dp_dirs_wide
@@ -4708,7 +5094,8 @@ def kernel_report(rec, stand_ins, k7, k8, k10):
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bms, "bound_by": by, "library_ms": None,
                     "launches_run": run, "at": at, "runs": runs,
-                    **extra.get(key, {})})
+                    **extra.get(key, {}),
+                    **({"seg": seg[key]} if key in seg else {})})
     hist = np.bincount(rec.batch_sizes) if rec.batch_sizes else []
     log("kernels at main-path shapes (largest call of each variant): "
         + "; ".join(shapes) + f"; K2 batch sizes (count by size 0..): "
@@ -4738,7 +5125,8 @@ def write_families(work):
              "fam_3000.fa": make_family(*MEDOID_FAMILY),
              "fam_10000.fa": make_family(*WIDE_300),
              "fam_wide600.fa": make_family(*WIDE_FAMILY),
-             "polyq.fa": make_polyq(*POLYQ_FAMILY)}
+             "polyq.fa": make_polyq(*POLYQ_FAMILY),
+             "long.fa": make_long(*LONG_FAMILY)}
     texts["prof1.fa"], texts["prof2.fa"] = make_profiles()
     for name, text in texts.items():
         with open(os.path.join(work, name), "w") as f:
@@ -4782,6 +5170,8 @@ def start_references(work, device="cuda"):
              for what, extra in TREE_CASES]
     jobs += [(name, flags + [polyq, w(f"{name}_numpy{ext}")])
              for name, flags, ext in POLYQ_RUNS]
+    jobs += [(name, flags + [w("long.fa"), w(f"{name}_numpy{ext}")])
+             for name, flags, ext in LONG_RUNS]
     jobs += [("profprof", profprof_argv(work, "numpy")),
              ("mesh_upgma", ["-gt", "upgma", "-gt_export", "-stats",
                              w("mesh_upgma_numpy.dnd.st"), polyq,
@@ -4827,16 +5217,18 @@ def main():
             phase_profprof(work, rec, watch, refs)
             phase_mesh(work, rec, refs)
             k10 = phase_cols(work, rec, refs)
+            seg = phase_long(work, rec, watch, refs)
             phase_wide(work, rec, watch, refs, tree_secs)
             phase_wide(work, rec, watch, refs, tree_secs,
                        family=WIDE_FAMILY, run="wide600",
                        label="6b wide family")
-            refs.wait()             # phase 7's timed runs alone on the host
+            np_wait = refs.wait()   # phase 7's timed runs alone on the host
+            log(f"numpy children: {np_wait:.1f} s waited for the last")
             k7 = phase_chain(work, rec)
             phase_trees(work, rec, watch, refs)
         finally:
             refs.close()
-    kern = kernel_report(rec, stand_ins, k7, k8, k10)
+    kern = kernel_report(rec, stand_ins, k7, k8, k10, seg)
     log(f"smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kern}))
     print(smi)

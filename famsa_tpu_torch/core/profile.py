@@ -14,6 +14,32 @@ from .defs import (GAP, GAP_EXT, GAP_OPEN, GAP_TERM_EXT, GAP_TERM_OPEN,
 from .sequence import GappedSequence
 
 
+def _runs_within(starts, ends, weights, lo, hi):
+    """For each window of columns [lo[q], hi[q]] (0 <= hi[q]), the weight
+    of the runs j that lie in it (starts[j] >= lo[q], ends[j] <= hi[q]).
+    A merge-sort tree over the runs by descending start: the runs with
+    start >= lo are a prefix, cut into aligned blocks of 2^k runs, one
+    level k at a time, each block's runs sorted by end."""
+    order = np.argsort(-starts, kind="stable")
+    s, e, w = starts[order], ends[order], weights[order]
+    m = np.searchsorted(-s, -lo, side="right")
+    span = int(max(e.max(), hi.max(initial=0))) + 1
+    pos = np.arange(len(s))
+    out = np.zeros(len(lo), dtype=np.int64)
+    k = 0
+    while (m >> k).any():
+        blk = pos >> k
+        srt = np.lexsort((e, blk))
+        key = blk[srt] * span + e[srt]
+        cw = np.concatenate(([0], np.cumsum(w[srt])))
+        q = np.flatnonzero((m >> k) & 1)
+        b = (m[q] >> k) - 1
+        at = np.searchsorted(key, b * span + hi[q], side="right")
+        out[q] += cw[at] - cw[b << k]
+        k += 1
+    return out
+
+
 class Profile:
     __slots__ = ("params", "data", "counters", "scores", "width",
                  "total_score", "dev_counters", "_dp_stats",
@@ -358,25 +384,9 @@ class Profile:
         else:
             run_len = run_pos = counts = np.zeros(0, dtype=np.int64)
 
-        # gap_ranges[s][i] = #runs contained in window [i, i+s-1]
-        # (profile.cpp:1456-1501); rows computed iteratively.
-        gap_matrix = np.zeros((width + 1, width + 2), dtype=np.int64)
-        gap_matrix[run_len, run_pos] = counts
-
-        gap_ranges = np.zeros((width + 1, width + 2), dtype=np.int64)
-        gap_ranges[1][1:width + 1] = gap_matrix[1][1:width + 1]
-        if width >= 2:
-            gap_ranges[2][1:width] = (gap_ranges[1][1:width]
-                                      + gap_ranges[1][2:width + 1]
-                                      + gap_matrix[2][1:width])
-        for ln in range(3, width + 1):
-            hi = width - ln + 1
-            if hi < 1:
-                break
-            gap_ranges[ln][1:hi + 1] = (
-                gap_ranges[ln - 1][1:hi + 1] + gap_ranges[ln - 1][2:hi + 2]
-                - gap_ranges[ln - 2][2:hi + 2] + gap_matrix[ln][1:hi + 1])
-
+        # the runs within windows of columns (gap_ranges of
+        # profile.cpp:1456-1501, a (width + 1)^2 table there; here only the
+        # windows read, by _runs_within)
         size = len(self.data)
         n_gap_open = 0
         n_gap_term_open = 0
@@ -384,13 +394,21 @@ class Profile:
             ln = run_len
             i0 = run_pos
             cur = counts
-            n_inside = np.full(len(ln), int(gap_ranges[width][1]), dtype=np.int64)
-            m = ln > 2
-            n_inside[m] += gap_ranges[ln[m] - 2, i0[m] + 1]
-            m = i0 + ln - 2 > 0
-            n_inside[m] -= gap_ranges[i0[m] + ln[m] - 2, 1]
-            m = i0 + 1 <= width
-            n_inside[m] -= gap_ranges[width - i0[m], i0[m] + 1]
+            end = i0 + ln - 1
+            inner, left, right = ln > 2, end - 1 > 0, i0 + 1 <= width
+            within = _runs_within(
+                i0, end, cur,
+                np.concatenate([i0[inner] + 1, np.ones(int(left.sum()),
+                                                       dtype=np.int64),
+                                i0[right] + 1]),
+                np.concatenate([end[inner] - 1, end[left] - 1,
+                                np.full(int(right.sum()), width,
+                                        dtype=np.int64)]))
+            a, b = int(inner.sum()), int(left.sum())
+            n_inside = np.full(len(ln), int(cur.sum()), dtype=np.int64)
+            n_inside[inner] += within[:a]
+            n_inside[left] -= within[a:a + b]
+            n_inside[right] -= within[a + b:]
             n_inside -= cur
             contrib = (size - cur - n_inside) * cur
             term = (i0 == 1) | (i0 + ln - 1 == width)

@@ -19,26 +19,28 @@ def _refine_random(rnd, profile, dest_prof_id):
         dest_prof_id[idx] = 0 if dest_prof_id[idx] else 1
 
 
-def _refine_most_empty_and_full_column(rnd, profile, gap_stats, valid_gap_stats):
-    """msa_refinement.cpp:21-66; returns (dest_prof_id, gap_stats)."""
+def _split_columns(profile):
+    """The columns that a split may cut, in the order msa_refinement.cpp
+    sorts them (:31-46): every column 1..size with x = min(gaps, card -
+    gaps) > 0, by (x, column id).  One numpy pass; the order stays valid
+    until the profile changes."""
     size = profile.data[0].gapped_size
     card = len(profile.data)
-    if not valid_gap_stats:
-        gap_stats = profile.get_gap_stats()
+    stats = profile.get_gap_stats()[1:size + 1]
+    x = np.minimum(stats, card - stats)
+    cols = np.flatnonzero(x > 0)
+    return cols[np.argsort(x[cols], kind="stable")] + 1
 
+
+def _refine_most_empty_and_full_column(rnd, profile, columns):
+    """msa_refinement.cpp:21-66 on the profile's _split_columns; returns
+    dest_prof_id."""
     dest_prof_id = []
-    tmp = []
-    for i in range(1, size + 1):
-        x = min(int(gap_stats[i]), card - int(gap_stats[i]))
-        if x > 0:
-            tmp.append((i, x))
-    tmp.sort(key=lambda t: (t[1], t[0]))
-
-    if not tmp:
+    if not len(columns):
         _refine_random(rnd, profile, dest_prof_id)
-        return dest_prof_id, gap_stats
+        return dest_prof_id
 
-    col_id = tmp[rnd() % len(tmp)][0]
+    col_id = int(columns[rnd() % len(columns)])
     first_prof_id, second_prof_id = 0, 1
     if profile.data[0].get_symbol(col_id) == GAP:
         first_prof_id, second_prof_id = second_prof_id, first_prof_id
@@ -47,7 +49,7 @@ def _refine_most_empty_and_full_column(rnd, profile, gap_stats, valid_gap_stats)
             dest_prof_id.append(first_prof_id)
         else:
             dest_prof_id.append(second_prof_id)
-    return dest_prof_id, gap_stats
+    return dest_prof_id
 
 
 def refine_alignment(profile: Profile, params, backend="numpy"):
@@ -70,15 +72,15 @@ def refine_alignment(profile: Profile, params, backend="numpy"):
     profile.data.sort(key=lambda g: g.id)
 
     old_dest_prof_ids = []
-    gap_stats = None
-    valid_gap_stats = False
+    columns = None
 
     i_ref = 0
     i_succ_ref = 0
     while i_succ_ref < n_ref and i_ref < 20 * n_ref:
-        dest_prof_id, gap_stats = _refine_most_empty_and_full_column(
-            rnd, profile, gap_stats, valid_gap_stats)
-        valid_gap_stats = True
+        if columns is None:
+            columns = _split_columns(profile)
+        dest_prof_id = _refine_most_empty_and_full_column(rnd, profile,
+                                                          columns)
 
         if dest_prof_id not in old_dest_prof_ids:
             profile1 = Profile(params)
@@ -106,7 +108,7 @@ def refine_alignment(profile: Profile, params, backend="numpy"):
                     profile, prof = prof, profile
                     n_ref_succ += 1
                     old_dest_prof_ids.clear()
-                    valid_gap_stats = False
+                    columns = None
 
             old_dest_prof_ids.append(dest_prof_id)
             i_succ_ref += 1

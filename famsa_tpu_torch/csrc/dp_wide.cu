@@ -92,25 +92,42 @@
 // K10 (dp_profile_shard, ops/dp_wide.py:dp_shard; the port of
 // famsa_tpu/parallel/dp_sharded.py:40 _sharded_program, a shard_map
 // program with no pallas_call): one shard's column slice [cs, c1) of one
-// merge, for one block of rows [r0, r1), on either body (staged to 8192
-// columns a slice, stripes to 32768), BATCH false, in a third mode beside
-// the cluster's own folds and the spans' global edges (Slice, below).
-// famsa_tpu runs every row in lockstep over its shards, a halo exchange
-// and two all-gathers a row; K10 is the same recurrence cut into blocks
-// of rows, so one shard's block b + 1 overlaps the next shard's block b
-// (parallel/dp_sharded.py, the pipeline of FAMSA's column stripes,
-// profile_par.cpp:214-230).  Between shards it keeps the spans variant's
+// merge, every row, on either body (staged to 8192 columns a slice,
+// stripes to 32768), BATCH false, in a third mode beside the cluster's own
+// folds and the spans' global edges (SLICE, ShardTable below).  famsa_tpu
+// runs every row in lockstep over its shards, a halo exchange and two
+// all-gathers a row; K10 runs the shards' slices as one wavefront across
+// their clusters, as K2 spans runs its clusters (the pipeline of FAMSA's
+// column stripes, profile_par.cpp:214-230): a sharded merge launches K10
+// once a shard, each launch one cluster that walks rows 1..w1 with its row
+// state in registers from the first row to the last.  Between shards the
 // edge (D, V and the running max of m - bc of every row of the slice's
-// last column) in global memory, written by the thread of column c1 - 1
-// and read by the slice's first fold; between blocks, the row state the
-// body keeps in registers (the last row's D, H, V of every column and of
-// the column left of the slice) goes to global memory at the end of a
-// launch and comes back at the start of the next instead of row 0.  The
+// last column) goes through global memory: after each wavefront step the
+// thread of column c1 - 1 has written the step's rows into the next
+// shard's edge buffer, and it releases the count of rows published; the
+// next shard's first fold spins on that count with an acquire load before
+// each step.  Every row is kept, so a producer never waits for a
+// consumer.  No spin can deadlock: the shards of one merge on one card
+// take tickets from one counter of the merge on that card, in pipeline
+// order, and a cluster runs the slice its ticket names (the card's table
+// of slice arguments, beside the counter), whichever stream's launch it
+// came from; so it only ever waits on a slice whose cluster started before
+// it and is resident, and shards on other cards wait on clusters that run
+// on their own card's SMs.  A slice on another card than the next one's
+// writes that shard's edge buffer and count, which live on the consumer's
+// card, through peer access with system-scope release and acquire
+// (dp_enable_peer; parallel/mesh.py:cols_mesh refuses a mesh of two cards
+// without it).  Every slice of a card runs on the fold geometry of the
+// card's widest slice; a narrower one leaves its last folds idle.  The
 // column factors are the merge's own, sliced, so the cumulative planes
 // and the band stay in global column numbers and the H scan's seed needs
 // no offset (famsa_tpu's bc_loc + off and carry_in, dp_sharded.py:
-// 140-155).  Every bound is the stripes' and staged bodies', per row.
-//
+// 140-155).  Every bound is the stripes' and staged bodies', per row; the
+// shards of one card add one wavefront step of lag each.  This replaces
+// the first design, a launch a block of 256 rows a shard with the row
+// state saved to global memory between blocks and each shard a whole
+// block behind the one before it, ordered by events from the host.
+
 // A cluster of more than 8 CTAs is non-portable: the launch sets
 // cudaFuncAttributeNonPortableClusterSizeAllowed, and a cluster the card
 // cannot place fails the launch (the wrapper raises); no other variant
@@ -149,19 +166,32 @@ constexpr int MAX_SPAN = 4;
 // ops/dp_wide.py:SHARD_PAD
 constexpr long long SHARD_PAD = 2;
 
-// K10's slice of one merge: its columns [cs, w2] (the w2 the body is
-// given is the slice's last column, c1 - 1) for the rows [r0, r1).  ein
-// [w1][3]: the edge (D, V, running max of m - bc) at column cs - 1 of
-// row i at i - 1, written by the previous shard (nullptr when cs is 0);
-// eout the same at column w2 for the next shard (nullptr on the last);
-// state [3][w2 - cs + 2]: the last row's D, H and V at columns cs - 1 ..
-// w2, stored at the end of the launch and loaded at the start of the
-// next (when r0 > 1) instead of row 0.
-struct Slice {
-    long long cs, r0, r1;
-    const long long* ein;
-    long long* eout;
-    long long* state;
+// K10's slice of one merge (must match ops/dp_wide.py:ShardTable): its
+// column planes (shard_columns: column 0 is cs - SHARD_PAD, ldc apart),
+// the merge's row factors, its direction bytes [w1 + 1][c1 - cs] and the
+// finals of column c1 - 1 [w1][3]; ein [w1][3]: the edge (D, V, running
+// max of m - bc) at column cs - 1 of row i at i - 1, written by the
+// previous shard (nullptr when cs is 0), ein_ready the count of its rows
+// published; eout, eout_ready the next shard's (nullptr on the last);
+// peer: bit 0 the previous shard, bit 1 the next, on another card.
+struct ShardSlice {
+    const i64* colf;
+    const i64* rowf;
+    uint8_t* dirs;
+    i64* fin;
+    const i64* ein;
+    const unsigned* ein_ready;
+    i64* eout;
+    unsigned* eout_ready;
+    long long cs, c1, ldc, peer;
+};
+
+// The slices of one sharded merge on one card, in pipeline order, and the
+// counter their clusters take tickets from (zero before the launches).
+struct ShardTable {
+    unsigned ticket, pad;
+    long long n;
+    ShardSlice s[1];
 };
 
 // ------------------------------------------------------------ staged
@@ -254,49 +284,58 @@ __device__ __forceinline__ void edge_in(i64 (*edge)[3], const i64* src, int n,
     __syncthreads();
 }
 
-// K10's row state (Slice::state) of the stripe of S columns from j0: its
-// columns' D, H, V and, from the thread of the slice's first column, the
-// halo's (column cs - 1).  The halo of every other thread is its left
-// neighbour's column, so loading it back gives each thread the registers
-// the next row of the same launch would have found.
-template <int S>
-__device__ __forceinline__ void save_state(const Stripe<S>& st, i64* state,
-                                           i64 cs, i64 w2, i64 j0) {
-    const i64 ld = w2 - cs + 2;
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-        const i64 j = j0 + k;
-        if (j <= w2) {
-            state[j - cs + 1] = st.pD[k];
-            state[ld + j - cs + 1] = st.pH[k];
-            state[2 * ld + j - cs + 1] = st.pV[k];
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+    unsigned v;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+    asm volatile("st.release.gpu.global.u32 [%0], %1;"
+                 :: "l"(p), "r"(v) : "memory");
+}
+
+// K10's edges in: wait (one thread) until the previous shard published
+// row `rows`, at system scope from another card
+__device__ __forceinline__ void wait_rows(const unsigned* ready,
+                                          unsigned rows, bool peer) {
+    if (peer) {
+        for (;;) {
+            unsigned v;
+            asm volatile("ld.acquire.sys.global.u32 %0, [%1];"
+                         : "=r"(v) : "l"(ready) : "memory");
+            if (v >= rows) break;
+            __nanosleep(32);
         }
-    }
-    if (j0 == cs) {
-        state[0] = st.hD;
-        state[ld] = st.hH;
-        state[2 * ld] = st.hV;
+    } else {
+        while (ld_acquire(ready) < rows) __nanosleep(32);
     }
 }
 
-template <int S>
-__device__ __forceinline__ void load_state(Stripe<S>& st, const i64* state,
-                                           i64 cs, i64 w2, i64 j0) {
-    const i64 ld = w2 - cs + 2;
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-        const i64 j = j0 + k;
-        const bool in = j <= w2;
-        st.pD[k] = in ? state[j - cs + 1] : NEG;
-        st.pH[k] = in ? state[ld + j - cs + 1] : NEG;
-        st.pV[k] = in ? state[2 * ld + j - cs + 1] : NEG;
+// K10's edges out: publish rows 1..rows (the thread that wrote them)
+__device__ __forceinline__ void publish_rows(unsigned* ready, unsigned rows,
+                                             bool peer) {
+    if (peer) {
+        __threadfence_system();
+        asm volatile("st.release.sys.global.u32 [%0], %1;"
+                     :: "l"(ready), "r"(rows) : "memory");
+    } else {
+        __threadfence();
+        st_release(ready, rows);
     }
-    st.hD = st.hH = st.hV = NEG;
-    if (j0 - 1 <= w2) {
-        st.hD = state[j0 - cs];
-        st.hH = state[ld + j0 - cs];
-        st.hV = state[2 * ld + j0 - cs];
-    }
+}
+
+// K10: the cluster's ticket (rank 0 takes it, every CTA reads it)
+__device__ __forceinline__ unsigned take_ticket(cg::cluster_group& cluster,
+                                                unsigned* counter,
+                                                unsigned* ticket, int f,
+                                                int t) {
+    if (f == 0 && t == 0) *ticket = atomicAdd(counter, 1u);
+    cluster.sync();
+    const unsigned tk = *cluster.map_shared_rank(ticket, 0);
+    cluster.sync();             // rank 0's ticket is read before any exit
+    return tk;
 }
 
 // The staged kernel: K3's staged variant (one merge) and K2's staged
@@ -327,17 +366,19 @@ __device__ __forceinline__ void load_state(Stripe<S>& st, const i64* state,
 // body that did so for K3's lone merges too measured 3-10 % slower a row
 // there (the kernel sits at the 128-register cap of 512 threads); K3's
 // instantiation leaves them kernel parameters.  SLICE (BATCH false):
-// K10, one shard's slice of one merge for a block of rows (Slice).
+// K10, the slice of one merge its ticket names in `tab` (the header),
+// every row; its pointers, widths and ldc come from the table.
 template <bool BATCH, bool SLICE = false>
 __global__ void __launch_bounds__(MAX_THREADS)
 dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                  const i64* __restrict__ meta, i64 w1, i64 w2, int ldc,
                  int ldr, int ldf, int blk, uint8_t* __restrict__ dirs,
-                 i64* __restrict__ fin, Slice sl) {
+                 i64* __restrict__ fin, ShardTable* tab) {
     extern __shared__ __align__(16) i64 dsm[];
     __shared__ i64 edge[2][BLK_MAX][3];
     __shared__ i64 xD[MAX_WARPS], xV[MAX_WARPS], wmax[2][MAX_WARPS];
     __shared__ __align__(8) uint64_t bar;
+    __shared__ unsigned ticket;
 
     cg::cluster_group cluster = cg::this_cluster();
     const int f = (int)cluster.block_rank();
@@ -353,17 +394,28 @@ dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
         rowf += (size_t)b * ldr * NROWF;
         fin += (size_t)b * ldf * 3;
     }
-    // the columns [cs, w2] and rows [ra, rz): K10's slice (colf's column
-    // 0 is cs - SHARD_PAD, dirs' cs), else the whole merge
-    const i64 cs = SLICE ? sl.cs : 0;
-    const i64 ra = SLICE ? sl.r0 : 1, rz = SLICE ? sl.r1 : w1 + 1;
+    // K10: the slice of this cluster's ticket, its columns [cs, w2]
+    // (colf's column 0 is cs - SHARD_PAD, dirs' cs); else the whole merge
+    const ShardSlice* sl = nullptr;
+    i64 cs = 0;
     if constexpr (SLICE) {
-        colf -= cs - SHARD_PAD;
-        dirs -= cs;
+        const unsigned tk = take_ticket(cluster, &tab->ticket, &ticket, f, t);
+        if (tk >= (unsigned)tab->n) return;      // cluster-uniform
+        sl = tab->s + tk;
+        cs = sl->cs;
+        w2 = sl->c1 - 1;
+        ldc = (int)sl->ldc;
+        colf = sl->colf - (cs - SHARD_PAD);
+        rowf = sl->rowf;
+        dirs = sl->dirs - cs;
+        fin = sl->fin;
     }
-    // folds holding a column of the merge: all of the cluster's for K3
-    const int F = BATCH ? (int)((w2 + fw) / fw) : (int)cluster.num_blocks();
-    const bool live = !BATCH || f < F;
+    const i64 ra = 1, rz = w1 + 1;
+    // folds holding a column of the merge (or slice): all of the
+    // cluster's for K3
+    const int F = BATCH || SLICE ? (int)((w2 - cs + fw) / fw)
+                                 : (int)cluster.num_blocks();
+    const bool live = !(BATCH || SLICE) || f < F;
     const i64 c0 = cs + (i64)f * fw;
     const i64 j = c0 + t;
     const i64 stride = w2 + 1 - cs;
@@ -411,13 +463,10 @@ dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
     i64* next = (f + 1 < F && t == fw - 1)
                     ? cluster.map_shared_rank(&edge[0][0][0], f + 1) : nullptr;
     // K10: the previous shard's edges into fold 0, column w2's out
-    const bool shard_in = SLICE && f == 0 && sl.ein != nullptr;
-    i64* eout = SLICE && j == w2 ? sl.eout : nullptr;
+    const bool shard_in = SLICE && f == 0 && sl->ein != nullptr;
+    i64* eout = SLICE && j == w2 ? sl->eout : nullptr;
     Stripe<1> st;
-    if (SLICE && ra > 1)
-        load_state<1>(st, sl.state, cs, w2, j);
-    else
-        row0<1>(st, colf, ldc, w2, j, 1, dirs);
+    row0<1>(st, colf, ldc, w2, j, 1, dirs);
     WarpXch xch{xD, xV, &wmax[0][0], fw / 32};
     asm volatile("cp.async.wait_all;" ::: "memory");
     if (live) {
@@ -440,9 +489,14 @@ dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                 load_rows(rtile + ((rb + 1) & 1) * blk * NROWF, rowf,
                           i0 + blk, (int)min((i64)blk, rz - i0 - blk), t,
                           fw);
-            if (shard_in)
-                edge_in(edge[in], sl.ein + (i0 - 1) * 3,
-                        (int)min((i64)blk, rz - i0), t, fw);
+            const int nr = (int)min((i64)blk, rz - i0);
+            if (shard_in) {     // once the previous shard published them
+                if (t == 0)
+                    wait_rows(sl->ein_ready, (unsigned)(i0 + nr - 1),
+                              sl->peer & 1);
+                __syncthreads();
+                edge_in(edge[in], sl->ein + (i0 - 1) * 3, nr, t, fw);
+            }
             for (int r = 0; r < blk; ++r) {
                 const i64 i = i0 + r;
                 if (i >= rz) break;
@@ -469,11 +523,13 @@ dp_staged_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                     e[2] = run;
                 }
             }
+            if (eout != nullptr)    // publish the step's rows
+                publish_rows(sl->eout_ready, (unsigned)(i0 + nr - 1),
+                             sl->peer & 2);
             asm volatile("cp.async.wait_all;" ::: "memory");
         }
         cluster.sync();
     }
-    if constexpr (SLICE) save_state<1>(st, sl.state, cs, w2, j);
 }
 
 // ----------------------------------------------------------- stripes
@@ -499,18 +555,6 @@ struct StripeCols {
     }
 };
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-    unsigned v;
-    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                 : "=r"(v) : "l"(p) : "memory");
-    return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-    asm volatile("st.release.gpu.global.u32 [%0], %1;"
-                 :: "l"(p), "r"(v) : "memory");
-}
-
 // The stripes body: S columns a thread, the non-score planes of the
 // fold's columns in shared memory.  Arguments, batching and the step
 // loop as dp_staged_kernel's.  SPAN (K2's spans variant, BATCH): a merge
@@ -518,15 +562,16 @@ __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
 // u32, zeroed before the launch: per merge its ticket count, then the
 // row blocks published across each cluster boundary; gedge
 // [B][MAX_SPAN - 1][ldf][3] i64, the rows' edges at each boundary.
-// SLICE (BATCH false): K10, one shard's slice of one merge for a block of
-// rows (Slice), its edges in and out through global memory as the spans'.
+// SLICE (BATCH false): K10, the slice its ticket names in `tab` (as
+// dp_staged_kernel's), its edges in and out through global memory as the
+// spans'.
 template <int S, bool BATCH, bool SPAN, bool SLICE = false>
 __global__ void __launch_bounds__(MAX_THREADS)
 dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                   const i64* __restrict__ meta, i64 w1, i64 w2, int ldc,
                   int ldr, int ldf, int blk, uint8_t* __restrict__ dirs,
                   i64* __restrict__ fin, unsigned* sync, i64* gedge,
-                  Slice sl) {
+                  ShardTable* tab) {
     extern __shared__ __align__(16) i64 dsm[];
     __shared__ i64 edge[2][BLK_MAX][3];
     __shared__ i64 xD[MAX_WARPS], xV[MAX_WARPS], wmax[2][MAX_WARPS];
@@ -552,28 +597,35 @@ dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
     int c = 0, C = 1;
     unsigned* ready = nullptr;      // [MAX_SPAN]: row blocks published
     if constexpr (SPAN) {
-        if (f == 0 && t == 0)
-            ticket = atomicAdd(sync + b * (1 + MAX_SPAN), 1u);
-        cluster.sync();
-        c = (int)*cluster.map_shared_rank(&ticket, 0);
-        cluster.sync();             // rank 0's ticket is read before any exit
+        c = (int)take_ticket(cluster, sync + b * (1 + MAX_SPAN), &ticket, f,
+                             t);
         C = (int)(((w2 + fw) / fw + MAX_FOLDS - 1) / MAX_FOLDS);
         if (c >= C) return;         // the span is taken
         ready = sync + b * (1 + MAX_SPAN) + 1;
         gedge += (size_t)b * (MAX_SPAN - 1) * ldf * 3;
     }
-    // the columns [cs, w2] and rows [ra, rz): K10's slice (colf's column
-    // 0 is cs - SHARD_PAD, dirs' cs), else the whole merge
-    const i64 cs = SLICE ? sl.cs : 0;
-    const i64 ra = SLICE ? sl.r0 : 1, rz = SLICE ? sl.r1 : w1 + 1;
+    // K10: the slice of this cluster's ticket, its columns [cs, w2]
+    // (colf's column 0 is cs - SHARD_PAD, dirs' cs); else the whole merge
+    const ShardSlice* sl = nullptr;
+    i64 cs = 0;
     if constexpr (SLICE) {
-        colf -= cs - SHARD_PAD;
-        dirs -= cs;
+        const unsigned tk = take_ticket(cluster, &tab->ticket, &ticket, f, t);
+        if (tk >= (unsigned)tab->n) return;      // cluster-uniform
+        sl = tab->s + tk;
+        cs = sl->cs;
+        w2 = sl->c1 - 1;
+        ldc = (int)sl->ldc;
+        colf = sl->colf - (cs - SHARD_PAD);
+        rowf = sl->rowf;
+        dirs = sl->dirs - cs;
+        fin = sl->fin;
     }
+    const i64 ra = 1, rz = w1 + 1;
     const int F = BATCH ? (int)min((i64)MAX_FOLDS,
                                    (w2 + fw) / fw - (i64)c * MAX_FOLDS)
-                        : (int)cluster.num_blocks();
-    const bool live = !BATCH || f < F;
+                  : SLICE ? (int)((w2 - cs + fw) / fw)
+                          : (int)cluster.num_blocks();
+    const bool live = !(BATCH || SLICE) || f < F;
     const i64 c0 = cs + ((i64)c * MAX_FOLDS + f) * fw;
     const i64 j0 = c0 + (i64)t * S;
     // edges through global memory: in from the previous cluster (fold 0
@@ -582,10 +634,10 @@ dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
     // stripe's last column) or shard (the thread of column w2)
     const bool span_in = SPAN && f == 0 && c > 0;
     const i64* gin = span_in ? gedge + (size_t)(c - 1) * ldf * 3
-                     : SLICE && f == 0 ? sl.ein : nullptr;
+                     : SLICE && f == 0 ? sl->ein : nullptr;
     i64* gout = (SPAN && f == MAX_FOLDS - 1 && c + 1 < C && t == nt - 1)
                     ? gedge + (size_t)c * ldf * 3
-                : (SLICE && j0 <= w2 && w2 < j0 + S) ? sl.eout : nullptr;
+                : (SLICE && j0 <= w2 && w2 < j0 + S) ? sl->eout : nullptr;
     const int kout = SLICE ? (int)(w2 - j0) : S - 1;
     const i64 stride = w2 + 1 - cs;
     const i64 nrb = (rz - ra + blk - 1) / blk;
@@ -631,10 +683,7 @@ dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
     i64* next = (f + 1 < F && t == nt - 1)
                     ? cluster.map_shared_rank(&edge[0][0][0], f + 1) : nullptr;
     Stripe<S> st;
-    if (SLICE && ra > 1)
-        load_state<S>(st, sl.state, cs, w2, j0);
-    else
-        row0<S>(st, colf, ldc, w2, j0, S, dirs);
+    row0<S>(st, colf, ldc, w2, j0, S, dirs);
     WarpXch xch{xD, xV, &wmax[0][0], nt / 32};
     asm volatile("cp.async.wait_all;" ::: "memory");
     if (ncopy > 0) {
@@ -657,15 +706,18 @@ dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                 load_rows(rtile + ((rb + 1) & 1) * blk * NROWF, rowf,
                           i0 + blk, (int)min((i64)blk, rz - i0 - blk), t,
                           nt);
+            const int nr = (int)min((i64)blk, rz - i0);
             if (gin != nullptr) {   // the previous cluster's or shard's edges
-                if constexpr (SPAN) {   // once the cluster published block rb
-                    if (t == 0)
+                if (t == 0) {       // once it published them
+                    if constexpr (SPAN)
                         while (ld_acquire(ready + c - 1) < (unsigned)(rb + 1))
                             __nanosleep(32);
-                    __syncthreads();
+                    if constexpr (SLICE)
+                        wait_rows(sl->ein_ready, (unsigned)(i0 + nr - 1),
+                                  sl->peer & 1);
                 }
-                edge_in(edge[in], gin + (i0 - 1) * 3,
-                        (int)min((i64)blk, rz - i0), t, nt);
+                __syncthreads();
+                edge_in(edge[in], gin + (i0 - 1) * 3, nr, t, nt);
             }
             for (int r = 0; r < blk; ++r) {
                 const i64 i = i0 + r;
@@ -706,11 +758,15 @@ dp_stripes_kernel(const i64* __restrict__ colf, const i64* __restrict__ rowf,
                     st_release(ready + c, (unsigned)(rb + 1));
                 }
             }
+            if constexpr (SLICE) {
+                if (gout != nullptr)    // publish the step's rows
+                    publish_rows(sl->eout_ready, (unsigned)(i0 + nr - 1),
+                                 sl->peer & 2);
+            }
             asm volatile("cp.async.wait_all;" ::: "memory");
         }
         cluster.sync();
     }
-    if constexpr (SLICE) save_state<S>(st, sl.state, cs, w2, j0);
 }
 
 // grid (folds, batch), one cluster of the folds per batch index
@@ -732,18 +788,24 @@ cudaLaunchConfig_t cluster_config(int folds, int batch, int threads,
 }
 
 // the kernel's dynamic shared memory limit and non-portable clusters, set
-// once a kernel
+// once a kernel and device (`done`: a bit a device; K10 launches on every
+// card of a mesh)
 template <class Kernel>
-cudaError_t kernel_ready(Kernel kernel, size_t smem_max, bool& done) {
-    if (!done) {
-        cudaError_t e = cudaFuncSetAttribute(
+cudaError_t kernel_ready(Kernel kernel, size_t smem_max,
+                         unsigned long long& done) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= 64) return cudaErrorInvalidDevice;
+    if (!(done >> dev & 1)) {
+        e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem_max);
         if (e != cudaSuccess) return e;
         e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
         if (e != cudaSuccess) return e;
-        done = true;
+        done |= 1ull << dev;
     }
     return cudaSuccess;
 }
@@ -759,13 +821,13 @@ size_t stripes_smem(int fw, int blk) {
 
 template <bool BATCH, bool SLICE = false>
 cudaError_t staged_ready() {
-    static bool done = false;
+    static unsigned long long done = 0;
     return kernel_ready(dp_staged_kernel<BATCH, SLICE>, STAGED_SMEM_MAX, done);
 }
 
 template <int S, bool BATCH, bool SPAN = false, bool SLICE = false>
 cudaError_t stripes_ready() {
-    static bool done = false;
+    static unsigned long long done = 0;
     return kernel_ready(dp_stripes_kernel<S, BATCH, SPAN, SLICE>,
                         STRIPES_SMEM_MAX, done);
 }
@@ -774,7 +836,8 @@ template <bool BATCH, bool SLICE = false>
 cudaError_t launch_staged(const i64* colf, const i64* rowf, const i64* meta,
                           i64 w1, i64 w2, int batch, int folds, int threads,
                           int ldc, int ldr, int ldf, int blk, uint8_t* dirs,
-                          i64* fin, cudaStream_t stream, Slice sl = Slice{}) {
+                          i64* fin, cudaStream_t stream,
+                          ShardTable* tab = nullptr) {
     cudaError_t err = staged_ready<BATCH, SLICE>();
     if (err != cudaSuccess) return err;
     cudaLaunchAttribute attr[1];
@@ -782,7 +845,7 @@ cudaError_t launch_staged(const i64* colf, const i64* rowf, const i64* meta,
                                             staged_smem(threads, blk), stream,
                                             attr);
     err = cudaLaunchKernelEx(&cfg, dp_staged_kernel<BATCH, SLICE>, colf, rowf,
-                             meta, w1, w2, ldc, ldr, ldf, blk, dirs, fin, sl);
+                             meta, w1, w2, ldc, ldr, ldf, blk, dirs, fin, tab);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -792,7 +855,7 @@ cudaError_t launch_stripes_s(const i64* colf, const i64* rowf,
                              const i64* meta, i64 w1, i64 w2, int batch,
                              int folds, int threads, int ldc, int ldr,
                              int ldf, int blk, uint8_t* dirs, i64* fin,
-                             cudaStream_t stream, Slice sl) {
+                             cudaStream_t stream, ShardTable* tab) {
     cudaError_t err = stripes_ready<S, BATCH, false, SLICE>();
     if (err != cudaSuccess) return err;
     cudaLaunchAttribute attr[1];
@@ -802,7 +865,7 @@ cudaError_t launch_stripes_s(const i64* colf, const i64* rowf,
     err = cudaLaunchKernelEx(&cfg, dp_stripes_kernel<S, BATCH, false, SLICE>,
                              colf, rowf, meta, w1, w2, ldc, ldr, ldf, blk,
                              dirs, fin, (unsigned*)nullptr, (i64*)nullptr,
-                             sl);
+                             tab);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -812,15 +875,15 @@ cudaError_t launch_stripes(const i64* colf, const i64* rowf, const i64* meta,
                            i64 w1, i64 w2, int batch, int folds, int threads,
                            int stripe, int ldc, int ldr, int ldf, int blk,
                            uint8_t* dirs, i64* fin, cudaStream_t stream,
-                           Slice sl = Slice{}) {
+                           ShardTable* tab = nullptr) {
     if (stripe == 2)
         return launch_stripes_s<2, BATCH, SLICE>(colf, rowf, meta, w1, w2,
                                                  batch, folds, threads, ldc,
                                                  ldr, ldf, blk, dirs, fin,
-                                                 stream, sl);
+                                                 stream, tab);
     return launch_stripes_s<4, BATCH, SLICE>(colf, rowf, meta, w1, w2, batch,
                                              folds, threads, ldc, ldr, ldf,
-                                             blk, dirs, fin, stream, sl);
+                                             blk, dirs, fin, stream, tab);
 }
 
 // a fold geometry the bodies take: folds (1..16) CTAs of threads (32..512,
@@ -972,53 +1035,57 @@ int dp_profile_batched_spans(const void* colf, const void* rowf,
         static_cast<const i64*>(colf), static_cast<const i64*>(rowf),
         static_cast<const i64*>(meta), (i64)0, (i64)0, ldc, ldr, ldf, blk,
         static_cast<uint8_t*>(dirs), static_cast<i64*>(fin),
-        static_cast<unsigned*>(sync), static_cast<i64*>(gedge), Slice{});
+        static_cast<unsigned*>(sync), static_cast<i64*>(gedge),
+        (ShardTable*)nullptr);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 
-// K10 (the header): one shard's column slice [cs, c1) of one merge for
-// its rows [r0, r1) (1 <= r0 < r1 <= w1 + 1).  colf [44][ldc]: the
-// merge's column planes from column cs - 2 (ldc even, >= c1 - cs + 3,
-// 16-byte aligned; columns outside the merge zero); rowf [>= r1][77] the
-// merge's row factors (band included); dirs [w1 + 1][c1 - cs] u8, the
-// slice's direction bytes (row 0 written when r0 is 1); fin [w1][3] the
-// (D, H, V) of column c1 - 1 of every row; ein [w1][3] the previous
-// shard's edges (nullptr exactly when cs is 0), eout this shard's
-// (nullptr on the last shard); state [3][c1 - cs + 1] the row state
-// (read when r0 > 1, written).  folds / threads / stripe: the slice's
-// fold geometry (ops/dp_wide.py:fold_geometry(c1 - cs - 1)), stripe 1
-// the staged body, 2 or 4 the stripes body.  blk (1..32): rows per
-// wavefront step.  Returns the launch's cudaError_t (0 on success).
-int dp_profile_shard(const void* colf, const void* rowf, long long w1,
-                     long long cs, long long c1, long long r0, long long r1,
-                     int folds, int threads, int stripe, int ldc, int blk,
-                     void* dirs, void* fin, const void* ein, void* eout,
-                     void* state, void* stream) {
-    const long long n = c1 - cs;
-    if (cs < 0 || n < 1 || r0 < 1 || r0 >= r1 || r1 > w1 + 1 ||
-        bad_geometry(n - 1, folds, threads, stripe, ldc, blk) ||
-        ldc < n + SHARD_PAD + 1 || (stripe != 1 &&
-                                    bad_stripes(threads, stripe, blk)) ||
-        reinterpret_cast<uintptr_t>(colf) % 16 != 0 ||
-        (cs > 0) != (ein != nullptr) || state == nullptr)
+// K10 (the header): one cluster of `folds` CTAs that takes the next
+// ticket of `table` (a ShardTable of n slices on this device, its ticket
+// zero before the merge's first launch) and runs that slice over rows
+// 1..w1.  folds / threads / stripe: the fold geometry of the table's
+// widest slice (ops/dp_wide.py:fold_geometry(c1 - cs - 1)), stripe 1 the
+// staged body, 2 or 4 the stripes body; every slice of the table must
+// fit it.  blk (1..32): rows per wavefront step.  Returns the launch's
+// cudaError_t (0 on success).
+int dp_profile_shard(void* table, long long n, long long w1, int folds,
+                     int threads, int stripe, int blk, void* stream) {
+    if (table == nullptr || n < 1 || w1 < 1 || folds < 1 ||
+        folds > MAX_FOLDS || threads < 32 || threads > MAX_THREADS ||
+        threads % 32 != 0 || blk < 1 || blk > BLK_MAX ||
+        (stripe != 1 && bad_stripes(threads, stripe, blk)))
         return (int)cudaErrorInvalidValue;
-    const Slice sl{cs, r0, r1, static_cast<const i64*>(ein),
-                   static_cast<i64*>(eout), static_cast<i64*>(state)};
-    const i64* cf = static_cast<const i64*>(colf);
-    const i64* rf = static_cast<const i64*>(rowf);
-    uint8_t* dr = static_cast<uint8_t*>(dirs);
-    i64* fn = static_cast<i64*>(fin);
+    ShardTable* tab = static_cast<ShardTable*>(table);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (stripe == 1)
-        return (int)launch_staged<false, true>(cf, rf, nullptr, (i64)w1,
-                                               (i64)(c1 - 1), 1, folds,
-                                               threads, ldc, 0, 0, blk, dr,
-                                               fn, st, sl);
-    return (int)launch_stripes<false, true>(cf, rf, nullptr, (i64)w1,
-                                            (i64)(c1 - 1), 1, folds, threads,
-                                            stripe, ldc, 0, 0, blk, dr, fn,
-                                            st, sl);
+        return (int)launch_staged<false, true>(nullptr, nullptr, nullptr,
+                                               (i64)w1, 0, 1, folds, threads,
+                                               0, 0, 0, blk, nullptr, nullptr,
+                                               st, tab);
+    return (int)launch_stripes<false, true>(nullptr, nullptr, nullptr,
+                                            (i64)w1, 0, 1, folds, threads,
+                                            stripe, 0, 0, 0, blk, nullptr,
+                                            nullptr, st, tab);
+}
+
+// Lets `device` read and write `peer`'s memory (K10's edges from one card
+// into the next one's); already enabled is success.  Returns a
+// cudaError_t.
+int dp_enable_peer(int device, int peer) {
+    int prev = 0;
+    cudaError_t e = cudaGetDevice(&prev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaSetDevice(device);
+    if (e == cudaSuccess) {
+        e = cudaDeviceEnablePeerAccess(peer, 0);
+        if (e == cudaErrorPeerAccessAlreadyEnabled) {
+            cudaGetLastError();
+            e = cudaSuccess;
+        }
+    }
+    const cudaError_t back = cudaSetDevice(prev);
+    return (int)(e != cudaSuccess ? e : back);
 }
 
 // How many clusters of `folds` CTAs of `threads` threads (blk rows a

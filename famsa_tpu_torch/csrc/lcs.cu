@@ -56,10 +56,14 @@
 // that lag), so the step loop touches no global memory.  Lanes without
 // words, queries >= n_queries and positions outside [0, L) still take
 // part in the shuffles with all-zero masks; only the stores are masked.
+// Past W_LOCAL_MAX words (65,536 residues) a query's segment spans the
+// warps of one CTA (lcs_wave_seg_kernel, "segments across warps" below),
+// up to WAVE_MAX_W words.
 //
 // Dispatch (ops/lcs_torch.py:lcs_variant): the wave variant while
 // R x ceil(n_queries / 128) < WAVE_MAX_GRID, the rows variant from there
-// on (the crossover measured on an H100: PERF.md).
+// on (the crossover measured on an H100: PERF.md), and the wave variant
+// whatever the shape past W_LOCAL_MAX words.
 //
 // K9, lcs_refmask: FAMSA's own layout and carry, for the references whose
 // value differs from the exact LCS.  FAMSA (src/lcs/lcsbp_classic.h, the
@@ -95,7 +99,9 @@
 // steps where every lane that holds words is past the warp's last live
 // symbol, so a warp of short queries does not walk the padded length.
 // A step's masks are loaded a step ahead (and its symbol two), so the
-// loop's critical path is the carry's shuffle and add.
+// loop's critical path is the carry's shuffle and add.  Past
+// REFMASK_W_MAX words a reference's segment spans the warps of one CTA
+// (lcs_refmask_seg_kernel), up to REFMASK_SEG_MAX_W words.
 // Bound: ~12 int32 instructions a (live query position, reference word)
 // against tiny bytes; in practice the carry chain's latency, a shuffle
 // and ~6 dependent instructions a step.  In a Prim round (cur != null)
@@ -117,7 +123,9 @@ constexpr int P_NARROW_MAX_W = 16;   // refs_in_flight: P_NARROW to here,
 constexpr int P_NARROW = 4;          // P_WIDE past it
 constexpr int P_WIDE = 2;
 constexpr uint8_t ZERO_ROW = NO_VALID_AMINOACIDS;   // the staged zero row
-constexpr int W_LOCAL_MAX = 2048;   // 65536 positions: the u16 output range
+// the widest query of the rows variant and of a wave segment of one warp
+// (32 lanes of 64 words); wider wave queries take a segment across warps
+constexpr int W_LOCAL_MAX = 2048;
 constexpr int WAVE_TILE = 1024;     // steps per staged window of symbols
 constexpr int WAVE_LAG = 31;        // the most a lane lags lane 0
 constexpr uint8_t NOOP = 0xFF;
@@ -410,12 +418,254 @@ cudaError_t launch_wave(const WaveGeom& g, const uint32_t* masks,
     return cudaGetLastError();
 }
 
+// ---- segments across warps: K1 wave past W_LOCAL_MAX words, K9 past
+// REFMASK_W_MAX 64-bit words.  A query is one CTA of wseg threads (a
+// power of two, 64 to SEG_MAX_LANES), lane k owning wpl consecutive words
+// (wpl <= wpl_max: 64 for K1's 32-bit words, 32 for K9's 64-bit ones),
+// and at step s lane k takes position s - k, as in a segment of one warp.
+// Inside a warp the carry moves by __shfl_up_sync; lane 31's carry reaches
+// the next warp's lane 0 one step late through shared memory: the warp
+// stores it in a ring of SEG_TILE slots, one a step of the window, and
+// publishes the count of steps stored (a volatile store after
+// __threadfence_block); the next warp's lane 0 spins on that count
+// (SegXch).  The hand-off is a flag a warp boundary, not a named barrier a
+// pair of warps as the DP's WarpXch: a CTA has 16 hardware barriers and a
+// segment up to 31 boundaries; no barrier of the whole CTA is taken a
+// step.  The CTA stages a window of SEG_TILE steps (the symbols of
+// positions base - (wseg - 1) .. base + SEG_TILE - 1) between two CTA
+// barriers, which also make the ring and the counts free to reuse: no
+// warp stores into the next window's slots before every warp has left
+// this one.  The carry across a window's edge goes through xc,
+// double-buffered by window parity.  A window ends after the step past
+// which every lane that holds words sees no live symbol (the window's
+// last live position + nl - 1), and a window without one is skipped: such
+// steps change no word and pass zero carries.  The masks sit in shared
+// memory while they fit with the window (staged), else they are read
+// from global memory through L1 and L2 (K1: the query mask table itself;
+// K9: the reference's masks built by refmask_build_kernel into scratch).
+// A thread holds its wpl words in registers; at 1024 threads a thread has
+// at most 64 registers, so the widest segments (past 32768 32-bit or
+// 16384 64-bit words, 1,048,576 residues) spill their words to local
+// memory.  Bound: as the one-warp kernels, the carry chain's latency.
+constexpr int SEG_TILE = 256;          // steps a staged window
+constexpr int SEG_MAX_LANES = 1024;    // the widest segment
+constexpr int SEG_WARPS = SEG_MAX_LANES / 32;
+constexpr int WAVE_WPL_MAX = 64;       // K1's words a lane
+constexpr int WAVE_MAX_W = SEG_MAX_LANES * WAVE_WPL_MAX;   // 65536 words
+constexpr size_t SEG_SMEM_MAX = 232448;   // a CTA's opt-in shared memory
+// control words after the ring: head [SEG_WARPS], xc [2][SEG_WARPS],
+// last [2], counts [SEG_WARPS]
+constexpr int SEG_CTRL = 4 * SEG_WARPS + 2;
+
+struct SegGeom {
+    int wseg, wpl, nl;
+    bool staged;
+    size_t smem;
+};
+
+// Geometry of a segment across warps (mirrored by ops/lcs_torch.py:
+// seg_geometry) of W words of word_bytes, wpl_max words a lane, and
+// masks of `rows` symbol rows: the ring, the control words and the
+// window always; the masks too where all of it fits SEG_SMEM_MAX.
+SegGeom seg_geometry(int W, int wpl_max, int word_bytes, int rows) {
+    SegGeom g;
+    g.wseg = 64;
+    while (g.wseg * wpl_max < W) g.wseg <<= 1;
+    g.wpl = (W + g.wseg - 1) / g.wseg;
+    g.nl = (W + g.wpl - 1) / g.wpl;
+    const size_t common = (size_t)(g.wseg / 32) * SEG_TILE * 4 +
+                          SEG_CTRL * 4 + ((SEG_TILE + g.wseg + 7) & ~7);
+    const size_t masks = (size_t)rows * g.wpl * g.wseg * word_bytes;
+    g.staged = masks + common <= SEG_SMEM_MAX;
+    g.smem = common + (g.staged ? masks : 0);
+    return g;
+}
+
+// The carry hand-off of a segment across warps (above).
+struct SegXch {
+    unsigned* ring;              // [nwarps][SEG_TILE]
+    volatile unsigned* head;     // [SEG_WARPS]: steps stored this window
+    unsigned* xc;                // [2][SEG_WARPS]: carries across windows
+    int warp, lane, nwarps;
+    // the carry into this lane at step st of a window of parity par:
+    // lane k - 1's of the last step, for lane 0 the previous warp's lane
+    // 31's (0 into the segment's first lane)
+    __device__ __forceinline__ uint32_t in(uint32_t carry, int st, int par) {
+        uint32_t cy = __shfl_up_sync(FULL, carry, 1);
+        if (lane == 0) {
+            if (warp == 0) {
+                cy = 0;
+            } else if (st == 0) {
+                cy = xc[par * SEG_WARPS + warp - 1];
+            } else {
+                while (head[warp - 1] < (unsigned)st) {
+                }
+                __threadfence_block();
+                cy = ring[(warp - 1) * SEG_TILE + st - 1];
+            }
+        }
+        return cy;
+    }
+    // lane 31 publishes its carry out of step st to the next warp
+    __device__ __forceinline__ void out(uint32_t carry, int st) {
+        if (lane == 31 && warp + 1 < nwarps) {
+            ring[warp * SEG_TILE + st] = carry;
+            __threadfence_block();
+            head[warp] = st + 1;
+        }
+    }
+    // ... and its carry out of the window's last step, for the window of
+    // parity par
+    __device__ __forceinline__ void end(uint32_t carry, int par) {
+        if (lane == 31 && warp + 1 < nwarps)
+            xc[par * SEG_WARPS + warp] = carry;
+    }
+};
+
+// The window of a segment CTA (the symbols of `sr`, a row of n positions,
+// from base - lag) into win, NOOP where none or no-op, between two CTA
+// barriers; the first also frees the last window's ring and counts.
+// Returns the window's steps: SEG_TILE, fewer where its live symbols end
+// (or steps end), 0 without a live symbol.
+__device__ __forceinline__ int seg_window(const int32_t* sr, int n, int base,
+                                          int lag, int nl, int steps,
+                                          int par, uint8_t* win,
+                                          volatile unsigned* head,
+                                          int* last) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int w = 0; w < SEG_WARPS; ++w) head[w] = 0;
+        last[par ^ 1] = -1;
+    }
+    int ml = -1;
+    for (int p = threadIdx.x; p < SEG_TILE + lag; p += blockDim.x) {
+        const int pos = base - lag + p;
+        uint8_t c = NOOP;
+        if (pos >= 0 && pos < n) {
+            const int s = __ldg(sr + pos);
+            if ((unsigned)s < (unsigned)NO_VALID_AMINOACIDS) {
+                c = (uint8_t)s;
+                ml = pos;
+            }
+        }
+        win[p] = c;
+    }
+    ml = __reduce_max_sync(FULL, ml);
+    if ((threadIdx.x & 31) == 0 && ml >= 0) atomicMax(last + par, ml);
+    __syncthreads();
+    const int lst = last[par];
+    return lst < 0 ? 0 : min(min(SEG_TILE, steps - base), lst - base + nl);
+}
+
+// the segment's count: the sum over its warps (every thread, a barrier)
+__device__ __forceinline__ int seg_count(int cnt, int* part, int nwarps) {
+    cnt = __reduce_add_sync(FULL, cnt);
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = cnt;
+    __syncthreads();
+    int tot = 0;
+    for (int w = 0; w < nwarps; ++w) tot += part[w];
+    return tot;
+}
+
+// K1 wave past W_LOCAL_MAX words: query blockIdx.x against reference
+// blockIdx.y, a segment across warps (above), the query's masks staged
+// [20][wpl][wseg] (lanes on consecutive banks) or read from the table.
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT)
+lcs_wave_seg_kernel(const uint32_t* __restrict__ masks,
+                    const int32_t* __restrict__ syms, int L, int W, int N,
+                    int wseg, int wpl, int nl, int staged,
+                    uint16_t* __restrict__ out16,
+                    int32_t* __restrict__ out32) {
+    constexpr int WPL = WAVE_WPL_MAX;
+    extern __shared__ __align__(16) uint32_t sseg[];
+    const int q = blockIdx.x, r = blockIdx.y;
+    const int k = threadIdx.x, nwarps = wseg >> 5;
+    const int per = staged ? NO_VALID_AMINOACIDS * wpl * wseg : 0;
+    uint32_t* tile = sseg;                       // [20][wpl][wseg]
+    unsigned* ring = sseg + per;
+    unsigned* ctrl = ring + nwarps * SEG_TILE;
+    int* last = reinterpret_cast<int*>(ctrl + 3 * SEG_WARPS);
+    int* part = last + 2;
+    uint8_t* win = reinterpret_cast<uint8_t*>(ctrl + SEG_CTRL);
+    SegXch x{ring, ctrl, ctrl + SEG_WARPS, k >> 5, k & 31, nwarps};
+
+    for (int idx = k; idx < per; idx += wseg) {
+        const int kk = idx % wseg, rest = idx / wseg;
+        const int j = rest % wpl, c = rest / wpl, w = kk * wpl + j;
+        tile[idx] = w < W ? __ldg(masks + ((size_t)c * W + w) * N + q) : 0u;
+    }
+    for (int i = k; i < 3 * SEG_WARPS; i += wseg) ctrl[i] = 0;
+    if (k == 0) last[0] = -1;    // the first window's barrier publishes it
+    // this lane's masks: symbol c, word j at mb[c * sc + j * sj]
+    const uint32_t* mb = staged ? tile + k : masks + (size_t)k * wpl * N + q;
+    const size_t sc = staged ? (size_t)wpl * wseg : (size_t)W * N;
+    const size_t sj = staged ? (size_t)wseg : (size_t)N;
+    const int nw = max(0, min(wpl, W - k * wpl));    // words of this lane
+
+    uint32_t V[WPL];
+#pragma unroll
+    for (int j = 0; j < WPL; ++j) V[j] = 0xFFFFFFFFu;
+    const int32_t* sr = syms + (size_t)r * L;
+    const int lag = wseg - 1, steps = L + nl - 1;
+    uint32_t carry = 0;          // carry out of this lane, previous step
+    int par = 0;
+    for (int base = 0; base < steps; base += SEG_TILE, par ^= 1) {
+        const int end = seg_window(sr, L, base, lag, nl, steps, par, win,
+                                   x.head, last);
+        for (int st = 0; st < end; ++st) {
+            const int c = win[st + lag - k];
+            uint32_t cy = x.in(carry, st, par);
+            carry = 0;
+            if (c != NOOP && nw > 0) {
+                const uint32_t* m = mb + c * sc;
+#pragma unroll
+                for (int j = 0; j < WPL; ++j)
+                    if (j < nw) word(V[j], m[j * sj], cy);
+                carry = cy;
+            }
+            x.out(carry, st);
+        }
+        if (end < SEG_TILE) carry = 0;
+        x.end(carry, par ^ 1);
+    }
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < WPL; ++j)
+        if (j < nw) cnt += __popc(~V[j]);
+    cnt = seg_count(cnt, part, nwarps);
+    if (k == 0) {
+        const size_t o = (size_t)r * N + q;
+        if (out16) out16[o] = (uint16_t)cnt;
+        else out32[o] = cnt;
+    }
+}
+
+template <int MAXT>
+cudaError_t launch_wave_seg(const SegGeom& g, const uint32_t* masks,
+                            const int32_t* syms, int R, int L, int W, int N,
+                            int n_queries, uint16_t* out16, int32_t* out32,
+                            cudaStream_t stream) {
+    if (g.smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            lcs_wave_seg_kernel<MAXT>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
+        if (e != cudaSuccess) return e;
+    }
+    lcs_wave_seg_kernel<MAXT><<<dim3(n_queries, R), g.wseg, g.smem,
+                                stream>>>(masks, syms, L, W, N, g.wseg, g.wpl,
+                                          g.nl, (int)g.staged, out16, out32);
+    return cudaGetLastError();
+}
+
 // ---- K9, FAMSA's layout (see the header)
 // Geometry: K1 wave's (wave_geometry: wseg lanes a query, wpl words a
 // lane, nl lanes that hold words) over the reference's W64 64-bit words;
 // a CTA of REFMASK_THREADS threads holds REFMASK_THREADS / wseg queries.
 constexpr int REFMASK_THREADS = 128;
-constexpr int REFMASK_W_MAX = 1024;      // 65536 positions, as K1
+// the widest reference of a segment of one warp (32 lanes of 32 words);
+// wider ones take a segment across warps
+constexpr int REFMASK_W_MAX = 1024;
 constexpr int REFMASK_TILE = 256;        // steps a staged window of symbols
 // a query's window: REFMASK_TILE steps, WAVE_LAG positions of lookback
 // and 2 of prefetch, padded to an odd number of words (the segments of a
@@ -587,6 +837,160 @@ cudaError_t launch_refmask(const WaveGeom& g, const int32_t* refs,
     return cudaGetLastError();
 }
 
+// K9 past REFMASK_W_MAX 64-bit words: a segment across warps (above),
+// wpl <= 32 words a lane, the queries' positions streamed; references up
+// to REFMASK_SEG_MAX_W words (2,097,152 positions, as K1)
+constexpr int REFMASK_WPL_MAX = 32;
+constexpr int REFMASK_SEG_MAX_W = SEG_MAX_LANES * REFMASK_WPL_MAX;
+
+// the reference's masks [21][wpl][wseg] into `M` (zeroed), from the
+// positions [p0, Lr) of `ref` taken a stride apart: word w = p >> 6 of
+// symbol s at M[s][w % wpl][w / wpl]
+__device__ __forceinline__ void refmask_build(const int32_t* ref, int Lr,
+                                              int p0, int stride, int wseg,
+                                              int wpl,
+                                              unsigned long long* M) {
+    const int row = wpl * wseg;
+    for (int p = p0; p < Lr; p += stride) {
+        const int s = __ldg(ref + p);
+        if ((unsigned)s < (unsigned)NO_VALID_AMINOACIDS) {
+            const int w = p >> 6;
+            atomicOr(M + s * row + (w % wpl) * wseg + w / wpl,
+                     1ull << (p & 63));
+        }
+    }
+}
+
+// the masks of every reference (blockIdx.y) into scratch [R][21][wpl]
+// [wseg] u64, zeroed before; in a Prim round, only a flagged one's
+__global__ void refmask_build_kernel(const int32_t* __restrict__ refs,
+                                     int Lr, int wseg, int wpl,
+                                     unsigned long long* gmask,
+                                     const long long* __restrict__ cur,
+                                     const uint8_t* __restrict__ flags) {
+    if (cur != nullptr && flags[*cur] == 0) return;
+    const size_t per = (size_t)(NO_VALID_AMINOACIDS + 1) * wpl * wseg;
+    refmask_build(refs + (size_t)blockIdx.y * Lr, Lr,
+                  blockIdx.x * blockDim.x + threadIdx.x,
+                  gridDim.x * blockDim.x, wseg, wpl,
+                  gmask + blockIdx.y * per);
+}
+
+// query blockIdx.x against reference blockIdx.y; the reference's masks
+// built in shared memory (staged) or read from gmask
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT)
+lcs_refmask_seg_kernel(const int32_t* __restrict__ refs,
+                       const int32_t* __restrict__ queries, int Lr, int N,
+                       int Lq, int wseg, int wpl, int nl, int staged,
+                       const unsigned long long* __restrict__ gmask,
+                       const long long* __restrict__ cur,
+                       const uint8_t* __restrict__ flags,
+                       uint16_t* __restrict__ out16,
+                       int32_t* __restrict__ out32) {
+    constexpr int WPL = REFMASK_WPL_MAX;
+    if (cur != nullptr && flags[*cur] == 0) return;     // CTA-uniform
+    extern __shared__ __align__(16) unsigned long long sref[];
+    const int q = blockIdx.x, r = blockIdx.y;
+    const int k = threadIdx.x, nwarps = wseg >> 5;
+    const int row = wpl * wseg;
+    const int per = staged ? (NO_VALID_AMINOACIDS + 1) * row : 0;
+    unsigned* ring = reinterpret_cast<unsigned*>(sref + per);
+    unsigned* ctrl = ring + nwarps * SEG_TILE;
+    int* last = reinterpret_cast<int*>(ctrl + 3 * SEG_WARPS);
+    int* part = last + 2;
+    uint8_t* win = reinterpret_cast<uint8_t*>(ctrl + SEG_CTRL);
+    SegXch x{ring, ctrl, ctrl + SEG_WARPS, k >> 5, k & 31, nwarps};
+
+    if (staged) {
+        for (int idx = k; idx < per; idx += wseg) sref[idx] = 0ull;
+        __syncthreads();
+        refmask_build(refs + (size_t)r * Lr, Lr, k, wseg, wseg, wpl, sref);
+    }
+    for (int i = k; i < 3 * SEG_WARPS; i += wseg) ctrl[i] = 0;
+    if (k == 0) last[0] = -1;    // the first window's barrier publishes it
+    const unsigned long long* mb =
+        (staged ? sref : gmask + (size_t)r * (NO_VALID_AMINOACIDS + 1) * row)
+        + k;
+    const int W64 = (Lr + 63) / 64;
+    const int nw = max(0, min(wpl, W64 - k * wpl));  // words of this lane
+
+    unsigned long long X[WPL];
+#pragma unroll
+    for (int j = 0; j < WPL; ++j) X[j] = ~0ull;
+    const int32_t* sq = queries + (size_t)q * Lq;
+    const int lag = wseg - 1, steps = Lq + nl - 1;
+    uint32_t carry = 0;          // carry out of this lane, previous step
+    int par = 0;
+    for (int base = 0; base < steps; base += SEG_TILE, par ^= 1) {
+        const int end = seg_window(sq, Lq, base, lag, nl, steps, par, win,
+                                   x.head, last);
+        for (int st = 0; st < end; ++st) {
+            const int c = win[st + lag - k];
+            uint32_t cy = x.in(carry, st, par);
+            carry = 0;
+            if (c != NOOP && nw > 0) {
+                const unsigned long long* m = mb + c * row;
+#pragma unroll
+                for (int j = 0; j < WPL; ++j) {
+                    if (j < nw) {
+                        const unsigned long long v = X[j],
+                                                 tb = v & m[j * wseg];
+                        const unsigned long long v2 = v + tb + cy;
+                        cy = v2 < v;     // FAMSA's test, not the exact one
+                        X[j] = v2 | (v - tb);
+                    }
+                }
+                carry = cy;
+            }
+            x.out(carry, st);
+        }
+        if (end < SEG_TILE) carry = 0;
+        x.end(carry, par ^ 1);
+    }
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < WPL; ++j)
+        if (j < nw) cnt += __popcll(~X[j]);
+    cnt = seg_count(cnt, part, nwarps);
+    if (k == 0) {
+        const size_t o = (size_t)r * N + q;
+        if (out16) out16[o] = (uint16_t)cnt;
+        else out32[o] = cnt;
+    }
+}
+
+template <int MAXT>
+cudaError_t launch_refmask_seg(const SegGeom& g, const int32_t* refs,
+                               const int32_t* queries, int R, int Lr, int N,
+                               int Lq, int n_queries, void* scratch,
+                               const long long* cur, const uint8_t* flags,
+                               uint16_t* out16, int32_t* out32,
+                               cudaStream_t stream) {
+    unsigned long long* gmask = nullptr;
+    if (!g.staged) {
+        const size_t per = (size_t)(NO_VALID_AMINOACIDS + 1) * g.wpl * g.wseg;
+        gmask = static_cast<unsigned long long*>(scratch);
+        cudaError_t e = cudaMemsetAsync(gmask, 0, (size_t)R * per * 8, stream);
+        if (e != cudaSuccess) return e;
+        refmask_build_kernel<<<dim3((Lr + 255) / 256, R), 256, 0, stream>>>(
+            refs, Lr, g.wseg, g.wpl, gmask, cur, flags);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return e;
+    }
+    if (g.smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            lcs_refmask_seg_kernel<MAXT>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
+        if (e != cudaSuccess) return e;
+    }
+    lcs_refmask_seg_kernel<MAXT><<<dim3(n_queries, R), g.wseg, g.smem,
+                                   stream>>>(
+        refs, queries, Lr, N, Lq, g.wseg, g.wpl, g.nl, (int)g.staged, gmask,
+        cur, flags, out16, out32);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -615,18 +1019,26 @@ int lcs_bitpar(const void* masks, const void* syms, int R, int L, int W,
 }
 
 // The wave variant on the same arguments; R <= 65535 (one grid row per
-// reference).
+// reference), W <= WAVE_MAX_W (a segment of one warp to W_LOCAL_MAX, across
+// warps past it).
 int lcs_wave(const void* masks, const void* syms, int R, int L, int W, int N,
              int n_queries, void* out, int out_u16, void* stream) {
     if (R <= 0 || n_queries <= 0) return 0;
-    if (W < 1 || W > W_LOCAL_MAX || n_queries > N || R > 65535)
+    if (W < 1 || W > WAVE_MAX_W || n_queries > N || R > 65535)
         return (int)cudaErrorInvalidValue;
-    const WaveGeom g = wave_geometry(W);
     const uint32_t* m = static_cast<const uint32_t*>(masks);
     const int32_t* s = static_cast<const int32_t*>(syms);
     uint16_t* o16 = out_u16 ? static_cast<uint16_t*>(out) : nullptr;
     int32_t* o32 = out_u16 ? nullptr : static_cast<int32_t*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (W > W_LOCAL_MAX) {
+        const SegGeom sg = seg_geometry(W, WAVE_WPL_MAX, 4,
+                                        NO_VALID_AMINOACIDS);
+        return (int)(sg.wseg > 512
+            ? launch_wave_seg<1024>(sg, m, s, R, L, W, N, n_queries, o16, o32, st)
+            : launch_wave_seg<512>(sg, m, s, R, L, W, N, n_queries, o16, o32, st));
+    }
+    const WaveGeom g = wave_geometry(W);
     switch (g.wpl) {
         case 1: return (int)launch_wave<1>(g, m, s, R, L, W, N, n_queries, o16, o32, st);
         case 2: return (int)launch_wave<2>(g, m, s, R, L, W, N, n_queries, o16, o32, st);
@@ -644,16 +1056,19 @@ int lcs_wave(const void* masks, const void* syms, int R, int L, int W, int N,
 // out [R][N] u16 (out_u16 != 0) or i32; only queries q < n_queries are
 // written.  cur: null, or (R = 1, a Prim round) the device int64 id of
 // the round's reference, with flags [N] u8: the kernel returns at once
-// unless flags[*cur] != 0.  Returns the launch's cudaError_t.
+// unless flags[*cur] != 0.  scratch: [R][21][wpl][wseg] u64 for a
+// reference past REFMASK_W_MAX words whose masks do not fit shared memory
+// (ops/lcs_torch.py:refmask_scratch_words), else null.  Returns the
+// launch's cudaError_t.
 int lcs_refmask(const void* refs, const void* queries, int R, int Lr, int N,
                 int Lq, int n_queries, void* out, int out_u16,
-                const void* cur, const void* flags, void* stream) {
+                const void* cur, const void* flags, void* scratch,
+                void* stream) {
     if (R <= 0 || n_queries <= 0) return 0;
     const int W64 = (Lr + 63) / 64;
-    if (Lr < 1 || Lq < 1 || W64 > REFMASK_W_MAX || n_queries > N ||
+    if (Lr < 1 || Lq < 1 || W64 > REFMASK_SEG_MAX_W || n_queries > N ||
         R > 65535 || (cur != nullptr && (flags == nullptr || R != 1)))
         return (int)cudaErrorInvalidValue;
-    const WaveGeom g = wave_geometry(W64);
     const int32_t* rf = static_cast<const int32_t*>(refs);
     const int32_t* qs = static_cast<const int32_t*>(queries);
     const long long* cp = static_cast<const long long*>(cur);
@@ -661,6 +1076,18 @@ int lcs_refmask(const void* refs, const void* queries, int R, int Lr, int N,
     uint16_t* o16 = out_u16 ? static_cast<uint16_t*>(out) : nullptr;
     int32_t* o32 = out_u16 ? nullptr : static_cast<int32_t*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (W64 > REFMASK_W_MAX) {
+        const SegGeom sg = seg_geometry(W64, REFMASK_WPL_MAX, 8,
+                                        NO_VALID_AMINOACIDS + 1);
+        if (!sg.staged && scratch == nullptr)
+            return (int)cudaErrorInvalidValue;
+        return (int)(sg.wseg > 512
+            ? launch_refmask_seg<1024>(sg, rf, qs, R, Lr, N, Lq, n_queries,
+                                       scratch, cp, fp, o16, o32, st)
+            : launch_refmask_seg<512>(sg, rf, qs, R, Lr, N, Lq, n_queries,
+                                      scratch, cp, fp, o16, o32, st));
+    }
+    const WaveGeom g = wave_geometry(W64);
 #define K9(WP) launch_refmask<WP>(g, rf, qs, R, Lr, N, Lq, n_queries, cp, \
                                   fp, o16, o32, st)
     cudaError_t e;

@@ -40,7 +40,7 @@ KERNELS = ("lcs", "dp_wide", "traceback", "stage0", "merged", "chain",
 # the chain's carry after a chunk's last step (K5's chain entry runs it
 # before each step); K8, a Prim round after its LCS; K9, FAMSA's LCS
 # layout for flagged references ("lcs_refmask"); and K10, one shard's
-# column slice of a merge for a block of rows ("dp_shard", either body)
+# column slice of a merge over every row ("dp_shard", either body)
 LAUNCHES = {"lcs": 0, "lcs_wave": 0, "lcs_refmask": 0, "dp_staged": 0,
             "dp_staged16": 0, "dp_stripes": 0, "dp_spans": 0, "dp_wide": 0,
             "dp_wide16": 0, "dp_wide_stripes": 0, "traceback": 0,
@@ -163,7 +163,7 @@ def _configure(name, lib):
             fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, ci, vp]
             fn.restype = ci
         lib.lcs_refmask.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, ci, vp,
-                                    vp, vp]
+                                    vp, vp, vp]
         lib.lcs_refmask.restype = ci
     elif name == "traceback":
         lib.trace_paths.argtypes = [vp, vp, vp, ci, ci, vp, vp]
@@ -203,9 +203,10 @@ def _configure(name, lib):
         lib.dp_profile_batched_spans.argtypes = [
             vp, vp, vp, ci, ll, ci, ci, ci, ci, vp, vp, vp, vp, vp]
         lib.dp_profile_batched_spans.restype = ci
-        lib.dp_profile_shard.argtypes = [vp, vp, ll, ll, ll, ll, ll, ci, ci,
-                                         ci, ci, ci, vp, vp, vp, vp, vp, vp]
+        lib.dp_profile_shard.argtypes = [vp, ll, ll, ci, ci, ci, ci, vp]
         lib.dp_profile_shard.restype = ci
+        lib.dp_enable_peer.argtypes = [ci, ci]
+        lib.dp_enable_peer.restype = ci
         lib.dp_wide_max_clusters.argtypes = [ci, ci, ci, ci]
         lib.dp_wide_max_clusters.restype = ci
 

@@ -3,8 +3,9 @@ CUDA kernel K3 (one wide merge; csrc/dp_wide.cu: the staged body up to
 w2 = 8191 and the stripes body past it), its plain PyTorch version, the
 plain version of K2's fold-walking variants (a batch of merges, each
 walked over the launch's folds; their wrapper is ops/dp_torch.py:dp_dirs),
-the wrapper of K10 (dp_shard: one shard's column slice of a merge for a
-block of rows, parallel/dp_sharded.py's step) with its plain version
+the wrapper of K10 (dp_shard: one launch, a cluster that takes the next
+ticket of a ShardTable and runs that shard's column slice of a merge
+over every row; parallel/dp_sharded.py) with its plain version
 dp_shard_plain, and the single-merge entry points: the device-resident
 path route of the scheduler and the aligner
 (dp_profile_torch_wide_paths_async) and the host-prep route
@@ -23,6 +24,8 @@ through that column (the seed of its H scan).  dp_wide_plain walks the
 same folds, steps and edges, so the decomposition itself is tested on
 the CPU against dp_plain.
 """
+
+import collections
 
 import torch
 
@@ -186,7 +189,8 @@ def _fold_walk(cf, cb, rf, w1, cs, c1, r0, r1, fold_cols, blk, rows, fin,
     column cs and out of column c1 - 1 (K10's shards; None at column 0
     and at the merge's last column).  state [3, c1 - cs + 1]: the last
     row's D, H, V at columns cs - 1 .. c1 - 1, loaded instead of row 0
-    when r0 > 1 and stored at the end (K10; None for a whole merge)."""
+    when r0 > 1 and stored at the end (K10's plain version on a block of
+    rows; None for every row at once)."""
     dev = cf.device
     folds = -(-(c1 - cs) // fold_cols)
     nrb = -(-(r1 - r0) // blk)
@@ -430,27 +434,43 @@ def _check_shard(colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state, ein,
         raise ValueError("rowf must be [>= r1, NROWF]")
     if dirs.shape != (w1 + 1, n) or dirs.dtype != torch.uint8:
         raise ValueError("dirs must be uint8 [w1 + 1, c1 - cs]")
-    if state.shape != (3, n + 1):
+    if state is None and (r0, r1) != (1, w1 + 1):
+        raise ValueError("a block of rows carries its state")
+    if state is not None and state.shape != (3, n + 1):
         raise ValueError("state must be [3, c1 - cs + 1]")
     if (ein is None) != (cs == 0):
         raise ValueError("ein is given exactly when cs > 0")
     edges = [e for e in (fin, ein, eout) if e is not None]
     if any(e.shape != (w1, 3) for e in edges):
         raise ValueError("fin, ein and eout must be [w1, 3]")
-    ts = [colf, rowf, state] + edges
+    ts = [colf, rowf] + ([] if state is None else [state]) + edges
     if any(x.dtype != torch.int64 for x in ts):
         raise TypeError("colf, rowf, fin, state and the edges must be int64")
     if any(x.device != colf.device for x in ts + [dirs]):
         raise ValueError("inputs must be on one device")
 
 
-def dp_shard_plain(colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state,
+def dp_shard_plain(colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state=None,
                    ein=None, eout=None, fold_cols=None, blk=BLK):
-    """Plain PyTorch version of K10 on the same inputs and outputs: the
-    fold walk of K3 (_fold_walk) over the slice's columns [cs, c1), fold
-    geometry fold_geometry(c1 - cs - 1) (or fold_cols columns a fold;
-    the output does not depend on it), its edge in from ein and out to
-    eout and its row state in state, as dp_shard documents."""
+    """Plain PyTorch version of K10: one shard's column slice [cs, c1) of
+    one merge of w1 rows, given its left edge, for its DP rows [r0, r1)
+    (every row, or a block of them with the row state carried between
+    blocks), writing in place:
+      dirs [w1 + 1, c1 - cs] uint8: the slice's packed direction bytes
+        (row 0 when r0 is 1, COL0_PACK at column 0);
+      fin [w1, 3] int64: the (D, H, V) of column c1 - 1 of each row (the
+        merge's finals on the shard of its last column);
+      eout [w1, 3] int64 (None on the last shard): the edge into the next
+        shard, (D, V, running max of m - bc) at column c1 - 1;
+      state [3, c1 - cs + 1] int64: the row state, the last row's D, H, V
+        at columns cs - 1 .. c1 - 1, read when r0 > 1 (None for a slice's
+        every row at once).
+    colf: shard_columns(...) of the merge's column planes; rowf [>= r1,
+    NROWF]: its row factors (with the band); ein [w1, 3]: the previous
+    shard's eout (None exactly when cs is 0).  The fold walk of K3
+    (_fold_walk) over the slice's columns, fold geometry
+    fold_geometry(c1 - cs - 1) (or fold_cols columns a fold; the output
+    depends on neither the folds nor the blocks)."""
     _check_shard(colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state, ein,
                  eout)
     if fold_cols is None:
@@ -460,49 +480,153 @@ def dp_shard_plain(colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state,
                blk, dirs, fin, gin=ein, gout=eout, state=state)
 
 
-def dp_shard(colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state, ein=None,
-             eout=None):
-    """One shard's column slice [cs, c1) of one merge of w1 rows, for its
-    DP rows [r0, r1) (kernel K10 on CUDA tensors; dp_shard_plain on CPU
-    tensors), writing in place:
-      dirs [w1 + 1, c1 - cs] uint8: the slice's packed direction bytes
-        (row 0 when r0 is 1, COL0_PACK at column 0);
-      fin [w1, 3] int64: the (D, H, V) of column c1 - 1 of each row (the
-        merge's finals on the shard of its last column);
-      eout [w1, 3] int64 (None on the last shard): the edge into the next
-        shard, (D, V, running max of m - bc) at column c1 - 1;
-      state [3, c1 - cs + 1] int64: the row state, the last row's D, H, V
-        at columns cs - 1 .. c1 - 1, read when r0 > 1.
-    colf: shard_columns(...) of the merge's column planes; rowf [>= r1,
-    NROWF]: its row factors (with the band); ein [w1, 3]: the previous
-    shard's eout (None exactly when cs is 0).  The slice's fold geometry
-    is fold_geometry(c1 - cs - 1): the staged body to 8192 columns, the
-    stripes body to 32768; wider raises."""
-    _check_shard(colf, rowf, w1, cs, c1, r0, r1, dirs, fin, state, ein,
-                 eout)
-    dev = colf.device
+# One shard's slice of a merge as K10 takes it (dp_shard_plain's arguments
+# for every row): its colf (shard_columns), the merge's rowf, its dirs and
+# fin, its edge buffer in (None when cs is 0) and the next shard's (eout,
+# None on the last), all on the shard's device but eout, which lies on the
+# next shard's
+ShardSlice = collections.namedtuple("ShardSlice",
+                                    "colf rowf dirs fin ein eout cs c1")
+# int64 words of a slice in K10's table (csrc/dp_wide.cu:ShardSlice)
+SLICE_WORDS = 12
+
+
+class ShardTable:
+    """K10's table of the slices of one sharded merge that lie on one
+    device (csrc/dp_wide.cu:ShardTable), in pipeline order: the counter
+    its launches take tickets from, the slices' arguments, and each
+    slice's count of edge rows published into it.  Every launch on the
+    device runs on the fold geometry of its widest slice.  nexts[k]:
+    (table, index) of slice k's consumer (None on the merge's last).  On
+    a CUDA device alloc() then upload() put the words on the card, zeroed
+    counters included, before the first launch; on the CPU the ticket is
+    the Python count `ticket` (dp_shard)."""
+
+    def __init__(self, device, slices, w1):
+        self.device = torch.device(device)
+        self.slices = list(slices)
+        self.w1 = w1
+        if not self.slices or w1 < 1:
+            raise ValueError("a table holds one or more slices of w1 >= 1 "
+                             "rows")
+        for sl in self.slices:
+            _check_shard(sl.colf, sl.rowf, w1, sl.cs, sl.c1, 1, w1 + 1,
+                         sl.dirs, sl.fin, None, sl.ein, None)
+            if sl.colf.device != self.device:
+                raise ValueError("a table's slices lie on its device")
+            if sl.eout is not None and (sl.eout.shape != (w1, 3)
+                                        or sl.eout.dtype != torch.int64):
+                raise ValueError("eout must be [w1, 3] int64")
+        self.geometry = fold_geometry(
+            max(sl.c1 - sl.cs for sl in self.slices) - 1)
+        self.nexts = [None] * len(self.slices)
+        self.prev_peer = [False] * len(self.slices)
+        self.ticket = 0
+        self.words = self.host = None
+
+    def alloc(self):
+        """The table's words on its card (current stream)."""
+        n = len(self.slices)
+        self.words = torch.empty(2 + (SLICE_WORDS + 1) * n,
+                                 dtype=torch.int64, device=self.device)
+
+    def ready(self, k):
+        """Device address of slice k's count of edge rows published."""
+        return self.words.data_ptr() + 8 * (
+            2 + SLICE_WORDS * len(self.slices) + k)
+
+    def upload(self):
+        """Fill the words (ticket and counts zero) from pinned host memory
+        on the current stream; every table of the merge is alloc()ed."""
+        n = len(self.slices)
+        host = torch.zeros(self.words.numel(), dtype=torch.int64,
+                           pin_memory=True)
+        host[1] = n
+
+        def ptr(t):
+            return 0 if t is None else t.data_ptr()
+
+        for k, sl in enumerate(self.slices):
+            nxt = self.nexts[k]
+            peer = int(self.prev_peer[k]) | (
+                2 if nxt is not None and nxt[0].device != self.device else 0)
+            ldc = sl.colf.shape[1]
+            host[2 + SLICE_WORDS * k:2 + SLICE_WORDS * (k + 1)] = torch.tensor(
+                [ptr(sl.colf), ptr(sl.rowf), ptr(sl.dirs), ptr(sl.fin),
+                 ptr(sl.ein), self.ready(k) if sl.ein is not None else 0,
+                 ptr(sl.eout), nxt[0].ready(nxt[1]) if nxt else 0,
+                 sl.cs, sl.c1, ldc, peer], dtype=torch.int64)
+        self.words.copy_(host, non_blocking=True)
+        self.host = host            # alive until the copy is done
+
+
+def shard_tables(slices, w1):
+    """The ShardTables of one sharded merge: `slices` (ShardSlice) in
+    pipeline order, grouped by device in the order the devices first
+    appear; each slice's consumer linked.  Returns (tables, [the table of
+    slice k for each k])."""
+    by_dev = {}
+    for sl in slices:
+        by_dev.setdefault(sl.colf.device, []).append(sl)
+    tables = {d: ShardTable(d, sls, w1) for d, sls in by_dev.items()}
+    where, counts = [], {}
+    for sl in slices:
+        d = sl.colf.device
+        where.append((tables[d], counts.get(d, 0)))
+        counts[d] = counts.get(d, 0) + 1
+    for (t, i), (u, j) in zip(where, where[1:]):
+        t.nexts[i] = (u, j)
+        u.prev_peer[j] = u.device != t.device
+    return list(tables.values()), [t for t, _ in where]
+
+
+def dp_shard(table):
+    """One launch of kernel K10 on `table` (a ShardTable): a cluster that
+    takes the table's next ticket and runs that slice of the merge over
+    its every row, its edge rows in from the previous slice as they are
+    published and out to the next as it goes (dp_shard_plain documents
+    the outputs).  A sharded merge launches it once a slice, in any order
+    and on any stream of the device, once the device's inputs and every
+    table of the merge are uploaded.  CUDA tables launch K10; CPU tables
+    run dp_shard_plain on the ticket's slice, every row at once."""
+    dev = table.device
     if dev.type == "cpu":
-        return dp_shard_plain(colf, rowf, w1, cs, c1, r0, r1, dirs, fin,
-                              state, ein, eout)
+        k = table.ticket
+        table.ticket += 1
+        if k < len(table.slices):
+            sl = table.slices[k]
+            dp_shard_plain(sl.colf, sl.rowf, table.w1, sl.cs, sl.c1, 1,
+                           table.w1 + 1, sl.dirs, sl.fin, ein=sl.ein,
+                           eout=sl.eout)
+        return
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    ts = [x for x in (colf, rowf, dirs, fin, state, ein, eout)
-          if x is not None]
-    if not all(x.is_contiguous() for x in ts):
-        raise ValueError("inputs must be contiguous")
-    if colf.shape[1] % 2 or colf.data_ptr() % 16:
-        raise ValueError("K10 takes an even ldc and 16-byte aligned colf "
-                         "(shard_columns)")
-    folds, threads, stripe = fold_geometry(c1 - cs - 1)
+    if table.words is None or table.host is None:
+        raise ValueError("K10's table is not uploaded")
+    for sl in table.slices:
+        ts = [x for x in sl[:6] if x is not None]
+        if not all(x.is_contiguous() for x in ts) or (
+                sl.eout is not None and not sl.eout.is_contiguous()):
+            raise ValueError("inputs must be contiguous")
+        if sl.colf.shape[1] % 2 or sl.colf.data_ptr() % 16:
+            raise ValueError("K10 takes an even ldc and 16-byte aligned "
+                             "colf (shard_columns)")
+    folds, threads, stripe = table.geometry
     lib = kernels.get("dp_wide")
     stream = torch.cuda.current_stream(dev).cuda_stream
     kernels.LAUNCHES["dp_shard"] += 1
-    err = lib.dp_profile_shard(
-        colf.data_ptr(), rowf.data_ptr(), w1, cs, c1, r0, r1, folds,
-        threads, stripe, colf.shape[1], BLK, dirs.data_ptr(), fin.data_ptr(),
-        None if ein is None else ein.data_ptr(),
-        None if eout is None else eout.data_ptr(), state.data_ptr(), stream)
+    err = lib.dp_profile_shard(table.words.data_ptr(), len(table.slices),
+                               table.w1, folds, threads, stripe, BLK, stream)
     kernels.check(err, "dp_profile_shard")
+
+
+def enable_peer(device, peer):
+    """Let CUDA `device` read and write `peer`'s memory (K10's edges from
+    a slice on one card into the next one's); raises where it cannot."""
+    lib = kernels.get("dp_wide")
+    kernels.check(lib.dp_enable_peer(torch.device(device).index,
+                                     torch.device(peer).index),
+                  "dp_enable_peer")
 
 
 def launch_key(kernel, variant, folds):

@@ -154,13 +154,16 @@ def lcs_refmask_plain(refs, queries, n_queries):
 
 
 # K9's wavefront (csrc/lcs.cu:lcs_refmask_kernel): K1 wave's geometry
-# (wave_geometry) over the reference's W64 64-bit words; a CTA of
-# REFMASK_THREADS threads, REFMASK_THREADS / wseg queries; each warp stages
-# its queries' symbols in windows of REFMASK_TILE steps; references up to
-# REFMASK_W_MAX 64-bit words (65536 positions)
+# (wave_geometry, at most REFMASK_WPL_MAX 64-bit words a lane) over the
+# reference's W64 64-bit words; a CTA of REFMASK_THREADS threads,
+# REFMASK_THREADS / wseg queries; each warp stages its queries' symbols in
+# windows of REFMASK_TILE steps; to REFMASK_W_MAX words (65536 positions)
+# a segment of one warp, past it (lcs_refmask_seg_kernel) a segment across
+# warps to REFMASK_SEG_MAX_W words (2,097,152 positions)
 REFMASK_THREADS = 128
 REFMASK_TILE = 256
 REFMASK_W_MAX = 1024
+REFMASK_WPL_MAX = 32
 
 
 def lcs_refmask_wave_plain(refs, queries, n_queries, trim=True):
@@ -173,17 +176,20 @@ def lcs_refmask_wave_plain(refs, queries, n_queries, trim=True):
     the carry lane k-1 produced one step earlier (lane 0: none), and
     every lane takes every step, no-op positions through the zero row.
     A query runs Lq + nl - 1 steps; with `trim`, as the kernel, the
-    queries of one warp (32 // wseg consecutive ones) stop after their
-    last live position p at step p + nl - 1 and pass no carry after it
-    (the kernel ends each staged window there, and skips a window with no
-    live symbol: steps where every lane that holds words sees a no-op
-    change nothing, which trim=False shows)."""
+    queries of one warp (32 // wseg consecutive ones; one query, a CTA,
+    for a segment across warps) stop after their last live position p at
+    step p + nl - 1 and pass no carry after it (the kernel ends each
+    staged window there, and skips a window with no live symbol: steps
+    where every lane that holds words sees a no-op change nothing, which
+    trim=False shows).  Past 32 lanes the carry from lane 31 of a warp to
+    lane 0 of the next goes through shared memory, still one step late:
+    the same order."""
     r, lr = refs.shape
     lq = queries.shape[1]
     n = queries.shape[0]
     dev = refs.device
     w64 = max(1, -(-lr // 64))
-    wseg, wpl, nl = wave_geometry(w64)
+    wseg, wpl, nl = wave_geometry(w64, REFMASK_WPL_MAX)
     masks = torch.zeros((r, NO_VALID_AMINOACIDS + 1, wseg * wpl),
                         dtype=torch.int64, device=dev)
     ref64 = refs.to(torch.int64)
@@ -200,7 +206,7 @@ def lcs_refmask_wave_plain(refs, queries, n_queries, trim=True):
     if trim:
         pos = torch.arange(lq, device=dev)
         last = torch.where(live, pos, -1).amax(dim=1)
-        qpw = 32 // wseg
+        qpw = max(1, 32 // wseg)
         pad = -n_queries % qpw
         warp = torch.cat([last, last.new_full((pad,), -1)]).view(-1, qpw)
         stop = (warp.amax(dim=1) + nl).repeat_interleave(qpw)[:n_queries]
@@ -246,7 +252,8 @@ def lcs_refmask(refs, queries, n_queries=None, out_dtype=torch.int32,
     CUDA tensors launch kernel K9, a word wavefront over FAMSA's layout
     (lcs_refmask_wave_plain emulates its order; in a Prim round it reads
     cur and flags on the card, so nothing waits for the device); CPU
-    tensors run lcs_refmask_plain."""
+    tensors run lcs_refmask_plain.  References of more than
+    64 * REFMASK_SEG_MAX_W positions raise on every device."""
     if refs.dim() != 2 or queries.dim() != 2:
         raise ValueError("refs must be [R, Lr] and queries [N, Lq]")
     if refs.dtype != torch.int32 or queries.dtype != torch.int32:
@@ -262,6 +269,9 @@ def lcs_refmask(refs, queries, n_queries=None, out_dtype=torch.int32,
         raise ValueError("out must be [R, N] int32 or uint16")
     if out.dtype == torch.uint16 and lr >= 65536:
         raise ValueError("uint16 LCS output needs Lr < 65536")
+    if -(-lr // 64) > REFMASK_SEG_MAX_W:
+        raise ValueError(f"K9 takes references up to {64 * REFMASK_SEG_MAX_W}"
+                         f" positions, not {lr}")
     if (cur is None) != (flags is None):
         raise ValueError("cur and flags come together")
     if cur is not None and (r != 1 or cur.shape != (1,)
@@ -285,13 +295,18 @@ def lcs_refmask(refs, queries, n_queries=None, out_dtype=torch.int32,
     if r == 0 or nq == 0:
         return out
     lib = kernels.get("lcs")
+    words = refmask_scratch_words(r, lr)
+    scratch = (torch.empty(words, dtype=torch.int64, device=refs.device)
+               if words else None)
     stream = torch.cuda.current_stream(refs.device).cuda_stream
     kernels.LAUNCHES["lcs_refmask"] += 1
     err = lib.lcs_refmask(refs.data_ptr(), queries.data_ptr(), r, lr, n,
                           queries.shape[1], nq, out.data_ptr(),
                           int(out.dtype == torch.uint16),
                           None if cur is None else cur.data_ptr(),
-                          None if flags is None else flags.data_ptr(), stream)
+                          None if flags is None else flags.data_ptr(),
+                          None if scratch is None else scratch.data_ptr(),
+                          stream)
     kernels.check(err, "lcs_refmask")
     return out
 
@@ -305,34 +320,89 @@ ROWS_WARPS = 8
 ROWS_P_NARROW, ROWS_P_NARROW_MAX_W, ROWS_P_WIDE = 4, 16, 2
 ROWS_STAGED_MAX_W = 64
 ROWS_CAPS = (2, 4, 8, 16, 32, 64, 2048)     # the W template's caps
+ROWS_MAX_W = ROWS_CAPS[-1]
 
 
 def rows_geometry(w):
     """(template cap, references a thread carries, references a CTA,
-    masks staged) of K1's rows variant for W words a query."""
+    masks staged) of K1's rows variant for W words a query (W <=
+    ROWS_MAX_W; lcs_variant sends wider queries to the wave variant)."""
+    if not 1 <= w <= ROWS_MAX_W:
+        raise ValueError(f"K1 rows takes 1 to {ROWS_MAX_W} words, not {w}")
     cap = next(c for c in ROWS_CAPS if w <= c)
     p = ROWS_P_NARROW if cap <= ROWS_P_NARROW_MAX_W else ROWS_P_WIDE
     return cap, p, ROWS_WARPS * p, cap <= ROWS_STAGED_MAX_W
 
 
-def wave_geometry(w):
-    """(wseg, wpl, nl) of K1's wave variant for W words a query: wseg
-    lanes a query (the power of two >= W, capped at 32), wpl consecutive
-    words a lane, nl lanes that hold words (csrc/lcs.cu:wave_geometry)."""
+# K1 wave (csrc/lcs.cu): at most WAVE_WPL_MAX words a lane; a segment of
+# one warp to ROWS_MAX_W words, past it a segment across the warps of a
+# CTA (lcs_wave_seg_kernel) of up to SEG_MAX_LANES lanes, so up to
+# WAVE_MAX_W words (2,097,152 positions); K9's segments across warps to
+# REFMASK_SEG_MAX_W 64-bit words.  Such a CTA stages SEG_TILE steps of
+# symbols a window, and its masks too while everything fits SEG_SMEM_MAX
+# bytes of shared memory (seg_geometry)
+WAVE_WPL_MAX = 64
+SEG_TILE = 256
+SEG_MAX_LANES = 1024
+WAVE_MAX_W = SEG_MAX_LANES * WAVE_WPL_MAX
+REFMASK_SEG_MAX_W = SEG_MAX_LANES * REFMASK_WPL_MAX
+SEG_SMEM_MAX = 232448
+SEG_CTRL = 4 * (SEG_MAX_LANES // 32) + 2     # control words of a CTA
+
+
+def wave_geometry(w, wpl_max=None):
+    """(wseg, wpl, nl) of K1's wave variant for W words a query (K9's with
+    wpl_max REFMASK_WPL_MAX; default WAVE_WPL_MAX): wseg lanes a query,
+    the least power of two >= min(W, 32) whose wseg * wpl_max words hold
+    W; wpl consecutive words a lane; nl lanes that hold words
+    (csrc/lcs.cu:wave_geometry and, past 32 lanes, seg_geometry)."""
+    wpl_max = WAVE_WPL_MAX if wpl_max is None else wpl_max
     wseg = 1
-    while wseg < w and wseg < 32:
+    while wseg < min(w, 32) or wseg * wpl_max < w:
         wseg <<= 1
     wpl = -(-w // wseg)
     return wseg, wpl, -(-w // wpl)
+
+
+def seg_geometry(w, kernel="wave"):
+    """(wseg, wpl, nl, staged, smem) of a segment across warps
+    (csrc/lcs.cu:seg_geometry): K1 wave's ("wave", 32-bit words, 20 mask
+    rows) or K9's ("refmask", 64-bit words, 21 rows) for a query or
+    reference of W words, past one warp's; staged: the masks in shared
+    memory; smem: the CTA's dynamic shared memory in bytes."""
+    wpl_max, nbytes, rows = ((WAVE_WPL_MAX, 4, NO_VALID_AMINOACIDS)
+                             if kernel == "wave" else
+                             (REFMASK_WPL_MAX, 8, NO_VALID_AMINOACIDS + 1))
+    wseg, wpl, nl = wave_geometry(w, wpl_max)
+    if wseg <= 32:
+        raise ValueError(f"W {w} fits a segment of one warp")
+    common = ((wseg // 32) * SEG_TILE * 4 + SEG_CTRL * 4
+              + ((SEG_TILE + wseg + 7) & ~7))
+    masks = rows * wpl * wseg * nbytes
+    staged = masks + common <= SEG_SMEM_MAX
+    return wseg, wpl, nl, staged, common + (masks if staged else 0)
+
+
+def refmask_scratch_words(r, lr):
+    """int64 words of the scratch K9 takes for R references of Lr
+    positions: their masks [R, 21, wpl, wseg] where a segment across warps
+    cannot stage them in shared memory, else 0."""
+    w64 = max(1, -(-lr // 64))
+    if w64 <= REFMASK_W_MAX:
+        return 0
+    wseg, wpl, _, staged, _ = seg_geometry(w64, "refmask")
+    return 0 if staged else r * (NO_VALID_AMINOACIDS + 1) * wpl * wseg
 
 
 def lcs_wave_plain(table, syms, n_queries):
     """Plain PyTorch twin of K1's wave variant, on lcs_plain's arguments
     and with its result: each query a segment of wseg lanes, lane k owning
     words [k*wpl, (k+1)*wpl); at step s lane k processes reference
-    position s - k with the carry lane k-1 produced one step earlier.
-    Positions outside [0, L), no-op symbols (>= 20) and lanes without
-    words leave their words alone and pass a carry of 0."""
+    position s - k with the carry lane k-1 produced one step earlier (past
+    32 lanes, from lane 31 of a warp to lane 0 of the next through shared
+    memory, the same order).  Positions outside [0, L), no-op symbols
+    (>= 20) and lanes without words leave their words alone and pass a
+    carry of 0."""
     r, length = syms.shape
     _, w, n = table.shape
     dev = table.device
@@ -375,12 +445,16 @@ def lcs_wave_plain(table, syms, n_queries):
 # from 512 (64 x 1000, 32 x 2000; 8 x 10,000 at 632).  A Prim round asks
 # for the wave variant itself (ops/prim_torch.py:prim_chunk).
 WAVE_MAX_GRID = 512
+WAVE_MAX_ROWS = 65535            # references of one wave launch
 PLAIN = {"rows": lcs_plain, "wave": lcs_wave_plain}
 
 
-def lcs_variant(r, n_queries):
+def lcs_variant(r, n_queries, w=1):
     """"wave" or "rows": the K1 variant lcs_rows launches for R references
-    against n_queries queries."""
+    against n_queries queries of W words (past ROWS_MAX_W only the wave
+    variant takes them)."""
+    if w > ROWS_MAX_W:
+        return "wave"
     return "wave" if r * -(-n_queries // 128) < WAVE_MAX_GRID else "rows"
 
 
@@ -391,10 +465,13 @@ def lcs_rows(table, syms, n_queries=None, out_dtype=torch.int32,
     see build_query_mask_table).  Returns [R, N] of out_dtype (int32, or
     uint16 when L < 65536).  Only the first n_queries columns are computed
     (the triangular-sweep half-work saving); later columns are garbage.
-    variant: "rows" or "wave" (default: lcs_variant's choice).
+    variant: "rows" or "wave" (default: lcs_variant's choice); rows takes
+    W <= ROWS_MAX_W words, wave W <= WAVE_MAX_W, and past them this raises
+    on every device.
 
-    CUDA tensors launch that variant of kernel K1; CPU tensors run its
-    plain twin (lcs_plain or lcs_wave_plain)."""
+    CUDA tensors launch that variant of kernel K1 (the wave variant in
+    launches of at most 65535 references, one a grid row); CPU tensors
+    run its plain twin (lcs_plain or lcs_wave_plain)."""
     if table.dim() != 3 or table.shape[0] != NO_SYMBOLS:
         raise ValueError("table must be [32, W, N]")
     if syms.dim() != 2:
@@ -410,9 +487,13 @@ def lcs_rows(table, syms, n_queries=None, out_dtype=torch.int32,
         raise TypeError("out_dtype must be int32 or uint16")
     if out_dtype == torch.uint16 and length >= 65536:
         raise ValueError("uint16 LCS output needs L < 65536")
-    variant = variant or lcs_variant(r, nq)
+    variant = variant or lcs_variant(r, nq, w)
     if variant not in PLAIN:
         raise ValueError(f"unknown K1 variant {variant!r}")
+    if w > (WAVE_MAX_W if variant == "wave" else ROWS_MAX_W):
+        raise ValueError(f"K1 {variant} takes up to "
+                         f"{WAVE_MAX_W if variant == 'wave' else ROWS_MAX_W}"
+                         f" words a query, not {w}")
     if table.device.type == "cpu":
         return PLAIN[variant](table, syms, nq).to(out_dtype)
     if table.device.type != "cuda":
@@ -426,10 +507,14 @@ def lcs_rows(table, syms, n_queries=None, out_dtype=torch.int32,
     fn, key = ((lib.lcs_wave, "lcs_wave") if variant == "wave"
                else (lib.lcs_bitpar, "lcs"))
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    kernels.LAUNCHES[key] += 1
-    err = fn(table.data_ptr(), syms.data_ptr(), r, length, w, n, nq,
-             out.data_ptr(), int(out_dtype == torch.uint16), stream)
-    kernels.check(err, key)
+    step = WAVE_MAX_ROWS if variant == "wave" else r
+    for r0 in range(0, r, step):
+        rows = min(step, r - r0)
+        kernels.LAUNCHES[key] += 1
+        err = fn(table.data_ptr(), syms[r0].data_ptr(), rows, length, w, n,
+                 nq, out[r0].data_ptr(), int(out_dtype == torch.uint16),
+                 stream)
+        kernels.check(err, key)
     return out
 
 

@@ -161,6 +161,19 @@ def rows_mesh(n, device="cuda"):
 SHARD_DP_CELLS_DEFAULT = "2e8"
 
 
+def check_peers(mesh):
+    """Raise unless each CUDA shard of a "cols" mesh can reach the memory
+    of the next shard's card where that is another card: K10's edges
+    cross there through peer access (parallel/dp_sharded.py), and no
+    other route takes the merge's place."""
+    devices = [shard.device for shard in mesh.shards]
+    for a, b in zip(devices, devices[1:]):
+        if (a.type == "cuda" and a != b
+                and not torch.cuda.can_device_access_peer(a, b)):
+            raise ValueError(f"a cols mesh from {a} to {b} needs peer "
+                             "access between the two cards, which they lack")
+
+
 def cols_mesh(p1, p2, device="cuda"):
     """The mesh a merge of p1 (its DP rows) and p2 (its columns), in
     align_into's operand order, on `device` shards its DP columns over
@@ -168,12 +181,14 @@ def cols_mesh(p1, p2, device="cuda"):
     has at least FAMSA_TORCH_SHARD_DP_CELLS cells and every shard's
     slice of its p2.width + 1 columns holds 1 to MAX_W2 + 1 columns (K10
     on one cluster of the widest body, the stripes body), else None.
+    Raises for a mesh over two cards without peer access (check_peers).
     The one rule of the route's call sites (core/aligner.py:align_into
     and split_sharded)."""
     from ..ops.dp_wide import MAX_W2
     mesh = auto_mesh("cols", device)
     if mesh is None:
         return None
+    check_peers(mesh)
     min_cells = int(float(os.environ.get("FAMSA_TORCH_SHARD_DP_CELLS",
                                          SHARD_DP_CELLS_DEFAULT)))
     cols = p2.width + 1

@@ -746,6 +746,10 @@ def parent_lib(parent, name):
         return lib
     if name != "dp_wide":
         kernels._configure(name, lib)
+        if name == "lcs" and b"void* scratch" not in src.read_bytes():
+            # a parent whose K9 entry takes no scratch argument
+            types = lib.lcs_refmask.argtypes
+            lib.lcs_refmask.argtypes = types[:11] + types[12:]
         return lib
     # the parent's K3 L2 entries (the first design)
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -1166,11 +1170,13 @@ def part_k9(parent, rounds, reps, smi):
                 for v in libs}
 
         def call(v):
-            kernels.check(libs[v].lcs_refmask(
+            fn = libs[v].lcs_refmask
+            scratch = (None,) * (len(fn.argtypes) - 12)
+            kernels.check(fn(
                 refs.data_ptr(), queries.data_ptr(), r, lr, n, lq, n,
                 outs[v].data_ptr(), 0,
                 None if cur is None else cur.data_ptr(),
-                None if flags is None else flags.data_ptr(),
+                None if flags is None else flags.data_ptr(), *scratch,
                 torch.cuda.current_stream().cuda_stream), v)
         for v in libs:
             call(v)

@@ -1,8 +1,10 @@
 """famsa_tpu_torch's column axis of multi-device sharding
 (parallel/dp_sharded.py, parallel/mesh.py:cols_mesh and dp_row_sharded,
 the routing in core/aligner.py and pipeline.py) on meshes of "cpu"
-shards, where every (shard, row block) runs K10's plain version
-(ops/dp_wide.py:dp_shard_plain), against the famsa_tpu package: its host
+shards, where K10's tickets (ops/dp_wide.py:ShardTable, dp_shard: one
+launch a shard, in any order) run its plain version
+(ops/dp_wide.py:dp_shard_plain) a slice at a time, or every (shard, row
+block) of the block pipeline runs it, against the famsa_tpu package: its host
 DP (famsa_tpu.core.dp.dp_prof_prof / dp_seq_prof), its column-sharded
 program (famsa_tpu.parallel.dp_sharded, on JAX's 8-device CPU mesh,
 tests/conftest.py), its dp_row_sharded, and whole runs of -backend numpy
@@ -12,7 +14,9 @@ Meshes of 1, 2, 3, 4 and 8 shards; w2 + 1 not divisible by the shard
 count and slices of one column; row blocks of one row and blocks that
 do not divide w1; folds inside a slice (fold_geometry forced to 32-column
 folds); guided bands with slices outside a row's band; a gap run across
-two shard boundaries.  Tolerance: exact.  Unguided direction bytes are
+two shard boundaries; launches issued in permuted orders; the peer-access
+rule of a mesh over two cards (torch.cuda.can_device_access_peer
+monkeypatched).  Tolerance: exact.  Unguided direction bytes are
 compared as tests/test_torch_dp.py does (D everywhere, H and V on
 [1:, 1:], against the host DP) and in full against the port's one-device
 plain DP (dp_plain); finals, paths and totals must be equal; whole runs
@@ -191,6 +195,123 @@ def test_sharded_paths_match_famsa_tpu_sharded(size, guided):
     assert list(got.path) == list(want.path)
 
 
+# (shards, w1, w2, issue order, guided): the launches of K10's ticket
+# route issued in reverse pipeline order, interleaved, last-first, and a
+# slice of one column
+TICKET_ORDERS = [
+    (3, 30, 80, (2, 1, 0), False),
+    (4, 25, 90, (1, 3, 0, 2), True),
+    (5, 20, 60, (4, 0, 1, 2, 3), False),
+    (4, 12, 3, (3, 2, 1, 0), False),
+]
+
+
+@pytest.mark.parametrize("size,w1,w2,order,guided", TICKET_ORDERS)
+def test_ticket_order_does_not_change_bytes(size, w1, w2, order, guided,
+                                            small_folds):
+    """K10's route with one launch a shard (dp_shard on the CPU: the
+    slice of the table's next ticket, dp_shard_plain over every row),
+    launches issued in a permuted order: every direction byte and final
+    equal the pipeline order's, the (shard, block) pipeline's and the
+    one-device plain DP's, and the path and total famsa_tpu's host DP's."""
+    rng = np.random.default_rng(size * 31 + w2)
+    jp, tp = _params()
+    if guided:
+        a, b, cm1, cm2 = _split_case(rng, jp, 3, 4, w1, w2,
+                                     lambda k: k % 2 == 0)
+        band = row_ranges(tp, cm1, cm2)
+        ref = _ref(jp, a, b, (cm1, cm2))
+    else:
+        a, b = _make_profile(rng, jp, 3, w1), _make_profile(rng, jp, 2, w2)
+        band, ref = None, _ref(jp, a, b)
+    ta, tb = _port(tp, a), _port(tp, b)
+    m = cpu_mesh(size)
+    got = dp_sharded.dp_profile_sharded(tp, ta, tb, m, band=band,
+                                        order=order)
+    fwd = dp_sharded.dp_profile_sharded(tp, ta, tb, m, band=band)
+    blocks = dp_sharded.dp_profile_sharded(tp, ta, tb, m, band=band,
+                                           block=4)
+    want = _plain(tp, ta, tb, band)
+    for other in (fwd, blocks, want):
+        assert np.array_equal(got[0], other[0])
+        assert np.array_equal(got[1], other[1])
+    path, total = _trace_path(ref, a.width, b.width)
+    res = finish_path(got[0], a.width, b.width, _last(got[1]))
+    assert res.total == total and list(res.path) == list(path)
+    with pytest.raises(ValueError, match="permutation"):
+        dp_sharded.dp_profile_sharded(tp, ta, tb, m, order=order[1:])
+
+
+def test_tables_take_tickets_in_pipeline_order():
+    """shard_tables groups a merge's slices by device in pipeline order
+    and links each to its consumer; dp_shard on a CPU table runs the
+    slices in ticket order whatever called it, and past the last ticket
+    does nothing."""
+    rng = np.random.default_rng(4)
+    jp, tp = _params()
+    a, b = _make_profile(rng, jp, 2, 15), _make_profile(rng, jp, 3, 40)
+    colf, rowf, _, _ = pack_batch([prepare_merge(tp, _port(tp, a),
+                                                 _port(tp, b))])
+    colf, rowf = torch.from_numpy(colf[0]), torch.from_numpy(rowf[0])
+    w1, bounds = a.width, cpu_mesh(3).bounds(b.width + 1)
+    eins = [None] + [torch.zeros((w1, 3), dtype=torch.int64)
+                     for _ in bounds[1:]]
+    slices = [dp_wide.ShardSlice(
+        dp_wide.shard_columns(colf, c0, c1, "cpu"), rowf,
+        torch.zeros((w1 + 1, c1 - c0), dtype=torch.uint8),
+        torch.zeros((w1, 3), dtype=torch.int64), eins[k],
+        eins[k + 1] if k + 1 < len(bounds) else None, c0, c1)
+        for k, (c0, c1) in enumerate(bounds)]
+    tables, of = dp_wide.shard_tables(slices, w1)
+    assert len(tables) == 1 and of == [tables[0]] * 3
+    t = tables[0]
+    assert t.nexts == [(t, 1), (t, 2), None]
+    assert t.prev_peer == [False] * 3
+    assert t.geometry == dp_wide.fold_geometry(
+        max(c1 - c0 for c0, c1 in bounds) - 1)
+    for _ in range(4):              # three slices, then past the last
+        dp_shard(t)
+    assert t.ticket == 4
+    dirs = torch.cat([sl.dirs for sl in slices], dim=1).numpy()
+    want_d, want_f = _plain(tp, _port(tp, a), _port(tp, b))
+    assert np.array_equal(dirs, want_d)
+    assert np.array_equal(slices[-1].fin.numpy(), want_f)
+
+
+def _fake_mesh(indices):
+    return mesh.Mesh(types.SimpleNamespace(device=torch.device("cuda", i))
+                     for i in indices)
+
+
+def test_cols_mesh_peer_rule(monkeypatch):
+    """A "cols" mesh over two cards needs peer access from each shard's
+    card to the next one's (K10 writes the next slice's edges there):
+    cols_mesh and check_peers raise without it; shards on one card need
+    none; the check reads each consecutive pair of distinct cards."""
+    asked = []
+
+    def peer(a, b, ok=set()):
+        asked.append((a.index, b.index))
+        return (a.index, b.index) in ok
+
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", peer)
+    monkeypatch.setattr(mesh, "_AUTO_MESH", {})
+    monkeypatch.setenv("FAMSA_TORCH_SHARD_DP_CELLS", "0")
+    mesh.check_peers(_fake_mesh([0, 0, 0]))
+    assert asked == []
+    two = _fake_mesh([0, 0, 1, 1])
+    mesh._AUTO_MESH["cols"] = two
+    with pytest.raises(ValueError, match="peer access"):
+        mesh.cols_mesh(_prof(10), _prof(100), "cuda")
+    assert asked == [(0, 1)]
+    with pytest.raises(ValueError, match="peer access"):
+        mesh.check_peers(_fake_mesh([1, 0]))
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: True)
+    assert mesh.cols_mesh(_prof(10), _prof(100), "cuda") is two
+    mesh.check_peers(_fake_mesh([0, 1, 2, 3]))
+
+
 def test_dp_row_sharded_matches_famsa_tpu():
     """The port's dp_row_sharded on 8 shards and on 3 uneven ones against
     famsa_tpu's on JAX's 8-device mesh, one row of 512 columns."""
@@ -291,14 +412,25 @@ def test_cpu_path_never_calls_kernels_get(monkeypatch):
                 ein=torch.zeros((w1, 3), dtype=torch.int64))
     for bad in (dict(ein=None), dict(r0=0), dict(r1=w1 + 2),
                 dict(state=torch.zeros((3, n), dtype=torch.int64)),
-                dict(colf=colf[:, :n + 2]),
+                dict(state=None, r1=w1), dict(colf=colf[:, :n + 2]),
                 dict(fin=torch.zeros((w1, 3), dtype=torch.int32))):
         with pytest.raises((ValueError, TypeError)):
-            dp_shard(**{**args, **bad})
+            dp_shard_plain(**{**args, **bad})
+    # K10's table checks each slice as a whole one (every row)
+    sl = dict((k, args[k]) for k in ("colf", "rowf", "dirs", "fin", "ein",
+                                     "cs", "c1"))
+    for bad in (dict(ein=None), dict(colf=colf[:, :n + 2]),
+                dict(fin=torch.zeros((w1, 3), dtype=torch.int32)),
+                dict(eout=torch.zeros((w1 - 1, 3), dtype=torch.int64))):
+        with pytest.raises((ValueError, TypeError)):
+            dp_wide.ShardTable("cpu", [dp_wide.ShardSlice(
+                **{"eout": None, **sl, **bad})], w1)
     meta = {k: (v.to("meta") if isinstance(v, torch.Tensor) else v)
-            for k, v in args.items()}
+            for k, v in sl.items()}
+    table = dp_wide.ShardTable("meta", [dp_wide.ShardSlice(eout=None,
+                                                           **meta)], w1)
     with pytest.raises(ValueError, match="unsupported device"):
-        dp_shard(**meta)
+        dp_shard(table)
 
 
 def test_shard_plain_blocks_equal_one_launch():

@@ -214,3 +214,83 @@ def test_params_from_fields():
         assert getattr(tp, f) == getattr(jp, f), f
     assert np.array_equal(tp.score_matrix, jp.score_matrix)
     assert tp.medoid.sample_size == jp.medoid.sample_size
+
+
+def _gapped_profile(module, rows):
+    """An aligned profile of `rows` in famsa_tpu's or the port's classes
+    (module: "famsa_tpu" or "famsa_tpu_torch")."""
+    import importlib
+    prof_mod = importlib.import_module(f"{module}.core.profile")
+    seq_mod = importlib.import_module(f"{module}.core.sequence")
+    params_mod = importlib.import_module(f"{module}.core.params")
+    params = params_mod.Params()
+    params.backend = "numpy"
+    params.adjust(len(rows))
+    prof = prof_mod.Profile(params)
+    for k, row in enumerate(rows):
+        prof.append_raw_sequence(seq_mod.encode_gapped(f">s{k}", row, k))
+    prof.calculate_counters_scores()
+    return prof
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5, 6])
+def test_refinement_splits_match_famsa_tpu(seed):
+    """The refinement's split choices: the port's _split_columns (one
+    numpy pass a profile) and famsa_tpu's loop over every column give the
+    same dest_prof_id for the same mt19937 draws, on an alignment with
+    one long sequence (most columns gapped in all rows but one, the case
+    that made the loop slow) and on one where columns tie on x."""
+    from famsa_tpu.core import refinement as jr
+    from famsa_tpu.utils.mt19937 import MT19937 as JMT
+    from famsa_tpu_torch.core import refinement as tr
+    from famsa_tpu_torch.utils.mt19937 import MT19937 as TMT
+    strings = _family_strings(seed, 8, 40)
+    if seed % 2:
+        strings.append(_random_strings(seed, 1, 400, 401)[0])
+    rows = _run_jax(strings)
+    jp, tp = (_gapped_profile(m, rows)
+              for m in ("famsa_tpu", "famsa_tpu_torch"))
+    jrnd, trnd = JMT(5489), TMT(5489)
+    columns = tr._split_columns(tp)
+    gap_stats = None
+    for i in range(200):
+        want, gap_stats = jr._refine_most_empty_and_full_column(
+            jrnd, jp, gap_stats, i > 0)
+        assert tr._refine_most_empty_and_full_column(trnd, tp,
+                                                     columns) == want
+
+
+def _gapped_rows(seed, n, width, p_gap):
+    """n random rows of `width` columns with gap runs of geometric
+    lengths (terminal runs among them); every row keeps a residue."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        row = np.array(list(AA))[rng.integers(0, 20, size=width)]
+        gap = np.zeros(width, dtype=bool)
+        i = 0
+        while i < width:
+            if rng.random() < p_gap:
+                run = int(rng.geometric(0.3))
+                gap[i:i + run] = True
+                i += run + 1
+            else:
+                i += 1
+        gap[int(rng.integers(0, width))] = False
+        row[gap] = "-"
+        out.append("".join(row))
+    return out
+
+
+@pytest.mark.parametrize("n,width,p_gap", [
+    (1000, 120, 0.05), (60, 900, 0.03), (17, 3000, 0.01), (6, 4, 0.6),
+    (3, 2, 0.5), (40, 50, 0.3)])
+def test_total_score_matches_famsa_tpu(n, width, p_gap):
+    """calculate_total_score's exact gap-open count from the runs within
+    each window of columns (_runs_within, a merge-sort tree) against
+    famsa_tpu's (width + 1)^2 gap_ranges table: the same score, on
+    profiles with many nested, repeated and terminal gap runs."""
+    rows = _gapped_rows(n + width, n, width, p_gap)
+    want, got = (_gapped_profile(m, rows).calculate_total_score()
+                 for m in ("famsa_tpu", "famsa_tpu_torch"))
+    assert got == want
